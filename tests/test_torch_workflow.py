@@ -1,0 +1,302 @@
+"""The ported slice as a whole: one synthetic gravity Parfile (lattice grid,
+wavelet compression, damping, 3-lithology ADMM, tiled kernel format, 3
+majors) through solve_problem_joint_gravmag of both packages on the CPU in
+float64; the port's CLI in a subprocess; and the port's import hygiene."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+
+from tomofastx_tpu.config.parfile import parse_parfile_lines as jparse
+from tomofastx_tpu.inversion.workflow import solve_problem_joint_gravmag as jsolve
+
+from util_fixtures import surface_data_points, write_data_grid_file, write_grid_file, write_values_file
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _write_problem(tmp, nx, ny, nz, ndata, wtype=1, rate=0.15, depth_type=2, rho_mult=1.0, niter=20):
+    """Grid, data positions and a synthetic block model under tmp; returns a
+    function giving the Parfile lines for an output folder."""
+    grid_path, data_path, synth_path = (os.path.join(tmp, f) for f in ("grid.txt", "data.txt", "synth.txt"))
+    # Cells longer in x than in y: on square cells an observation above the
+    # grid's diagonal sees equal coefficients in mirrored pairs, and which of
+    # a pair survives the threshold would hang on the last bit.
+    write_grid_file(grid_path, nx, ny, nz, h=(100.0, 80.0, 50.0))
+    X, Y, Z = surface_data_points(nx, ny, h=(100.0, 80.0))
+    idx = np.linspace(0, len(X) - 1, ndata).astype(int)
+    write_data_grid_file(data_path, X[idx], Y[idx], Z[idx])
+    rng = np.random.default_rng(5)
+    m = np.zeros((nz, ny, nx))
+    m[nz // 4 : nz // 2 + 1, ny // 3 : 2 * ny // 3, nx // 3 : 2 * nx // 3] = 250.0
+    m += rng.normal(size=m.shape)  # seeded roughness, so no symmetry ties
+    write_values_file(synth_path, m.reshape(-1)[:, None])
+
+    def lines(out):
+        return f"""
+global.outputFolderPath = {out}/
+modelGrid.size = {nx} {ny} {nz}
+modelGrid.grav.file = {grid_path}
+forward.data.grav.nData = {ndata}
+forward.data.grav.dataGridFile = {data_path}
+forward.data.grav.useSyntheticModelForDataValues = 1
+forward.data.grav.syntheticModelFile = {synth_path}
+forward.depthWeighting.type = {depth_type}
+forward.matrixCompression.type = {wtype}
+forward.matrixCompression.rate = {rate}
+inversion.nMajorIterations = 3
+inversion.nMinorIterations = {niter}
+inversion.writeModelEveryNiter = 2
+inversion.modelDamping.grav.weight = 1.e-9
+inversion.admm.enableADMM = 1
+inversion.admm.nLithologies = 3
+inversion.admm.grav.bounds = -10 10 90 110 240 260
+inversion.admm.grav.weight = 1.e-6
+inversion.admm.weightMultiplier = {rho_mult}
+inversion.admm.dataCostThreshold = 1.0
+tpu.kernelFormat = tiled
+""".splitlines()
+
+    return lines
+
+
+def _tree(root):
+    """Relative paths of all files under root, bar the JAX package's
+    checkpoint (resume is not ported yet)."""
+    return sorted(
+        os.path.relpath(os.path.join(d, f), root)
+        for d, _, files in os.walk(root) for f in files if f != "checkpoint.npz"
+    )
+
+
+def _costs(path):
+    with open(path) as f:
+        rows = [ln.split() for ln in f if not ln.startswith("#")]
+    return [np.array(r, float) for r in rows]
+
+
+# The minor iterations stay well below the number of data rows: past that LSQR
+# has spent its Krylov space and only amplifies rounding, in both packages
+# alike but not to the same digits.
+CASES = pytest.mark.parametrize(
+    "dims,ndata,wtype,depth_type,rho_mult,niter",
+    [((16, 16, 8), 64, 1, 2, 1.0, 10), ((8, 8, 4), 16, 1, 1, 2.0, 6), ((12, 8, 4), 24, 2, 3, 1.0, 8)],
+    ids=["haar-16x16x8", "haar-8x8x4-dynamic-rho", "d4-12x8x4"],
+)
+
+
+def _run_both(tmp_path, dims, ndata, wtype, depth_type, rho_mult, niter, share_cache):
+    import torch
+
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
+
+    lines = _write_problem(
+        str(tmp_path), *dims, ndata, wtype=wtype, depth_type=depth_type, rho_mult=rho_mult, niter=niter
+    )
+    jout, tout = str(tmp_path / "jax_out"), str(tmp_path / "torch_out")
+    rj = jsolve(jparse(lines(jout)), solve_dtype=jnp.float64, compute_dtype=jnp.float64, verbose=False)
+    tlines = lines(tout)
+    if share_cache:
+        tlines += ["sensit.readFromFiles = 1", f"sensit.folderPath = {jout}/SENSIT/"]
+    rt = tsolve(tparse(tlines), solve_dtype=torch.float64, verbose=False, device="cpu")
+    return rj, rt, jout, tout
+
+
+def _compare(rj, rt, jout, tout, rho_mult, niter, cost_tol, model_tol):
+    assert rt.timings["lsqr_iters"] == [niter] * 3
+    cj, ct = _costs(os.path.join(jout, "costs.txt")), _costs(os.path.join(tout, "costs.txt"))
+    assert len(cj) == len(ct) == 4
+    for a, b in zip(cj, ct):
+        np.testing.assert_allclose(b, a, **cost_tol)
+    assert ct[1][1] < ct[0][1]  # the data cost fell
+    if rho_mult != 1.0:
+        assert ct[2][7] == 2.0 * ct[1][7]  # the dynamic ADMM weight was raised
+    mj, mt = rj.models[0].val, rt.models[0].val
+    np.testing.assert_allclose(mt, mj, rtol=0, atol=model_tol * (mj.max() - mj.min()))
+    np.testing.assert_allclose(rt.cost_data, rj.cost_data, **cost_tol)
+    np.testing.assert_allclose(rt.cost_model, rj.cost_model, **cost_tol)
+    assert [h["iteration"] for h in rt.costs_history] == [1, 2, 3]
+
+
+@CASES
+def test_slice_matches_jax(tmp_path, dims, ndata, wtype, depth_type, rho_mult, niter):
+    """Both packages solve from the same stored kernel (the port packs the
+    cache that the JAX run wrote, sensit.readFromFiles = 1): every costs.txt
+    column rtol 1e-8, final model to 1e-8 of its range, final data rtol 1e-8,
+    LSQR iterations equal, same set of output files."""
+    rj, rt, jout, tout = _run_both(tmp_path, dims, ndata, wtype, depth_type, rho_mult, niter, share_cache=True)
+    _compare(rj, rt, jout, tout, rho_mult, niter, dict(rtol=1e-8, atol=1e-300), 1e-8)
+    np.testing.assert_allclose(rt.data[0].val_calc, rj.data[0].val_calc, rtol=1e-8)
+    assert _tree(tout) == [f for f in _tree(jout) if not f.startswith("SENSIT")]
+    with open(os.path.join(jout, "data/grav_observed.txt"), "rb") as a, \
+            open(os.path.join(tout, "data/grav_observed.txt"), "rb") as b:
+        assert a.read() == b.read()
+
+
+@CASES
+def test_slice_from_scratch_matches_jax(tmp_path, dims, ndata, wtype, depth_type, rho_mult, niter):
+    """Each package builds its own kernel. The float64 corner sums of the two
+    differ in their last bits and cancel, so some thousandths of the entries
+    round to the neighbouring float32 when stored. The data cost is a
+    relative residual whose scale is 1, so its columns are held to 1e-8
+    absolute and the others to rtol 1e-6; the model to 1e-6 of its range.
+    Same set of output files, SENSIT included; the nnz histogram byte-equal."""
+    rj, rt, jout, tout = _run_both(tmp_path, dims, ndata, wtype, depth_type, rho_mult, niter, share_cache=False)
+    _compare(rj, rt, jout, tout, rho_mult, niter, dict(rtol=1e-6, atol=1e-8), 1e-6)
+    assert _tree(tout) == _tree(jout)
+    with open(os.path.join(jout, "SENSIT/sensit_grav_nnz"), "rb") as a, \
+            open(os.path.join(tout, "SENSIT/sensit_grav_nnz"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_float32_solve_on_cpu_close_to_float64(tmp_path):
+    """The solve dtype the card uses, on the CPU: data cost within 1% of the
+    float64 run's (float32 LSQR over 60 iterations in all)."""
+    import torch
+
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
+
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
+    r64 = tsolve(tparse(lines(str(tmp_path / "a"))), solve_dtype=torch.float64, verbose=False, device="cpu")
+    r32 = tsolve(tparse(lines(str(tmp_path / "b"))), solve_dtype=torch.float32, verbose=False, device="cpu")
+    np.testing.assert_allclose(r32.cost_data[0], r64.cost_data[0], rtol=1e-2)
+    assert r32.models[0].val.dtype == np.float64
+
+
+def test_sensit_cache_reread(tmp_path):
+    """sensit.readFromFiles = 1 packs the cache a first run wrote: same result."""
+    import torch
+
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
+
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
+    first = tsolve(tparse(lines(str(tmp_path / "a"))), verbose=False, device="cpu")
+    again = lines(str(tmp_path / "b")) + [
+        "sensit.readFromFiles = 1", f"sensit.folderPath = {tmp_path}/a/SENSIT/",
+    ]
+    second = tsolve(tparse(again), verbose=False, device="cpu")
+    np.testing.assert_array_equal(second.models[0].val, first.models[0].val)
+    assert "build_s" not in second.timings
+
+
+def test_stop_file_ends_the_loop(tmp_path):
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
+
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
+    out = tmp_path / "a"
+    out.mkdir()
+    (out / "stop").write_text("")
+    r = tsolve(tparse(lines(str(out))), verbose=False, device="cpu")
+    assert r.costs_history == [] and r.cost_data[0] == 1.0
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        "tpu.kernelFormat = dense", "forward.matrixCompression.type = 0", "inversion.dampingGradient.grav.weight = 1.0",
+        "inversion.joint.magn.problemWeight = 1.0", "tpu.kernelStoreDtype = bfloat16", "tpu.refineForward = 1",
+        "inversion.crossGradient.weight = 1.0", "inversion.clustering.grav.weight = 1.0",
+    ],
+)
+def test_unported_parfile_features_are_refused(tmp_path, extra):
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
+
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
+    with pytest.raises(NotImplementedError):
+        tsolve(tparse(lines(str(tmp_path / "a")) + [extra]), verbose=False, device="cpu")
+    assert not (tmp_path / "a").exists()  # refused before any work
+
+
+def _run(args, cwd):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable] + args, cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_cli_runs_on_cpu_in_a_subprocess(tmp_path):
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
+    par = tmp_path / "Parfile.txt"
+    par.write_text("\n".join(lines(str(tmp_path / "out"))))
+    p = _run(["-m", "tomofastx_tpu_torch", "-p", str(par), "--device", "cpu"], str(tmp_path))
+    assert p.returncode == 0, p.stderr
+    assert "THE END." in p.stdout and "lsqr iters = 20" in p.stdout and "kernel_format = tiled" in p.stdout
+    for f in ("costs.txt", "Parfile_run.txt", "model/grav_final_model_full.txt", "Paraview/grav_final_model3D_full.vtk"):
+        assert (tmp_path / "out" / f).exists(), f
+    q = _run(["-m", "tomofastx_tpu_torch", "-j", str(par), "--device", "cpu", "-q", "--precision", "single"], str(tmp_path))
+    assert q.returncode == 0 and "lsqr iters" not in q.stdout
+
+
+def test_cli_fails_cleanly(tmp_path):
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
+    par = tmp_path / "Parfile.txt"
+    par.write_text("\n".join(lines(str(tmp_path / "out")) + ["tpu.kernelFormat = packed"]))
+    p = _run(["-m", "tomofastx_tpu_torch", "-p", str(par), "--device", "cpu", "-q"], str(tmp_path))
+    assert p.returncode == 1 and "not ported" in p.stderr
+    p = _run(["-m", "tomofastx_tpu_torch", "-p", str(tmp_path / "nothing.txt"), "--device", "cpu"], str(tmp_path))
+    assert p.returncode == 1 and "ERROR" in p.stderr
+    # The default device is the card: without one the run is refused, not moved to the CPU.
+    p = _run(["-c", "import torch,sys; sys.exit(7 if torch.cuda.is_available() else 0)"], str(tmp_path))
+    if p.returncode == 0:
+        p = _run(["-m", "tomofastx_tpu_torch", "-p", str(par)], str(tmp_path))
+        assert p.returncode == 1 and "no CUDA device" in p.stderr
+
+
+# ------------------------------------------------------------ import hygiene
+
+PORT = os.path.join(REPO, "tomofastx_tpu_torch")
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|tomofastx_tpu)\b(?!_)", re.M)
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, files in os.walk(PORT):
+        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu"))]
+    return sorted(out)
+
+
+def test_port_sources_found():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {"chip_smoke.py", "tomofastx_tpu_torch/ops/tile_matvec.py", "tomofastx_tpu_torch/csrc/tile_matvec.cu",
+            "tomofastx_tpu_torch/inversion/workflow.py", "tomofastx_tpu_torch/cli.py"} <= names
+
+
+@pytest.mark.parametrize("path", [os.path.relpath(p, REPO) for p in _port_sources()])
+def test_no_file_of_the_port_imports_jax_or_the_jax_package(path):
+    with open(os.path.join(REPO, path)) as f:
+        src = f.read()
+    assert not _IMPORT.search(src), path
+    assert "import triton" not in src.split("def ")[0]  # nothing of the card at import time
+
+
+@pytest.mark.parametrize("module", ["tomofastx_tpu_torch", "tomofastx_tpu_torch.cli", "tomofastx_tpu_torch.inversion.workflow",
+                                    "tomofastx_tpu_torch.ops.tile_matvec", "tomofastx_tpu_torch.convert", "chip_smoke"])
+def test_importing_the_port_loads_neither_jax_nor_the_jax_package(module):
+    code = (
+        f"import sys; import {module}; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib' "
+        "or m == 'tomofastx_tpu' or m.startswith('tomofastx_tpu.')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    p = _run(["-c", code], REPO)
+    assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without a CUDA device the script exits non-zero and prints no result
+    line; with one this test has nothing to say."""
+    p = _run(["-c", "import torch,sys; sys.exit(7 if torch.cuda.is_available() else 0)"], str(tmp_path))
+    if p.returncode != 0:
+        pytest.skip("a CUDA device is present: chip_smoke.py would run in full")
+    p = _run([os.path.join(REPO, "chip_smoke.py")], str(tmp_path))
+    assert p.returncode != 0
+    assert '"ok"' not in p.stdout

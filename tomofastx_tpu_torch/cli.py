@@ -1,0 +1,97 @@
+"""Command-line entry point: ``python -m tomofastx_tpu_torch -p <Parfile>``.
+
+Counterpart of program_tomofastx (program_tomofastx.F90:25-103), minus MPI
+boilerplate: the program is one process that drives one device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import sys
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="tomofastx-torch",
+        description="Tomofast-x on PyTorch/CUDA: 3-D gravity inversion",
+    )
+    parser.add_argument("-p", "--parfile", help="path to the Parfile")
+    parser.add_argument(
+        "-j", dest="parfile_j", metavar="PARFILE", default=None,
+        help="legacy alias for -p (reference: parameters_init.f90:104-119)",
+    )
+    parser.add_argument(
+        "--base-dir", default=".", help="directory that relative Parfile paths resolve against"
+    )
+    parser.add_argument(
+        "--precision",
+        choices=("double", "single"),
+        default=None,
+        help="solver precision (default: single on a CUDA device, double on the CPU)",
+    )
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default cuda; cpu only when asked for)",
+    )
+    parser.add_argument("-q", "--quiet", action="store_true")
+    args = parser.parse_args(argv)
+    if args.parfile is None:
+        args.parfile = args.parfile_j
+    if args.parfile is None:
+        parser.error("a Parfile is required (-p/-j)")
+
+    import torch
+
+    from tomofastx_tpu_torch.config.parfile import config_summary, read_parfile
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(
+            f"ERROR: device {args.device} asked for but no CUDA device is available "
+            "(pass --device cpu to run on the CPU)", file=sys.stderr,
+        )
+        return 1
+
+    try:
+        cfg = read_parfile(args.parfile)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+
+    if not args.quiet:
+        # Echo all parameters like the reference's rank-0 startup dump
+        # (parameters_init.f90:58-88).
+        print(config_summary(cfg))
+
+    # Copy the Parfile into the output folder for provenance
+    # (parameters_init.f90:144-148). Output paths are relative to the
+    # current directory, like the reference binary.
+    out_dir = cfg.path_output
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        shutil.copy(args.parfile, os.path.join(out_dir, "Parfile_run.txt"))
+    except shutil.SameFileError:
+        pass
+
+    precision = args.precision or ("double" if device.type == "cpu" else "single")
+    solve_dtype = torch.float64 if precision == "double" else torch.float32
+
+    try:
+        solve_problem_joint_gravmag(
+            cfg, base_dir=args.base_dir, solve_dtype=solve_dtype,
+            verbose=not args.quiet, device=device,
+        )
+    except (FileNotFoundError, ValueError, FloatingPointError, NotImplementedError) as e:
+        # Clean fail-fast diagnostics, like the reference's exit_MPI banner
+        # (mpi_tools.F90:30-54).
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+    print("THE END.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

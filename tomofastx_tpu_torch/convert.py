@@ -1,0 +1,56 @@
+"""State carried across from the JAX package, given as numpy arrays.
+
+A parity test computes with both packages from identical state: it pulls
+the JAX package's arrays to numpy and hands them to these functions, which
+build the objects this package computes with. The values are not changed
+on the way (float32 packs stay float32; vectors are cast to the dtype the
+caller names)."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from tomofastx_tpu_torch.ops.tile_kernel import TileKernel
+
+
+def tile_kernel_from_numpy(uvals, ubidx, uvalsT, ubidxT, nrows: int, ncols: int,
+                           device="cpu") -> TileKernel:
+    """The four arrays of a tile-union pack -> a TileKernel on `device`."""
+
+    def put(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return TileKernel(
+        uvals=put(uvals, torch.float32),
+        ubidx=put(ubidx, torch.int32),
+        uvalsT=put(uvalsT, torch.float32),
+        ubidxT=put(ubidxT, torch.int32),
+        nrows=int(nrows),
+        ncols=int(ncols),
+    )
+
+
+def solver_state_from_numpy(
+    model: Sequence, prior: Sequence, column_weight: Sequence,
+    admm_z: Sequence, admm_u: Sequence, rho_admm,
+    dtype=torch.float64, device="cpu",
+) -> dict:
+    """Per-active-problem sequences of numpy arrays (models and priors
+    (ncomp, N); column weights, ADMM z and u (N,)) and the two ADMM weights
+    -> the entries of the solver's dictionary of tensors that change from
+    one major iteration to the next, plus the column weights."""
+
+    def put(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return {
+        "model": tuple(put(a) for a in model),
+        "prior": tuple(put(a) for a in prior),
+        "cw": tuple(put(a) for a in column_weight),
+        "admm_z": tuple(put(a) for a in admm_z),
+        "admm_u": tuple(put(a) for a in admm_u),
+        "rho_admm": put(rho_admm),
+    }

@@ -1,0 +1,637 @@
+"""End-to-end gravity inversion workflow.
+
+Counterpart of solve_problem_joint_gravmag
+(problem_joint_gravmag.F90:65-613): grid + data loading, depth weights,
+sensitivity build, synthetic data, prior-model loop, the major inversion
+loop with costs.txt logging, dynamic ADMM weight adjustment, stop-file early
+exit, and all model/data outputs.
+
+Host-side orchestration is plain Python (it does I/O) on numpy state; the
+numerics of the build, the operator and each major iteration's solve run as
+tensor operations on `device` (inversion/joint.py).
+
+Ported so far: one gravity problem with a wavelet-compressed kernel in the
+tile-union layout (``tpu.kernelFormat = tiled``), damping and ADMM. A Parfile
+that asks for anything else is refused with NotImplementedError before any
+work is done.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from tomofastx_tpu_torch.config.parfile import Config, GRAV, MAGN
+from tomofastx_tpu_torch.inversion.joint import SystemSpec, decide_wavelet_domain, make_solver
+from tomofastx_tpu_torch.io import data_io, model_io, vtk
+from tomofastx_tpu_torch.io.sensit_cache import SensitStreamWriter
+from tomofastx_tpu_torch.models.data import SurveyData
+from tomofastx_tpu_torch.models.model import ModelState
+from tomofastx_tpu_torch.ops import sensitivity as sens
+from tomofastx_tpu_torch.ops.tile_kernel import apply_row_weights_tiled, tile_kernel_from_cache
+from tomofastx_tpu_torch.utils.memory import report as memory_report
+
+PROBLEM_PREFIX = ("grav", "mag")  # output file name prefixes (reference usage)
+
+
+@dataclass
+class ProblemContext:
+    """Everything belonging to one of the two joint problems."""
+
+    index: int  # 0 = grav, 1 = magn
+    par: object  # GravParams | MagParams
+    model: ModelState = None
+    data: SurveyData = None
+    column_weight: np.ndarray = None
+    operator: object = None  # row-weighted sensitivity operator (TileKernel)
+    residuals: np.ndarray = None
+
+
+@dataclass
+class WorkflowResult:
+    models: Dict[int, ModelState]
+    data: Dict[int, SurveyData]
+    cost_data: List[float]
+    cost_model: List[float]
+    costs_history: List[dict] = field(default_factory=list)
+    # Wall seconds of the phases, for whoever reports where the time went.
+    timings: Dict[str, object] = field(default_factory=dict)
+
+
+def _mkoutdir(cfg: Config) -> str:
+    # Outputs resolve against the current directory, like the reference
+    # binary; base_dir only anchors the *input* paths. (Otherwise a
+    # read-only data tree would receive the output folder.)
+    out = cfg.path_output
+    os.makedirs(out, exist_ok=True)
+    return out
+
+
+def _model_write(ctx: ProblemContext, out_dir, prefix, write_ascii=False):
+    """Model snapshot outputs (reference: model_write, model_IO.F90:481-612):
+    structured-grid VTK, x/y/z half-slice lego VTKs, optional ASCII."""
+    g = ctx.model.grid
+    pv = os.path.join(out_dir, "Paraview")
+    common = dict(
+        X1=g.X1, Y1=g.Y1, Z1=g.Z1, X2=g.X2, Y2=g.Y2, Z2=g.Z2,
+        nx=g.nx, ny=g.ny, nz=g.nz,
+        invert_z=True, units_mult=ctx.model.units_mult, label=ctx.model.vtk_label,
+    )
+    val = ctx.model.val.T  # (N, ncomp)
+    vtk.write_struct_grid(os.path.join(pv, f"{prefix}model3D_full.vtk"), val, **common)
+    vtk.write_lego_grid(
+        os.path.join(pv, f"{prefix}model3D_half_x.vtk"), val,
+        i1=g.nx // 2 + 1, i2=g.nx // 2 + 1, **common,
+    )
+    vtk.write_lego_grid(
+        os.path.join(pv, f"{prefix}model3D_half_y.vtk"), val,
+        j1=g.ny // 2 + 1, j2=g.ny // 2 + 1, **common,
+    )
+    vtk.write_lego_grid(
+        os.path.join(pv, f"{prefix}model3D_half_z.vtk"), val,
+        k1=g.nz // 2 + 1, k2=g.nz // 2 + 1, **common,
+    )
+    if write_ascii:
+        model_io.write_model_ascii(
+            ctx.model, os.path.join(out_dir, "model", f"{prefix}model_full.txt")
+        )
+
+
+def _data_write(ctx: ProblemContext, out_dir, name, which):
+    """Data outputs in ASCII + VTK (reference: data_write,
+    data_gravmag.f90:293-354)."""
+    data_io.write_data_points(ctx.data, os.path.join(out_dir, "data", f"{name}.txt"), which)
+    val = ctx.data.val_meas if which == 1 else ctx.data.val_calc
+    vtk.write_points(
+        os.path.join(out_dir, "Paraview", f"data_{name}.vtk"),
+        val, ctx.data.X, ctx.data.Y, ctx.data.Z,
+        invert_z=True, units_mult=ctx.data.units_mult,
+    )
+
+
+def _calculate_data(ctx: ProblemContext, cfg: Config, solve_dtype, device):
+    """d_calc = S m through the stored row-weighted operator
+    (model.F90:220-307)."""
+    g = ctx.model.grid
+    ctx.data.val_calc = sens.calculate_data(
+        ctx.operator,
+        ctx.model.val,
+        ctx.column_weight,
+        cfg.inversion.problem_weight[ctx.index],
+        ctx.data.weight,
+        ctx.par.compression_type, g.nx, g.ny, g.nz,
+        solve_dtype=solve_dtype, device=device,
+    )
+
+
+def _calculate_model_cost(ctx: ProblemContext, norm_power: float) -> float:
+    """Lp model-prior cost (reference: calculate_cost_model, costs.f90:74-113)."""
+    cw = ctx.column_weight
+    diff = np.where(cw != 0.0, (ctx.model.val[0] - ctx.model.val_prior[0]) / np.where(cw != 0.0, cw, 1.0), 0.0)
+    return float(np.sum(np.abs(diff) ** norm_power))
+
+
+COSTS_HEADER = (
+    "# 1:iteration, 2:data_cost_grav, 3:data_cost_mag, 4:model_cost_grav, 5:model_cost_mag,"
+    " 6:ADMM_cost_grav, 7:ADMM_cost_mag, 8:ADMM_weight_grav, 9:ADMM_weight_mag,"
+    " 10:damp_gradient_cost_x_grav, 11:damp_gradient_cost_y_grav, 12:damp_gradient_cost_z_grav,"
+    " 13:damp_gradient_cost_x_mag, 14:damp_gradient_cost_y_mag, 15:damp_gradient_cost_z_mag,"
+    " 16:cross_grad_cost_x, 17:cross_grad_cost_y, 18:cross_grad_cost_z,"
+    " 19:clustering_cost_grav, 20:clustering_cost_mag"
+)
+
+
+def _refuse_unported(cfg: Config, active):
+    """Fail before any work on a Parfile that asks for a path of the JAX
+    package that this package does not hold yet."""
+    ipar = cfg.inversion
+    wants = []
+    if active != [GRAV]:
+        wants.append("the magnetic problem (inversion.joint.magn.problemWeight != 0)")
+    par = cfg.grav
+    if par.data_type != 1 or par.ndata_components != 1:
+        wants.append("gravity gradiometry data")
+    if getattr(par, "kernel_format", "dense") != "tiled" or par.compression_type == 0:
+        wants.append(
+            "a kernel format other than tpu.kernelFormat = tiled with "
+            "forward.matrixCompression.type > 0"
+        )
+    if par.kernel_store != "float32":
+        wants.append("tpu.kernelStoreDtype = bfloat16")
+    if par.refine_forward:
+        wants.append("tpu.refineForward")
+    if par.f64_build_f32_compress:
+        wants.append("tpu.f64BuildF32Compress")
+    if par.sensit_read == 2:
+        wants.append("sensit.readFromFiles = 2")
+    if any(b != 0.0 for b in ipar.beta):
+        wants.append("the damping-gradient constraint")
+    if ipar.cross_grad_weight != 0.0:
+        wants.append("the cross-gradient constraint")
+    if any(w != 0.0 for w in ipar.clustering_weight_glob):
+        wants.append("the clustering constraint")
+    if wants:
+        raise NotImplementedError("not ported to this package yet: " + "; ".join(wants))
+
+
+def solve_problem_joint_gravmag(
+    cfg: Config,
+    base_dir: str = ".",
+    solve_dtype=None,
+    compute_dtype=None,
+    verbose: bool = True,
+    device="cuda",
+) -> WorkflowResult:
+    """Run the full inversion described by a Parfile configuration on
+    `device` ("cuda" unless the caller asks for "cpu").
+
+    solve_dtype defaults to float32 on a CUDA device and float64 on the CPU;
+    compute_dtype (the kernel build) to float64 — the reference computes in
+    double and stores single (global_typedefs.F90:37-45), and a float32
+    build suffers cancellation in the prism integrals."""
+    device = torch.device(device)
+    if solve_dtype is None:
+        solve_dtype = torch.float64 if device.type == "cpu" else torch.float32
+    if compute_dtype is None:
+        compute_dtype = torch.float64
+
+    def log(*a):
+        if verbose:
+            print(*a, flush=True)
+
+    def on_device(a):
+        return torch.as_tensor(np.asarray(a), dtype=solve_dtype, device=device)
+
+    def sync():
+        # Phase times are read on the host's clock: wait for the device first.
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t_start = time.time()
+    timings: Dict[str, object] = {}
+    ipar = cfg.inversion
+
+    if ipar.method != 1:
+        raise ValueError(f"Unknown solver type {ipar.method}! (only 1 = LSQR)")
+    active = [i for i in (GRAV, MAGN) if cfg.solve_problem(i)]
+    if not active:
+        raise ValueError("No active problems (both problem weights are zero).")
+    _refuse_unported(cfg, active)
+
+    out_dir = _mkoutdir(cfg)
+
+    # Memory checkpoint 1/4: startup (reference prints Pss at MPI init,
+    # program_tomofastx.F90:60-61).
+    log(memory_report("(init) ", device))
+
+    ctxs: Dict[int, ProblemContext] = {
+        i: ProblemContext(index=i, par=cfg.problem_params(i)) for i in active
+    }
+    log(f"Solving problem grav/mag. active = {[PROBLEM_PREFIX[i] for i in active]}")
+
+    # ---- (I) model grid ----
+    for i, ctx in ctxs.items():
+        par = ctx.par
+        grid = model_io.read_model_grid(
+            os.path.join(base_dir, par.model_grid_file), par.nx, par.ny, par.nz, par.z_axis_dir
+        )
+        ctx.model = ModelState(
+            grid=grid,
+            ncomponents=par.nmodel_components,
+            units_mult=par.model_units_mult,
+            vtk_label=par.vtk_model_label,
+        )
+
+    # ---- (II) data ----
+    for i, ctx in ctxs.items():
+        par = ctx.par
+        ctx.data = data_io.read_data_points(
+            os.path.join(base_dir, par.data_grid_file), par.ndata, par.ndata_components,
+            par.data_units_mult, par.z_axis_dir, grid_only=True,
+        )
+        if par.use_data_error == 1:
+            data_io.read_data_error(ctx.data, os.path.join(base_dir, par.data_error_file))
+    timings["read_inputs_s"] = time.time() - t_start
+
+    # ---- (III) depth weights + sensitivity ----
+    for i, ctx in ctxs.items():
+        par = ctx.par
+        sensit_dir = os.path.join(out_dir, "SENSIT")
+        t0 = time.time()
+        if par.sensit_read == 0:
+            log(f"Calculating the depth weight for {PROBLEM_PREFIX[i]}, type = {par.depth_weighting_type}")
+            cw = sens.calculate_depth_weight(par, ctx.model.grid, ctx.data, compute_dtype, device)
+            cw = ipar.column_weight_multiplier[i] * cw
+            cw = sens.apply_local_depth_weighting(par, cw)
+            ctx.column_weight = cw
+        else:
+            # The stored weight already contains the column-weight
+            # multiplier and local weighting, so neither is re-applied
+            # (sensitivity_gravmag.F90:873-879).
+            cache_dir = os.path.join(base_dir, par.sensit_path)
+            ctx.column_weight = _read_depth_weight_file(cache_dir, i)
+        sync()
+        timings["depth_weight_s"] = time.time() - t0
+
+        # Capacity mode: the dense (nd, N) array is never materialized.
+        # The build streams row chunks straight to the reference-format cache
+        # (sensitivity_gravmag.F90:306-309) and the cache streams back into
+        # the tile-union block layout (ibid. 723-862 semantics).
+        tk = meta = None
+        if par.sensit_read == 1:
+            tk, meta = tile_kernel_from_cache(
+                os.path.join(base_dir, par.sensit_path), par, ctx.model.grid, device
+            )
+            if tk is None:
+                log(f"WARNING: no readable sensitivity cache for {PROBLEM_PREFIX[i]}; recomputing.")
+        if tk is None:
+            log(f"Calculating {PROBLEM_PREFIX[i].upper()} sensitivity kernel (streamed/tiled)...")
+            # Predicted allocation print before the big build
+            # (reference: sparse_matrix.f90:508-515).
+            nrows_tot = par.ndata * par.ndata_components
+            ncols_tot = ctx.model.grid.nelements_total * par.nmodel_components
+            kept = int(np.ceil(par.compression_rate * ncols_tot))
+            log(f"  predicted kept entries ~ {nrows_tot * kept:,} "
+                f"({nrows_tot * kept * 8 / 1024**3:.3f} GB in the cache)")
+            t0 = time.time()
+            writer = SensitStreamWriter(
+                sensit_dir, par, ctx.model.grid, ctx.column_weight, par.compression_type,
+            )
+            try:
+                kmeta = sens.compute_sensitivity(
+                    par, ctx.model.grid, ctx.data, ctx.column_weight,
+                    compute_dtype=compute_dtype, store_dtype=torch.float32,
+                    row_sink=writer.write_chunk, device=device,
+                )
+            finally:
+                writer.close()
+            writer.finalize(kmeta.comp_error)
+            timings["build_s"] = time.time() - t0
+            log(f"  kernel built+cached in {timings['build_s']:.2f}s "
+                f"({nrows_tot / max(timings['build_s'], 1e-9):.1f} rows/s); "
+                f"COMPRESSION ERROR, r = {kmeta.comp_error:.6e}")
+            t0 = time.time()
+            tk, meta = tile_kernel_from_cache(sensit_dir, par, ctx.model.grid, device)
+            sync()
+            timings["pack_s"] = time.time() - t0
+            log(f"  cache packed into tiles in {timings['pack_s']:.2f}s (nnz = {meta['nnz']:,})")
+
+        # Bake in problem weight x data weights (sensitivity_gravmag.F90:836-843).
+        wrow = (ipar.problem_weight[i] * np.asarray(ctx.data.weight)).reshape(-1)
+        ctx.operator = apply_row_weights_tiled(tk, wrow)
+        tk = None
+        log(
+            f"  {PROBLEM_PREFIX[i]} kernel: tiled {ctx.operator.nbytes / 1e6:.1f} MB "
+            f"(forward {tuple(ctx.operator.uvals.shape)}, adjoint {tuple(ctx.operator.uvalsT.shape)}; "
+            f"dense would be {ctx.operator.nrows * ctx.operator.ncols * 4 / 1e6:.1f} MB)"
+        )
+
+    # Memory checkpoint 2/4: after the forward phase (reference prints Pss
+    # here, sensitivity_gravmag.F90:394-398).
+    log(memory_report("(forward) ", device))
+    log(f"  forward phase done at t+{time.time() - t_start:.2f}s")
+
+    # ---- ADMM bounds ----
+    if ipar.admm_type > 0:
+        for i, ctx in ctxs.items():
+            model_io.set_model_bounds(_with_paths(ipar, base_dir), ctx.model, i)
+
+    # ---- damping local weights ----
+    for i, ctx in ctxs.items():
+        if ipar.apply_local_damping_weight > 0:
+            model_io.read_damping_weights(
+                ctx.model, os.path.join(base_dir, ipar.damping_weight_file[i])
+            )
+
+    # ---- synthetic data (problem_joint_gravmag.F90:277-362) ----
+    for i, ctx in ctxs.items():
+        par = ctx.par
+        if par.use_synthetic_model:
+            model_io.set_model(
+                ctx.model, 2, 0.0, os.path.join(base_dir, par.synthetic_model_file)
+            )
+            _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_synth_")
+            _calculate_data(ctx, cfg, solve_dtype, device)
+            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_synthetic", 2)
+            # The reference re-reads the just-written synthetic file as the
+            # observed data; writing divides by units_mult and reading
+            # multiplies, so this is val_meas = val_calc.
+            ctx.data.val_meas = ctx.data.val_calc.copy()
+        else:
+            data_io.read_data_values(ctx.data, os.path.join(base_dir, par.data_grid_file))
+        _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_observed", 1)
+
+    log(f"  data/synthetic phase done at t+{time.time() - t_start:.2f}s")
+
+    # ---- build the solver ----
+    g0 = ctxs[active[0]].model.grid
+    for i in active:
+        # The parfile parser keeps these in lockstep; programmatic configs
+        # can drift them apart, which silently mismatches the kernel's
+        # column domain against the solver's wavelet conversions — fail
+        # fast instead (sensitivity_gravmag.F90:1016-1030).
+        if ctxs[i].par.compression_type != ipar.compression_type:
+            raise ValueError(
+                f"compression_type mismatch: problem {PROBLEM_PREFIX[i]} has "
+                f"{ctxs[i].par.compression_type} but inversion params have "
+                f"{ipar.compression_type}; set both (the Parfile key "
+                "forward.matrixCompression.type sets them together)."
+            )
+    wavelet_domain = decide_wavelet_domain(ipar) if ipar.compression_type > 0 else False
+    spec = SystemSpec(
+        active=tuple(active),
+        ncomp=ipar.nmodel_components,
+        nx=g0.nx, ny=g0.ny, nz=g0.nz,
+        ndata_rows=tuple(ipar.ndata[i] * ipar.ndata_components[i] for i in active),
+        compression_type=ipar.compression_type,
+        wavelet_domain=wavelet_domain,
+        problem_weight=ipar.problem_weight,
+        alpha=ipar.alpha,
+        norm_power=ipar.norm_power,
+        add_damping=tuple(
+            ipar.alpha[i] != 0.0 and ipar.problem_weight[i] != 0.0 for i in (0, 1)
+        ),
+        admm_enabled=tuple(
+            ipar.admm_type > 0 and ipar.problem_weight[i] != 0.0 for i in (0, 1)
+        ),
+        nlithos=ipar.nlithos,
+        apply_local_damping_weight=ipar.apply_local_damping_weight > 0,
+        niter=ipar.niter,
+        rmin=ipar.rmin,
+        gamma=ipar.gamma,
+        target_misfit=ipar.target_misfit,
+    )
+    log(f"WAVELET_DOMAIN = {spec.wavelet_domain}")
+    solver = make_solver(spec)
+
+    # Static per-run tensors. Those of disabled features are left out: the
+    # solve only reads them under the corresponding spec flag.
+    static_arrays = {
+        "S": tuple(ctxs[i].operator for i in active),
+        "cw": tuple(on_device(ctxs[i].column_weight) for i in active),
+    }
+    if spec.apply_local_damping_weight:
+        static_arrays["damping_weight"] = tuple(
+            on_device(ctxs[i].model.damping_weight) for i in active
+        )
+    if any(spec.admm_enabled[i] for i in active):
+        static_arrays["min_bound"] = tuple(on_device(ctxs[i].model.min_bound) for i in active)
+        static_arrays["max_bound"] = tuple(on_device(ctxs[i].model.max_bound) for i in active)
+        static_arrays["bound_weight"] = tuple(
+            on_device(ctxs[i].model.bound_weight) for i in active
+        )
+
+    # ---- prior-models loop (problem_joint_gravmag.F90:374-598) ----
+    result = WorkflowResult(models={}, data={}, cost_data=[0.0, 0.0], cost_model=[0.0, 0.0])
+    number_prior_models = cfg.grav.number_prior_models
+    base_out = out_dir
+    rho_admm = list(ipar.rho_ADMM)
+
+    # ADMM dual state persists across the prior-models loop (the reference
+    # allocates z/u once in initialize2 and never resets them,
+    # joint_inverse_problem.F90:320, 352-355).
+    admm_z = [
+        torch.zeros((spec.N if spec.admm_enabled[i] else 1,), dtype=solve_dtype, device=device)
+        for i in active
+    ]
+    admm_u = [torch.zeros_like(z) for z in admm_z]
+    timings["solve_s"] = []
+    timings["lsqr_iters"] = []
+
+    for m in range(1, number_prior_models + 1):
+        if m > 1:
+            out_dir = base_out.rstrip("/") + f"_{m}/"
+            os.makedirs(out_dir, exist_ok=True)
+
+        log(f"=== Solve problem for prior model #{m}, output folder = {out_dir}")
+
+        # Prior model.
+        for i, ctx in ctxs.items():
+            par = ctx.par
+            prior_file = par.prior_model_file
+            if m > 1:
+                prior_file = f"{prior_file}_{m}"
+            model_io.set_model(
+                ctx.model, par.prior_model_type, par.prior_model_val,
+                os.path.join(base_dir, prior_file),
+            )
+            ctx.model.val_prior = ctx.model.val.copy()
+            if par.prior_model_type > 1:
+                _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_prior_")
+            _calculate_data(ctx, cfg, solve_dtype, device)
+            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_prior", 2)
+
+        # Starting model.
+        for i, ctx in ctxs.items():
+            par = ctx.par
+            model_io.set_model(
+                ctx.model, par.start_model_type, par.start_model_val,
+                os.path.join(base_dir, par.start_model_file),
+            )
+            if par.start_model_type > 1:
+                _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_starting_")
+            _calculate_data(ctx, cfg, solve_dtype, device)
+            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_starting", 2)
+
+        # Initial costs.
+        cost_model = [0.0, 0.0]
+        cost_data = [0.0, 0.0]
+        for i, ctx in ctxs.items():
+            cost_model[i] = _calculate_model_cost(ctx, ipar.norm_power)
+            cost_data[i] = ctx.data.get_cost()
+            log(f"data cost (initial) [{PROBLEM_PREFIX[i]}] = {cost_data[i]}")
+        log(f"  entering the major loop at t+{time.time() - t_start:.2f}s")
+
+        with open(os.path.join(out_dir, "costs.txt"), "w") as costs_f:
+            costs_f.write(COSTS_HEADER + "\n")
+
+            # ---- major inversion loop (host-driven) ----
+            for it in range(1, ipar.ninversions + 1):
+                # The reference polls ./stop in the cwd
+                # (problem_joint_gravmag.F90:688); the output dir is also
+                # accepted because base_dir/input trees may be read-only.
+                if os.path.exists("stop") or os.path.exists(os.path.join(out_dir, "stop")):
+                    log("Stop file found! Exiting the loop.")
+                    break
+
+                log(f"=== Iteration {it} / prior model {m} ===")
+                sync()
+                t_it = time.time()
+
+                # Residuals (problem_joint_gravmag.F90:666-675).
+                for i, ctx in ctxs.items():
+                    ctx.residuals = ctx.data.weight * (ctx.data.val_meas - ctx.data.val_calc)
+
+                arrays = dict(static_arrays)
+                arrays.update(
+                    model=tuple(on_device(ctxs[i].model.val) for i in active),
+                    prior=tuple(on_device(ctxs[i].model.val_prior) for i in active),
+                    residuals=tuple(on_device(ctxs[i].residuals) for i in active),
+                    admm_z=tuple(admm_z),
+                    admm_u=tuple(admm_u),
+                    rho_admm=on_device(rho_admm),
+                )
+
+                out = solver(arrays)
+                sync()
+                timings["solve_s"].append(time.time() - t_it)
+                timings["lsqr_iters"].append(int(out["lsqr_iters"]))
+                if m == 1 and it == 1:
+                    # Memory checkpoint 3/4: after the first LSQR solve
+                    # (lsqr_solver2.F90:293-299).
+                    log(memory_report("(first solve) ", device))
+
+                admm_z = list(out["admm_z"])
+                admm_u = list(out["admm_u"])
+                last_costs = {k: float(v) for k, v in out["costs"].items()}
+
+                # Update models + new data.
+                for a, i in enumerate(active):
+                    ctxs[i].model.update(out["delta"][a].cpu().numpy())
+                    _calculate_data(ctxs[i], cfg, solve_dtype, device)
+
+                if ipar.write_model_niter > 0 and it % ipar.write_model_niter == 0:
+                    for i, ctx in ctxs.items():
+                        _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_inter_{it}_")
+
+                # costs.txt row for the previous iteration
+                # (problem_joint_gravmag.F90:519-528).
+                costs_f.write(_costs_row(it - 1, cost_data, cost_model, last_costs, rho_admm) + "\n")
+                costs_f.flush()
+
+                # New costs.
+                for i, ctx in ctxs.items():
+                    cost_model[i] = _calculate_model_cost(ctx, ipar.norm_power)
+                    cost_data[i] = ctx.data.get_cost()
+
+                log(
+                    f"  iter done in {time.time() - t_it:.2f}s, lsqr iters = {int(out['lsqr_iters'])}, "
+                    + ", ".join(
+                        f"{PROBLEM_PREFIX[i]} cost = {cost_data[i]:.6e}" for i in active
+                    )
+                )
+                result.costs_history.append(
+                    {"iteration": it, "cost_data": list(cost_data), "cost_model": list(cost_model)}
+                )
+
+                # Dynamic ADMM weight adjustment (problem_joint_gravmag.F90:618-638).
+                if ipar.admm_type > 0 and ipar.weight_multiplier_ADMM != 1.0:
+                    for i in active:
+                        if (
+                            cost_data[i] < ipar.data_cost_threshold_ADMM
+                            and rho_admm[i] < ipar.max_weight_ADMM
+                        ):
+                            rho_admm[i] = ipar.weight_multiplier_ADMM * rho_admm[i]
+                            log(f"Increased the ADMM weight to: {rho_admm[i]}")
+
+            # Final costs row (problem_joint_gravmag.F90:550).
+            costs_f.write(
+                f" {ipar.ninversions} {cost_data[0]:.9E} {cost_data[1]:.9E}"
+                f" {cost_model[0]:.9E} {cost_model[1]:.9E}\n"
+            )
+
+        # ---- final outputs ----
+        for i, ctx in ctxs.items():
+            _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_final_", write_ascii=True)
+            log(
+                f"Model {i + 1} min/max values = {ctx.model.val.min()}, {ctx.model.val.max()}"
+            )
+            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_final", 2)
+            # Final data residual written over val_calc (F90:569-578).
+            saved = ctx.data.val_calc.copy()
+            ctx.data.val_calc = ctx.data.val_meas - ctx.data.val_calc
+            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_misfit", 2)
+            ctx.data.val_calc = saved
+
+    result.models = {i: ctxs[i].model for i in active}
+    result.data = {i: ctxs[i].data for i in active}
+    result.cost_data = cost_data
+    result.cost_model = cost_model
+    timings["total_s"] = time.time() - t_start
+    result.timings = timings
+    log(memory_report("(end) ", device))
+    log(f"THE END. total time = {timings['total_s']:.2f}s")
+    return result
+
+
+def _costs_row(it, cost_data, cost_model, costs, rho_admm) -> str:
+    """One costs.txt row in the reference's 20-column layout
+    (problem_joint_gravmag.F90:519-528). The columns of the constraints
+    that are not ported yet stay 0, as they do when those are off."""
+
+    def get(key):
+        return float(costs.get(key, 0.0))
+
+    vals = [
+        cost_data[0], cost_data[1], cost_model[0], cost_model[1],
+        get("admm_cost_0"), get("admm_cost_1"),
+        rho_admm[0], rho_admm[1],
+    ] + [0.0] * 11
+    return f" {it} " + " ".join(f"{v:.9E}" for v in vals)
+
+
+def _with_paths(ipar, base_dir):
+    """Shallow copy of InversionParams with bounds-file paths resolved."""
+    import copy
+
+    out = copy.copy(ipar)
+    out.bounds_ADMM_file = tuple(
+        os.path.join(base_dir, p) if p != "None" else p for p in ipar.bounds_ADMM_file
+    )
+    return out
+
+
+def _read_depth_weight_file(cache_dir: str, problem_index: int) -> np.ndarray:
+    """Binary depth-weight file (reference format: int32 N then float64 N,
+    sensitivity_gravmag.F90:446-460)."""
+    suffix = ("grav", "magn")[problem_index]
+    path = os.path.join(cache_dir, f"sensit_{suffix}_weight")
+    with open(path, "rb") as f:
+        n = int(np.fromfile(f, np.int32, 1)[0])
+        w = np.fromfile(f, np.float64, n)
+    return w
