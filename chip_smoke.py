@@ -5,19 +5,33 @@
 
 It needs one CUDA device, nvcc and nothing from the network. It
 
-1. builds the tile_matvec kernel from tomofastx_tpu_torch/csrc/tile_matvec.cu;
-2. holds the kernel against its plain PyTorch version on a random ragged pack;
+1. builds the two hand-written kernels (tile_matvec, blocked_matvec) from
+   tomofastx_tpu_torch/csrc/, both compilers started together;
+2. holds each kernel against its plain PyTorch version on a random ragged
+   layout;
 3. writes a full-width synthetic gravity problem (4096 observations x 262144
    cells on a 64x64x64 lattice, Haar compression at rate 0.15, damping,
    3-lithology ADMM, 3 majors x 20 LSQR iterations, float64 build stored
    float32, float32 solve) and runs it through the command-line entry point
-   on the card, counting the kernel's launches;
-4. checks the outputs, and a small problem on the card against the same
-   problem on the CPU;
-5. packs the run's sensitivity cache again and holds the kernel against its
+   on the card three times: with tpu.kernelFormat = tiled (the tile_matvec
+   kernel under every product), with no kernelFormat line (the default, a
+   dense kernel accumulated on the device and written to the cache), and
+   with tpu.kernelFormat = packed reading the second run's cache; the
+   kernels' launches are counted in each run;
+4. checks the outputs of each run, the three formats against each other, and
+   two small problems (tiled compressed, dense uncompressed) on the card
+   against the same problems on the CPU;
+5. packs the run's sensitivity cache again and holds tile_matvec against its
    plain version on the full-width forward and adjoint packs, timing the
    kernel, the plain version and torch.mv on the dense matrix (a yardstick
-   only: the port never calls it) beside the least time the card could take.
+   only: the port never calls it for that layout) beside the least time the
+   card could take;
+6. cuts two row-block layouts from the dense matrix of the run (every used
+   128-block of each row; each row's 256 blocks of largest energy), holds
+   blocked_matvec against its plain version on both, times it the same way,
+   and drives it through the port's forward-data and LSQR entry points,
+   counting its launches;
+7. times matvec and rmatvec of the three operators at full width.
 
 Any failed phase ends the run with a non-zero exit code. Without a CUDA
 device it exits with code 2 and prints no result. The last line of a good run
@@ -37,6 +51,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -54,7 +69,18 @@ NX = NY = NZ = 64
 NDATA = 4096
 N_MAJOR, N_MINOR = 3, 20
 RTOL_F32, RTOL_F64 = 1e-5, 1e-12
-
+TOP_BLOCKS = 256  # slots per row of the second row-block layout
+# The three formats hold the same float32 matrix and differ in the order of
+# their float32 sums, which 3 majors x 20 float32 LSQR iterations amplify: an
+# H100 read 2.0e-4 of the model's range and 5.4e-2 of the (small) data cost
+# between packed and tiled (PERF.md). In float64 on the CPU the formats agree
+# to 1e-9 (tests/test_torch_workflow.py).
+FORMATS_MODEL_TOL = 2e-3  # of the tiled run's model range
+FORMATS_COST_RTOL = 0.25
+# Two float32 products of one matrix, summed in different orders, on a vector
+# whose terms cancel (a wavelet-transformed model): an H100 read 5.7e-6 of
+# max|y|. And 20 float32 LSQR iterations on the two: 1.7e-3 of max|x|.
+RTOL_F32_FORWARD, RTOL_F32_LSQR = 1e-4, 2e-2
 
 class Tee(io.TextIOBase):
     """Writes through to a stream and keeps a copy."""
@@ -111,6 +137,13 @@ def compare(what, got, want, rtol):
     return err
 
 
+def bound(nbytes, flops):
+    """Least milliseconds the card could take: (the larger, which one, by bytes, by operations)."""
+    by_bytes = nbytes / MEMORY_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", by_bytes, by_ops
+
+
 def random_pack(device, seed=0, ntiles=26, bu=37, nb=50):
     """A ragged pack: tile i uses a random number of its BU slots, the rest
     are pad slots (block 0, zero values)."""
@@ -125,9 +158,25 @@ def random_pack(device, seed=0, ntiles=26, bu=37, nb=50):
     return uvals.to(device), ubidx.to(device), x.to(device), (int(widths.min()), int(widths.max()))
 
 
-def write_problem(work, nx, ny, nz, ndata_side, out_dir, n_minor):
+def random_row_blocks(device, seed=3, nrows=203, nslots=45, nb=50):
+    """A ragged row layout: row r uses a random number of its slots, the rest
+    are pad slots. 203 rows and 45 slots divide by neither the kernel's 8
+    rows a thread block nor its 32 and 8 slots a step."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bvals = torch.randn(nrows, nslots, 128, generator=g)
+    bidx = torch.randint(0, nb, (nrows, nslots), generator=g, dtype=torch.int32)
+    widths = torch.randint(1, nslots + 1, (nrows,), generator=g)
+    pad = torch.arange(nslots)[None, :] >= widths[:, None]
+    bvals[pad] = 0.0
+    bidx[pad] = 0
+    x = torch.randn(nb * 128, generator=g, dtype=torch.float64)
+    return bvals.to(device), bidx.to(device), x.to(device), (int(widths.min()), int(widths.max()))
+
+
+def write_inputs(work, nx, ny, nz, ndata_side):
     """Grid, observation points above the cell centers of a ndata_side^2
-    sub-lattice, a three-lithology block model, and the Parfile."""
+    sub-lattice and a three-lithology block model. Returns what the Parfile
+    has to name."""
     # Cells longer in x than in y: on square cells an observation above the
     # grid's diagonal sees equal wavelet coefficients in mirrored pairs, and
     # which of a pair survives the threshold would hang on the last bit.
@@ -158,19 +207,25 @@ def write_problem(work, nx, ny, nz, ndata_side, out_dir, n_minor):
     with open(synth_path, "w") as f:
         f.write(f"{m.size}\n")
         np.savetxt(f, m.reshape(-1, 1), fmt="%.9E")
+    return dict(size=(nx, ny, nz), ndata=X.size, grid=grid_path, data=data_path, synth=synth_path)
 
-    parfile = os.path.join(work, "Parfile.txt")
+
+def write_parfile(work, name, inputs, out_dir, n_minor, fmt="tiled", compression=1, extra=()):
+    """The Parfile of one run on `inputs`. fmt = None leaves the
+    tpu.kernelFormat line out, which means the default format."""
+    nx, ny, nz = inputs["size"]
+    parfile = os.path.join(work, name)
     with open(parfile, "w") as f:
         f.write(f"""global.outputFolderPath = {out_dir}/
 global.description = synthetic gravity problem of the smoke run
 modelGrid.size = {nx} {ny} {nz}
-modelGrid.grav.file = {grid_path}
-forward.data.grav.nData = {X.size}
-forward.data.grav.dataGridFile = {data_path}
+modelGrid.grav.file = {inputs["grid"]}
+forward.data.grav.nData = {inputs["ndata"]}
+forward.data.grav.dataGridFile = {inputs["data"]}
 forward.data.grav.useSyntheticModelForDataValues = 1
-forward.data.grav.syntheticModelFile = {synth_path}
+forward.data.grav.syntheticModelFile = {inputs["synth"]}
 forward.depthWeighting.type = 2
-forward.matrixCompression.type = 1
+forward.matrixCompression.type = {compression}
 forward.matrixCompression.rate = 0.15
 inversion.nMajorIterations = {N_MAJOR}
 inversion.nMinorIterations = {n_minor}
@@ -179,14 +234,97 @@ inversion.admm.enableADMM = 1
 inversion.admm.nLithologies = 3
 inversion.admm.grav.bounds = -10 10 90 110 240 260
 inversion.admm.grav.weight = 1.d-7
-tpu.kernelFormat = tiled
 """)
+        for line in ([f"tpu.kernelFormat = {fmt}"] if fmt else []) + list(extra):
+            f.write(line + "\n")
     return parfile
 
 
 def read_costs(path):
     with open(path) as f:
         return [[float(t) for t in ln.split()] for ln in f if not ln.startswith("#")]
+
+
+def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_written=True):
+    """One run of the command-line entry point on the card, with every
+    kernel's count set to 0 just before and read just after; then the checks
+    of its log and its outputs. Returns what the run left to report."""
+    from tomofastx_tpu_torch.io import model_io
+
+    print(f"{name} main path: {NDATA} observations x {NX * NY * NZ} cells, Haar rate 0.15, "
+          f"{N_MAJOR} majors x {N_MINOR} minors, f32 solve on cuda")
+    torch.cuda.reset_peak_memory_stats()
+    tee = Tee(sys.stdout)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(["-p", parfile, "--device", "cuda"])
+    torch.cuda.synchronize()
+    run = {"main_path_s": time.time() - t0, "launches": {k: fn.launches for k, fn in counters.items()}}
+    if rc != 0:
+        raise SystemExit(f"FAILED {name} main path: cli.main returned {rc}")
+    log = tee.kept.getvalue()
+    run["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
+
+    run["lsqr_iterations"] = [int(v) for v in re.findall(r"lsqr iters = (\d+)", log)]
+    run["major_s"] = [float(v) for v in re.findall(r"iter done in ([0-9.]+)s", log)]
+    for key, pattern in must_say.items():
+        m = re.search(pattern, log)
+        if not m:
+            raise SystemExit(f"FAILED {name} main path: the log lacks the line of {key} ({pattern})")
+        if m.groups():
+            run[key] = float(m.group(1))
+    if run["lsqr_iterations"] != [N_MINOR] * N_MAJOR:
+        raise SystemExit(f"FAILED {name} main path: LSQR iterations {run['lsqr_iterations']}")
+    print(f"  {name} main path took {run['main_path_s']:.1f} s: "
+          + ", ".join(f"{k} = {run[k]}" for k in must_say if k in run)
+          + f", majors {run['major_s']} s; peak device memory {run['peak_device_GB']:.2f} GB; "
+          f"launches {run['launches']}")
+
+    costs = read_costs(os.path.join(out_dir, "costs.txt"))
+    run["data_cost"] = [row[1] for row in costs]
+    print(f"  data cost per major = {run['data_cost']}")
+    if len(costs) != N_MAJOR + 1 or not all(np.isfinite(v) for row in costs for v in row):
+        raise SystemExit(f"FAILED {name} outputs: costs.txt")
+    if not all(b < a for a, b in zip(run["data_cost"][:-1], run["data_cost"][1:])):
+        raise SystemExit(f"FAILED {name} outputs: the data cost does not fall")
+    files = ["Parfile_run.txt", "model/grav_final_model_full.txt", "data/grav_final.txt",
+             "data/grav_observed.txt", "Paraview/grav_final_model3D_full.vtk", "Paraview/data_grav_final.vtk"]
+    if sensit_written:
+        files += ["SENSIT/sensit_grav_1_0", "SENSIT/sensit_grav_meta.txt"]
+    for f in files:
+        if not os.path.getsize(os.path.join(out_dir, f)) > 0:
+            raise SystemExit(f"FAILED {name} outputs: {f}")
+    model = model_io.read_model_values(os.path.join(out_dir, "model/grav_final_model_full.txt"), NX * NY * NZ)
+    if model.shape != (1, NX * NY * NZ) or not np.isfinite(model).all() or not np.abs(model).max() > 1.0:
+        raise SystemExit(f"FAILED {name} outputs: final model")
+    print(f"  final model {model.shape}: min {model.min():.3f}, max {model.max():.3f} -> ok")
+    run["model"] = model
+    return run
+
+
+def small_problem_card_against_cpu(work, name, what, **parfile_args):
+    """A small problem on the card (float64 solve, so the float64 variants of
+    the kernels and products carry it) against the same problem on the CPU."""
+    from tomofastx_tpu_torch.config.parfile import read_parfile
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
+
+    small = os.path.join(work, name)
+    os.makedirs(small)
+    inputs = write_inputs(small, 16, 16, 8, 8)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        pf = write_parfile(small, f"Parfile_{dev}.txt", inputs, os.path.join(small, f"out_{dev}"), 10, **parfile_args)
+        res[dev] = solve_problem_joint_gravmag(read_parfile(pf), solve_dtype=torch.float64, verbose=False, device=dev)
+    a, b = res["cpu"].models[0].val, res["cuda"].models[0].val
+    rel = float(np.abs(a - b).max() / (a.max() - a.min()))
+    print(f"  small problem ({what}; 16x16x8 cells, 64 observations, f64 solve), card against CPU: "
+          f"final model differs by {rel:.3e} of its range, data cost {res['cuda'].cost_data[0]:.6e} "
+          f"against {res['cpu'].cost_data[0]:.6e} (tolerance 1e-6)")
+    if not rel <= 1e-6 or not abs(res["cuda"].cost_data[0] - res["cpu"].cost_data[0]) <= 1e-6:
+        raise SystemExit(f"FAILED small problem ({what}): card against CPU")
+    return rel
 
 
 def dense_from_pack(uvals, ubidx, ncols_padded):
@@ -201,52 +339,97 @@ def dense_from_pack(uvals, ubidx, ncols_padded):
     return dense.permute(0, 2, 1, 3).reshape(ntiles * 8, ncols_padded)
 
 
-def measure_pack(tile_matvec, tile_matvec_plain, name, uvals, ubidx, n_in, seed):
-    """Kernel against plain version on one full-width pack, both vector
-    types, and the times of kernel, plain version and torch.mv."""
+def seeded_vector(n_in, seed, device):
+    """A float64 normal vector of n_in entries, zero-padded to whole 128-blocks."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    npad = -(-n_in // 128) * 128
-    x64 = torch.zeros(npad, dtype=torch.float64)
-    x64[:n_in] = torch.randn(n_in, generator=g, dtype=torch.float64)
-    x64 = x64.to(uvals.device)
+    x = torch.zeros(-(-n_in // 128) * 128, dtype=torch.float64)
+    x[:n_in] = torch.randn(n_in, generator=g, dtype=torch.float64)
+    return x.to(device)
+
+
+def measure_layout(kernel, plain, name, vals, idx, nout, x64, dense):
+    """One kernel against its plain version on one full-width layout (vals,
+    idx), both vector types, and the times of the kernel, the plain version
+    and, where `dense` holds the same matrix, torch.mv on it."""
     x32 = x64.float()
+    err32 = compare(f"full width {name}, f32 vector", kernel(vals, idx, x32), plain(vals, idx, x32), RTOL_F32)
+    err64 = compare(f"full width {name}, f64 vector", kernel(vals, idx, x64), plain(vals, idx, x64), RTOL_F64)
 
-    err32 = compare(f"full width {name} pack, f32 vector",
-                    tile_matvec(uvals, ubidx, x32), tile_matvec_plain(uvals, ubidx, x32), RTOL_F32)
-    err64 = compare(f"full width {name} pack, f64 vector",
-                    tile_matvec(uvals, ubidx, x64), tile_matvec_plain(uvals, ubidx, x64), RTOL_F64)
+    ms = time_cuda(lambda: kernel(vals, idx, x32))
+    ms64 = time_cuda(lambda: kernel(vals, idx, x64), reps=10)
+    plain_ms = time_cuda(lambda: plain(vals, idx, x32), warm=1, reps=5)
 
-    ms = time_cuda(lambda: tile_matvec(uvals, ubidx, x32))
-    ms64 = time_cuda(lambda: tile_matvec(uvals, ubidx, x64), reps=10)
-    plain_ms = time_cuda(lambda: tile_matvec_plain(uvals, ubidx, x32), warm=1, reps=5)
+    library_ms, library_said = None, "no one library call computes this layout's product"
+    if dense is not None:
+        mv_err = float((dense @ x32 - kernel(vals, idx, x32)[: dense.shape[0]]).abs().max())
+        library_ms = time_cuda(lambda: torch.mv(dense, x32))
+        library_said = (f"torch.mv on the dense {tuple(dense.shape)} f32 matrix {library_ms:.3f} ms "
+                        f"(|kernel - mv| max {mv_err:.3e})")
 
-    dense = dense_from_pack(uvals, ubidx, npad)
-    y_mv = dense @ x32
-    mv_err = float((y_mv - tile_matvec(uvals, ubidx, x32)).abs().max())
-    library_ms = time_cuda(lambda: torch.mv(dense, x32))
-    dense_shape = tuple(dense.shape)
-    del dense, y_mv
-    torch.cuda.empty_cache()
-
-    ntiles, bu = ubidx.shape
-    nbytes = (uvals.numel() + ubidx.numel() + x32.numel() + ntiles * 8) * 4
-    flops = 2 * uvals.numel()
-    bound_bytes_ms = nbytes / MEMORY_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
-    print(f"  {name} pack {tuple(uvals.shape)}: kernel {ms:.3f} ms "
+    nbytes = (vals.numel() + idx.numel() + x32.numel() + nout) * 4
+    flops = 2 * vals.numel()
+    bound_ms, bound_by, by_bytes, by_ops = bound(nbytes, flops)
+    print(f"  {name} {tuple(vals.shape)}: kernel {ms:.3f} ms "
           f"({nbytes / ms / 1e6:.0f} GB/s of {nbytes / 1e9:.3f} GB; f64 vector {ms64:.3f} ms), "
-          f"bound {bound_ms:.3f} ms by {'bytes' if bound_bytes_ms >= bound_ops_ms else 'operations'} "
-          f"(bytes {bound_bytes_ms:.3f} ms at {MEMORY_BYTES_PER_S / 1e12:.2f} TB/s, "
-          f"operations {bound_ops_ms:.3f} ms at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s), "
-          f"plain {plain_ms:.3f} ms, torch.mv on the dense {dense_shape} f32 matrix {library_ms:.3f} ms "
-          f"(|kernel - mv| max {mv_err:.3e})")
+          f"bound {bound_ms:.3f} ms by {bound_by} "
+          f"(bytes {by_bytes:.3f} ms at {MEMORY_BYTES_PER_S / 1e12:.2f} TB/s, "
+          f"operations {by_ops:.3f} ms at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s), "
+          f"plain {plain_ms:.3f} ms, {library_said}")
     return {
         "ms": ms, "ms_f64_vector": ms64, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "max_abs_err": err32, "max_abs_err_f64_vector": err64, "bytes": nbytes, "flops": flops,
-        "achieved_GB_per_s": nbytes / ms / 1e6, "shape": list(uvals.shape),
+        "achieved_GB_per_s": nbytes / ms / 1e6, "shape": list(vals.shape),
     }
+
+
+def measure_pack(tile_matvec, tile_matvec_plain, name, uvals, ubidx, n_in, seed):
+    """tile_matvec on one full-width pack, with torch.mv on the pack's dense matrix."""
+    x64 = seeded_vector(n_in, seed, uvals.device)
+    dense = dense_from_pack(uvals, ubidx, x64.shape[0])
+    out = measure_layout(tile_matvec, tile_matvec_plain, f"{name} pack", uvals, ubidx, ubidx.shape[0] * 8, x64, dense)
+    del dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def row_blocks_all_used(S):
+    """Row-block layout of a dense (nrows, NB * 128) matrix that keeps every
+    128-block a row uses, ascending; rows with fewer blocks are padded with
+    block 0 and zeros. The JAX package has no packer for this layout."""
+    nrows, ncols = S.shape
+    Sb = S.view(nrows, ncols // 128, 128)
+    used = torch.linalg.vector_norm(Sb, ord=float("inf"), dim=2) > 0
+    counts = used.sum(dim=1)
+    width = max(1, int(counts.max()))
+    # Stable argsort of ~used puts each row's used block ids first, ascending.
+    order = torch.argsort((~used).to(torch.uint8), dim=1, stable=True)[:, :width]
+    live = torch.arange(width, device=S.device)[None, :] < counts[:, None]
+    bvals = torch.gather(Sb, 1, order[:, :, None].expand(-1, -1, 128)).mul_(live[:, :, None])
+    bidx = torch.where(live, order, 0).to(torch.int32).contiguous()
+    return bvals, bidx, int(counts.min())
+
+
+def row_blocks_top_energy(S, width):
+    """Row-block layout that keeps each row's `width` blocks of largest
+    energy (sum of squares), ascending by block id."""
+    nrows, ncols = S.shape
+    Sb = S.view(nrows, ncols // 128, 128)
+    energy = torch.linalg.vector_norm(Sb, dim=2)
+    order = torch.sort(torch.topk(energy, width, dim=1).indices, dim=1).values
+    bvals = torch.gather(Sb, 1, order[:, :, None].expand(-1, -1, 128))
+    kept = float((bvals.double() ** 2).sum() / (energy.double() ** 2).sum())
+    return bvals, order.to(torch.int32).contiguous(), kept
+
+
+class RowBlocks:
+    """A row-block layout behind the operators' `matvec` interface."""
+
+    def __init__(self, blocked_matvec, bvals, bidx):
+        self.blocked_matvec, self.bvals, self.bidx = blocked_matvec, bvals, bidx
+
+    def matvec(self, x):
+        return self.blocked_matvec(self.bvals, self.bidx, x)
 
 
 def main() -> int:
@@ -257,147 +440,238 @@ def main() -> int:
 
     from tomofastx_tpu_torch import cli
     from tomofastx_tpu_torch.config.parfile import read_parfile
-    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
     from tomofastx_tpu_torch.io import model_io
+    from tomofastx_tpu_torch.io.sensit_cache import read_kernel_cache_packed, try_read_kernel_cache
+    from tomofastx_tpu_torch.ops import blocked_matvec as bmv
+    from tomofastx_tpu_torch.ops import sensitivity as sens
     from tomofastx_tpu_torch.ops import tile_matvec as tmv
+    from tomofastx_tpu_torch.ops.lsqr import lsqr_solve
+    from tomofastx_tpu_torch.ops.sparse_kernel import DenseKernel
     from tomofastx_tpu_torch.ops.tile_kernel import tile_kernel_from_cache
 
     tile_matvec, tile_matvec_plain = tmv.tile_matvec, tmv.tile_matvec_plain
+    blocked_matvec, blocked_matvec_plain = bmv.blocked_matvec, bmv.blocked_matvec_plain
+    counters = {"tile_matvec": tile_matvec, "blocked_matvec": blocked_matvec}
     device = torch.device("cuda")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     smi = nvidia_smi_line()
     print(smi)
 
-    # ---- 1. build ----
+    # ---- 1. build, one compiler per source, started together ----
     t0 = time.time()
-    lib_path, log = tmv.build_library()
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(m.build_library) for m in (tmv, bmv)]
+        for b in builds:
+            lib_path, log = b.result()
+            print(log.strip())
+            print(f"built {os.path.relpath(lib_path, HERE)}")
     build_s = time.time() - t0
-    print(log.strip())
-    print(f"built {os.path.relpath(lib_path, HERE)} in {build_s:.1f} s")
+    print(f"both kernels built in {build_s:.1f} s")
 
-    # ---- 2. kernel against plain version, random ragged pack ----
-    print("kernel against plain version:")
+    # ---- 2. kernels against plain versions, random ragged layouts ----
+    print("kernels against plain versions:")
     uvals, ubidx, x64, (wmin, wmax) = random_pack(device)
     print(f"  random pack: {tuple(uvals.shape)}, tile widths {wmin}..{wmax} of BU = {uvals.shape[1]}")
-    compare("random pack, f32 vector",
+    compare("tile_matvec, random pack, f32 vector",
             tile_matvec(uvals, ubidx, x64.float()), tile_matvec_plain(uvals, ubidx, x64.float()), RTOL_F32)
-    compare("random pack, f64 vector",
+    compare("tile_matvec, random pack, f64 vector",
             tile_matvec(uvals, ubidx, x64), tile_matvec_plain(uvals, ubidx, x64), RTOL_F64)
+    bvals, bidx, x64, (wmin, wmax) = random_row_blocks(device)
+    print(f"  random row blocks: {tuple(bvals.shape)}, row widths {wmin}..{wmax} of B = {bvals.shape[1]}")
+    compare("blocked_matvec, random row blocks, f32 vector",
+            blocked_matvec(bvals, bidx, x64.float()), blocked_matvec_plain(bvals, bidx, x64.float()), RTOL_F32)
+    compare("blocked_matvec, random row blocks, f64 vector",
+            blocked_matvec(bvals, bidx, x64), blocked_matvec_plain(bvals, bidx, x64), RTOL_F64)
     torch.cuda.synchronize()
-    del uvals, ubidx, x64
+    del uvals, ubidx, bvals, bidx, x64
 
     work = tempfile.mkdtemp(prefix="tomofastx_smoke_")
     try:
-        # ---- 3. the main path, through the command-line entry point ----
-        out_dir = os.path.join(work, "out")
+        # ---- 3. the main paths, through the command-line entry point ----
         t0 = time.time()
-        parfile = write_problem(work, NX, NY, NZ, 64, out_dir, N_MINOR)
-        fixture_s = time.time() - t0
-        print(f"main path: {NDATA} observations x {NX * NY * NZ} cells, Haar rate 0.15, "
-              f"{N_MAJOR} majors x {N_MINOR} minors, f32 solve on cuda (inputs written in {fixture_s:.1f} s)")
-        torch.cuda.reset_peak_memory_stats()
-        tee = Tee(sys.stdout)
-        tmv.tile_matvec.launches = 0
-        t0 = time.time()
-        with contextlib.redirect_stdout(tee):
-            rc = cli.main(["-p", parfile, "--device", "cuda"])
-        torch.cuda.synchronize()
-        main_s = time.time() - t0
-        launches = tmv.tile_matvec.launches
-        if rc != 0:
-            raise SystemExit(f"FAILED main path: cli.main returned {rc}")
-        log = tee.kept.getvalue()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-        iters = [int(v) for v in re.findall(r"lsqr iters = (\d+)", log)]
-        build_m = re.search(r"kernel built\+cached in ([0-9.]+)s", log)
-        pack_m = re.search(r"cache packed into tiles in ([0-9.]+)s", log)
-        solve_s = [float(v) for v in re.findall(r"iter done in ([0-9.]+)s", log)]
-        if len(iters) != N_MAJOR or not build_m or not pack_m:
-            raise SystemExit("FAILED main path: the log lacks the lines of the build, the pack or the majors")
+        inputs = write_inputs(work, NX, NY, NZ, 64)
+        print(f"inputs written in {time.time() - t0:.1f} s")
+        out = {fmt: os.path.join(work, f"out_{fmt}") for fmt in ("tiled", "dense", "packed")}
+        parfile = write_parfile(work, "Parfile_tiled.txt", inputs, out["tiled"], N_MINOR, fmt="tiled")
+        tiled = run_main_path(cli, counters, "tiled", parfile, out["tiled"], {
+            "build_s": r"kernel built\+cached in ([0-9.]+)s",
+            "pack_s": r"cache packed into tiles in ([0-9.]+)s",
+            "format": r"grav kernel: tiled"})
         # Each solve calls rmatvec once before the loop and matvec + rmatvec in
         # every iteration; outside the solves the forward d = S m runs for the
         # synthetic, prior and starting models and after every major.
-        expected = sum(2 * it + 1 for it in iters) + 3 + N_MAJOR
-        print(f"  main path took {main_s:.1f} s: build {build_m.group(1)} s, pack {pack_m.group(1)} s, "
-              f"majors {solve_s} s; peak device memory {peak_gb:.2f} GB")
-        print(f"  LSQR iterations = {iters}, tile_matvec.launches = {launches} "
-              f"(expected {expected} = sum of 2 x iterations + 1 per solve, + {3 + N_MAJOR} forward products)")
-        if launches != expected or launches == 0:
-            raise SystemExit("FAILED main path: launch count")
-        if iters != [N_MINOR] * N_MAJOR:
-            raise SystemExit(f"FAILED main path: LSQR iterations {iters}")
+        products = sum(2 * it + 1 for it in tiled["lsqr_iterations"]) + 3 + N_MAJOR
+        print(f"  tile_matvec.launches = {tiled['launches']['tile_matvec']} (expected {products} = sum of "
+              f"2 x iterations + 1 per solve, + {3 + N_MAJOR} forward products)")
+        if tiled["launches"] != {"tile_matvec": products, "blocked_matvec": 0}:
+            raise SystemExit("FAILED tiled main path: launch count")
 
-        # ---- 4. outputs ----
-        costs = read_costs(os.path.join(out_dir, "costs.txt"))
-        data_cost = [row[1] for row in costs]
-        print(f"  data cost per major = {data_cost}")
-        if len(costs) != N_MAJOR + 1 or not all(np.isfinite(v) for row in costs for v in row):
-            raise SystemExit("FAILED outputs: costs.txt")
-        if not all(b < a for a, b in zip(data_cost[:-1], data_cost[1:])):
-            raise SystemExit("FAILED outputs: the data cost does not fall")
-        for f in ("Parfile_run.txt", "model/grav_final_model_full.txt", "data/grav_final.txt",
-                  "data/grav_observed.txt", "Paraview/grav_final_model3D_full.vtk",
-                  "Paraview/data_grav_final.vtk", "SENSIT/sensit_grav_1_0", "SENSIT/sensit_grav_meta.txt"):
-            if not os.path.getsize(os.path.join(out_dir, f)) > 0:
-                raise SystemExit(f"FAILED outputs: {f}")
-        model = model_io.read_model_values(os.path.join(out_dir, "model/grav_final_model_full.txt"), NX * NY * NZ)
-        if model.shape != (1, NX * NY * NZ) or not np.isfinite(model).all() or not np.abs(model).max() > 1.0:
-            raise SystemExit("FAILED outputs: final model")
-        print(f"  final model {model.shape}: min {model.min():.3f}, max {model.max():.3f} -> ok")
+        # The Parfile with no tpu.kernelFormat line, built from scratch: the
+        # device-accumulating build and write_kernel_cache run.
+        dense_parfile = write_parfile(work, "Parfile_dense.txt", inputs, out["dense"], N_MINOR, fmt=None)
+        dense = run_main_path(cli, counters, "dense (default)", dense_parfile, out["dense"], {
+            "predicted": r"predicted kernel size = ([0-9.]+) GB \(float32\)",
+            "build_s": r"kernel built in ([0-9.]+)s",
+            "compression_rate": r"COMPRESSION RATE = ([0-9.]+)",
+            "cache_write_s": r"kernel cached in ([0-9.]+)s",
+            "format": r"grav kernel: dense \(4096, 262144\) torch\.float32"})
+        # The packed format from the dense run's cache: read_kernel_cache_packed at full width.
+        packed_parfile = write_parfile(
+            work, "Parfile_packed.txt", inputs, out["packed"], N_MINOR, fmt="packed",
+            extra=["sensit.readFromFiles = 1", f"sensit.folderPath = {out['dense']}/SENSIT/"])
+        packed = run_main_path(cli, counters, "packed", packed_parfile, out["packed"], {
+            "pack_s": r"cache packed into the packed layout in ([0-9.]+)s",
+            "format": r"grav kernel: packed"}, sensit_written=False)
+        for run in (dense, packed):
+            if any(run["launches"].values()):
+                raise SystemExit("FAILED: a dense or packed run launched a kernel of another format")
 
-        # A small problem on the card (float64 solve, so the kernel's float64
-        # variant carries it) against the same problem on the CPU.
-        small = os.path.join(work, "small")
-        os.makedirs(small)
-        res = {}
-        for dev in ("cpu", "cuda"):
-            pf = write_problem(small, 16, 16, 8, 8, os.path.join(small, f"out_{dev}"), 10)
-            res[dev] = solve_problem_joint_gravmag(
-                read_parfile(pf), solve_dtype=torch.float64, verbose=False, device=dev
-            )
-        a, b = res["cpu"].models[0].val, res["cuda"].models[0].val
-        rel = float(np.abs(a - b).max() / (a.max() - a.min()))
-        print(f"  small problem (16x16x8 cells, 64 observations, f64 solve), card against CPU: "
-              f"final model differs by {rel:.3e} of its range, data cost {res['cuda'].cost_data[0]:.6e} "
-              f"against {res['cpu'].cost_data[0]:.6e} (tolerance 1e-6)")
-        if not rel <= 1e-6 or not abs(res["cuda"].cost_data[0] - res["cpu"].cost_data[0]) <= 1e-6:
-            raise SystemExit("FAILED small problem: card against CPU")
+        # ---- 4. the three formats against each other; small problems against the CPU ----
+        print("the three formats against each other:")
+        ref = tiled["model"]
+        spread = {}
+        for name, run in (("dense", dense), ("packed", packed)):
+            dm = float(np.abs(run["model"] - ref).max() / (ref.max() - ref.min()))
+            dc = abs(run["data_cost"][-1] - tiled["data_cost"][-1]) / tiled["data_cost"][-1]
+            spread[name] = {"model_of_range": dm, "data_cost_rel": dc}
+            print(f"  {name} against tiled: final model differs by {dm:.3e} of its range (tolerance "
+                  f"{FORMATS_MODEL_TOL:g}), final data cost {run['data_cost'][-1]:.9e} against "
+                  f"{tiled['data_cost'][-1]:.9e}, relative {dc:.3e} (tolerance {FORMATS_COST_RTOL:g})")
+            if not dm <= FORMATS_MODEL_TOL or not dc <= FORMATS_COST_RTOL:
+                raise SystemExit(f"FAILED formats: {name} against tiled")
+        small_rel = {
+            "tiled": small_problem_card_against_cpu(work, "small_tiled", "tiled, Haar rate 0.15", fmt="tiled"),
+            "dense_uncompressed": small_problem_card_against_cpu(
+                work, "small_dense", "dense, uncompressed", fmt=None, compression=0),
+        }
 
-        # ---- 5. the full-width packs ----
+        # ---- 5. the full-width tile packs ----
         print("full-width packs:")
         cfg = read_parfile(parfile)
         grid = model_io.read_model_grid(cfg.grav.model_grid_file, NX, NY, NZ)
         t0 = time.time()
-        tk, meta = tile_kernel_from_cache(os.path.join(out_dir, "SENSIT"), cfg.grav, grid, device)
+        tk, meta = tile_kernel_from_cache(os.path.join(out["tiled"], "SENSIT"), cfg.grav, grid, device)
         torch.cuda.synchronize()
         print(f"  cache packed again in {time.time() - t0:.1f} s (nnz = {meta['nnz']:,}, "
               f"{meta['nnz'] / (tk.nrows * tk.ncols):.4f} of the dense matrix)")
         fwd = measure_pack(tile_matvec, tile_matvec_plain, "forward", tk.uvals, tk.ubidx, tk.ncols, 1)
         adj = measure_pack(tile_matvec, tile_matvec_plain, "adjoint", tk.uvalsT, tk.ubidxT, tk.nrows, 2)
-        del tk
+
+        # ---- 6. blocked_matvec on row-block layouts of the dense matrix ----
+        print("full-width row-block layouts:")
+        t0 = time.time()
+        S = try_read_kernel_cache(os.path.join(out["dense"], "SENSIT"), cfg.grav, grid, device).S
+        torch.cuda.synchronize()
+        print(f"  cache read into the dense {tuple(S.shape)} matrix in {time.time() - t0:.1f} s")
+        x64 = seeded_vector(S.shape[1], 4, device)
+        bvals, bidx, wmin = row_blocks_all_used(S)
+        print(f"  every used block: {tuple(bvals.shape)}, rows use {wmin}..{bvals.shape[1]} of "
+              f"{S.shape[1] // 128} blocks")
+        bmv.check_block_ids(bidx, S.shape[1])
+        used = measure_layout(blocked_matvec, blocked_matvec_plain, "row blocks, every used block",
+                              bvals, bidx, S.shape[0], x64, S)
+        tvals, tidx, kept = row_blocks_top_energy(S, TOP_BLOCKS)
+        print(f"  {TOP_BLOCKS} blocks of largest energy per row: {tuple(tvals.shape)}, "
+              f"{kept:.6f} of the matrix's energy")
+        bmv.check_block_ids(tidx, S.shape[1])
+        top = measure_layout(blocked_matvec, blocked_matvec_plain, f"row blocks, top {TOP_BLOCKS}",
+                             tvals, tidx, S.shape[0], x64, None)
+        del tvals, tidx
+
+        # The path that runs blocked_matvec: the port's forward-data and LSQR
+        # entry points with the row-block layout as the forward operator, held
+        # against the same calls on the dense kernel. The matrix is the cache's
+        # (no row weights), so the weights handed over are ones.
+        print("row-block path (calculate_data and lsqr_solve over blocked_matvec):")
+        cw = np.fromfile(os.path.join(out["dense"], "SENSIT", "sensit_grav_weight"), np.float64, offset=4)
+        ones = np.ones((NDATA, 1))
+        rows, dk = RowBlocks(blocked_matvec, bvals, bidx), DenseKernel(S)
+        blocked_matvec.launches = 0
+        data = {
+            name: sens.calculate_data(op, dense["model"], cw, 1.0, ones, 1, NX, NY, NZ,
+                                      solve_dtype=torch.float32, device=device)
+            for name, op in (("blocked", rows), ("dense", dk))
+        }
+        b = torch.as_tensor(data["dense"].reshape(-1), dtype=torch.float32, device=device)
+        sol = {
+            name: lsqr_solve(op.matvec, dk.rmatvec, b, S.shape[1], niter=N_MINOR, rmin=1e-13)
+            for name, op in (("blocked", rows), ("dense", dk))
+        }
+        torch.cuda.synchronize()
+        blocked_launches = blocked_matvec.launches
+        compare("forward data of the dense run's final model, row blocks against dense kernel",
+                torch.as_tensor(data["blocked"]), torch.as_tensor(data["dense"]), RTOL_F32_FORWARD)
+        compare(f"LSQR solution after {sol['blocked'].iters} iterations, row blocks against dense kernel",
+                sol["blocked"].x, sol["dense"].x, RTOL_F32_LSQR)
+        print(f"  blocked_matvec.launches = {blocked_launches} (expected {1 + sol['blocked'].iters} = 1 forward "
+              f"product + 1 per LSQR iteration); relative residual {float(sol['blocked'].r):.6e} against "
+              f"{float(sol['dense'].r):.6e} over the dense kernel")
+        if blocked_launches != 1 + sol["blocked"].iters or sol["blocked"].iters != N_MINOR:
+            raise SystemExit("FAILED row-block path: launch count")
+        del bvals, bidx, rows
+
+        # ---- 7. the three operators at full width ----
+        print("operators at full width (ms by CUDA events, f32 vectors, median of 20):")
+        pk, _ = read_kernel_cache_packed(os.path.join(out["dense"], "SENSIT"), cfg.grav, grid, device=device)
+        xs, us = x64[: S.shape[1]].float(), seeded_vector(S.shape[0], 5, device)[: S.shape[0]].float()
+        operators = {}
+        y_ref, g_ref = dk.matvec(xs), dk.rmatvec(us)
+        for name, op in (("tiled", tk), ("dense", dk), ("packed", pk)):
+            compare(f"{name} matvec against the dense product", op.matvec(xs), y_ref, RTOL_F32)
+            compare(f"{name} rmatvec against the dense product", op.rmatvec(us), g_ref, RTOL_F32)
+            operators[name] = {
+                "matvec_ms": time_cuda(lambda: op.matvec(xs)), "rmatvec_ms": time_cuda(lambda: op.rmatvec(us)),
+                "bytes": op.nbytes,
+            }
+        print("  | operator | matvec ms | rmatvec ms | both ms | GB on the card |")
+        for name, o in operators.items():
+            print(f"  | {name} | {o['matvec_ms']:.3f} | {o['rmatvec_ms']:.3f} | "
+                  f"{o['matvec_ms'] + o['rmatvec_ms']:.3f} | {o['bytes'] / 1e9:.3f} |")
+        print(f"  packed: rows {tuple(pk.row_vals.shape)}, heavy columns {tuple(pk.dense_block.shape)}, "
+              f"light columns {tuple(pk.light_vals.shape)}")
+        del tk, S, dk, pk
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     total_s = time.time() - t_all
     print(f"total {total_s:.1f} s")
-    kernel = {
-        "name": "tile_matvec", "route": "cuda",
-        "source": "tomofastx_tpu_torch/csrc/tile_matvec.cu",
-        "replaces": "tomofastx_tpu/ops/pallas_kernels.py:178",
-        "launches": launches,
-        "max_abs_err": max(fwd["max_abs_err"], adj["max_abs_err"]),
-        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
-        "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
-        "shape_of_these_times": "forward pack, f32 vector",
-        "forward": fwd, "adjoint": adj,
-        "lsqr_iterations": iters, "observations": NDATA, "cells": NX * NY * NZ,
-        "main_path_s": main_s, "build_s": float(build_m.group(1)), "pack_s": float(pack_m.group(1)),
-        "major_s": solve_s, "peak_device_GB": peak_gb, "kernel_build_s": build_s, "total_s": total_s,
+
+    def report(run):
+        return {k: v for k, v in run.items() if k != "model"}
+
+    kernels = [
+        {
+            "name": "tile_matvec", "route": "cuda",
+            "source": "tomofastx_tpu_torch/csrc/tile_matvec.cu",
+            "replaces": "tomofastx_tpu/ops/pallas_kernels.py:178",
+            "launches": tiled["launches"]["tile_matvec"],
+            "max_abs_err": max(fwd["max_abs_err"], adj["max_abs_err"]),
+            "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
+            "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+            "shape_of_these_times": "forward pack, f32 vector",
+            "forward": fwd, "adjoint": adj,
+        },
+        {
+            "name": "blocked_matvec", "route": "cuda",
+            "source": "tomofastx_tpu_torch/csrc/blocked_matvec.cu",
+            "replaces": "tomofastx_tpu/ops/pallas_kernels.py:82",
+            "launches": blocked_launches,
+            "max_abs_err": max(used["max_abs_err"], top["max_abs_err"]),
+            "ms": used["ms"], "plain_ms": used["plain_ms"], "bound_ms": used["bound_ms"],
+            "bound_by": used["bound_by"], "library_ms": used["library_ms"],
+            "shape_of_these_times": "every used block of each row, f32 vector",
+            "every_used_block": used, f"top_{TOP_BLOCKS}_blocks": top,
+        },
+    ]
+    print(json.dumps({
+        "main_paths": {"tiled": report(tiled), "dense": report(dense), "packed": report(packed)},
+        "formats_against_tiled": spread, "small_problems_card_against_cpu": small_rel,
+        "operators": operators, "observations": NDATA, "cells": NX * NY * NZ,
+        "kernel_build_s": build_s, "total_s": total_s,
         "memory_bytes_per_s_assumed": MEMORY_BYTES_PER_S, "fp32_flop_per_s_assumed": FP32_FLOP_PER_S,
-    }
+    }))
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

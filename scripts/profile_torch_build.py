@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's kernel build and tile packing spend their time.
+"""Where the PyTorch port's kernel build, cache files and packing spend their time.
 
     python3 scripts/profile_torch_build.py [--rows 1024] [--device cuda]
 
@@ -11,7 +11,9 @@ with wall seconds, each taken after a device synchronise:
   time between sink calls (row physics, wavelet, threshold on the device, and
   the copy of the chunk to the host);
 - pack: reading the cache's records on the host alone, against the whole of
-  tile_kernel_from_cache (read + copy to the device + scan + scatter).
+  tile_kernel_from_cache (read + copy to the device + scan + scatter);
+- the dense format's pieces on the same rows: the build that accumulates on the
+  device, write_kernel_cache, try_read_kernel_cache, read_kernel_cache_packed.
 """
 
 from __future__ import annotations
@@ -41,7 +43,14 @@ def main() -> int:
     import chip_smoke
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.io import data_io, model_io
-    from tomofastx_tpu_torch.io.sensit_cache import SensitStreamWriter, iter_cache_rows, read_cache_meta
+    from tomofastx_tpu_torch.io.sensit_cache import (
+        SensitStreamWriter,
+        iter_cache_rows,
+        read_cache_meta,
+        read_kernel_cache_packed,
+        try_read_kernel_cache,
+        write_kernel_cache,
+    )
     from tomofastx_tpu_torch.ops import sensitivity as sens
     from tomofastx_tpu_torch.ops.tile_kernel import tile_kernel_from_cache
 
@@ -53,7 +62,8 @@ def main() -> int:
 
     work = tempfile.mkdtemp(prefix="tomofastx_profile_")
     try:
-        parfile = chip_smoke.write_problem(work, 64, 64, 64, 64, os.path.join(work, "out"), 20)
+        inputs = chip_smoke.write_inputs(work, 64, 64, 64, 64)
+        parfile = chip_smoke.write_parfile(work, "Parfile.txt", inputs, os.path.join(work, "out"), 20)
         cfg = read_parfile(parfile)
         par = cfg.grav
         t0 = time.time()
@@ -96,6 +106,19 @@ def main() -> int:
         sync()
         pack_s = time.time() - t0
 
+        def timed(fn):
+            t = time.time()
+            out = fn()
+            sync()
+            return out, time.time() - t
+
+        dense, dense_build_s = timed(lambda: sens.compute_sensitivity(par, grid, data, cw, device=device))
+        cache2 = os.path.join(work, "SENSIT_dense")
+        _, cache_write_s = timed(lambda: write_kernel_cache(cache2, par, dense, cw))
+        del dense
+        _, dense_read_s = timed(lambda: try_read_kernel_cache(cache2, par, grid, device))
+        (pk, _), packed_read_s = timed(lambda: read_kernel_cache_packed(cache2, par, grid, device=device))
+
         smi = ""
         if device.type == "cuda":
             smi = subprocess.run(
@@ -110,6 +133,9 @@ def main() -> int:
             "build_rows_per_s": args.rows / build_s,
             "pack_s": pack_s, "pack_read_cache_once_s": read_cache_s,
             "pack_shapes": [list(tk.uvals.shape), list(tk.uvalsT.shape)],
+            "dense_build_s": dense_build_s, "dense_cache_write_s": cache_write_s,
+            "dense_cache_read_s": dense_read_s, "packed_cache_read_s": packed_read_s,
+            "packed_shapes": [list(pk.row_vals.shape), list(pk.dense_block.shape), list(pk.light_vals.shape)],
         }))
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -361,12 +361,14 @@ def test_tile_kernel_from_cache_small_flush_and_missing(tmp_path, monkeypatch):
 def test_compute_sensitivity_refuses_unported_paths():
     g, (X, Y, Z), kw, cw = _problem(4, 4, 2, 3, 1, 0.2, 11)
     par, grid, data = TGravParams(**kw), TGrid(**g), TSurveyData(ndata=3, X=X, Y=Y, Z=Z)
-    with pytest.raises(NotImplementedError):
-        tsens.compute_sensitivity(par, grid, data, cw)  # no row_sink
     from tomofastx_tpu_torch.config.parfile import MagParams
 
     with pytest.raises(NotImplementedError):
         tsens.compute_sensitivity(MagParams(**kw), grid, data, cw, row_sink=lambda c, s: None)
+    with pytest.raises(NotImplementedError):
+        tsens.compute_sensitivity(MagParams(**kw), grid, data, cw)  # the dense build too
+    # Without a row_sink a gravity kernel is accumulated densely (tests/test_torch_formats.py).
+    assert tsens.compute_sensitivity(par, grid, data, cw).S.shape == (3, 32)
 
 
 def test_observation_on_a_cell_edge_is_reported():

@@ -1,7 +1,8 @@
-"""The ported slice as a whole: one synthetic gravity Parfile (lattice grid,
-wavelet compression, damping, 3-lithology ADMM, tiled kernel format, 3
-majors) through solve_problem_joint_gravmag of both packages on the CPU in
-float64; the port's CLI in a subprocess; and the port's import hygiene."""
+"""The ported slices as a whole: one synthetic gravity Parfile (lattice grid,
+damping, 3-lithology ADMM, 3 majors) with each stored-kernel format (tiled,
+dense, packed, auto; wavelet-compressed and not) through
+solve_problem_joint_gravmag of both packages on the CPU in float64; the
+port's CLI in a subprocess; and the port's import hygiene."""
 
 import os
 import re
@@ -21,9 +22,11 @@ from util_fixtures import surface_data_points, write_data_grid_file, write_grid_
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _write_problem(tmp, nx, ny, nz, ndata, wtype=1, rate=0.15, depth_type=2, rho_mult=1.0, niter=20):
+def _write_problem(tmp, nx, ny, nz, ndata, wtype=1, rate=0.15, depth_type=2, rho_mult=1.0, niter=20,
+                   fmt="tiled"):
     """Grid, data positions and a synthetic block model under tmp; returns a
-    function giving the Parfile lines for an output folder."""
+    function giving the Parfile lines for an output folder. fmt = None
+    leaves the tpu.kernelFormat line out (the default format, dense)."""
     grid_path, data_path, synth_path = (os.path.join(tmp, f) for f in ("grid.txt", "data.txt", "synth.txt"))
     # Cells longer in x than in y: on square cells an observation above the
     # grid's diagonal sees equal coefficients in mirrored pairs, and which of
@@ -60,8 +63,7 @@ inversion.admm.grav.bounds = -10 10 90 110 240 260
 inversion.admm.grav.weight = 1.e-6
 inversion.admm.weightMultiplier = {rho_mult}
 inversion.admm.dataCostThreshold = 1.0
-tpu.kernelFormat = tiled
-""".splitlines()
+""".splitlines() + ([f"tpu.kernelFormat = {fmt}"] if fmt else [])
 
     return lines
 
@@ -91,14 +93,14 @@ CASES = pytest.mark.parametrize(
 )
 
 
-def _run_both(tmp_path, dims, ndata, wtype, depth_type, rho_mult, niter, share_cache):
+def _run_both(tmp_path, dims, ndata, wtype, depth_type, rho_mult, niter, share_cache, fmt="tiled"):
     import torch
 
     from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
 
     lines = _write_problem(
-        str(tmp_path), *dims, ndata, wtype=wtype, depth_type=depth_type, rho_mult=rho_mult, niter=niter
+        str(tmp_path), *dims, ndata, wtype=wtype, depth_type=depth_type, rho_mult=rho_mult, niter=niter, fmt=fmt
     )
     jout, tout = str(tmp_path / "jax_out"), str(tmp_path / "torch_out")
     rj = jsolve(jparse(lines(jout)), solve_dtype=jnp.float64, compute_dtype=jnp.float64, verbose=False)
@@ -156,6 +158,99 @@ def test_slice_from_scratch_matches_jax(tmp_path, dims, ndata, wtype, depth_type
         assert a.read() == b.read()
 
 
+# What each Parfile asks for and the operator the port has to end up with.
+FORMATS = pytest.mark.parametrize(
+    "fmt,wtype,operator",
+    [
+        ("dense", 1, "DenseKernel"), (None, 1, "DenseKernel"), ("dense", 0, "DenseKernel"),
+        ("packed", 1, "PackedKernel"), ("auto", 1, "PackedKernel"), ("auto", 0, "DenseKernel"),
+        ("packed", 0, "DenseKernel"), ("tiled", 0, "DenseKernel"), ("dense", 2, "DenseKernel"),
+    ],
+    ids=["dense-haar", "default-haar", "dense-uncompressed", "packed-haar", "auto-compressed", "auto-uncompressed",
+         "packed-uncompressed-is-dense", "tiled-uncompressed-is-dense", "dense-d4"],
+)
+
+
+@FORMATS
+def test_format_matches_jax(tmp_path, monkeypatch, fmt, wtype, operator):
+    """Every stored-kernel format, compressed and not: both packages solve
+    from the cache the JAX run wrote (sensit.readFromFiles = 1 in the port).
+    Every costs.txt column rtol 1e-8, final model to 1e-8 of its range, final
+    data rtol 1e-8, LSQR iterations equal, same output files."""
+    from tomofastx_tpu_torch.inversion import workflow as twf
+
+    made, orig = [], twf._kernel_operator
+    monkeypatch.setattr(twf, "_kernel_operator", lambda ctx, device: made.append(orig(ctx, device)) or made[-1])
+    rj, rt, jout, tout = _run_both(tmp_path, (12, 8, 4), 24, wtype, 2, 1.0, 8, share_cache=True, fmt=fmt)
+    assert type(made[-1]).__name__ == operator
+    _compare(rj, rt, jout, tout, 1.0, 8, dict(rtol=1e-8, atol=1e-300), 1e-8)
+    np.testing.assert_allclose(rt.data[0].val_calc, rj.data[0].val_calc, rtol=1e-8)
+    assert _tree(tout) == [f for f in _tree(jout) if not f.startswith("SENSIT")]
+
+
+@pytest.mark.parametrize("wtype", [1, 0], ids=["haar", "uncompressed"])
+def test_dense_from_scratch_matches_jax(tmp_path, wtype):
+    """Each package builds its own dense kernel and writes its own cache
+    (tolerances as in test_slice_from_scratch_matches_jax); same output
+    files, SENSIT included, the nnz histogram byte-equal."""
+    rj, rt, jout, tout = _run_both(tmp_path, (12, 8, 4), 24, wtype, 2, 1.0, 8, share_cache=False, fmt=None)
+    _compare(rj, rt, jout, tout, 1.0, 8, dict(rtol=1e-6, atol=1e-8), 1e-6)
+    assert _tree(tout) == _tree(jout)
+    with open(os.path.join(jout, "SENSIT/sensit_grav_nnz"), "rb") as a, \
+            open(os.path.join(tout, "SENSIT/sensit_grav_nnz"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_formats_agree_inside_the_port(tmp_path):
+    """tiled, dense and packed from scratch hold the same matrix: the dense
+    run's cache files (written from the finished kernel) are byte-equal to
+    the streamed ones, costs agree to rtol 1e-9 and models to 1e-9 of the
+    range (float64 sums in three different orders)."""
+    import torch
+
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
+
+    res = {}
+    for fmt in ("tiled", "dense", "packed"):
+        lines = _write_problem(str(tmp_path), 12, 8, 4, 24, niter=8, fmt=fmt)
+        res[fmt] = tsolve(tparse(lines(str(tmp_path / fmt))), solve_dtype=torch.float64, verbose=False, device="cpu")
+    ref = res["tiled"].models[0].val
+    for fmt in ("dense", "packed"):
+        np.testing.assert_allclose(res[fmt].cost_data, res["tiled"].cost_data, rtol=1e-9)
+        np.testing.assert_allclose(res[fmt].models[0].val, ref, rtol=0, atol=1e-9 * (ref.max() - ref.min()))
+        for f in ("sensit_grav_1_0", "sensit_grav_meta.txt", "sensit_grav_nnz", "sensit_grav_weight"):
+            with open(tmp_path / "tiled" / "SENSIT" / f, "rb") as a, open(tmp_path / fmt / "SENSIT" / f, "rb") as b:
+                assert a.read() == b.read(), (fmt, f)
+
+
+def test_dense_run_without_cache_write(tmp_path):
+    """tpu.sensitWriteCache = 0 keeps the dense kernel off the disk."""
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
+
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16, niter=6, fmt="dense")
+    r = tsolve(tparse(lines(str(tmp_path / "a")) + ["tpu.sensitWriteCache = 0"]), verbose=False, device="cpu")
+    assert not (tmp_path / "a" / "SENSIT").exists()
+    assert "cache_write_s" not in r.timings and r.costs_history[-1]["cost_data"][0] < 1.0
+
+
+def test_auto_refuses_an_uncompressed_kernel_too_large_for_the_device(tmp_path, monkeypatch):
+    """Uncompressed auto: a dense kernel above 55 % of the device's memory
+    is where the JAX package turns matrix-free; the port says so and stops."""
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
+    from tomofastx_tpu_torch.inversion import workflow as twf
+
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16, wtype=0, fmt="auto")
+    dense_bytes = 16 * 256 * 4
+    assert twf._device_memory_bytes(__import__("torch").device("cpu")) > dense_bytes
+    monkeypatch.setattr(twf, "_device_memory_bytes", lambda device: int(dense_bytes / 0.56))
+    with pytest.raises(NotImplementedError, match="matrix-free"):
+        twf.solve_problem_joint_gravmag(tparse(lines(str(tmp_path / "a"))), verbose=False, device="cpu")
+    monkeypatch.setattr(twf, "_device_memory_bytes", lambda device: int(dense_bytes / 0.54))
+    twf.solve_problem_joint_gravmag(tparse(lines(str(tmp_path / "b"))), verbose=False, device="cpu")
+
+
 def test_float32_solve_on_cpu_close_to_float64(tmp_path):
     """The solve dtype the card uses, on the CPU: data cost within 1% of the
     float64 run's (float32 LSQR over 60 iterations in all)."""
@@ -171,14 +266,16 @@ def test_float32_solve_on_cpu_close_to_float64(tmp_path):
     assert r32.models[0].val.dtype == np.float64
 
 
-def test_sensit_cache_reread(tmp_path):
-    """sensit.readFromFiles = 1 packs the cache a first run wrote: same result."""
+@pytest.mark.parametrize("fmt", ["tiled", "dense", "packed", "auto"])
+def test_sensit_cache_reread(tmp_path, fmt):
+    """sensit.readFromFiles = 1 takes the cache a first run wrote, in every
+    format: same result."""
     import torch
 
     from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
 
-    lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16, fmt=fmt)
     first = tsolve(tparse(lines(str(tmp_path / "a"))), verbose=False, device="cpu")
     again = lines(str(tmp_path / "b")) + [
         "sensit.readFromFiles = 1", f"sensit.folderPath = {tmp_path}/a/SENSIT/",
@@ -203,7 +300,8 @@ def test_stop_file_ends_the_loop(tmp_path):
 @pytest.mark.parametrize(
     "extra",
     [
-        "tpu.kernelFormat = dense", "forward.matrixCompression.type = 0", "inversion.dampingGradient.grav.weight = 1.0",
+        "tpu.kernelFormat = matrixfree", "sensit.readFromFiles = 2", "inversion.dampingGradient.grav.weight = 1.0",
+        "tpu.f64BuildF32Compress = 1",
         "inversion.joint.magn.problemWeight = 1.0", "tpu.kernelStoreDtype = bfloat16", "tpu.refineForward = 1",
         "inversion.crossGradient.weight = 1.0", "inversion.clustering.grav.weight = 1.0",
     ],
@@ -236,10 +334,25 @@ def test_cli_runs_on_cpu_in_a_subprocess(tmp_path):
     assert q.returncode == 0 and "lsqr iters" not in q.stdout
 
 
+def test_cli_runs_a_parfile_without_a_kernel_format_line(tmp_path):
+    """The default Parfile (no tpu.kernelFormat line) means dense, and runs."""
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16, niter=6, fmt=None)
+    par = tmp_path / "Parfile.txt"
+    par.write_text("\n".join(lines(str(tmp_path / "out"))))
+    assert "kernelFormat" not in par.read_text()
+    p = _run(["-m", "tomofastx_tpu_torch", "-p", str(par), "--device", "cpu"], str(tmp_path))
+    assert p.returncode == 0, p.stderr
+    for said in ("kernel_format = dense", "predicted kernel size", "COMPRESSION RATE = 0.1", "kernel cached in",
+                 "grav kernel: dense (16, 256) torch.float64", "lsqr iters = 6", "THE END."):
+        assert said in p.stdout, said
+    for f in ("costs.txt", "model/grav_final_model_full.txt", "SENSIT/sensit_grav_1_0", "SENSIT/sensit_grav_nnz"):
+        assert (tmp_path / "out" / f).exists(), f
+
+
 def test_cli_fails_cleanly(tmp_path):
     lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
     par = tmp_path / "Parfile.txt"
-    par.write_text("\n".join(lines(str(tmp_path / "out")) + ["tpu.kernelFormat = packed"]))
+    par.write_text("\n".join(lines(str(tmp_path / "out")) + ["tpu.kernelFormat = matrixfree"]))
     p = _run(["-m", "tomofastx_tpu_torch", "-p", str(par), "--device", "cpu", "-q"], str(tmp_path))
     assert p.returncode == 1 and "not ported" in p.stderr
     p = _run(["-m", "tomofastx_tpu_torch", "-p", str(tmp_path / "nothing.txt"), "--device", "cpu"], str(tmp_path))
@@ -267,7 +380,9 @@ def _port_sources():
 def test_port_sources_found():
     names = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {"chip_smoke.py", "tomofastx_tpu_torch/ops/tile_matvec.py", "tomofastx_tpu_torch/csrc/tile_matvec.cu",
-            "tomofastx_tpu_torch/inversion/workflow.py", "tomofastx_tpu_torch/cli.py"} <= names
+            "tomofastx_tpu_torch/inversion/workflow.py", "tomofastx_tpu_torch/cli.py",
+            "tomofastx_tpu_torch/ops/blocked_matvec.py", "tomofastx_tpu_torch/csrc/blocked_matvec.cu",
+            "tomofastx_tpu_torch/ops/sparse_kernel.py", "tomofastx_tpu_torch/ops/_cuda_build.py"} <= names
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, REPO) for p in _port_sources()])
@@ -279,7 +394,9 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package(path):
 
 
 @pytest.mark.parametrize("module", ["tomofastx_tpu_torch", "tomofastx_tpu_torch.cli", "tomofastx_tpu_torch.inversion.workflow",
-                                    "tomofastx_tpu_torch.ops.tile_matvec", "tomofastx_tpu_torch.convert", "chip_smoke"])
+                                    "tomofastx_tpu_torch.ops.tile_matvec", "tomofastx_tpu_torch.convert", "chip_smoke",
+                                    "tomofastx_tpu_torch.ops.blocked_matvec", "tomofastx_tpu_torch.ops.sparse_kernel",
+                                    "tomofastx_tpu_torch.io.sensit_cache"])
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package(module):
     code = (
         f"import sys; import {module}; "

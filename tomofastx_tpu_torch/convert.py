@@ -13,6 +13,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from tomofastx_tpu_torch.ops.sparse_kernel import DenseKernel, PackedKernel
 from tomofastx_tpu_torch.ops.tile_kernel import TileKernel
 
 
@@ -28,6 +29,38 @@ def tile_kernel_from_numpy(uvals, ubidx, uvalsT, ubidxT, nrows: int, ncols: int,
         ubidx=put(ubidx, torch.int32),
         uvalsT=put(uvalsT, torch.float32),
         ubidxT=put(ubidxT, torch.int32),
+        nrows=int(nrows),
+        ncols=int(ncols),
+    )
+
+
+def dense_kernel_from_numpy(S, ST=None, ncols_true=None, nrows_true=None,
+                            dtype=torch.float64, device="cpu") -> DenseKernel:
+    """A dense kernel's matrix (and its optional contiguous transpose) -> a
+    DenseKernel on `device`, in the dtype of the vectors it will meet."""
+
+    def put(a):
+        return None if a is None else torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return DenseKernel(put(S), put(ST), ncols_true, nrows_true)
+
+
+def packed_kernel_from_numpy(row_vals, row_idx, dense_cols, dense_block, light_cols,
+                             light_vals, light_idx, nrows: int, ncols: int,
+                             device="cpu") -> PackedKernel:
+    """The seven arrays of a packed top-k kernel -> a PackedKernel on `device`."""
+
+    def put(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return PackedKernel(
+        row_vals=put(row_vals, torch.float32),
+        row_idx=put(row_idx, torch.int32),
+        dense_cols=put(dense_cols, torch.int32),
+        dense_block=put(dense_block, torch.float32),
+        light_cols=put(light_cols, torch.int32),
+        light_vals=put(light_vals, torch.float32),
+        light_idx=put(light_idx, torch.int32),
         nrows=int(nrows),
         ncols=int(ncols),
     )

@@ -10,10 +10,11 @@ Host-side orchestration is plain Python (it does I/O) on numpy state; the
 numerics of the build, the operator and each major iteration's solve run as
 tensor operations on `device` (inversion/joint.py).
 
-Ported so far: one gravity problem with a wavelet-compressed kernel in the
-tile-union layout (``tpu.kernelFormat = tiled``), damping and ADMM. A Parfile
-that asks for anything else is refused with NotImplementedError before any
-work is done.
+Ported so far: one gravity problem with a stored kernel — dense (the
+default), packed top-k or tile-union (``tpu.kernelFormat = dense | packed |
+tiled | auto``), wavelet-compressed or not — damping and ADMM. A Parfile that
+asks for anything else is refused with NotImplementedError before any work
+is done.
 """
 
 from __future__ import annotations
@@ -29,10 +30,16 @@ import torch
 from tomofastx_tpu_torch.config.parfile import Config, GRAV, MAGN
 from tomofastx_tpu_torch.inversion.joint import SystemSpec, decide_wavelet_domain, make_solver
 from tomofastx_tpu_torch.io import data_io, model_io, vtk
-from tomofastx_tpu_torch.io.sensit_cache import SensitStreamWriter
+from tomofastx_tpu_torch.io.sensit_cache import (
+    SensitStreamWriter,
+    read_kernel_cache_packed,
+    try_read_kernel_cache,
+    write_kernel_cache,
+)
 from tomofastx_tpu_torch.models.data import SurveyData
 from tomofastx_tpu_torch.models.model import ModelState
 from tomofastx_tpu_torch.ops import sensitivity as sens
+from tomofastx_tpu_torch.ops.sparse_kernel import DenseKernel, apply_row_weights_packed
 from tomofastx_tpu_torch.ops.tile_kernel import apply_row_weights_tiled, tile_kernel_from_cache
 from tomofastx_tpu_torch.utils.memory import report as memory_report
 
@@ -48,7 +55,8 @@ class ProblemContext:
     model: ModelState = None
     data: SurveyData = None
     column_weight: np.ndarray = None
-    operator: object = None  # row-weighted sensitivity operator (TileKernel)
+    kernel: object = None  # row-weighted dense SensitKernel (dense format only)
+    operator: object = None  # row-weighted operator (Dense-, Packed- or TileKernel)
     residuals: np.ndarray = None
 
 
@@ -156,11 +164,8 @@ def _refuse_unported(cfg: Config, active):
     par = cfg.grav
     if par.data_type != 1 or par.ndata_components != 1:
         wants.append("gravity gradiometry data")
-    if getattr(par, "kernel_format", "dense") != "tiled" or par.compression_type == 0:
-        wants.append(
-            "a kernel format other than tpu.kernelFormat = tiled with "
-            "forward.matrixCompression.type > 0"
-        )
+    if par.kernel_format == "matrixfree":
+        wants.append("tpu.kernelFormat = matrixfree")
     if par.kernel_store != "float32":
         wants.append("tpu.kernelStoreDtype = bfloat16")
     if par.refine_forward:
@@ -177,6 +182,25 @@ def _refuse_unported(cfg: Config, active):
         wants.append("the clustering constraint")
     if wants:
         raise NotImplementedError("not ported to this package yet: " + "; ".join(wants))
+
+
+def _device_memory_bytes(device) -> int:
+    """Total memory of the device the kernel would live on."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[1]
+    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _kernel_operator(ctx: ProblemContext, device):
+    """Solver-side operator: the packed and tiled operators are built in
+    phase III (ctx.operator); everything else is the dense matrix-vector
+    pair on the stored kernel."""
+    if ctx.operator is not None:
+        return ctx.operator
+    S = ctx.kernel.S
+    # Contiguous transpose for fast adjoint products on the CPU; a CUDA
+    # device reads S as it lies, and a second copy would double its memory.
+    return DenseKernel(S, S.T.contiguous() if device.type == "cpu" else None)
 
 
 def solve_problem_joint_gravmag(
@@ -278,58 +302,155 @@ def solve_problem_joint_gravmag(
         sync()
         timings["depth_weight_s"] = time.time() - t0
 
-        # Capacity mode: the dense (nd, N) array is never materialized.
-        # The build streams row chunks straight to the reference-format cache
-        # (sensitivity_gravmag.F90:306-309) and the cache streams back into
-        # the tile-union block layout (ibid. 723-862 semantics).
-        tk = meta = None
+        fmt = par.kernel_format
+        nrows_tot = par.ndata * par.ndata_components
+        ncols_tot = ctx.model.grid.nelements_total * par.nmodel_components
+        if fmt == "auto" and par.compression_type == 0:
+            # Capacity-aware auto (uncompressed): a dense kernel that cannot
+            # share the device with the solver's working set belongs to the
+            # matrix-free operators, which this package does not hold yet.
+            dense_bytes = nrows_tot * ncols_tot * 4
+            total = _device_memory_bytes(device)
+            if dense_bytes > 0.55 * total:
+                raise NotImplementedError(
+                    f"{PROBLEM_PREFIX[i]} kernel format auto: dense would be "
+                    f"{dense_bytes / 1e9:.1f} GB (> 55% of {total / 1e9:.0f} GB of device memory) "
+                    "-> matrix-free, which is not ported to this package yet"
+                )
+        if fmt == "auto":
+            fmt = "packed" if par.compression_type > 0 else "dense"
+
+        if fmt in ("packed", "tiled") and par.compression_type > 0:
+            # Capacity modes: the dense (nd, N) array is never materialized.
+            # The build streams row chunks straight to the reference-format
+            # cache (sensitivity_gravmag.F90:306-309) and the cache streams
+            # back into the packed top-k layout or the tile-union block
+            # layout (ibid. 723-862 semantics).
+            layout = "tiles" if fmt == "tiled" else "the packed layout"
+
+            def read_capacity(cache_dir):
+                if fmt == "tiled":
+                    return tile_kernel_from_cache(cache_dir, par, ctx.model.grid, device)
+                return read_kernel_cache_packed(cache_dir, par, ctx.model.grid, device=device)
+
+            pk = meta = None
+            if par.sensit_read == 1:
+                t0 = time.time()
+                pk, meta = read_capacity(os.path.join(base_dir, par.sensit_path))
+                if pk is None:
+                    log(f"WARNING: no readable sensitivity cache for {PROBLEM_PREFIX[i]}; recomputing.")
+                else:
+                    sync()
+                    timings["pack_s"] = time.time() - t0
+            if pk is None:
+                log(f"Calculating {PROBLEM_PREFIX[i].upper()} sensitivity kernel (streamed/{fmt})...")
+                # Predicted allocation print before the big build
+                # (reference: sparse_matrix.f90:508-515).
+                kept = int(np.ceil(par.compression_rate * ncols_tot))
+                log(f"  predicted kept entries ~ {nrows_tot * kept:,} "
+                    f"({nrows_tot * kept * 8 / 1024**3:.3f} GB in the cache)")
+                t0 = time.time()
+                writer = SensitStreamWriter(
+                    sensit_dir, par, ctx.model.grid, ctx.column_weight, par.compression_type,
+                )
+                try:
+                    kmeta = sens.compute_sensitivity(
+                        par, ctx.model.grid, ctx.data, ctx.column_weight,
+                        compute_dtype=compute_dtype, store_dtype=torch.float32,
+                        row_sink=writer.write_chunk, device=device,
+                    )
+                finally:
+                    writer.close()
+                writer.finalize(kmeta.comp_error)
+                timings["build_s"] = time.time() - t0
+                log(f"  kernel built+cached in {timings['build_s']:.2f}s "
+                    f"({nrows_tot / max(timings['build_s'], 1e-9):.1f} rows/s); "
+                    f"COMPRESSION ERROR, r = {kmeta.comp_error:.6e}")
+                t0 = time.time()
+                pk, meta = read_capacity(sensit_dir)
+                sync()
+                timings["pack_s"] = time.time() - t0
+            log(f"  cache packed into {layout} in {timings['pack_s']:.2f}s (nnz = {meta['nnz']:,})")
+
+            # Bake in problem weight x data weights (sensitivity_gravmag.F90:836-843).
+            wrow = (ipar.problem_weight[i] * np.asarray(ctx.data.weight)).reshape(-1)
+            if fmt == "tiled":
+                ctx.operator = apply_row_weights_tiled(pk, wrow)
+                shapes = (f"forward {tuple(ctx.operator.uvals.shape)}, "
+                          f"adjoint {tuple(ctx.operator.uvalsT.shape)}; ")
+            else:
+                ctx.operator = apply_row_weights_packed(pk, wrow)
+                shapes = (f"rows {tuple(ctx.operator.row_vals.shape)}, "
+                          f"heavy columns {tuple(ctx.operator.dense_block.shape)}, "
+                          f"light columns {tuple(ctx.operator.light_vals.shape)}; ")
+            log(
+                f"  {PROBLEM_PREFIX[i]} kernel: {fmt} {ctx.operator.nbytes / 1e6:.1f} MB "
+                f"({shapes}dense would be {nrows_tot * ncols_tot * 4 / 1e6:.1f} MB)"
+            )
+            continue
+
+        # The dense format (and any format on an uncompressed kernel, whose
+        # rows have no zeros to leave out).
+        kernel = None
         if par.sensit_read == 1:
-            tk, meta = tile_kernel_from_cache(
+            t0 = time.time()
+            kernel = try_read_kernel_cache(
                 os.path.join(base_dir, par.sensit_path), par, ctx.model.grid, device
             )
-            if tk is None:
+            if kernel is None:
                 log(f"WARNING: no readable sensitivity cache for {PROBLEM_PREFIX[i]}; recomputing.")
-        if tk is None:
-            log(f"Calculating {PROBLEM_PREFIX[i].upper()} sensitivity kernel (streamed/tiled)...")
-            # Predicted allocation print before the big build
-            # (reference: sparse_matrix.f90:508-515).
-            nrows_tot = par.ndata * par.ndata_components
-            ncols_tot = ctx.model.grid.nelements_total * par.nmodel_components
-            kept = int(np.ceil(par.compression_rate * ncols_tot))
-            log(f"  predicted kept entries ~ {nrows_tot * kept:,} "
-                f"({nrows_tot * kept * 8 / 1024**3:.3f} GB in the cache)")
+            else:
+                sync()
+                timings["cache_read_s"] = time.time() - t0
+                log(f"  cache read into the dense kernel in {timings['cache_read_s']:.2f}s "
+                    f"(nnz = {kernel.nnz:,})")
+        if kernel is None:
+            log(f"Calculating {PROBLEM_PREFIX[i].upper()} sensitivity kernel...")
             t0 = time.time()
-            writer = SensitStreamWriter(
-                sensit_dir, par, ctx.model.grid, ctx.column_weight, par.compression_type,
-            )
-            try:
-                kmeta = sens.compute_sensitivity(
-                    par, ctx.model.grid, ctx.data, ctx.column_weight,
-                    compute_dtype=compute_dtype, store_dtype=torch.float32,
-                    row_sink=writer.write_chunk, device=device,
-                )
-            finally:
-                writer.close()
-            writer.finalize(kmeta.comp_error)
-            timings["build_s"] = time.time() - t0
-            log(f"  kernel built+cached in {timings['build_s']:.2f}s "
-                f"({nrows_tot / max(timings['build_s'], 1e-9):.1f} rows/s); "
-                f"COMPRESSION ERROR, r = {kmeta.comp_error:.6e}")
-            t0 = time.time()
-            tk, meta = tile_kernel_from_cache(sensit_dir, par, ctx.model.grid, device)
-            sync()
-            timings["pack_s"] = time.time() - t0
-            log(f"  cache packed into tiles in {timings['pack_s']:.2f}s (nnz = {meta['nnz']:,})")
+            # Predicted allocation print (reference: sparse_matrix.f90:508-515).
+            log(f"  predicted kernel size = {nrows_tot * ncols_tot * 4 / 1024**3:.3f} GB (float32)")
 
-        # Bake in problem weight x data weights (sensitivity_gravmag.F90:836-843).
-        wrow = (ipar.problem_weight[i] * np.asarray(ctx.data.weight)).reshape(-1)
-        ctx.operator = apply_row_weights_tiled(tk, wrow)
-        tk = None
-        log(
-            f"  {PROBLEM_PREFIX[i]} kernel: tiled {ctx.operator.nbytes / 1e6:.1f} MB "
-            f"(forward {tuple(ctx.operator.uvals.shape)}, adjoint {tuple(ctx.operator.uvalsT.shape)}; "
-            f"dense would be {ctx.operator.nrows * ctx.operator.ncols * 4 / 1e6:.1f} MB)"
-        )
+            # 10% progress ticker (reference: sensitivity_gravmag.F90:313-316).
+            last_decile = [0]
+
+            def ticker(done, total):
+                decile = 10 * done // total
+                if decile > last_decile[0]:
+                    last_decile[0] = decile
+                    rate = done / max(time.time() - t0, 1e-9)
+                    log(f"  sensitivity rows: {10 * decile}% ({done}/{total}, {rate:.1f} rows/s)")
+
+            kernel = sens.compute_sensitivity(
+                par, ctx.model.grid, ctx.data, ctx.column_weight,
+                compute_dtype=compute_dtype, store_dtype=torch.float32,
+                progress=ticker, device=device,
+            )
+            sync()
+            timings["build_s"] = time.time() - t0
+            log(f"  kernel built in {timings['build_s']:.2f}s "
+                f"({nrows_tot / max(timings['build_s'], 1e-9):.1f} rows/s); "
+                f"COMPRESSION RATE = {kernel.nnz / max(kernel.S.numel(), 1):.6f}; "
+                f"COMPRESSION ERROR, r = {kernel.comp_error:.6e}")
+            # The reference always persists the kernel
+            # (sensitivity_gravmag.F90:141-153); opt out with
+            # tpu.sensitWriteCache = 0 for one-shot runs.
+            if par.sensit_write:
+                t0 = time.time()
+                write_kernel_cache(sensit_dir, par, kernel, ctx.column_weight)
+                timings["cache_write_s"] = time.time() - t0
+                log(f"  kernel cached in {timings['cache_write_s']:.2f}s")
+
+        # Bake in problem weight x data weights (sensitivity_gravmag.F90:836-843),
+        # in place and in storage precision.
+        ctx.kernel = sens.apply_row_weights(kernel, ipar.problem_weight[i], ctx.data.weight)
+        # Cast once to the solve dtype for the LSQR products (the same tensor
+        # comes back for a float32 solve).
+        ctx.kernel.S = ctx.kernel.S.to(solve_dtype)
+        log(f"  {PROBLEM_PREFIX[i]} kernel: dense {tuple(ctx.kernel.S.shape)} {ctx.kernel.S.dtype}, "
+            f"{ctx.kernel.S.numel() * ctx.kernel.S.element_size() / 1e6:.1f} MB")
+
+    for ctx in ctxs.values():
+        ctx.operator = _kernel_operator(ctx, device)
 
     # Memory checkpoint 2/4: after the forward phase (reference prints Pss
     # here, sensitivity_gravmag.F90:394-398).

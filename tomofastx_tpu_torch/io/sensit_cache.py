@@ -15,14 +15,21 @@ package beside this one, directly loadable (``sensit.readFromFiles = 1``)
 and vice versa. We always write a single "rank" file (nbproc = 1); the
 reader accepts any rank count.
 
-Ported so far: the streaming writer, the metadata reader and the row
-iterator. The rows are read back by ops/tile_kernel.py, which packs them
-into the tile-union layout without materializing the dense matrix.
+Three reader paths, all fed by one batched stream of the records
+(``iter_cache_coo``), whose scatters run on the reader's device:
+- ``try_read_kernel_cache``: materializes the dense kernel;
+- ``read_kernel_cache_packed``: streams the records into the packed top-k
+  layout (ops/sparse_kernel.py) without allocating the dense (nd, N) array —
+  the counterpart of the reference's row-streamed re-read into distributed
+  CSR (sensitivity_gravmag.F90:723-862), whose memory is nnz-bound;
+- ``ops/tile_kernel.py::tile_kernel_from_cache``: the tile-union layout,
+  likewise without the dense matrix.
 """
 
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -194,3 +201,206 @@ def iter_cache_rows(cache_dir: str, meta: dict) -> Iterator[Tuple[int, int, int,
         del words
     if idata_glob != nd:
         raise ValueError("Sensitivity cache row count mismatch across ranks!")
+
+
+def write_kernel_cache(cache_dir: str, par, kernel, column_weight: np.ndarray):
+    """Write a dense SensitKernel through the stream writer, in row chunks
+    that the writer compacts where the kernel lies: only the kept columns
+    and values cross to the host."""
+    nd, ndc, nmc = kernel.ndata, kernel.ndata_components, kernel.nmodel_components
+    grid = SimpleNamespace(nx=kernel.nx, ny=kernel.ny, nz=kernel.nz, nelements_total=kernel.N)
+    w = SensitStreamWriter(cache_dir, par, grid, column_weight, kernel.compression_type)
+    # At most 64M entries per chunk: the compaction's masks and index lists
+    # stay a fraction of a GB.
+    chunk = max(1, min(nd, (1 << 26) // max(ndc * nmc * kernel.N, 1)))
+    try:
+        for s in range(0, nd, chunk):
+            e = min(s + chunk, nd)
+            w.write_chunk(kernel.S[s * ndc : e * ndc].reshape(e - s, ndc, nmc, kernel.N), s)
+    finally:
+        w.close()
+    w.finalize(kernel.comp_error)
+
+
+def iter_cache_coo(cache_dir: str, meta: dict, device="cpu", with_vals: bool = True,
+                   flush: int = 16 << 20):
+    """Stream the cache's entries in file order as batches of coordinates on
+    `device`: yields (r, c, v) with r = idata * ndc + d the matrix row
+    (int64), c = k * N + cell the matrix column (int64) and v the float32
+    values (None unless with_vals). Whole records are gathered on the host
+    into batches of about `flush` entries; each batch crosses to the device
+    once, where the row id of every entry is rebuilt from the per-record
+    counts."""
+    ndc, nmc = meta["ndc"], meta["nmc"]
+    N = meta["nx"] * meta["ny"] * meta["nz"]
+    # Column ids cross as int32 where they fit; they are widened on the device.
+    col_dtype = np.int32 if nmc * N < 2**31 else np.int64
+
+    def batch(rows, counts, buf_c, buf_v):
+        cnt = torch.as_tensor(np.asarray(counts, np.int64), device=device)
+        r = torch.repeat_interleave(torch.as_tensor(np.asarray(rows, np.int64), device=device), cnt)
+        c = torch.as_tensor(np.concatenate(buf_c), device=device).to(torch.int64)
+        v = torch.as_tensor(np.concatenate(buf_v), device=device) if with_vals else None
+        return r, c, v
+
+    rows, counts, buf_c, buf_v, size = [], [], [], [], 0
+    for idata, d, k, cols, vals in iter_cache_rows(cache_dir, meta):
+        rows.append(idata * ndc + d)
+        counts.append(cols.size)
+        buf_c.append(cols.astype(col_dtype, copy=False) + col_dtype(k * N))
+        if with_vals:
+            buf_v.append(vals)
+        size += cols.size
+        if size >= flush:
+            yield batch(rows, counts, buf_c, buf_v)
+            rows, counts, buf_c, buf_v, size = [], [], [], [], 0
+    if size:
+        yield batch(rows, counts, buf_c, buf_v)
+
+
+def try_read_kernel_cache(cache_dir: str, par, grid, device="cpu"):
+    """Read a reference-format kernel cache into a dense SensitKernel whose
+    S lies on `device`: the records are scattered there, batch by batch.
+    Returns None when the cache is absent."""
+    from tomofastx_tpu_torch.ops.sensitivity import SensitKernel
+
+    meta = read_cache_meta(cache_dir, par, grid)
+    if meta is None:
+        return None
+    nd, ndc, nmc = meta["nd"], meta["ndc"], meta["nmc"]
+    N = meta["nx"] * meta["ny"] * meta["nz"]
+    ncols = nmc * N
+
+    S = torch.zeros((nd * ndc, ncols), dtype=torch.float32, device=device)
+    flat = S.view(-1)
+    nnz = 0
+    for r, c, v in iter_cache_coo(cache_dir, meta, device):
+        flat[r * ncols + c] = v
+        nnz += c.shape[0]
+
+    return SensitKernel(
+        S=S,
+        ndata=nd,
+        ndata_components=ndc,
+        nmodel_components=nmc,
+        nx=meta["nx"],
+        ny=meta["ny"],
+        nz=meta["nz"],
+        compression_type=meta["compression_type"],
+        comp_error=meta["comp_error"],
+        nnz=nnz,
+    )
+
+
+def read_kernel_cache_packed(
+    cache_dir: str, par, grid,
+    pad_multiple: int = 8,
+    col_cap_factor: float = 4.0,
+    device="cpu",
+):
+    """Stream a reference-format cache directly into the packed top-k
+    layout (PackedKernel) on `device`, never materializing the dense
+    (nd, N) array.
+
+    Two streaming passes over the row files:
+    1. per-row nnz (row pack width K) — the per-cell column histogram comes
+       from the ``_nnz`` file the cache already carries (the reference's
+       load-balancing input, sensitivity_gravmag.F90:378-392);
+    2. fill the row pack + adjoint (heavy dense block / light column pack),
+       one batch of records per scatter.
+
+    Device memory: nnz*(4+4) for the row pack, the light column pack padded
+    to its widest column, and the heavy dense block.
+    Returns (PackedKernel, meta dict), or (None, None) without a cache."""
+    from tomofastx_tpu_torch.ops.sparse_kernel import PackedKernel, _pad_to, heavy_light_split
+
+    meta = read_cache_meta(cache_dir, par, grid)
+    if meta is None:
+        return None, None
+    nd, ndc, nmc = meta["nd"], meta["ndc"], meta["nmc"]
+    N = meta["nx"] * meta["ny"] * meta["nz"]
+    nrows, ncols = nd * ndc, nmc * N
+    sfx = meta["sfx"]
+    device = torch.device(device)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    # Column histogram over matrix columns (k * N + cell). The _nnz file is
+    # summed over model components, so for nmc > 1 it is rebuilt in pass 1.
+    row_counts = zeros(nrows, torch.int64)
+    if nmc == 1:
+        with open(os.path.join(cache_dir, f"sensit_{sfx}_nnz"), "rb") as f:
+            N_read = int(np.fromfile(f, np.int32, 1)[0])
+            if N_read != N:
+                raise ValueError("nnz histogram size mismatch!")
+            col_counts = torch.as_tensor(np.fromfile(f, np.int32, N), device=device).to(torch.int64)
+    else:
+        col_counts = zeros(ncols, torch.int64)
+    for r, c, _ in iter_cache_coo(cache_dir, meta, device, with_vals=False):
+        row_counts += torch.bincount(r, minlength=nrows)
+        if nmc > 1:
+            col_counts += torch.bincount(c, minlength=ncols)
+
+    nnz = int(row_counts.sum())
+    K = _pad_to(int(row_counts.max()) if nrows else 1, pad_multiple)
+    row_vals = zeros((nrows, K), torch.float32)
+    row_idx = zeros((nrows, K), torch.int32)
+
+    heavy, light = heavy_light_split(col_counts, nnz, ncols, col_cap_factor)
+    # Map matrix column -> position in heavy block / light pack (-1 = none).
+    heavy_pos = torch.full((ncols,), -1, dtype=torch.int64, device=device)
+    heavy_pos[heavy] = torch.arange(heavy.numel(), device=device)
+    light_pos = torch.full((ncols,), -1, dtype=torch.int64, device=device)
+    light_pos[light] = torch.arange(light.numel(), device=device)
+
+    dense_block = zeros((nrows, heavy.numel()), torch.float32)
+    KT = _pad_to(int(col_counts[light].max()) if light.numel() else 1, pad_multiple)
+    light_vals = zeros((light.numel(), KT), torch.float32)
+    light_idx = zeros((light.numel(), KT), torch.int32)
+    light_cursor = zeros(light.numel(), torch.int64)
+
+    # A row's entries follow each other in the file, so an entry's slot in
+    # the row pack is its running number in the file less the number of
+    # entries in the rows before its own.
+    row_start = torch.cumsum(row_counts, 0) - row_counts
+    seen = 0
+    for r, c, v in iter_cache_coo(cache_dir, meta, device):
+        n = c.shape[0]
+        # Row pack.
+        p = torch.arange(seen, seen + n, device=device) - row_start[r]
+        seen += n
+        row_vals[r, p] = v
+        row_idx[r, p] = c.to(torch.int32)
+        # Heavy columns -> dense block.
+        hp = heavy_pos[c]
+        hsel = hp >= 0
+        dense_block[r[hsel], hp[hsel]] = v[hsel]
+        # Light columns -> column pack, appended per column in file order: a
+        # stable sort by column numbers this batch's entries within each
+        # column, after those that earlier batches put there.
+        lp = light_pos[c]
+        lsel = lp >= 0
+        lcols, lrows, lv = lp[lsel], r[lsel], v[lsel]
+        order = torch.argsort(lcols, stable=True)
+        lcols, lrows, lv = lcols[order], lrows[order], lv[order]
+        added = torch.bincount(lcols, minlength=light.numel())
+        first = torch.cumsum(added, 0) - added
+        pos = light_cursor[lcols] + torch.arange(lcols.shape[0], device=device) - first[lcols]
+        light_vals[lcols, pos] = lv
+        light_idx[lcols, pos] = lrows.to(torch.int32)
+        light_cursor += added
+
+    pk = PackedKernel(
+        row_vals=row_vals,
+        row_idx=row_idx,
+        dense_cols=heavy.to(torch.int32),
+        dense_block=dense_block,
+        light_cols=light.to(torch.int32),
+        light_vals=light_vals,
+        light_idx=light_idx,
+        nrows=nrows,
+        ncols=ncols,
+    )
+    meta["nnz"] = nnz
+    return pk, meta

@@ -1,0 +1,82 @@
+"""Building and loading the package's CUDA kernels.
+
+Each kernel is one source under csrc/ with plain C entry points. nvcc
+compiles it for sm_90a into a shared library in ``build/`` beside the
+package, the first time a CUDA tensor reaches the kernel's wrapper (never at
+import), and ctypes loads it. The library's name carries a hash of the
+source, so an edited source is compiled again and an unchanged one is not.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build")
+
+
+def source_path(name: str) -> str:
+    """Path of csrc/<name>.cu."""
+    return os.path.join(_PACKAGE_DIR, "csrc", f"{name}.cu")
+
+
+def find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build_library(name: str) -> tuple[str, str]:
+    """Compile csrc/<name>.cu for sm_90a into build/ unless a library of
+    this very source is there already. Returns (path of the library, what
+    the compiler printed, empty if nothing was compiled)."""
+    source = source_path(name)
+    with open(source, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    if os.path.exists(path):
+        return path, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [
+        find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, source,
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, path)
+    return path, log
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str, functions: tuple, argtypes: tuple):
+    """Build (if need be) and load the library of csrc/<name>.cu, and declare
+    each of `functions` as int f(*argtypes)."""
+    path, _ = build_library(name)
+    lib = ctypes.CDLL(path)
+    for fn in functions:
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib
+
+
+def require_launchable(**tensors):
+    """The kernels read 16 bytes a lane from dense arrays: refuse a tensor
+    that is not contiguous or whose storage is not 16-byte aligned."""
+    for name, a in tensors.items():
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")

@@ -18,14 +18,15 @@ weights_gravmag.f90):
   Li & Oldenburg (2003) is returned for parity with the reference's printout
   (sensitivity_gravmag.F90:282-285, 346-355).
 
-Ported so far: the gravity g_z rows (corner-lattice and per-cell) and the
-streamed (`row_sink`) build. The chunk size is the caller's `batch_size`
-alone: the JAX package's caps on it answer limits of another device and are
-not carried over.
+Ported so far: the gravity g_z rows (corner-lattice and per-cell), built
+either into one dense tensor on the device or streamed to a `row_sink`. The
+chunk size is the caller's `batch_size` alone: the JAX package's caps on it
+answer limits of another device and are not carried over.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,6 +38,7 @@ from tomofastx_tpu_torch.models.grid import Grid
 from tomofastx_tpu_torch.ops import prism
 from tomofastx_tpu_torch.ops import wavelet as W
 from tomofastx_tpu_torch.ops.matrixfree import _lattice_closed_rows, detect_lattice
+from tomofastx_tpu_torch.ops.sparse_kernel import DenseKernel
 
 
 # =============================================================================
@@ -285,14 +287,15 @@ def compute_sensitivity(
     row_sink=None,
     device="cpu",
 ) -> SensitKernel:
-    """Build the (optionally wavelet-compressed) sensitivity rows and stream
-    them to `row_sink`.
+    """Build the (optionally wavelet-compressed) sensitivity rows, into one
+    dense tensor on `device` or streamed to `row_sink`.
 
     Mirrors calculate_and_write_sensit (sensitivity_gravmag.F90:82-410):
     physics row -> multiply by column weight -> (wavelet + threshold) ->
     cast to storage precision. Data/problem weights are not applied here;
     the reference applies them when re-reading the kernel
-    (sensitivity_gravmag.F90:836-843), and so does apply_row_weights_tiled.
+    (sensitivity_gravmag.F90:836-843), and so do apply_row_weights and its
+    packed and tiled counterparts.
 
     progress: optional callable(done_rows, total_rows) invoked after each
     chunk (the reference's 10% ticker, sensitivity_gravmag.F90:313-316).
@@ -300,13 +303,14 @@ def compute_sensitivity(
     row_sink: callable(chunk (B, ndc, nmc, N) float32 tensor on `device`,
     start_row). Chunks stream to the sink (e.g. a SensitStreamWriter, which
     compacts them where they lie) and are not accumulated — memory stays
-    one chunk, and the returned SensitKernel has S = None. This is the counterpart of the reference's
-    write-inside-the-hot-loop streaming (sensitivity_gravmag.F90:306-309).
-    Accumulating a dense kernel on the device is not ported yet."""
-    if row_sink is None:
-        raise NotImplementedError(
-            "compute_sensitivity without a row_sink (dense accumulation) is not ported yet"
-        )
+    one chunk, and the returned SensitKernel has S = None. This is the
+    counterpart of the reference's write-inside-the-hot-loop streaming
+    (sensitivity_gravmag.F90:306-309).
+
+    Without a row_sink the chunks are written straight into one
+    (nd * ndc, nmc * N) tensor of store_dtype on `device`, the solver's
+    layout, which the returned SensitKernel holds as S: the finished kernel
+    never passes through the host."""
     if isinstance(par, MagParams):
         raise NotImplementedError("the magnetic kernel build is not ported yet")
     N = grid.nelements_total
@@ -358,6 +362,9 @@ def compute_sensitivity(
         )
 
     xs, ys, zs = t(data.X), t(data.Y), t(data.Z)
+    S = None
+    if row_sink is None:
+        S = torch.empty((nd * ndc, nmc * N), dtype=store_dtype, device=device)
 
     nnz_total = 0
     err_total = 0.0
@@ -365,7 +372,10 @@ def compute_sensitivity(
         e = s + nb
         comp, nnz, err_sum = build_chunk(xs[s:e], ys[s:e], zs[s:e])
         prism.validate_finite("sensitivity kernel chunk", comp)
-        row_sink(comp, s)
+        if row_sink is not None:
+            row_sink(comp, s)
+        else:
+            S[s * ndc : e * ndc] = comp.reshape(nb * ndc, nmc * N)
         nnz_total += int(nnz.sum())
         err_total += float(err_sum.sum())
         if progress is not None:
@@ -373,7 +383,7 @@ def compute_sensitivity(
 
     comp_error = err_total / (nd * ndc * nmc) if par.compression_type > 0 else 0.0
     return SensitKernel(
-        S=None,
+        S=S,
         ndata=nd,
         ndata_components=ndc,
         nmodel_components=nmc,
@@ -384,6 +394,22 @@ def compute_sensitivity(
         comp_error=comp_error,
         nnz=nnz_total,
     )
+
+
+def apply_row_weights(kernel: SensitKernel, problem_weight: float, data_weight: np.ndarray) -> SensitKernel:
+    """Bake problem_weight * data_weight into the matrix rows, in storage
+    precision (reference: read_sensitivity_kernel,
+    sensitivity_gravmag.F90:836-843). data_weight: (ndata, ndc).
+
+    S is scaled in place — a multi-GB kernel does not exist twice — and
+    kernel.S is set to None so that the unweighted name cannot be used."""
+    wrow = (problem_weight * np.asarray(data_weight)).reshape(-1).astype(np.float32)
+    if wrow.shape[0] != kernel.nrows:
+        raise ValueError(f"{wrow.shape[0]} row weights for {kernel.nrows} rows")
+    S = kernel.S
+    S.mul_(torch.as_tensor(wrow, device=S.device).to(S.dtype)[:, None])
+    kernel.S = None
+    return dataclasses.replace(kernel, S=S)
 
 
 def calculate_data(
@@ -400,11 +426,14 @@ def calculate_data(
     device="cpu",
 ) -> np.ndarray:
     """Forward d = S m through a stored, row-weighted operator with a
-    `matvec` (reference: model_calculate_data, model.F90:220-307): scale the
-    model by 1/column_weight, wavelet-transform if compressed, multiply,
-    then undo the problem and data weights. Returns (ndata, ndc)."""
+    `matvec`, or a dense SensitKernel (reference: model_calculate_data,
+    model.F90:220-307): scale the model by 1/column_weight,
+    wavelet-transform if compressed, multiply, then undo the problem and
+    data weights. Returns (ndata, ndc)."""
     if problem_weight == 0.0:
         raise ValueError("Zero problem weight in calculate_data!")
+    if isinstance(operator, SensitKernel):
+        operator = DenseKernel(operator.S.to(solve_dtype))
     cw = np.asarray(column_weight)
     dw = np.asarray(data_weight)
     m = np.asarray(model_val).reshape(-1, cw.shape[0])

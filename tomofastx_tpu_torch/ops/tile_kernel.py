@@ -197,54 +197,21 @@ def tile_kernel_from_cache(cache_dir: str, par, grid, device="cpu") -> tuple:
     """Stream a sensit cache (any nbproc) into a TileKernel on `device` —
     two streamed passes, dense matrix never materialized. Returns
     (TileKernel, meta), or (None, None) when there is no cache."""
-    from tomofastx_tpu_torch.io.sensit_cache import iter_cache_rows, read_cache_meta
+    from tomofastx_tpu_torch.io.sensit_cache import iter_cache_coo, read_cache_meta
 
     meta = read_cache_meta(cache_dir, par, grid)
     if meta is None:
         return None, None
-    nd, ndc, nmc = meta["nd"], meta["ndc"], meta["nmc"]
     N = meta["nx"] * meta["ny"] * meta["nz"]
-    nrows, ncols = nd * ndc, nmc * N
-
-    # Records are batched on the host into ~16M-entry buffers of column ids
-    # (and values); each batch crosses to the device once, where the row id
-    # of every entry is rebuilt from the per-record counts.
-    FLUSH = 16 << 20
-    b = TileKernelBuilder(nrows, ncols, device=device)
-    # Column ids cross as int32 where they fit; they are widened on the device.
-    col_dtype = np.int32 if ncols < 2**31 else np.int64
-
-    def stream(consume, with_vals):
-        rows, counts, buf_c, buf_v, size = [], [], [], [], 0
-        nnz = 0
-
-        def flush():
-            cnt = torch.as_tensor(np.asarray(counts, np.int64), device=b.device)
-            r = torch.repeat_interleave(
-                torch.as_tensor(np.asarray(rows, np.int64), device=b.device), cnt
-            )
-            c = torch.as_tensor(np.concatenate(buf_c), device=b.device)
-            v = torch.as_tensor(np.concatenate(buf_v), device=b.device) if with_vals else None
-            consume(r, c, v)
-
-        for idata, d, k, cols, vals in iter_cache_rows(cache_dir, meta):
-            nnz += cols.size
-            rows.append(idata * ndc + d)
-            counts.append(cols.size)
-            buf_c.append(cols.astype(col_dtype, copy=False) + col_dtype(k * N))
-            if with_vals:
-                buf_v.append(vals)
-            size += cols.size
-            if size >= FLUSH:
-                flush()
-                rows, counts, buf_c, buf_v, size = [], [], [], [], 0
-        if size:
-            flush()
-        return nnz
-
-    stream(lambda r, c, v: b.scan_coo(r, c), with_vals=False)
+    b = TileKernelBuilder(meta["nd"] * meta["ndc"], meta["nmc"] * N, device=device)
+    for r, c, _ in iter_cache_coo(cache_dir, meta, b.device, with_vals=False):
+        b.scan_coo(r, c)
     b.finalize_scan()
-    meta["nnz"] = stream(b.fill_coo, with_vals=True)
+    nnz = 0
+    for r, c, v in iter_cache_coo(cache_dir, meta, b.device):
+        b.fill_coo(r, c, v)
+        nnz += c.shape[0]
+    meta["nnz"] = nnz
     return b.build(), meta
 
 

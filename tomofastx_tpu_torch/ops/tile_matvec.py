@@ -29,65 +29,28 @@ The shared library is built with nvcc from the .cu source alone, into
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
+
+from tomofastx_tpu_torch.ops import _cuda_build
 
 TM = 8  # rows per tile
 BLOCK = 128  # columns per block
 
-_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "csrc", "tile_matvec.cu")
-_BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "build"
-)
-
-
-def _find_nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the tile_matvec kernel cannot be built")
+_NAME = "tile_matvec"
+_SOURCE = _cuda_build.source_path(_NAME)
 
 
 def build_library() -> tuple[str, str]:
-    """Compile csrc/tile_matvec.cu for sm_90a into build/ unless a library of
-    this very source is there already. Returns (path of the library, what
-    the compiler printed, empty if nothing was compiled)."""
-    with open(_SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(_BUILD_DIR, f"libtile_matvec_{tag}.so")
-    if os.path.exists(path):
-        return path, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [
-        _find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SOURCE,
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, path)
-    return path, log
+    """Compile csrc/tile_matvec.cu (see _cuda_build.build_library)."""
+    return _cuda_build.build_library(_NAME)
 
 
-@functools.lru_cache(maxsize=None)
 def _library():
-    path, _ = build_library()
-    lib = ctypes.CDLL(path)
-    for fn in (lib.tile_matvec_f32, lib.tile_matvec_f64):
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    return _cuda_build.load_library(
+        _NAME, ("tile_matvec_f32", "tile_matvec_f64"),
+        (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    )
 
 
 def _check(uvals, ubidx, x):
@@ -130,11 +93,7 @@ def tile_matvec(uvals, ubidx, x):
         return tile_matvec_plain(uvals, ubidx, x)
     if x.device.type != "cuda":
         raise ValueError(f"tile_matvec runs on cuda or cpu tensors, got {x.device}")
-    for name, a in (("uvals", uvals), ("ubidx", ubidx), ("x", x)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if a.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    _cuda_build.require_launchable(uvals=uvals, ubidx=ubidx, x=x)
     ntiles, BU = ubidx.shape
     lib = _library()
     y = torch.empty(ntiles * TM, dtype=x.dtype, device=x.device)
