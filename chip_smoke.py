@@ -13,25 +13,37 @@ It needs one CUDA device, nvcc and nothing from the network. It
    cells on a 64x64x64 lattice, Haar compression at rate 0.15, damping,
    3-lithology ADMM, 3 majors x 20 LSQR iterations, float64 build stored
    float32, float32 solve) and runs it through the command-line entry point
-   on the card three times: with tpu.kernelFormat = tiled (the tile_matvec
-   kernel under every product), with no kernelFormat line (the default, a
-   dense kernel accumulated on the device and written to the cache), and
-   with tpu.kernelFormat = packed reading the second run's cache; the
-   kernels' launches are counted in each run;
-4. checks the outputs of each run, the three formats against each other, and
-   two small problems (tiled compressed, dense uncompressed) on the card
-   against the same problems on the CPU;
+   on the card five times: with tpu.kernelFormat = tiled (the tile_matvec
+   kernel under every product); the same with --mesh 1 (the row-sharded
+   build, and the sharded tile contraction tile_matvec_sharded under every
+   product); with no kernelFormat line (the default, a dense kernel
+   accumulated on the device and written to the cache); the same with
+   --mesh 1; and with tpu.kernelFormat = packed reading the dense run's
+   cache; the kernels' launches are counted in each run;
+4. checks the outputs of each run, each --mesh 1 run against its unmeshed
+   run (equal to the last bit expected), the three formats against each
+   other, and two small problems (tiled compressed, dense uncompressed) on
+   the card against the same problems on the CPU;
 5. packs the run's sensitivity cache again and holds tile_matvec against its
    plain version on the full-width forward and adjoint packs, timing the
    kernel, the plain version and torch.mv on the dense matrix (a yardstick
    only: the port never calls it for that layout) beside the least time the
-   card could take;
+   card could take; then shards both packs over a mesh of four slots on the
+   one card (the parts are views) and holds tile_matvec_sharded against one
+   tile_matvec launch on the whole pack (equal to the last bit) and against
+   its plain version, timed the same way;
 6. cuts two row-block layouts from the dense matrix of the run (every used
    128-block of each row; each row's 256 blocks of largest energy), holds
    blocked_matvec against its plain version on both, times it the same way,
    and drives it through the port's forward-data and LSQR entry points,
    counting its launches;
-7. times matvec and rmatvec of the three operators at full width.
+7. times matvec and rmatvec of the three operators at full width;
+8. solves the problem again from the tiled run's cache through
+   solve_problem_joint_gravmag with the same four-slot mesh, tiled (equal to
+   the last bit to the unmeshed solve) and dense (four column partials,
+   held at the formats' tolerance);
+9. on a machine with two cards or more, the tiled solve over
+   make_mesh(device_count) on distinct cards, held as in 8.
 
 Any failed phase ends the run with a non-zero exit code. Without a CUDA
 device it exits with code 2 and prints no result. The last line of a good run
@@ -245,21 +257,22 @@ def read_costs(path):
         return [[float(t) for t in ln.split()] for ln in f if not ln.startswith("#")]
 
 
-def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_written=True):
-    """One run of the command-line entry point on the card, with every
-    kernel's count set to 0 just before and read just after; then the checks
-    of its log and its outputs. Returns what the run left to report."""
+def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_written=True, mesh=None):
+    """One run of the command-line entry point on the card (with --mesh
+    `mesh` when given), with every kernel's count set to 0 just before and
+    read just after; then the checks of its log and its outputs. Returns what
+    the run left to report."""
     from tomofastx_tpu_torch.io import model_io
 
     print(f"{name} main path: {NDATA} observations x {NX * NY * NZ} cells, Haar rate 0.15, "
-          f"{N_MAJOR} majors x {N_MINOR} minors, f32 solve on cuda")
+          f"{N_MAJOR} majors x {N_MINOR} minors, f32 solve on cuda" + (f", --mesh {mesh}" if mesh else ""))
     torch.cuda.reset_peak_memory_stats()
     tee = Tee(sys.stdout)
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
     with contextlib.redirect_stdout(tee):
-        rc = cli.main(["-p", parfile, "--device", "cuda"])
+        rc = cli.main(["-p", parfile, "--device", "cuda"] + (["--mesh", mesh] if mesh else []))
     torch.cuda.synchronize()
     run = {"main_path_s": time.time() - t0, "launches": {k: fn.launches for k, fn in counters.items()}}
     if rc != 0:
@@ -301,6 +314,77 @@ def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_writte
         raise SystemExit(f"FAILED {name} outputs: final model")
     print(f"  final model {model.shape}: min {model.min():.3f}, max {model.max():.3f} -> ok")
     run["model"] = model
+    return run
+
+
+def same_bytes(a, b) -> bool:
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def hold_equal(name, run, out_dir, ref, ref_dir, against="the unmeshed run"):
+    """A run against another of the same format whose outputs the code
+    promises equal to the last bit: the same kernels on the same operands in
+    the same order. If they differ, say where the two runs part (the cache
+    their builds wrote, or only the solve) and hold them at the formats'
+    tolerance."""
+    files = ("costs.txt", "model/grav_final_model_full.txt", "data/grav_final.txt")
+    equal = {f: same_bytes(os.path.join(out_dir, f), os.path.join(ref_dir, f)) for f in files}
+    m, r = run["model"], ref["model"]
+    out = {
+        "equal_to_the_last_bit": all(equal.values()), "files_equal": equal,
+        "model_of_range": float(np.abs(m - r).max() / (r.max() - r.min())),
+        "data_cost_rel": abs(run["data_cost"][-1] - ref["data_cost"][-1]) / ref["data_cost"][-1],
+    }
+    if out["equal_to_the_last_bit"]:
+        print(f"  {name} against {against}: {', '.join(files)} equal to the last bit -> ok")
+        return out
+    cache = [os.path.join(d, "SENSIT", "sensit_grav_1_0") for d in (out_dir, ref_dir)]
+    if all(os.path.exists(c) for c in cache):
+        out["caches_equal"] = same_bytes(*cache)
+        where = "equal: the solves part" if out["caches_equal"] else "not equal: the builds part"
+    else:
+        where = "not both written (a run from a cache)"
+    print(f"  {name} against {against}: NOT equal to the last bit ({equal}); the caches the two "
+          f"builds wrote are {where}; "
+          f"final model differs by {out['model_of_range']:.3e} of its range (tolerance {FORMATS_MODEL_TOL:g}), "
+          f"final data cost by {out['data_cost_rel']:.3e} relative (tolerance {FORMATS_COST_RTOL:g})")
+    if not out["model_of_range"] <= FORMATS_MODEL_TOL or not out["data_cost_rel"] <= FORMATS_COST_RTOL:
+        raise SystemExit(f"FAILED {name}: against {against}")
+    return out
+
+
+def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters):
+    """One solve_problem_joint_gravmag on the card from a sensitivity cache,
+    over `mesh` (None: unmeshed), with every kernel's count set to 0 just
+    before and read just after."""
+    from tomofastx_tpu_torch.config.parfile import read_parfile
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
+
+    out_dir = os.path.join(work, f"out_{name}")
+    pf = write_parfile(work, f"Parfile_{name}.txt", inputs, out_dir, N_MINOR, fmt=fmt,
+                       extra=["sensit.readFromFiles = 1", f"sensit.folderPath = {cache_dir}/"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    res = solve_problem_joint_gravmag(read_parfile(pf), verbose=False, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    run = {
+        "s": time.time() - t0, "launches": {k: fn.launches for k, fn in counters.items()},
+        "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "shard_s": res.timings.get("shard_s"), "solve_s": res.timings["solve_s"],
+        "lsqr_iterations": res.timings["lsqr_iters"],
+        "data_cost": [row[1] for row in read_costs(os.path.join(out_dir, "costs.txt"))],
+        "model": np.asarray(res.models[0].val), "out_dir": out_dir,
+    }
+    if run["lsqr_iterations"] != [N_MINOR] * N_MAJOR or not np.isfinite(run["model"]).all():
+        raise SystemExit(f"FAILED {name}: LSQR iterations {run['lsqr_iterations']} or a non-finite model")
+    where = "unmeshed" if mesh is None else f"over {mesh}"
+    print(f"  {name} ({fmt or 'dense'}, {where}): {run['s']:.1f} s, shard_s {run['shard_s']}, majors' solves "
+          f"{[round(v, 3) for v in run['solve_s']]} s, data cost per major {run['data_cost']}, peak device "
+          f"memory {run['peak_device_GB']:.2f} GB, launches {run['launches']}")
     return run
 
 
@@ -383,14 +467,61 @@ def measure_layout(kernel, plain, name, vals, idx, nout, x64, dense):
     }
 
 
-def measure_pack(tile_matvec, tile_matvec_plain, name, uvals, ubidx, n_in, seed):
-    """tile_matvec on one full-width pack, with torch.mv on the pack's dense matrix."""
+def measure_pack(tmv, name, uvals, ubidx, n_in, seed, parts):
+    """tile_matvec on one full-width pack, with torch.mv on the pack's dense
+    matrix; then tile_matvec_sharded on `parts`, the same pack cut over the
+    slots of a mesh."""
     x64 = seeded_vector(n_in, seed, uvals.device)
     dense = dense_from_pack(uvals, ubidx, x64.shape[0])
-    out = measure_layout(tile_matvec, tile_matvec_plain, f"{name} pack", uvals, ubidx, ubidx.shape[0] * 8, x64, dense)
+    out = measure_layout(tmv.tile_matvec, tmv.tile_matvec_plain, f"{name} pack", uvals, ubidx,
+                         ubidx.shape[0] * 8, x64, dense)
+    out["sharded"] = measure_sharded(tmv, f"{name} pack", uvals, ubidx, parts, x64, dense)
     del dense
     torch.cuda.empty_cache()
     return out
+
+
+def measure_sharded(tmv, name, uvals, ubidx, parts, x64, dense):
+    """tile_matvec_sharded on the parts of one full-width pack: equal to the
+    last bit to one tile_matvec launch on the whole pack, against its plain
+    version, and its time beside the whole pack's launch, the plain version
+    and torch.mv on the dense matrix. Its bound is tile_matvec's bytes plus
+    one copy of x for each part and the gather of y."""
+    sharded, plain = tmv.tile_matvec_sharded, tmv.tile_matvec_sharded_plain
+    home, n, x32 = uvals.device, len(parts), x64.float()
+    for x in (x32, x64):
+        if not torch.equal(sharded(parts, x, home), tmv.tile_matvec(uvals, ubidx, x)):
+            raise SystemExit(f"FAILED {name}, {n} slots: sharded product differs from one tile_matvec launch ({x.dtype})")
+    print(f"  {name}, {n} slots: tile_matvec_sharded equal to the last bit to one tile_matvec launch on the "
+          "whole pack, f32 and f64 vectors -> ok")
+    err32 = compare(f"{name}, {n} slots, f32 vector, against tile_matvec_sharded_plain",
+                    sharded(parts, x32, home), plain(parts, x32, home), RTOL_F32)
+    err64 = compare(f"{name}, {n} slots, f64 vector, against tile_matvec_sharded_plain",
+                    sharded(parts, x64, home), plain(parts, x64, home), RTOL_F64)
+
+    # In turns, on one card: sharded, whole, sharded.
+    ms = time_cuda(lambda: sharded(parts, x32, home))
+    whole_ms = time_cuda(lambda: tmv.tile_matvec(uvals, ubidx, x32))
+    ms_again = time_cuda(lambda: sharded(parts, x32, home))
+    ms64 = time_cuda(lambda: sharded(parts, x64, home), reps=10)
+    plain_ms = time_cuda(lambda: plain(parts, x32, home), warm=1, reps=5)
+    library_ms = time_cuda(lambda: torch.mv(dense, x32))
+
+    nout = ubidx.shape[0] * 8
+    nbytes = (uvals.numel() + ubidx.numel() + x32.numel() + nout) * 4 + (n * x32.numel() + nout) * 4
+    flops = 2 * uvals.numel()
+    bound_ms, bound_by, by_bytes, by_ops = bound(nbytes, flops)
+    print(f"  {name}, {n} slots: tile_matvec_sharded {ms:.3f} ms (again {ms_again:.3f}; f64 vector {ms64:.3f}), "
+          f"one tile_matvec on the whole pack {whole_ms:.3f} ms, plain {plain_ms:.3f} ms, torch.mv on the dense "
+          f"matrix {library_ms:.3f} ms; bytes {nbytes / 1e9:.3f} GB (tile_matvec's + {n} x x + y), bound "
+          f"{bound_ms:.3f} ms by {bound_by} (bytes {by_bytes:.3f} ms at {MEMORY_BYTES_PER_S / 1e12:.2f} TB/s, "
+          f"operations {by_ops:.3f} ms at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+    return {
+        "slots": n, "ms": ms, "ms_again": ms_again, "ms_f64_vector": ms64, "whole_pack_ms": whole_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": err32, "max_abs_err_f64_vector": err64, "bytes": nbytes, "flops": flops,
+        "part_shapes": [list(p[0].shape) for p in parts],
+    }
 
 
 def row_blocks_all_used(S):
@@ -448,10 +579,12 @@ def main() -> int:
     from tomofastx_tpu_torch.ops.lsqr import lsqr_solve
     from tomofastx_tpu_torch.ops.sparse_kernel import DenseKernel
     from tomofastx_tpu_torch.ops.tile_kernel import tile_kernel_from_cache
+    from tomofastx_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_kernel
 
     tile_matvec, tile_matvec_plain = tmv.tile_matvec, tmv.tile_matvec_plain
     blocked_matvec, blocked_matvec_plain = bmv.blocked_matvec, bmv.blocked_matvec_plain
-    counters = {"tile_matvec": tile_matvec, "blocked_matvec": blocked_matvec}
+    counters = {"tile_matvec": tile_matvec, "tile_matvec_sharded": tmv.tile_matvec_sharded,
+                "blocked_matvec": blocked_matvec}
     device = torch.device("cuda")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     smi = nvidia_smi_line()
@@ -476,6 +609,15 @@ def main() -> int:
             tile_matvec(uvals, ubidx, x64.float()), tile_matvec_plain(uvals, ubidx, x64.float()), RTOL_F32)
     compare("tile_matvec, random pack, f64 vector",
             tile_matvec(uvals, ubidx, x64), tile_matvec_plain(uvals, ubidx, x64), RTOL_F64)
+    # Ragged parts (9, 9, 8 tiles of BU = 37: the block ids of a part start
+    # off 16-byte alignment in the pack, so each part holds its own copy).
+    parts = [(uvals[s : s + 9], ubidx[s : s + 9].clone()) for s in range(0, uvals.shape[0], 9)]
+    for x in (x64.float(), x64):
+        if not torch.equal(tmv.tile_matvec_sharded(parts, x, device), tile_matvec(uvals, ubidx, x)):
+            raise SystemExit(f"FAILED tile_matvec_sharded, random pack in 3 parts: differs from tile_matvec ({x.dtype})")
+    compare("tile_matvec_sharded, random pack in 3 parts, f32 vector", tmv.tile_matvec_sharded(parts, x64.float(), device),
+            tmv.tile_matvec_sharded_plain(parts, x64.float(), device), RTOL_F32)
+    print("  tile_matvec_sharded, random pack in 3 parts: equal to the last bit to tile_matvec, f32 and f64 vectors -> ok")
     bvals, bidx, x64, (wmin, wmax) = random_row_blocks(device)
     print(f"  random row blocks: {tuple(bvals.shape)}, row widths {wmin}..{wmax} of B = {bvals.shape[1]}")
     compare("blocked_matvec, random row blocks, f32 vector",
@@ -483,7 +625,7 @@ def main() -> int:
     compare("blocked_matvec, random row blocks, f64 vector",
             blocked_matvec(bvals, bidx, x64), blocked_matvec_plain(bvals, bidx, x64), RTOL_F64)
     torch.cuda.synchronize()
-    del uvals, ubidx, bvals, bidx, x64
+    del uvals, ubidx, bvals, bidx, x64, parts
 
     work = tempfile.mkdtemp(prefix="tomofastx_smoke_")
     try:
@@ -491,7 +633,7 @@ def main() -> int:
         t0 = time.time()
         inputs = write_inputs(work, NX, NY, NZ, 64)
         print(f"inputs written in {time.time() - t0:.1f} s")
-        out = {fmt: os.path.join(work, f"out_{fmt}") for fmt in ("tiled", "dense", "packed")}
+        out = {run: os.path.join(work, f"out_{run}") for run in ("tiled", "tiled_mesh1", "dense", "dense_mesh1", "packed")}
         parfile = write_parfile(work, "Parfile_tiled.txt", inputs, out["tiled"], N_MINOR, fmt="tiled")
         tiled = run_main_path(cli, counters, "tiled", parfile, out["tiled"], {
             "build_s": r"kernel built\+cached in ([0-9.]+)s",
@@ -503,8 +645,22 @@ def main() -> int:
         products = sum(2 * it + 1 for it in tiled["lsqr_iterations"]) + 3 + N_MAJOR
         print(f"  tile_matvec.launches = {tiled['launches']['tile_matvec']} (expected {products} = sum of "
               f"2 x iterations + 1 per solve, + {3 + N_MAJOR} forward products)")
-        if tiled["launches"] != {"tile_matvec": products, "blocked_matvec": 0}:
+        if tiled["launches"] != {"tile_matvec": products, "tile_matvec_sharded": 0, "blocked_matvec": 0}:
             raise SystemExit("FAILED tiled main path: launch count")
+
+        # The same with --mesh 1: the row-sharded build, and every product
+        # through tile_matvec_sharded, one launch per slot.
+        mesh_said = {"shard_s": r"grav kernel sharded over a 1 mesh \('cells',\) in ([0-9.]+)s",
+                     "slot0_MB": r"slot 0 \(cuda:0\) ([0-9.]+) MB"}
+        parfile_mesh = write_parfile(work, "Parfile_tiled_mesh1.txt", inputs, out["tiled_mesh1"], N_MINOR, fmt="tiled")
+        tiled_mesh = run_main_path(cli, counters, "tiled --mesh 1", parfile_mesh, out["tiled_mesh1"], {
+            "build_s": r"kernel built\+cached in ([0-9.]+)s",
+            "pack_s": r"cache packed into tiles in ([0-9.]+)s",
+            "format": r"grav kernel: tiled", **mesh_said}, mesh="1")
+        print(f"  tile_matvec_sharded.launches = {tiled_mesh['launches']['tile_matvec_sharded']} (expected "
+              f"{products} x 1 slot)")
+        if tiled_mesh["launches"] != {"tile_matvec": 0, "tile_matvec_sharded": products, "blocked_matvec": 0}:
+            raise SystemExit("FAILED tiled --mesh 1 main path: launch count")
 
         # The Parfile with no tpu.kernelFormat line, built from scratch: the
         # device-accumulating build and write_kernel_cache run.
@@ -515,6 +671,11 @@ def main() -> int:
             "compression_rate": r"COMPRESSION RATE = ([0-9.]+)",
             "cache_write_s": r"kernel cached in ([0-9.]+)s",
             "format": r"grav kernel: dense \(4096, 262144\) torch\.float32"})
+        dense_parfile_mesh = write_parfile(work, "Parfile_dense_mesh1.txt", inputs, out["dense_mesh1"], N_MINOR, fmt=None)
+        dense_mesh = run_main_path(cli, counters, "dense (default) --mesh 1", dense_parfile_mesh, out["dense_mesh1"], {
+            "build_s": r"kernel built in ([0-9.]+)s",
+            "cache_write_s": r"kernel cached in ([0-9.]+)s",
+            "format": r"grav kernel: dense \(4096, 262144\) torch\.float32", **mesh_said}, mesh="1")
         # The packed format from the dense run's cache: read_kernel_cache_packed at full width.
         packed_parfile = write_parfile(
             work, "Parfile_packed.txt", inputs, out["packed"], N_MINOR, fmt="packed",
@@ -522,11 +683,16 @@ def main() -> int:
         packed = run_main_path(cli, counters, "packed", packed_parfile, out["packed"], {
             "pack_s": r"cache packed into the packed layout in ([0-9.]+)s",
             "format": r"grav kernel: packed"}, sensit_written=False)
-        for run in (dense, packed):
+        for run in (dense, dense_mesh, packed):
             if any(run["launches"].values()):
                 raise SystemExit("FAILED: a dense or packed run launched a kernel of another format")
 
-        # ---- 4. the three formats against each other; small problems against the CPU ----
+        # ---- 4. --mesh 1 against unmeshed; the three formats against each other; small problems ----
+        print("the --mesh 1 runs against the unmeshed runs:")
+        mesh_against_unmeshed = {
+            "tiled": hold_equal("tiled --mesh 1", tiled_mesh, out["tiled_mesh1"], tiled, out["tiled"]),
+            "dense": hold_equal("dense --mesh 1", dense_mesh, out["dense_mesh1"], dense, out["dense"]),
+        }
         print("the three formats against each other:")
         ref = tiled["model"]
         spread = {}
@@ -554,8 +720,28 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"  cache packed again in {time.time() - t0:.1f} s (nnz = {meta['nnz']:,}, "
               f"{meta['nnz'] / (tk.nrows * tk.ncols):.4f} of the dense matrix)")
-        fwd = measure_pack(tile_matvec, tile_matvec_plain, "forward", tk.uvals, tk.ubidx, tk.ncols, 1)
-        adj = measure_pack(tile_matvec, tile_matvec_plain, "adjoint", tk.uvalsT, tk.ubidxT, tk.nrows, 2)
+        # Four slots on the one card: the one way to cut a pack on a machine
+        # with one card. The parts' values are views of the packs.
+        mesh4 = Mesh(np.array([device] * 4, dtype=object), ("cells",))
+        tks = shard_kernel(tk, mesh4)
+        views = all(
+            p[0].data_ptr() == whole[k * p[0].shape[0]].data_ptr()
+            for parts, whole in ((tks.parts, tk.uvals), (tks.partsT, tk.uvalsT)) for k, p in enumerate(parts)
+        )
+        print(f"  both packs sharded over {mesh4}: forward parts {[tuple(p[0].shape) for p in tks.parts]}, "
+              f"adjoint parts {[tuple(p[0].shape) for p in tks.partsT]}; values are views of the packs: {views}")
+        if not views:
+            raise SystemExit("FAILED sharding on one card: the parts' values are copies")
+        fwd = measure_pack(tmv, "forward", tk.uvals, tk.ubidx, tk.ncols, 1, tks.parts)
+        adj = measure_pack(tmv, "adjoint", tk.uvalsT, tk.ubidxT, tk.nrows, 2, tks.partsT)
+        for dt in (torch.float32, torch.float64):
+            xs = seeded_vector(tk.ncols, 6, device)[: tk.ncols].to(dt)
+            us = seeded_vector(tk.nrows, 7, device)[: tk.nrows].to(dt)
+            if not (torch.equal(tks.matvec(xs), tk.matvec(xs)) and torch.equal(tks.rmatvec(us), tk.rmatvec(us))):
+                raise SystemExit(f"FAILED 4-slot operator: products differ from the unsharded operator's ({dt})")
+        print("  the 4-slot operator's matvec and rmatvec equal the unsharded operator's to the last bit, "
+              "f32 and f64 vectors -> ok")
+        del tks
 
         # ---- 6. blocked_matvec on row-block layouts of the dense matrix ----
         print("full-width row-block layouts:")
@@ -629,7 +815,49 @@ def main() -> int:
                   f"{o['matvec_ms'] + o['rmatvec_ms']:.3f} | {o['bytes'] / 1e9:.3f} |")
         print(f"  packed: rows {tuple(pk.row_vals.shape)}, heavy columns {tuple(pk.dense_block.shape)}, "
               f"light columns {tuple(pk.light_vals.shape)}")
-        del tk, S, dk, pk
+        del tk, S, dk, pk, op  # op: the loop above leaves it naming pk
+
+        # ---- 8. whole solves over the four-slot mesh, from the tiled run's cache ----
+        print(f"solves from the tiled run's cache through solve_problem_joint_gravmag, over {mesh4}:")
+        cache = os.path.join(out["tiled"], "SENSIT")
+        solves = {"tiled": solve_from_cache(work, "tiled_unmeshed", inputs, cache, "tiled", None, counters)}
+        hold_equal("tiled solve from the cache", solves["tiled"], solves["tiled"]["out_dir"], tiled, out["tiled"],
+                   against="the tiled main path")
+        solves["tiled_4_slots"] = solve_from_cache(work, "tiled_4_slots", inputs, cache, "tiled", mesh4, counters)
+        if solves["tiled_4_slots"]["launches"] != {
+                "tile_matvec": 0, "tile_matvec_sharded": 4 * products, "blocked_matvec": 0}:
+            raise SystemExit(f"FAILED tiled 4-slot solve: launch count (expected {products} x 4 slots)")
+        if not (np.array_equal(solves["tiled_4_slots"]["model"], solves["tiled"]["model"])
+                and same_bytes(*(os.path.join(solves[k]["out_dir"], "costs.txt") for k in ("tiled", "tiled_4_slots")))):
+            raise SystemExit("FAILED tiled 4-slot solve: not equal to the last bit to the unmeshed solve")
+        print(f"  tiled over 4 slots: {products} x 4 launches of tile_matvec; final model and costs.txt equal to "
+              "the last bit to the unmeshed solve -> ok")
+        solves["dense_4_slots"] = solve_from_cache(work, "dense_4_slots", inputs, cache, None, mesh4, counters)
+        if any(solves["dense_4_slots"]["launches"].values()):
+            raise SystemExit("FAILED dense 4-slot solve: a kernel of another format was launched")
+        ref = dense["model"]
+        dm = float(np.abs(solves["dense_4_slots"]["model"] - ref).max() / (ref.max() - ref.min()))
+        dc = abs(solves["dense_4_slots"]["data_cost"][-1] - dense["data_cost"][-1]) / dense["data_cost"][-1]
+        solves["dense_4_slots"].update(model_of_range=dm, data_cost_rel=dc)
+        print(f"  dense over 4 slots (four column partials a product) against the dense main path: final model "
+              f"differs by {dm:.3e} of its range (tolerance {FORMATS_MODEL_TOL:g}), final data cost by {dc:.3e} "
+              f"relative (tolerance {FORMATS_COST_RTOL:g})")
+        if not dm <= FORMATS_MODEL_TOL or not dc <= FORMATS_COST_RTOL:
+            raise SystemExit("FAILED dense 4-slot solve: against the dense main path")
+
+        # ---- 9. distinct cards, where the machine has them ----
+        ncards = torch.cuda.device_count()
+        if ncards >= 2:
+            cards = make_mesh(ncards, device="cuda")
+            print(f"solve over {cards}:")
+            solves["tiled_cards"] = solve_from_cache(work, "tiled_cards", inputs, cache, "tiled", cards, counters)
+            if solves["tiled_cards"]["launches"]["tile_matvec_sharded"] != ncards * products:
+                raise SystemExit(f"FAILED tiled solve over {ncards} cards: launch count")
+            if not np.array_equal(solves["tiled_cards"]["model"], solves["tiled"]["model"]):
+                raise SystemExit(f"FAILED tiled solve over {ncards} cards: not equal to the unmeshed solve")
+            print(f"  tiled over {ncards} cards: final model equal to the last bit to the unmeshed solve -> ok")
+        else:
+            print("this machine has one card: the solve over make_mesh(device_count) on distinct cards did not run")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -637,7 +865,7 @@ def main() -> int:
     print(f"total {total_s:.1f} s")
 
     def report(run):
-        return {k: v for k, v in run.items() if k != "model"}
+        return {k: v for k, v in run.items() if k not in ("model", "sharded", "out_dir")}
 
     kernels = [
         {
@@ -649,7 +877,20 @@ def main() -> int:
             "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
             "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
             "shape_of_these_times": "forward pack, f32 vector",
-            "forward": fwd, "adjoint": adj,
+            "forward": report(fwd), "adjoint": report(adj),
+        },
+        {
+            "name": "tile_matvec_sharded", "route": "cuda",
+            "source": "tomofastx_tpu_torch/csrc/tile_matvec.cu",
+            "wrapper": "tomofastx_tpu_torch/ops/tile_matvec.py: tile_matvec_sharded, one launch a part",
+            "replaces": "tomofastx_tpu/ops/tile_kernel.py:67",
+            "launches": tiled_mesh["launches"]["tile_matvec_sharded"],
+            "max_abs_err": max(fwd["sharded"]["max_abs_err"], adj["sharded"]["max_abs_err"]),
+            "ms": fwd["sharded"]["ms"], "plain_ms": fwd["sharded"]["plain_ms"],
+            "bound_ms": fwd["sharded"]["bound_ms"], "bound_by": fwd["sharded"]["bound_by"],
+            "library_ms": fwd["sharded"]["library_ms"],
+            "shape_of_these_times": "forward pack cut over 4 slots on one card, f32 vector",
+            "forward": fwd["sharded"], "adjoint": adj["sharded"],
         },
         {
             "name": "blocked_matvec", "route": "cuda",
@@ -664,7 +905,9 @@ def main() -> int:
         },
     ]
     print(json.dumps({
-        "main_paths": {"tiled": report(tiled), "dense": report(dense), "packed": report(packed)},
+        "main_paths": {"tiled": report(tiled), "tiled_mesh1": report(tiled_mesh), "dense": report(dense),
+                       "dense_mesh1": report(dense_mesh), "packed": report(packed)},
+        "mesh1_against_unmeshed": mesh_against_unmeshed, "solves_from_cache": {k: report(v) for k, v in solves.items()},
         "formats_against_tiled": spread, "small_problems_card_against_cpu": small_rel,
         "operators": operators, "observations": NDATA, "cells": NX * NY * NZ,
         "kernel_build_s": build_s, "total_s": total_s,

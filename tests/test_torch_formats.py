@@ -218,12 +218,12 @@ PACK_CASES = pytest.mark.parametrize(
 @PACK_CASES
 def test_pack_dense_equals_jax_packs(nrows, ncols, rate, n_heavy, pad):
     S = _compressed_like(np.random.default_rng(22), nrows, ncols, rate, n_heavy)
-    _assert_packed_equal(tsparse.pack_dense(S, pad_multiple=pad), jsparse.pack_dense(S, pad_multiple=pad))
+    _assert_packed_equal(tsparse.pack_dense(S, pad_multiple=pad, device="cpu"), jsparse.pack_dense(S, pad_multiple=pad))
 
 
 def test_pack_dense_of_nothing_and_of_everything():
     for S in (np.zeros((4, 24), np.float32), np.ones((4, 24), np.float32)):
-        _assert_packed_equal(tsparse.pack_dense(S), jsparse.pack_dense(S))
+        _assert_packed_equal(tsparse.pack_dense(S, device="cpu"), jsparse.pack_dense(S))
 
 
 @PACK_CASES
@@ -234,7 +234,7 @@ def test_packed_products_match_jax_and_dense(nrows, ncols, rate, n_heavy, pad):
     rng = np.random.default_rng(23)
     S = _compressed_like(rng, nrows, ncols, rate, n_heavy)
     jk = jsparse.pack_dense(S, pad_multiple=pad)
-    tk = convert.packed_kernel_from_numpy(*[np.asarray(getattr(jk, f)) for f in PACKED_FIELDS], jk.nrows, jk.ncols)
+    tk = convert.packed_kernel_from_numpy(*[np.asarray(getattr(jk, f)) for f in PACKED_FIELDS], jk.nrows, jk.ncols, device="cpu")
     x, u = rng.normal(size=ncols), rng.normal(size=nrows)
     y, g = tk.matvec(torch.as_tensor(x)), tk.rmatvec(torch.as_tensor(u))
     assert y.dtype == g.dtype == torch.float64 and y.shape == (nrows,) and g.shape == (ncols,)
@@ -254,7 +254,7 @@ def test_apply_row_weights_packed_equals_jax(nrows, ncols):
     S = _compressed_like(rng, nrows, ncols, 0.15, 4)
     w = rng.uniform(0.5, 2.0, nrows)
     jk = jsparse.apply_row_weights_packed(jsparse.pack_dense(S), w)
-    tk = tsparse.apply_row_weights_packed(tsparse.pack_dense(S), w)
+    tk = tsparse.apply_row_weights_packed(tsparse.pack_dense(S, device="cpu"), w)
     _assert_packed_equal(tk, jk)
     with pytest.raises(ValueError):
         tsparse.apply_row_weights_packed(tk, w[:-1])
@@ -273,7 +273,7 @@ def test_dense_kernel_matches_jax_dense_kernel(pad_rows, pad_cols, transpose):
     Sp[:nrows, :ncols] = S
     nr, nc = (nrows if pad_rows else None), (ncols if pad_cols else None)
     ST = np.ascontiguousarray(Sp.T) if transpose else None
-    tk = convert.dense_kernel_from_numpy(Sp, ST, ncols_true=nc, nrows_true=nr)
+    tk = convert.dense_kernel_from_numpy(Sp, ST, ncols_true=nc, nrows_true=nr, device="cpu")
     jk = jsparse.DenseKernel(jnp.asarray(Sp), None if ST is None else jnp.asarray(ST), nc, nr)
     assert (tk.nrows, tk.ncols) == (jk.nrows, jk.ncols) == (nrows, ncols)
     assert tk.nbytes == Sp.nbytes * (2 if transpose else 1)
@@ -348,9 +348,9 @@ def test_dense_build_equals_streamed_build():
     """The same chunks, kept on the device or handed to a sink: equal."""
     g, (X, Y, Z), kw, cw = _problem(8, 8, 4, 10, 1, 0.2, 31)
     args = (TGravParams(**kw), TGrid(**g), TSurveyData(ndata=10, X=X, Y=Y, Z=Z), cw)
-    dense = tsens.compute_sensitivity(*args, batch_size=4)
+    dense = tsens.compute_sensitivity(*args, batch_size=4, device="cpu")
     chunks = []
-    streamed = tsens.compute_sensitivity(*args, batch_size=4, row_sink=lambda c, s: chunks.append(c))
+    streamed = tsens.compute_sensitivity(*args, batch_size=4, row_sink=lambda c, s: chunks.append(c), device="cpu")
     assert streamed.S is None and streamed.nnz == dense.nnz and streamed.comp_error == dense.comp_error
     assert torch.equal(dense.S, torch.cat(chunks).reshape(10, -1))
 
@@ -361,7 +361,7 @@ def test_uncompressed_dense_build_reports_a_non_finite_row():
     g, (X, Y, Z), kw, cw = _problem(4, 4, 2, 3, 0, 1.0, 32)
     X[1], Y[1], Z[1] = 50.0, 80.0, 0.0
     with pytest.raises(FloatingPointError):
-        tsens.compute_sensitivity(TGravParams(**kw), TGrid(**g), TSurveyData(ndata=3, X=X, Y=Y, Z=Z), cw)
+        tsens.compute_sensitivity(TGravParams(**kw), TGrid(**g), TSurveyData(ndata=3, X=X, Y=Y, Z=Z), cw, device="cpu")
 
 
 @pytest.mark.parametrize("ctype", [0, 1])
@@ -384,7 +384,7 @@ def test_row_weights_and_forward_data_on_a_dense_kernel_match_jax(ctype):
     assert unweighted.S is None and kt.S.data_ptr() == storage
     np.testing.assert_array_equal(kt.S.numpy(), np.asarray(kj.S))
     dj = jsens.calculate_data(kj, m, cw, 0.7, dw, solve_dtype=jnp.float64)
-    dt = tsens.calculate_data(kt, m, cw, 0.7, dw, ctype, *dims, solve_dtype=torch.float64)
+    dt = tsens.calculate_data(kt, m, cw, 0.7, dw, ctype, *dims, solve_dtype=torch.float64, device="cpu")
     assert dt.shape == dj.shape == (nd, 1)
     np.testing.assert_allclose(dt, dj, rtol=1e-12, atol=0)
     with pytest.raises(ValueError):
@@ -412,7 +412,7 @@ def test_kernel_cache_files_and_dense_readers_both_ways(tmp_path, ctype, rate):
     tcache.write_kernel_cache(dt, TGravParams(**kw), kt, cw)
     for f in CACHE_FILES:
         assert filecmp.cmp(os.path.join(dj, f), os.path.join(dt, f), shallow=False), f
-    from_j = tcache.try_read_kernel_cache(dj, TGravParams(**kw), TGrid(**g))
+    from_j = tcache.try_read_kernel_cache(dj, TGravParams(**kw), TGrid(**g), device="cpu")
     from_t = jcache.try_read_kernel_cache(dt, JGravParams(**kw), JGrid(**g))
     assert from_j.S.dtype == torch.float32
     np.testing.assert_array_equal(from_j.S.numpy(), S)
@@ -452,7 +452,7 @@ def test_packed_reader_equals_jax_both_ways(tmp_path, monkeypatch, nmc, ndc, cty
     _write_records(jcache, Par_j, JGrid, dj, g, kw, cw, chunks, ctype)
     _write_records(tcache, Par_t, TGrid, dt, g, kw, cw, chunks, ctype)
     monkeypatch.setattr(tcache, "iter_cache_coo", functools.partial(tcache.iter_cache_coo, flush=flush))
-    tk, tmeta = tcache.read_kernel_cache_packed(dj, Par_t(**kw), TGrid(**g), col_cap_factor=2.0)
+    tk, tmeta = tcache.read_kernel_cache_packed(dj, Par_t(**kw), TGrid(**g), col_cap_factor=2.0, device="cpu")
     jk, jmeta = jcache.read_kernel_cache_packed(dt, Par_j(**kw), JGrid(**g), col_cap_factor=2.0)
     assert tmeta == jmeta
     _assert_packed_equal(tk, jk)
@@ -472,10 +472,10 @@ def test_packed_reader_equals_pack_dense_of_the_dense_reader(tmp_path):
     g, kw, cw, _, kt = _build_both((8, 8, 4), 13, 1, 0.15, 256, seed=37)
     d = str(tmp_path / "c")
     tcache.write_kernel_cache(d, TGravParams(**kw), kt, cw)
-    streamed, meta = tcache.read_kernel_cache_packed(d, TGravParams(**kw), TGrid(**g))
-    dense = tcache.try_read_kernel_cache(d, TGravParams(**kw), TGrid(**g))
+    streamed, meta = tcache.read_kernel_cache_packed(d, TGravParams(**kw), TGrid(**g), device="cpu")
+    dense = tcache.try_read_kernel_cache(d, TGravParams(**kw), TGrid(**g), device="cpu")
     assert meta["nnz"] == dense.nnz == kt.nnz
-    packed = tsparse.pack_dense(dense.S)
+    packed = tsparse.pack_dense(dense.S, device="cpu")
     for f in PACKED_FIELDS:
         assert torch.equal(getattr(streamed, f), getattr(packed, f)), f
 
@@ -483,5 +483,5 @@ def test_packed_reader_equals_pack_dense_of_the_dense_reader(tmp_path):
 def test_readers_without_a_cache(tmp_path):
     g, _, kw, _ = _problem(4, 4, 2, 3, 1, 0.2, 38)
     par, grid = TGravParams(**kw), TGrid(**g)
-    assert tcache.try_read_kernel_cache(str(tmp_path / "no"), par, grid) is None
-    assert tcache.read_kernel_cache_packed(str(tmp_path / "no"), par, grid) == (None, None)
+    assert tcache.try_read_kernel_cache(str(tmp_path / "no"), par, grid, device="cpu") is None
+    assert tcache.read_kernel_cache_packed(str(tmp_path / "no"), par, grid, device="cpu") == (None, None)

@@ -256,7 +256,7 @@ def test_depth_weight_matches_jax(wtype, shape, nd):
     g = _lattice(*shape)
     X, Y, Z = _points(rng, g, nd)
     par = _par(depth_weighting_type=wtype, depth_weighting_power=1.7, depth_weighting_beta=1.3, Z0=5.0)
-    got = tsens.calculate_depth_weight(par, TGrid(**g), TSurveyData(ndata=nd, X=X, Y=Y, Z=Z))
+    got = tsens.calculate_depth_weight(par, TGrid(**g), TSurveyData(ndata=nd, X=X, Y=Y, Z=Z), device="cpu")
     want = jsens.calculate_depth_weight(par, JGrid(**g), JSurveyData(ndata=nd, X=X, Y=Y, Z=Z))
     np.testing.assert_allclose(got, want, rtol=1e-12)
 
@@ -265,9 +265,9 @@ def test_depth_weight_errors():
     g = _lattice(3, 3, 2)
     data = TSurveyData(ndata=1, X=np.zeros(1), Y=np.zeros(1), Z=-np.ones(1))
     with pytest.raises(ValueError):
-        tsens.calculate_depth_weight(_par(depth_weighting_type=9), TGrid(**g), data)
+        tsens.calculate_depth_weight(_par(depth_weighting_type=9), TGrid(**g), data, device="cpu")
     with pytest.raises(ValueError):
-        tsens.calculate_depth_weight(_par(Z0=-1000.0), TGrid(**g), data)
+        tsens.calculate_depth_weight(_par(Z0=-1000.0), TGrid(**g), data, device="cpu")
 
 
 def test_local_depth_weighting_matches_jax(tmp_path):

@@ -234,7 +234,7 @@ def test_solver_matches_jax(kw):
     S[rng.random(S.shape) > 0.3] = 0.0
     jk = jtile.pack_tiles(S)
     tk = convert.tile_kernel_from_numpy(
-        *[np.asarray(getattr(jk, f)) for f in ("uvals", "ubidx", "uvalsT", "ubidxT")], nd, N
+        *[np.asarray(getattr(jk, f)) for f in ("uvals", "ubidx", "uvalsT", "ubidxT")], nd, N, device="cpu"
     )
     model = rng.uniform(-20, 120, (1, N))
     prior = np.zeros((1, N))
@@ -247,7 +247,7 @@ def test_solver_matches_jax(kw):
     dw = rng.uniform(0.5, 1.5, N)
     resid = rng.normal(size=(nd, 1))
 
-    tarr = convert.solver_state_from_numpy([model], [prior], [cw], [z], [u], rho)
+    tarr = convert.solver_state_from_numpy([model], [prior], [cw], [z], [u], rho, device="cpu")
     tarr.update(S=(tk,), residuals=(_t(resid),), min_bound=(_t(mins),), max_bound=(_t(maxs),),
                 bound_weight=(_t(bw),), damping_weight=(_t(dw),))
     J = jnp.asarray

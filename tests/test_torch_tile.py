@@ -77,7 +77,7 @@ def test_wrapper_on_cpu_matches_dense_products_f64(nrows, ncols):
     columns uneven against 8 and 128: 1e-12 of the largest output."""
     rng = np.random.default_rng(7)
     S = _rand_sparse(rng, nrows, ncols)
-    tk = ttile.pack_tiles(S)
+    tk = ttile.pack_tiles(S, device="cpu")
     Sd = S.astype(np.float64)
     x, u = rng.normal(size=ncols), rng.normal(size=nrows)
     before = tmv.tile_matvec.launches
@@ -95,7 +95,7 @@ def test_tile_kernel_matches_jax_tile_kernel_products():
     S = _rand_sparse(rng, 45, 300)
     jk = jtile.pack_tiles(S)
     tk = convert.tile_kernel_from_numpy(
-        *[np.asarray(getattr(jk, f)) for f in PACK_FIELDS], jk.nrows, jk.ncols
+        *[np.asarray(getattr(jk, f)) for f in PACK_FIELDS], jk.nrows, jk.ncols, device="cpu"
     )
     x, u = rng.normal(size=300), rng.normal(size=45)
     np.testing.assert_allclose(
@@ -134,7 +134,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_operator_rejects_wrong_vector_length():
-    tk = ttile.pack_tiles(np.eye(9, 140, dtype=np.float32))
+    tk = ttile.pack_tiles(np.eye(9, 140, dtype=np.float32), device="cpu")
     with pytest.raises(ValueError):
         tk.matvec(torch.zeros(141, dtype=torch.float64))
     with pytest.raises(ValueError):
@@ -144,11 +144,11 @@ def test_operator_rejects_wrong_vector_length():
 def test_pack_with_block_ids_out_of_range_is_refused():
     uv, ub = np.zeros((1, 2, 8, 128), np.float32), np.array([[0, 3]], np.int32)
     uvT, ubT = np.zeros((32, 1, 8, 128), np.float32), np.zeros((32, 1), np.int32)
-    convert.tile_kernel_from_numpy(uv, ub, uvT, ubT, nrows=8, ncols=512)  # 4 blocks: fine
+    convert.tile_kernel_from_numpy(uv, ub, uvT, ubT, nrows=8, ncols=512, device="cpu")  # 4 blocks: fine
     with pytest.raises(ValueError):
-        convert.tile_kernel_from_numpy(uv, ub, uvT, ubT, nrows=8, ncols=256)  # 2 blocks
+        convert.tile_kernel_from_numpy(uv, ub, uvT, ubT, nrows=8, ncols=256, device="cpu")  # 2 blocks
     with pytest.raises(ValueError):
-        convert.tile_kernel_from_numpy(uv, -ub, uvT, ubT, nrows=8, ncols=512)
+        convert.tile_kernel_from_numpy(uv, -ub, uvT, ubT, nrows=8, ncols=512, device="cpu")
 
 
 def test_kernel_source_is_shipped_with_the_package():
@@ -166,7 +166,7 @@ def test_kernel_source_is_shipped_with_the_package():
 def test_pack_tiles_equals_jax_packs(nrows, ncols, keep):
     rng = np.random.default_rng(1)
     S = _rand_sparse(rng, nrows, ncols, keep)
-    _assert_packs_equal(ttile.pack_tiles(S), jtile.pack_tiles(S))
+    _assert_packs_equal(ttile.pack_tiles(S, device="cpu"), jtile.pack_tiles(S))
 
 
 def test_streaming_coo_pack_equals_jax_streaming_pack():
@@ -178,7 +178,7 @@ def test_streaming_coo_pack_equals_jax_streaming_pack():
     perm = rng.permutation(r.size)
     r, c = r[perm], c[perm]
     v = S[r, c]
-    tb, jb = ttile.TileKernelBuilder(nrows, ncols), jtile.TileKernelBuilder(nrows, ncols)
+    tb, jb = ttile.TileKernelBuilder(nrows, ncols, device="cpu"), jtile.TileKernelBuilder(nrows, ncols)
     cuts = [0, 5, 400, r.size]
     for b in (tb, jb):
         for s, e in zip(cuts[:-1], cuts[1:]):
@@ -193,7 +193,7 @@ def test_streaming_coo_pack_equals_jax_streaming_pack():
 
 
 def test_fill_before_scan_raises():
-    b = ttile.TileKernelBuilder(8, 128)
+    b = ttile.TileKernelBuilder(8, 128, device="cpu")
     with pytest.raises(RuntimeError):
         b.fill_coo(np.array([0]), np.array([0]), np.array([1.0], np.float32))
 
@@ -204,7 +204,7 @@ def test_apply_row_weights_equals_jax(nrows, ncols):
     S = _rand_sparse(rng, nrows, ncols)
     w = rng.uniform(0.5, 2.0, nrows)
     jk = jtile.apply_row_weights_tiled(jtile.pack_tiles(S), w)
-    tk = ttile.apply_row_weights_tiled(ttile.pack_tiles(S), w)
+    tk = ttile.apply_row_weights_tiled(ttile.pack_tiles(S, device="cpu"), w)
     _assert_packs_equal(tk, jk)
     with pytest.raises(ValueError):
         ttile.apply_row_weights_tiled(tk, w[:-1])
@@ -214,7 +214,7 @@ def test_solver_state_from_numpy():
     rng = np.random.default_rng(4)
     m = rng.normal(size=(1, 12))
     st = convert.solver_state_from_numpy(
-        [m], [m * 0], [np.ones(12)], [np.zeros(12)], [np.zeros(12)], [1e-7, 1e5], dtype=torch.float32
+        [m], [m * 0], [np.ones(12)], [np.zeros(12)], [np.zeros(12)], [1e-7, 1e5], dtype=torch.float32, device="cpu"
     )
     assert set(st) == {"model", "prior", "cw", "admm_z", "admm_u", "rho_admm"}
     assert st["model"][0].dtype == torch.float32 and st["model"][0].shape == (1, 12)
@@ -340,14 +340,14 @@ def test_tile_kernel_from_cache_small_flush_and_missing(tmp_path, monkeypatch):
     stream is cut into batches."""
     g, (X, Y, Z), kw, cw = _problem(8, 8, 4, 10, 1, 0.2, 10)
     par, grid = TGravParams(**kw), TGrid(**g)
-    assert ttile.tile_kernel_from_cache(str(tmp_path / "no"), par, grid) == (None, None)
+    assert ttile.tile_kernel_from_cache(str(tmp_path / "no"), par, grid, device="cpu") == (None, None)
     d = str(tmp_path / "c")
     w = tcache.SensitStreamWriter(d, par, grid, cw, 1)
-    k = tsens.compute_sensitivity(par, grid, TSurveyData(ndata=10, X=X, Y=Y, Z=Z), cw, row_sink=w.write_chunk)
+    k = tsens.compute_sensitivity(par, grid, TSurveyData(ndata=10, X=X, Y=Y, Z=Z), cw, row_sink=w.write_chunk, device="cpu")
     w.finalize(k.comp_error)
-    one, _ = ttile.tile_kernel_from_cache(d, par, grid)
+    one, _ = ttile.tile_kernel_from_cache(d, par, grid, device="cpu")
     rows = [(i, c, v) for i, _, _, c, v in tcache.iter_cache_rows(d, tcache.read_cache_meta(d, par, grid))]
-    b = ttile.TileKernelBuilder(10, 256)
+    b = ttile.TileKernelBuilder(10, 256, device="cpu")
     for i, c, v in rows:
         b.scan_coo(np.full(c.size, i), c)
     b.finalize_scan()
@@ -364,11 +364,11 @@ def test_compute_sensitivity_refuses_unported_paths():
     from tomofastx_tpu_torch.config.parfile import MagParams
 
     with pytest.raises(NotImplementedError):
-        tsens.compute_sensitivity(MagParams(**kw), grid, data, cw, row_sink=lambda c, s: None)
+        tsens.compute_sensitivity(MagParams(**kw), grid, data, cw, row_sink=lambda c, s: None, device="cpu")
     with pytest.raises(NotImplementedError):
-        tsens.compute_sensitivity(MagParams(**kw), grid, data, cw)  # the dense build too
+        tsens.compute_sensitivity(MagParams(**kw), grid, data, cw, device="cpu")  # the dense build too
     # Without a row_sink a gravity kernel is accumulated densely (tests/test_torch_formats.py).
-    assert tsens.compute_sensitivity(par, grid, data, cw).S.shape == (3, 32)
+    assert tsens.compute_sensitivity(par, grid, data, cw, device="cpu").S.shape == (3, 32)
 
 
 def test_observation_on_a_cell_edge_is_reported():
@@ -382,7 +382,7 @@ def test_observation_on_a_cell_edge_is_reported():
     with pytest.raises(FloatingPointError):
         tsens.compute_sensitivity(
             TGravParams(**kw), TGrid(**g), TSurveyData(ndata=3, X=X, Y=Y, Z=Z), cw,
-            row_sink=lambda c, s: None,
+            row_sink=lambda c, s: None, device="cpu",
         )
     with pytest.raises(FloatingPointError):
         jsens.compute_sensitivity(
@@ -401,7 +401,7 @@ def test_percell_build_matches_lattice_build(tmp_path):
         chunks = []
         tsens.compute_sensitivity(
             par, TGrid(**g), TSurveyData(ndata=6, X=X, Y=Y, Z=Z), cw,
-            row_sink=lambda c, s: chunks.append(c.numpy()),
+            row_sink=lambda c, s: chunks.append(c.numpy()), device="cpu",
         )
         got[lat] = np.concatenate(chunks)
     assert got[0].shape == (6, 1, 1, 256) and got[0].dtype == np.float32

@@ -1,7 +1,8 @@
 """Command-line entry point: ``python -m tomofastx_tpu_torch -p <Parfile>``.
 
 Counterpart of program_tomofastx (program_tomofastx.F90:25-103), minus MPI
-boilerplate: the program is one process that drives one device.
+boilerplate: the program is one process that drives one device, or every
+slot of a mesh (``--mesh``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,13 @@ def main(argv=None):
         "--device", default="cuda",
         help="torch device to run on (default cuda; cpu only when asked for)",
     )
+    parser.add_argument(
+        "--mesh", default="0", metavar="N|RxC",
+        help="shard the solve over N devices along the cells axis, or over "
+        "a 2-D obs x cells mesh given as RxC (e.g. 2x4: data rows over 2, "
+        "model columns over 4; 0 = no mesh). On cuda the slots are distinct "
+        "cards; on cpu every slot is the CPU",
+    )
     parser.add_argument("-q", "--quiet", action="store_true")
     args = parser.parse_args(argv)
     if args.parfile is None:
@@ -46,6 +54,7 @@ def main(argv=None):
 
     from tomofastx_tpu_torch.config.parfile import config_summary, read_parfile
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
+    from tomofastx_tpu_torch.parallel.mesh import make_mesh
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -54,6 +63,14 @@ def main(argv=None):
             "(pass --device cpu to run on the CPU)", file=sys.stderr,
         )
         return 1
+
+    mesh = None
+    if args.mesh and args.mesh != "0":
+        try:
+            mesh = make_mesh(args.mesh, device=device.type)
+        except ValueError as e:
+            print(f"ERROR: --mesh {args.mesh}: {e}", file=sys.stderr)
+            return 1
 
     try:
         cfg = read_parfile(args.parfile)
@@ -82,7 +99,7 @@ def main(argv=None):
     try:
         solve_problem_joint_gravmag(
             cfg, base_dir=args.base_dir, solve_dtype=solve_dtype,
-            verbose=not args.quiet, device=device,
+            verbose=not args.quiet, device=device, mesh=mesh,
         )
     except (FileNotFoundError, ValueError, FloatingPointError, NotImplementedError) as e:
         # Clean fail-fast diagnostics, like the reference's exit_MPI banner

@@ -18,7 +18,7 @@ from tomofastx_tpu_torch.ops.tile_kernel import TileKernel
 
 
 def tile_kernel_from_numpy(uvals, ubidx, uvalsT, ubidxT, nrows: int, ncols: int,
-                           device="cpu") -> TileKernel:
+                           device="cuda") -> TileKernel:
     """The four arrays of a tile-union pack -> a TileKernel on `device`."""
 
     def put(a, dtype):
@@ -35,7 +35,7 @@ def tile_kernel_from_numpy(uvals, ubidx, uvalsT, ubidxT, nrows: int, ncols: int,
 
 
 def dense_kernel_from_numpy(S, ST=None, ncols_true=None, nrows_true=None,
-                            dtype=torch.float64, device="cpu") -> DenseKernel:
+                            dtype=torch.float64, device="cuda") -> DenseKernel:
     """A dense kernel's matrix (and its optional contiguous transpose) -> a
     DenseKernel on `device`, in the dtype of the vectors it will meet."""
 
@@ -47,7 +47,7 @@ def dense_kernel_from_numpy(S, ST=None, ncols_true=None, nrows_true=None,
 
 def packed_kernel_from_numpy(row_vals, row_idx, dense_cols, dense_block, light_cols,
                              light_vals, light_idx, nrows: int, ncols: int,
-                             device="cpu") -> PackedKernel:
+                             device="cuda") -> PackedKernel:
     """The seven arrays of a packed top-k kernel -> a PackedKernel on `device`."""
 
     def put(a, dtype):
@@ -69,7 +69,7 @@ def packed_kernel_from_numpy(row_vals, row_idx, dense_cols, dense_block, light_c
 def solver_state_from_numpy(
     model: Sequence, prior: Sequence, column_weight: Sequence,
     admm_z: Sequence, admm_u: Sequence, rho_admm,
-    dtype=torch.float64, device="cpu",
+    dtype=torch.float64, device="cuda",
 ) -> dict:
     """Per-active-problem sequences of numpy arrays (models and priors
     (ncomp, N); column weights, ADMM z and u (N,)) and the two ADMM weights

@@ -12,9 +12,10 @@ tensor operations on `device` (inversion/joint.py).
 
 Ported so far: one gravity problem with a stored kernel — dense (the
 default), packed top-k or tile-union (``tpu.kernelFormat = dense | packed |
-tiled | auto``), wavelet-compressed or not — damping and ADMM. A Parfile that
-asks for anything else is refused with NotImplementedError before any work
-is done.
+tiled | auto``), wavelet-compressed or not — damping and ADMM, on one
+device or on a mesh of slots (``mesh=``: the build's rows and the operator's
+cells split over the slots, parallel/mesh.py). A Parfile that asks for
+anything else is refused with NotImplementedError before any work is done.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from tomofastx_tpu_torch.models.model import ModelState
 from tomofastx_tpu_torch.ops import sensitivity as sens
 from tomofastx_tpu_torch.ops.sparse_kernel import DenseKernel, apply_row_weights_packed
 from tomofastx_tpu_torch.ops.tile_kernel import apply_row_weights_tiled, tile_kernel_from_cache
+from tomofastx_tpu_torch.parallel.mesh import shard_kernel, slot_bytes_line
 from tomofastx_tpu_torch.utils.memory import report as memory_report
 
 PROBLEM_PREFIX = ("grav", "mag")  # output file name prefixes (reference usage)
@@ -210,15 +212,28 @@ def solve_problem_joint_gravmag(
     compute_dtype=None,
     verbose: bool = True,
     device="cuda",
+    mesh=None,
 ) -> WorkflowResult:
     """Run the full inversion described by a Parfile configuration on
     `device` ("cuda" unless the caller asks for "cpu").
+
+    mesh: optional parallel.mesh.Mesh whose slots are devices of `device`'s
+    type. The kernel build then cuts each chunk's observations over the
+    slots, and after the row weights each operator is sharded once over the
+    mesh (parallel/mesh.py::shard_kernel); the unsharded operator is
+    dropped, and the forward products and the solve both go through the
+    sharded one. The vectors stay on the mesh's home device, which the run
+    takes as its device.
 
     solve_dtype defaults to float32 on a CUDA device and float64 on the CPU;
     compute_dtype (the kernel build) to float64 — the reference computes in
     double and stores single (global_typedefs.F90:37-45), and a float32
     build suffers cancellation in the prism integrals."""
     device = torch.device(device)
+    if mesh is not None:
+        if mesh.home.type != device.type:
+            raise ValueError(f"a mesh of {mesh.home.type} slots for a run on {device}")
+        device = mesh.home
     if solve_dtype is None:
         solve_dtype = torch.float64 if device.type == "cpu" else torch.float32
     if compute_dtype is None:
@@ -232,9 +247,10 @@ def solve_problem_joint_gravmag(
         return torch.as_tensor(np.asarray(a), dtype=solve_dtype, device=device)
 
     def sync():
-        # Phase times are read on the host's clock: wait for the device first.
+        # Phase times are read on the host's clock: wait for the devices first.
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            for d in dict.fromkeys(mesh.slots if mesh is not None else [device]):
+                torch.cuda.synchronize(d)
 
     t_start = time.time()
     timings: Dict[str, object] = {}
@@ -357,7 +373,7 @@ def solve_problem_joint_gravmag(
                     kmeta = sens.compute_sensitivity(
                         par, ctx.model.grid, ctx.data, ctx.column_weight,
                         compute_dtype=compute_dtype, store_dtype=torch.float32,
-                        row_sink=writer.write_chunk, device=device,
+                        row_sink=writer.write_chunk, device=device, mesh=mesh,
                     )
                 finally:
                     writer.close()
@@ -423,7 +439,7 @@ def solve_problem_joint_gravmag(
             kernel = sens.compute_sensitivity(
                 par, ctx.model.grid, ctx.data, ctx.column_weight,
                 compute_dtype=compute_dtype, store_dtype=torch.float32,
-                progress=ticker, device=device,
+                progress=ticker, device=device, mesh=mesh,
             )
             sync()
             timings["build_s"] = time.time() - t0
@@ -451,6 +467,20 @@ def solve_problem_joint_gravmag(
 
     for ctx in ctxs.values():
         ctx.operator = _kernel_operator(ctx, device)
+
+    if mesh is not None:
+        # Shard each operator once; the unsharded one (and the dense
+        # kernel it was made from) is dropped.
+        t0 = time.time()
+        for i, ctx in ctxs.items():
+            ctx.operator = shard_kernel(ctx.operator, mesh)
+            ctx.kernel = None
+        sync()
+        timings["shard_s"] = time.time() - t0
+        shape = "x".join(str(v) for v in mesh.devices.shape)
+        for i, ctx in ctxs.items():
+            log(f"  {PROBLEM_PREFIX[i]} kernel sharded over a {shape} mesh {mesh.axis_names} in "
+                f"{timings['shard_s']:.2f}s: {slot_bytes_line(ctx.operator)}")
 
     # Memory checkpoint 2/4: after the forward phase (reference prints Pss
     # here, sensitivity_gravmag.F90:394-398).

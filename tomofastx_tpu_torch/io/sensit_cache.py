@@ -222,7 +222,7 @@ def write_kernel_cache(cache_dir: str, par, kernel, column_weight: np.ndarray):
     w.finalize(kernel.comp_error)
 
 
-def iter_cache_coo(cache_dir: str, meta: dict, device="cpu", with_vals: bool = True,
+def iter_cache_coo(cache_dir: str, meta: dict, device="cuda", with_vals: bool = True,
                    flush: int = 16 << 20):
     """Stream the cache's entries in file order as batches of coordinates on
     `device`: yields (r, c, v) with r = idata * ndc + d the matrix row
@@ -258,7 +258,7 @@ def iter_cache_coo(cache_dir: str, meta: dict, device="cpu", with_vals: bool = T
         yield batch(rows, counts, buf_c, buf_v)
 
 
-def try_read_kernel_cache(cache_dir: str, par, grid, device="cpu"):
+def try_read_kernel_cache(cache_dir: str, par, grid, device="cuda"):
     """Read a reference-format kernel cache into a dense SensitKernel whose
     S lies on `device`: the records are scattered there, batch by batch.
     Returns None when the cache is absent."""
@@ -296,7 +296,7 @@ def read_kernel_cache_packed(
     cache_dir: str, par, grid,
     pad_multiple: int = 8,
     col_cap_factor: float = 4.0,
-    device="cpu",
+    device="cuda",
 ):
     """Stream a reference-format cache directly into the packed top-k
     layout (PackedKernel) on `device`, never materializing the dense

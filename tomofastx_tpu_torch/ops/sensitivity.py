@@ -47,7 +47,7 @@ from tomofastx_tpu_torch.ops.sparse_kernel import DenseKernel
 
 
 def calculate_depth_weight(
-    par, grid: Grid, data: SurveyData, dtype=torch.float64, device="cpu"
+    par, grid: Grid, data: SurveyData, dtype=torch.float64, device="cuda"
 ) -> np.ndarray:
     """Normalized depth/distance weight per cell, inverted into the matrix
     *column weight* W^-1 (reference: calculate_depth_weight,
@@ -285,7 +285,8 @@ def compute_sensitivity(
     batch_size: int = 256,
     progress=None,
     row_sink=None,
-    device="cpu",
+    device="cuda",
+    mesh=None,
 ) -> SensitKernel:
     """Build the (optionally wavelet-compressed) sensitivity rows, into one
     dense tensor on `device` or streamed to `row_sink`.
@@ -310,15 +311,26 @@ def compute_sensitivity(
     Without a row_sink the chunks are written straight into one
     (nd * ndc, nmc * N) tensor of store_dtype on `device`, the solver's
     layout, which the returned SensitKernel holds as S: the finished kernel
-    never passes through the host."""
+    never passes through the host.
+
+    mesh: optional parallel.mesh.Mesh. The observations of every chunk are
+    then cut over all of its slots (the reference's data-row parallel build,
+    sensitivity_gravmag.F90:179-189): the chunk is padded with far-away
+    dummy points to a multiple of the slot count, part k is built on slot
+    k's device, the parts meet on `device` and the dummy rows are dropped
+    before anything is stored, checked or counted. Rows are built
+    independently, so the kept rows equal the unsharded build's bit for
+    bit."""
     if isinstance(par, MagParams):
         raise NotImplementedError("the magnetic kernel build is not ported yet")
     N = grid.nelements_total
     nd, ndc, nmc = par.ndata, par.ndata_components, par.nmodel_components
     problem = "grav"
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float64), dtype=compute_dtype, device=device)
+    device = torch.device(device)
+
+    def t(a, dev=device):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=compute_dtype, device=dev)
 
     # Corner-lattice build on a tensor-product grid: evaluate the corner
     # antiderivatives once per lattice node per observation and difference
@@ -328,13 +340,23 @@ def compute_sensitivity(
     lattice_edges = None
     if getattr(par, "lattice_build", 1) and compute_dtype == torch.float64:
         lattice_edges = detect_lattice(grid)
-    lat = tuple(t(e) for e in lattice_edges) if lattice_edges is not None else ()
-    grid_arrays = (
-        ()
-        if lat
-        else tuple(t(a) for a in (grid.X1, grid.X2, grid.Y1, grid.Y2, grid.Z1, grid.Z2))
-    )
-    cw = t(column_weight)
+    slots = [device] if mesh is None else mesh.slots
+
+    def operands(dev):
+        """The grid (lattice edges or cell bounds) and column weight on dev."""
+        lat = tuple(t(e, dev) for e in lattice_edges) if lattice_edges is not None else ()
+        grid_arrays = (
+            ()
+            if lat
+            else tuple(t(a, dev) for a in (grid.X1, grid.X2, grid.Y1, grid.Y2, grid.Z1, grid.Z2))
+        )
+        return lat, grid_arrays, t(column_weight, dev)
+
+    # Keyed by the device the tensors landed on ("cuda" lands on cuda:0).
+    ops = {}
+    for dev in dict.fromkeys(slots):
+        o = operands(dev)
+        ops[o[2].device] = o
 
     if par.compression_type > 0:
         nel_compressed = int(par.compression_rate * N)
@@ -342,6 +364,7 @@ def compute_sensitivity(
         nel_compressed = N
 
     def build_chunk(xd, yd, zd):
+        lat, grid_arrays, cw = ops[xd.device]
         if lat:
             rows = _lattice_closed_rows(*lat, xd, yd, zd, problem, par.data_type)
             rows = rows.reshape(-1, N, nmc, ndc)
@@ -361,7 +384,29 @@ def compute_sensitivity(
             torch.zeros((B,), dtype=compute_dtype, device=comp.device),
         )
 
-    xs, ys, zs = t(data.X), t(data.Y), t(data.Z)
+    xs, ys, zs = (np.asarray(a, np.float64) for a in (data.X, data.Y, data.Z))
+    if mesh is not None:
+        # Dummy points far outside the volume: finite closed forms, rows
+        # dropped after the chunk (as in the JAX package's sharded build).
+        far = (float(np.max(grid.X2)) + 1.0e6, float(np.max(grid.Y2)) + 1.0e6, float(np.min(grid.Z1)) - 1.0e6)
+
+    def build_rows(s, e):
+        """Rows of observations [s, e) -> (comp, nnz, err) on `device`."""
+        if mesh is None:
+            return build_chunk(t(xs[s:e]), t(ys[s:e]), t(zs[s:e]))
+        n, nb = len(slots), e - s
+        per = -(-nb // n)
+        coords = [np.full(per * n, f) for f in far]
+        for c, a in zip(coords, (xs, ys, zs)):
+            c[:nb] = a[s:e]
+        parts = [
+            build_chunk(*(t(c[k * per : (k + 1) * per], dev) for c in coords))
+            for k, dev in enumerate(slots)
+        ]
+        if n == 1:
+            return tuple(a.to(device) for a in parts[0])
+        return tuple(torch.cat([p[q].to(device) for p in parts])[:nb] for q in range(3))
+
     S = None
     if row_sink is None:
         S = torch.empty((nd * ndc, nmc * N), dtype=store_dtype, device=device)
@@ -370,7 +415,7 @@ def compute_sensitivity(
     err_total = 0.0
     for s, nb in _chunk_plan(nd, batch_size):
         e = s + nb
-        comp, nnz, err_sum = build_chunk(xs[s:e], ys[s:e], zs[s:e])
+        comp, nnz, err_sum = build_rows(s, e)
         prism.validate_finite("sensitivity kernel chunk", comp)
         if row_sink is not None:
             row_sink(comp, s)
@@ -423,7 +468,7 @@ def calculate_data(
     ny: int,
     nz: int,
     solve_dtype=torch.float64,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """Forward d = S m through a stored, row-weighted operator with a
     `matvec`, or a dense SensitKernel (reference: model_calculate_data,

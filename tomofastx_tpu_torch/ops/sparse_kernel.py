@@ -19,6 +19,8 @@ instead of the reference's CSR (sparse_matrix.f90):
 
 Both operators are plain tensor operations here, as they are outside any
 hand-written kernel in the JAX package (the dense pair is ``torch.mv``).
+Their forms cut over the slots of a mesh (ShardedDenseKernel,
+ShardedPackedKernel) and the padding helpers serve parallel/mesh.py.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ def pack_dense(
     pad_multiple: int = 8,
     dtype=torch.float32,
     col_cap_factor: float = 4.0,
-    device="cpu",
+    device="cuda",
 ) -> PackedKernel:
     """Pack a dense (nrows, ncols) matrix with structured zeros, with tensor
     operations on `device`.
@@ -218,3 +220,211 @@ def apply_row_weights_packed(pk: PackedKernel, wrow) -> PackedKernel:
         nrows=pk.nrows,
         ncols=pk.ncols,
     )
+
+
+# =============================================================================
+# Mesh placement (parallel/mesh.py::shard_kernel): padding helpers with the
+# JAX package's conventions and the sharded operators.
+# =============================================================================
+
+
+def pad_axis(a: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
+    """Zero-pad one axis of a to a multiple; a itself when it divides."""
+    pad = (-a.shape[axis]) % multiple
+    if pad == 0:
+        return a
+    shape = list(a.shape)
+    shape[axis] = pad
+    return torch.cat([a, a.new_zeros(shape)], dim=axis)
+
+
+def pad_packed_for_mesh(pk: PackedKernel, n: int) -> PackedKernel:
+    """Pad every sharded axis of a PackedKernel to a multiple of n: the row
+    pack's slot axis, the heavy block's columns and the light pack's leading
+    axis. Padding points at index 0 with value 0, which the add-based
+    products treat as no-ops. Returns pk itself when all axes divide."""
+    K, nd, nl = pk.row_vals.shape[1], pk.dense_block.shape[1], pk.light_vals.shape[0]
+    if K % n == 0 and nd % n == 0 and nl % n == 0:
+        return pk
+    return PackedKernel(
+        row_vals=pad_axis(pk.row_vals, 1, n),
+        row_idx=pad_axis(pk.row_idx, 1, n),
+        dense_cols=pad_axis(pk.dense_cols, 0, n),
+        dense_block=pad_axis(pk.dense_block, 1, n),
+        light_cols=pad_axis(pk.light_cols, 0, n),
+        light_vals=pad_axis(pk.light_vals, 0, n),
+        light_idx=pad_axis(pk.light_idx, 0, n),
+        nrows=pk.nrows,
+        ncols=pk.ncols,
+    )
+
+
+def pad_dense_columns(dk: DenseKernel, multiple: int) -> DenseKernel:
+    """Zero-pad the column axis of a DenseKernel (and of its transpose) to
+    the next multiple. Returns dk itself when it divides already."""
+    if dk.S.shape[1] % multiple == 0:
+        return dk
+    S = pad_axis(dk.S, 1, multiple)
+    ST = pad_axis(dk.ST, 0, multiple) if dk.ST is not None else None
+    return DenseKernel(S, ST, dk.ncols, dk.nrows_true)
+
+
+def pad_dense_rows(dk: DenseKernel, multiple: int) -> DenseKernel:
+    """Zero-pad the row (observation) axis to the next multiple, for the obs
+    axis of a 2-D mesh. Padding rows are zero, so they add nothing to S^T u,
+    and their matvec outputs are cut off."""
+    if dk.S.shape[0] % multiple == 0:
+        return dk
+    S = pad_axis(dk.S, 0, multiple)
+    ST = pad_axis(dk.ST, 1, multiple) if dk.ST is not None else None
+    return DenseKernel(S, ST, dk.ncols_true, dk.nrows)
+
+
+def _place(a: torch.Tensor, device, own: bool) -> torch.Tensor:
+    """a on `device`, contiguous; a copy of its own when `own` (so that the
+    unsharded array can be freed) or when a is a strided view."""
+    return a.to(device, copy=own).contiguous()
+
+
+def _sum_in_order(parts):
+    """Partial results added on the home device in slot order."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+@dataclass
+class ShardedDenseKernel:
+    """A DenseKernel cut into a grid of blocks: rows over the obs axis (one
+    row of blocks on a 1-D mesh), columns over the cells axis; block (i, j)
+    lies on grid[i, j]. matvec adds each row of blocks' torch.mv partials on
+    the home device in slot order and concatenates the rows; rmatvec does
+    the same with the transposed blocks."""
+
+    blocks: list  # blocks[i][j]: (rows_i, cols_j)
+    blocksT: list  # None, or contiguous transposes blocksT[i][j]: (cols_j, rows_i)
+    nrows_true: int
+    ncols_true: int
+    mesh: object  # parallel.mesh.Mesh
+
+    @classmethod
+    def shard(cls, dk: DenseKernel, grid: np.ndarray, mesh) -> "ShardedDenseKernel":
+        no, nc = grid.shape
+        nrows, ncols = dk.nrows, dk.ncols
+        dk = pad_dense_rows(pad_dense_columns(dk, nc), no)
+        rb, cb = dk.S.shape[0] // no, dk.S.shape[1] // nc
+        own = any(dev != dk.S.device for dev in grid.flat)
+        blocks = [
+            [_place(dk.S[i * rb : (i + 1) * rb, j * cb : (j + 1) * cb], grid[i, j], own) for j in range(nc)]
+            for i in range(no)
+        ]
+        blocksT = None
+        if dk.ST is not None:
+            blocksT = [
+                [_place(dk.ST[j * cb : (j + 1) * cb, i * rb : (i + 1) * rb], grid[i, j], own) for j in range(nc)]
+                for i in range(no)
+            ]
+        return cls(blocks, blocksT, nrows, ncols, mesh)
+
+    def matvec(self, x):
+        home = self.mesh.home
+        cb = self.blocks[0][0].shape[1]
+        x = pad_axis(x, 0, cb * len(self.blocks[0]))
+        rows = [
+            _sum_in_order([
+                torch.mv(S, x[j * cb : (j + 1) * cb].to(S.device)).to(home) for j, S in enumerate(row)
+            ])
+            for row in self.blocks
+        ]
+        return torch.cat(rows)[: self.nrows_true] if len(rows) > 1 else rows[0][: self.nrows_true]
+
+    def rmatvec(self, u):
+        home = self.mesh.home
+        no, nc = len(self.blocks), len(self.blocks[0])
+        rb = self.blocks[0][0].shape[0]
+        u = pad_axis(u, 0, rb * no)
+        cols = []
+        for j in range(nc):
+            parts = []
+            for i in range(no):
+                S = self.blocks[i][j]
+                ui = u[i * rb : (i + 1) * rb].to(S.device)
+                parts.append(torch.mv(self.blocksT[i][j] if self.blocksT else S.T, ui).to(home))
+            cols.append(_sum_in_order(parts))
+        return torch.cat(cols)[: self.ncols_true] if nc > 1 else cols[0][: self.ncols_true]
+
+    @property
+    def nrows(self):
+        return self.nrows_true
+
+    @property
+    def ncols(self):
+        return self.ncols_true
+
+    def slot_bytes(self) -> list:
+        return [
+            sum(a.numel() * a.element_size() for a in ([S] + ([self.blocksT[i][j]] if self.blocksT else [])))
+            for i, row in enumerate(self.blocks) for j, S in enumerate(row)
+        ]
+
+
+@dataclass
+class ShardedPackedKernel:
+    """A PackedKernel cut into one part per slot: the row pack along its slot
+    axis K (each slot holds a slice of every row's gather list, and matvec
+    adds the slots' partial sums on the home device in slot order), the
+    heavy block along its column axis and the light pack along its leading
+    axis (rmatvec scatters each slot's column results into the home
+    gradient; the column sets are disjoint, so no sum depends on the
+    order)."""
+
+    row_parts: list  # [(row_vals_k, row_idx_k)]
+    heavy_parts: list  # [(dense_cols_k on home, dense_block_k)]
+    light_parts: list  # [(light_cols_k on home, light_vals_k, light_idx_k)]
+    nrows: int
+    ncols: int
+    mesh: object  # parallel.mesh.Mesh
+
+    @classmethod
+    def shard(cls, pk: PackedKernel, slots, mesh) -> "ShardedPackedKernel":
+        n, home = len(slots), mesh.home
+        pk = pad_packed_for_mesh(pk, n)
+        own = any(dev != pk.row_vals.device for dev in slots)
+        K, nd, nl = pk.row_vals.shape[1] // n, pk.dense_block.shape[1] // n, pk.light_vals.shape[0] // n
+
+        def cut(k, dev):
+            rk, hk, lk = slice(k * K, (k + 1) * K), slice(k * nd, (k + 1) * nd), slice(k * nl, (k + 1) * nl)
+            return (
+                (_place(pk.row_vals[:, rk], dev, own), _place(pk.row_idx[:, rk], dev, own)),
+                (pk.dense_cols[hk].to(home), _place(pk.dense_block[:, hk], dev, own)),
+                (pk.light_cols[lk].to(home), _place(pk.light_vals[lk], dev, own), _place(pk.light_idx[lk], dev, own)),
+            )
+
+        rows, heavy, light = zip(*(cut(k, dev) for k, dev in enumerate(slots)))
+        return cls(list(rows), list(heavy), list(light), pk.nrows, pk.ncols, mesh)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        home = self.mesh.home
+        return _sum_in_order([
+            torch.einsum("rk,rk->r", vals.to(x.dtype), x.to(vals.device)[idx]).to(home)
+            for vals, idx in self.row_parts
+        ])
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        home = self.mesh.home
+        g = torch.zeros((self.ncols,), dtype=u.dtype, device=home)
+        for cols, block in self.heavy_parts:
+            if block.shape[1]:
+                g.index_add_(0, cols, torch.mv(block.to(u.dtype).T, u.to(block.device)).to(home))
+        for cols, vals, idx in self.light_parts:
+            if vals.shape[0]:
+                contrib = torch.einsum("ck,ck->c", vals.to(u.dtype), u.to(vals.device)[idx])
+                g.index_add_(0, cols, contrib.to(home))
+        return g
+
+    def slot_bytes(self) -> list:
+        return [
+            sum(a.numel() * a.element_size() for a in (*r, h[1], l[1], l[2]))
+            for r, h, l in zip(self.row_parts, self.heavy_parts, self.light_parts)
+        ]

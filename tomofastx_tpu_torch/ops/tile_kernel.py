@@ -25,7 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tomofastx_tpu_torch.ops.tile_matvec import BLOCK, TM, tile_matvec
+from tomofastx_tpu_torch.ops.sparse_kernel import pad_axis
+from tomofastx_tpu_torch.ops.tile_matvec import BLOCK, TM, tile_matvec, tile_matvec_sharded
 
 
 @dataclass
@@ -49,14 +50,7 @@ class TileKernel:
 
     @staticmethod
     def _contract(uvals, ubidx, x, n_in, n_out):
-        # The vector pads to whole 128-blocks; the rows pad to whole tiles in
-        # the pack, and the output is cut back to n_out.
-        if x.shape[0] != n_in:
-            raise ValueError(f"vector has {x.shape[0]} entries, operator expects {n_in}")
-        npad = (-n_in) % BLOCK
-        if npad:
-            x = torch.nn.functional.pad(x, (0, npad))
-        return tile_matvec(uvals, ubidx, x)[:n_out]
+        return tile_matvec(uvals, ubidx, _pad_to_blocks(x, n_in))[:n_out]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return self._contract(self.uvals, self.ubidx, x, self.ncols, self.nrows)
@@ -72,6 +66,85 @@ class TileKernel:
         )
 
 
+def _pad_to_blocks(x, n_in):
+    # The vector pads to whole 128-blocks; the rows pad to whole tiles in the
+    # pack, and each product's output is cut back to its length.
+    if x.shape[0] != n_in:
+        raise ValueError(f"vector has {x.shape[0]} entries, operator expects {n_in}")
+    npad = (-n_in) % BLOCK
+    return torch.nn.functional.pad(x, (0, npad)) if npad else x
+
+
+def pad_tiles_for_mesh(tk: TileKernel, n: int) -> TileKernel:
+    """Pad both packs' tile axes to a multiple of n slots (JAX:
+    tomofastx_tpu/ops/tile_kernel.py::pad_tiles_for_mesh). Padding tiles have
+    block id 0 and zero values; their output rows land beyond nrows/ncols
+    and each product cuts them off. Returns tk itself when both tile axes
+    divide already."""
+    if tk.uvals.shape[0] % n == 0 and tk.uvalsT.shape[0] % n == 0:
+        return tk
+    return TileKernel(
+        uvals=pad_axis(tk.uvals, 0, n), ubidx=pad_axis(tk.ubidx, 0, n),
+        uvalsT=pad_axis(tk.uvalsT, 0, n), ubidxT=pad_axis(tk.ubidxT, 0, n),
+        nrows=tk.nrows, ncols=tk.ncols,
+    )
+
+
+def _cut_tiles(uvals, ubidx, slots):
+    """One (uvals_k, ubidx_k) part per slot, tile axis cut into equal runs.
+    A part's values are a view of the pack when the slot is on the pack's
+    device and every slot is (one card holding several slots: no memory
+    spent); otherwise each part is a tensor of its own on its slot's device,
+    so that the whole pack can be freed. The block ids are always copied: a
+    view of them would be 16-byte aligned only when the run's length times
+    BU is a multiple of 4, and the kernel refuses a misaligned array."""
+    n = len(slots)
+    per = uvals.shape[0] // n
+    own = any(dev != uvals.device for dev in slots)
+    return [
+        (uvals[k * per : (k + 1) * per].to(dev, copy=own), ubidx[k * per : (k + 1) * per].to(dev, copy=True))
+        for k, dev in enumerate(slots)
+    ]
+
+
+@dataclass
+class ShardedTileKernel:
+    """A TileKernel placed on a mesh: both packs cut along their tile axis
+    into one part per slot (the forward pack by observation-row tiles, the
+    reference's data-row split, sensitivity_gravmag.F90:179-189; the adjoint
+    pack by cell-column tiles, the column-sharded adjoint,
+    lsqr_solver2.F90:228-245). Every product runs tile_matvec_sharded:
+    vectors come and go on the home device. Built by shard_kernel from a
+    TileKernel whose row weights are applied already."""
+
+    parts: list  # [(uvals_k, ubidx_k)] forward pack
+    partsT: list  # [(uvalsT_k, ubidxT_k)] adjoint pack
+    nrows: int
+    ncols: int
+    mesh: object  # parallel.mesh.Mesh
+
+    @classmethod
+    def shard(cls, tk: TileKernel, slots, mesh) -> "ShardedTileKernel":
+        tk = pad_tiles_for_mesh(tk, len(slots))
+        return cls(
+            parts=_cut_tiles(tk.uvals, tk.ubidx, slots),
+            partsT=_cut_tiles(tk.uvalsT, tk.ubidxT, slots),
+            nrows=tk.nrows, ncols=tk.ncols, mesh=mesh,
+        )
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return tile_matvec_sharded(self.parts, _pad_to_blocks(x, self.ncols), self.mesh.home)[: self.nrows]
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        return tile_matvec_sharded(self.partsT, _pad_to_blocks(u, self.nrows), self.mesh.home)[: self.ncols]
+
+    def slot_bytes(self) -> list:
+        return [
+            sum(a.numel() * a.element_size() for a in (*self.parts[k], *self.partsT[k]))
+            for k in range(len(self.parts))
+        ]
+
+
 class TileKernelBuilder:
     """Two-pass streaming packer on one device.
 
@@ -83,7 +156,7 @@ class TileKernelBuilder:
     the sensit cache).
     """
 
-    def __init__(self, nrows: int, ncols: int, device="cpu"):
+    def __init__(self, nrows: int, ncols: int, device="cuda"):
         self.nrows, self.ncols = nrows, ncols
         self.device = torch.device(device)
         self.ntr = (nrows + TM - 1) // TM
@@ -183,7 +256,7 @@ def _slots_from_usage(used: torch.Tensor, counts: torch.Tensor, width: int):
     return slot, ubidx.contiguous()
 
 
-def pack_tiles(S, device="cpu") -> TileKernel:
+def pack_tiles(S, device="cuda") -> TileKernel:
     """Convenience non-streaming pack from a dense matrix (tests)."""
     S = torch.as_tensor(np.asarray(S), device=device)
     b = TileKernelBuilder(S.shape[0], S.shape[1], device=device)
@@ -193,7 +266,7 @@ def pack_tiles(S, device="cpu") -> TileKernel:
     return b.build()
 
 
-def tile_kernel_from_cache(cache_dir: str, par, grid, device="cpu") -> tuple:
+def tile_kernel_from_cache(cache_dir: str, par, grid, device="cuda") -> tuple:
     """Stream a sensit cache (any nbproc) into a TileKernel on `device` —
     two streamed passes, dense matrix never materialized. Returns
     (TileKernel, meta), or (None, None) when there is no cache."""

@@ -71,7 +71,13 @@ def _check(uvals, ubidx, x):
 def tile_matvec_plain(uvals, ubidx, x):
     """y = S @ x through the tile-union layout with plain tensor operations,
     contracted in the dtype of x. Returns (ntiles * 8,). Tiles go in groups
-    so that the gathered intermediate stays small beside the packs."""
+    so that the intermediates stay small beside the packs.
+
+    Each tile's row sums are one reduction over the tile's own BU * 128
+    products, so, as in the kernel, a tile's result does not depend on which
+    other tiles share the call: the result of a pack cut into parts equals
+    that of the whole pack bit for bit (a batched product would not promise
+    that)."""
     _check(uvals, ubidx, x)
     ntiles, BU = ubidx.shape
     xb = x.reshape(-1, BLOCK)
@@ -79,8 +85,27 @@ def tile_matvec_plain(uvals, ubidx, x):
     step = max(1, (1 << 25) // max(BU * TM * BLOCK, 1))
     for s in range(0, ntiles, step):
         g = xb[ubidx[s : s + step].long()]  # (tiles, BU, 128)
-        y[s : s + step] = torch.einsum("tbmk,tbk->tm", uvals[s : s + step].to(x.dtype), g)
+        prod = torch.empty((g.shape[0], TM, BU, BLOCK), dtype=x.dtype, device=x.device)
+        torch.mul(uvals[s : s + step].permute(0, 2, 1, 3), g[:, None], out=prod)
+        y[s : s + step] = prod.view(g.shape[0], TM, BU * BLOCK).sum(dim=-1)
     return y.reshape(-1)
+
+
+def _launch(uvals, ubidx, x):
+    """One launch of the kernel of csrc/tile_matvec.cu on x's device and that
+    device's current stream. Counts nothing: each wrapper counts its own."""
+    _cuda_build.require_launchable(uvals=uvals, ubidx=ubidx, x=x)
+    ntiles, BU = ubidx.shape
+    lib = _library()
+    y = torch.empty(ntiles * TM, dtype=x.dtype, device=x.device)
+    fn = lib.tile_matvec_f32 if x.dtype == torch.float32 else lib.tile_matvec_f64
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(uvals.data_ptr(), ubidx.data_ptr(), x.data_ptr(), y.data_ptr(),
+                 ntiles, BU, stream)
+    if err != 0:
+        raise RuntimeError(f"tile_matvec launch failed: CUDA error {err}")
+    return y
 
 
 def tile_matvec(uvals, ubidx, x):
@@ -93,19 +118,52 @@ def tile_matvec(uvals, ubidx, x):
         return tile_matvec_plain(uvals, ubidx, x)
     if x.device.type != "cuda":
         raise ValueError(f"tile_matvec runs on cuda or cpu tensors, got {x.device}")
-    _cuda_build.require_launchable(uvals=uvals, ubidx=ubidx, x=x)
-    ntiles, BU = ubidx.shape
-    lib = _library()
-    y = torch.empty(ntiles * TM, dtype=x.dtype, device=x.device)
-    fn = lib.tile_matvec_f32 if x.dtype == torch.float32 else lib.tile_matvec_f64
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(uvals.data_ptr(), ubidx.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 ntiles, BU, stream)
-    if err != 0:
-        raise RuntimeError(f"tile_matvec launch failed: CUDA error {err}")
+    y = _launch(uvals, ubidx, x)
     tile_matvec.launches += 1
     return y
 
 
 tile_matvec.launches = 0
+
+
+def tile_matvec_sharded_plain(parts, x, home):
+    """tile_matvec_sharded with tile_matvec_plain on every part."""
+    return torch.cat([tile_matvec_plain(uv, ub, x.to(uv.device)).to(home) for uv, ub in parts])
+
+
+def tile_matvec_sharded(parts, x, home):
+    """y = S @ x over a pack whose tile axis is cut into parts, one per mesh
+    slot: the counterpart of TileKernel._shard_map_pallas of the JAX package
+    (tomofastx_tpu/ops/tile_kernel.py), which runs the TPU kernel per device
+    under shard_map with x replicated and the tile-local outputs concatenated.
+
+    parts: [(uvals_k, ubidx_k)], each pair on its slot's device, in tile
+    order. For each part x is copied to the part's device (the replicated
+    in-spec; a no-op when it is there already), the kernel of
+    csrc/tile_matvec.cu is launched on that device's current stream, and
+    the part's output is copied to `home`; the outputs are concatenated
+    there in part order (the out-spec's gather). A tile's sum does not
+    depend on the other tiles, so the result equals one tile_matvec on the
+    whole pack bit for bit. A part on a CUDA device goes through the kernel
+    or raises; a part on the CPU takes tile_matvec_plain.
+    `tile_matvec_sharded.launches` counts the kernel's launches, one per
+    part."""
+    home = torch.device(home)
+    outs = []
+    for uv, ub in parts:
+        xk = x.to(uv.device)
+        _check(uv, ub, xk)
+        if xk.device.type == "cpu":
+            y = tile_matvec_plain(uv, ub, xk)
+        elif xk.device.type == "cuda":
+            y = _launch(uv, ub, xk)
+            tile_matvec_sharded.launches += 1
+        else:
+            raise ValueError(f"tile_matvec_sharded runs on cuda or cpu tensors, got {xk.device}")
+        # Tensor.to orders the copy after the kernel on the part's current
+        # stream and before later work on home's current stream.
+        outs.append(y.to(home))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+tile_matvec_sharded.launches = 0

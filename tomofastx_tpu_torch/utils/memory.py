@@ -45,7 +45,7 @@ def device_memory_stats(device) -> dict | None:
     }
 
 
-def report(prefix: str = "", device="cpu") -> str:
+def report(prefix: str = "", device="cuda") -> str:
     lines = [f"{prefix}MEMORY USED (host) [GB] = {host_memory_gb():.3f}"]
     s = device_memory_stats(device)
     if s is not None:
