@@ -43,7 +43,30 @@ It needs one CUDA device, nvcc and nothing from the network. It
    the last bit to the unmeshed solve) and dense (four column partials,
    held at the formats' tolerance);
 9. on a machine with two cards or more, the tiled solve over
-   make_mesh(device_count) on distinct cards, held as in 8.
+   make_mesh(device_count) on distinct cards, held as in 8, with each card's
+   peak memory (the kernel is assembled on the host there); on every
+   machine, that host assembly (the kernel built into host memory or packed
+   from the cache on the host, weighted there, and its part copied to the
+   card) over a one-slot mesh of the card: the tiled solve from the cache and
+   the dense main path, each timed and held equal to the last bit to its run
+   assembled on the card;
+10. writes a joint gravity + magnetic problem over the same grid (an airborne
+   survey 80 m above the cell centres, one block model: density and
+   susceptibility; TMI of a 50000 nT field at inclination 60 and declination
+   10 degrees) and runs it through the command-line entry point tiled
+   (tile_matvec under every product of both problems, launches counted) and
+   dense, held to each other at the formats' tolerance;
+11. runs the full FTG tensor (4096 observations x 6 components, a dense
+   24576 x 262144 kernel, no cache written) through the command-line entry
+   point;
+12. six small problems of the magnetic and gradiometry kinds (TMI tiled,
+   magnetization vector dense, three-component data packed, a borehole survey
+   dense, Gzz tiled, joint grav+mag dense) on the card against the CPU;
+13. solves the joint problem from the joint tiled run's cache unmeshed and
+   over the four slots of 8 (equal to the last bit, tile_matvec_sharded under
+   every product);
+14. holds tile_matvec against its plain version on the magnetic problem's
+   forward and adjoint packs and times it as in 5.
 
 Any failed phase ends the run with a non-zero exit code. Without a CUDA
 device it exits with code 2 and prints no result. The last line of a good run
@@ -78,10 +101,13 @@ MEMORY_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 NX = NY = NZ = 64
-NDATA = 4096
+SIDE = 64  # observations above the cell centres of a SIDE x SIDE sub-lattice
+NDATA = SIDE * SIDE
 N_MAJOR, N_MINOR = 3, 20
 RTOL_F32, RTOL_F64 = 1e-5, 1e-12
 TOP_BLOCKS = 256  # slots per row of the second row-block layout
+JOINT_HEIGHT = 80.0  # m: the joint survey is airborne
+DENSE_SAID = r"{p} kernel: dense \({rows}, " + str(NX * NY * NZ) + r"\) torch\.float32"
 # The three formats hold the same float32 matrix and differ in the order of
 # their float32 sums, which 3 majors x 20 float32 LSQR iterations amplify: an
 # H100 read 2.0e-4 of the model's range and 5.4e-2 of the (small) data cost
@@ -185,10 +211,29 @@ def random_row_blocks(device, seed=3, nrows=203, nslots=45, nb=50):
     return bvals.to(device), bidx.to(device), x.to(device), (int(widths.min()), int(widths.max()))
 
 
-def write_inputs(work, nx, ny, nz, ndata_side):
-    """Grid, observation points above the cell centers of a ndata_side^2
-    sub-lattice and a three-lithology block model. Returns what the Parfile
-    has to name."""
+def block_model(nx, ny, nz):
+    """Two blocks: 250 kg/m^3 (a susceptibility of 0.05 SI) and 100 kg/m^3
+    (0.02 SI) in a background of 0."""
+    m = np.zeros((nz, ny, nx))
+    m[nz // 8 : nz // 2, ny // 4 : ny // 2, nx // 4 : nx // 2] = 250.0
+    m[nz // 4 : 3 * nz // 4, ny // 2 : 7 * ny // 8, nx // 2 : 7 * nx // 8] = 100.0
+    return m
+
+
+def write_table(path, header, table, fmt):
+    with open(path, "w") as f:
+        f.write(f"{header}\n")
+        np.savetxt(f, table, fmt=fmt)
+    return path
+
+
+def write_inputs(work, nx, ny, nz, ndata_side, height=1.0, variants=()):
+    """Grid, observation points `height` m above the cell centers of a
+    ndata_side^2 sub-lattice and a three-lithology block model. Returns what
+    the Parfile has to name. `variants` adds the inputs of other kinds:
+    "mag" (susceptibility and magnetization-vector models of the same
+    blocks), "components" (observation files of 3 and 6 value columns),
+    "borehole" (every other observation inside a cell, off every face)."""
     # Cells longer in x than in y: on square cells an observation above the
     # grid's diagonal sees equal wavelet coefficients in mirrored pairs, and
     # which of a pair survives the threshold would hang on the last bit.
@@ -207,33 +252,96 @@ def write_inputs(work, nx, ny, nz, ndata_side):
     jj, ii = np.meshgrid(np.arange(0, ny, step), np.arange(0, nx, step), indexing="ij")
     X = (ii.reshape(-1) + 0.5) * h[0]
     Y = (jj.reshape(-1) + 0.5) * h[1]
-    data_path = os.path.join(work, "data.txt")
-    with open(data_path, "w") as f:
-        f.write(f"{X.size}\n")
-        np.savetxt(f, np.column_stack([X, Y, np.full(X.size, -1.0), np.zeros(X.size)]), fmt="%.3f")
+    Z = np.full(X.size, -height)
 
-    m = np.zeros((nz, ny, nx))
-    m[nz // 8 : nz // 2, ny // 4 : ny // 2, nx // 4 : nx // 2] = 250.0
-    m[nz // 4 : 3 * nz // 4, ny // 2 : 7 * ny // 8, nx // 2 : 7 * nx // 8] = 100.0
-    synth_path = os.path.join(work, "synth.txt")
-    with open(synth_path, "w") as f:
-        f.write(f"{m.size}\n")
-        np.savetxt(f, m.reshape(-1, 1), fmt="%.9E")
-    return dict(size=(nx, ny, nz), ndata=X.size, grid=grid_path, data=data_path, synth=synth_path)
+    def data_file(name, x, y, z, ncomp=1):
+        return write_table(os.path.join(work, name), X.size, np.column_stack([x, y, z] + [np.zeros(X.size)] * ncomp),
+                           "%.3f")
+
+    m = block_model(nx, ny, nz)
+    inputs = dict(size=(nx, ny, nz), ndata=X.size, grid=grid_path, data=data_file("data.txt", X, Y, Z),
+                  synth=write_table(os.path.join(work, "synth.txt"), m.size, m.reshape(-1, 1), "%.9E"))
+    if "mag" in variants:
+        k = m.reshape(-1, 1) / 5000.0
+        inputs["synth_mag"] = write_table(os.path.join(work, "synth_mag.txt"), m.size, k, "%.9E")
+        inputs["synth_mag3"] = write_table(os.path.join(work, "synth_mag3.txt"), m.size,
+                                           np.column_stack([0.2 * k, 0.3 * k, k]), "%.9E")
+    if "components" in variants:
+        for ncomp in (3, 6):
+            inputs[f"data{ncomp}"] = data_file(f"data{ncomp}.txt", X, Y, Z, ncomp)
+    if "borehole" in variants:
+        zb = Z.copy()
+        zb[1::2] = 60.0 + (7.3 * np.arange(X.size // 2)) % (nz * h[2] - 120.0)
+        if np.any(np.isclose(zb[1::2] % h[2], 0.0)):
+            raise SystemExit("FAILED inputs: a borehole observation on a cell face")
+        inputs["data_borehole"] = data_file("data_borehole.txt", X + 13.0, Y + 11.0, zb)
+    return inputs
 
 
-def write_parfile(work, name, inputs, out_dir, n_minor, fmt="tiled", compression=1, extra=()):
-    """The Parfile of one run on `inputs`. fmt = None leaves the
-    tpu.kernelFormat line out, which means the default format."""
+# The magnetic problem of every kind: TMI of a 50000 nT field at inclination
+# 60 and declination 10 degrees, depth weighting type 2 with power 3 (the
+# magnetic default), and 3-lithology ADMM bounds on the susceptibility (on Mz
+# for the magnetization vector). Alone it is solved with problem weight 1;
+# beside gravity with 1e-8, which puts the rows of the two problems on one
+# scale (tests/test_torch_joint.py).
+MAG_LINES = """forward.data.magn.nData = {ndata}
+forward.data.magn.dataGridFile = {data}
+forward.data.magn.useSyntheticModelForDataValues = 1
+forward.data.magn.syntheticModelFile = {synth}
+forward.magneticField.inclination = 60
+forward.magneticField.declination = 10
+forward.magneticField.intensity_nT = 50000
+forward.depthWeighting.magn.power = 3
+inversion.admm.magn.bounds = -0.002 0.002 0.018 0.022 0.048 0.052
+inversion.admm.magn.weight = 1.d-2
+"""
+# kind: (magnetic lines?, the magnetic problem's data and model files, lines of its own)
+KIND_LINES = {
+    "grav": (False, None, []),
+    "gzz": (False, None, ["forward.data.grav.type = 2"]),
+    # An FTG row is about a hundredth of a g_z row, so the gravity runs' ADMM
+    # weight over 100 pulls as hard against the data. With 1e-7 the third
+    # major's data cost rises above the second's, in the JAX package too
+    # (tests/test_torch_smoke_problems.py).
+    "ftg": (False, None, ["forward.data.grav.type = 2", "forward.data.grav.nDataComponents = 6",
+                          "inversion.admm.grav.weight = 1.d-9"]),
+    "tmi": (True, ("data", "synth_mag"), ["inversion.joint.grav.problemWeight = 0",
+                                          "inversion.joint.magn.problemWeight = 1", "inversion.modelDamping.magn.weight = 1.d2"]),
+    "mag3": (True, ("data3", "synth_mag"), ["inversion.joint.grav.problemWeight = 0",
+                                            "inversion.joint.magn.problemWeight = 1", "forward.data.magn.nDataComponents = 3",
+                                            "inversion.modelDamping.magn.weight = 1.d2"]),
+    "mvi": (True, ("data", "synth_mag3"), ["inversion.joint.grav.problemWeight = 0",
+                                           "inversion.joint.magn.problemWeight = 1", "modelGrid.magn.nModelComponents = 3",
+                                           "inversion.modelDamping.magn.weight = 1.d2"]),
+    "borehole": (True, ("data_borehole", "synth_mag"), ["inversion.joint.grav.problemWeight = 0",
+                                                        "inversion.joint.magn.problemWeight = 1",
+                                                        "inversion.modelDamping.magn.weight = 1.d2"]),
+    "joint": (True, ("data", "synth_mag"), ["inversion.joint.magn.problemWeight = 1.d-8",
+                                            "inversion.modelDamping.magn.weight = 1.d-11"]),
+}
+# The output prefix and the costs.txt data-cost column of each problem.
+PROBLEMS = {"grav": ("grav", 1), "mag": ("mag", 2)}
+
+
+def kind_problems(kind):
+    return ["mag"] if kind in ("tmi", "mag3", "mvi", "borehole") else ["grav", "mag"] if kind == "joint" else ["grav"]
+
+
+def write_parfile(work, name, inputs, out_dir, n_minor, fmt="tiled", compression=1, extra=(), kind="grav"):
+    """The Parfile of one run of `kind` (KIND_LINES) on `inputs`. fmt = None
+    leaves the tpu.kernelFormat line out, which means the default format."""
     nx, ny, nz = inputs["size"]
+    mag, files, own = KIND_LINES[kind]
+    data_grav = inputs["data6"] if kind == "ftg" else inputs["data"]
     parfile = os.path.join(work, name)
     with open(parfile, "w") as f:
         f.write(f"""global.outputFolderPath = {out_dir}/
-global.description = synthetic gravity problem of the smoke run
+global.description = synthetic {kind} problem of the smoke run
 modelGrid.size = {nx} {ny} {nz}
 modelGrid.grav.file = {inputs["grid"]}
+modelGrid.magn.file = {inputs["grid"]}
 forward.data.grav.nData = {inputs["ndata"]}
-forward.data.grav.dataGridFile = {inputs["data"]}
+forward.data.grav.dataGridFile = {data_grav}
 forward.data.grav.useSyntheticModelForDataValues = 1
 forward.data.grav.syntheticModelFile = {inputs["synth"]}
 forward.depthWeighting.type = 2
@@ -247,7 +355,9 @@ inversion.admm.nLithologies = 3
 inversion.admm.grav.bounds = -10 10 90 110 240 260
 inversion.admm.grav.weight = 1.d-7
 """)
-        for line in ([f"tpu.kernelFormat = {fmt}"] if fmt else []) + list(extra):
+        if mag:
+            f.write(MAG_LINES.format(ndata=inputs["ndata"], data=inputs[files[0]], synth=inputs[files[1]]))
+        for line in own + ([f"tpu.kernelFormat = {fmt}"] if fmt else []) + list(extra):
             f.write(line + "\n")
     return parfile
 
@@ -257,14 +367,13 @@ def read_costs(path):
         return [[float(t) for t in ln.split()] for ln in f if not ln.startswith("#")]
 
 
-def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_written=True, mesh=None):
+def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_written=True, mesh=None, kind="grav",
+                  what=f"{NDATA} observations"):
     """One run of the command-line entry point on the card (with --mesh
     `mesh` when given), with every kernel's count set to 0 just before and
-    read just after; then the checks of its log and its outputs. Returns what
-    the run left to report."""
-    from tomofastx_tpu_torch.io import model_io
-
-    print(f"{name} main path: {NDATA} observations x {NX * NY * NZ} cells, Haar rate 0.15, "
+    read just after; then the checks of its log and its outputs, for every
+    problem of `kind`. Returns what the run left to report."""
+    print(f"{name} main path: {what} x {NX * NY * NZ} cells, Haar rate 0.15, "
           f"{N_MAJOR} majors x {N_MINOR} minors, f32 solve on cuda" + (f", --mesh {mesh}" if mesh else ""))
     torch.cuda.reset_peak_memory_stats()
     tee = Tee(sys.stdout)
@@ -282,6 +391,9 @@ def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_writte
 
     run["lsqr_iterations"] = [int(v) for v in re.findall(r"lsqr iters = (\d+)", log)]
     run["major_s"] = [float(v) for v in re.findall(r"iter done in ([0-9.]+)s", log)]
+    run["builds_s"] = [float(v) for v in re.findall(r"kernel built(?:\+cached)? in ([0-9.]+)s", log)]
+    run["packs_s"] = [float(v) for v in re.findall(r"cache packed into [a-z ]+ in ([0-9.]+)s", log)]
+    run["row_weights_s"] = [float(v) for v in re.findall(r"row weights applied on \S+ in ([0-9.]+)s", log)]
     for key, pattern in must_say.items():
         m = re.search(pattern, log)
         if not m:
@@ -290,31 +402,68 @@ def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_writte
             run[key] = float(m.group(1))
     if run["lsqr_iterations"] != [N_MINOR] * N_MAJOR:
         raise SystemExit(f"FAILED {name} main path: LSQR iterations {run['lsqr_iterations']}")
-    print(f"  {name} main path took {run['main_path_s']:.1f} s: "
-          + ", ".join(f"{k} = {run[k]}" for k in must_say if k in run)
+    said = [f"{k} = {run[k]}" for k in must_say if k in run] + [f"builds {run['builds_s']} s", f"packs {run['packs_s']} s"]
+    print(f"  {name} main path took {run['main_path_s']:.1f} s: " + ", ".join(said)
           + f", majors {run['major_s']} s; peak device memory {run['peak_device_GB']:.2f} GB; "
           f"launches {run['launches']}")
 
+    run.update(check_outputs(name, out_dir, kind, NX * NY * NZ, sensit_written))
+    return run
+
+
+def check_outputs(name, out_dir, kind, ncells, sensit_written=True):
+    """costs.txt (every active problem's data cost falls from major to
+    major), the output files and each final model of a run of `kind`.
+    Returns {"data_costs", "models"} by problem, and "data_cost" and "model"
+    of the first problem."""
+    from tomofastx_tpu_torch.io import model_io
+
     costs = read_costs(os.path.join(out_dir, "costs.txt"))
-    run["data_cost"] = [row[1] for row in costs]
-    print(f"  data cost per major = {run['data_cost']}")
     if len(costs) != N_MAJOR + 1 or not all(np.isfinite(v) for row in costs for v in row):
         raise SystemExit(f"FAILED {name} outputs: costs.txt")
-    if not all(b < a for a, b in zip(run["data_cost"][:-1], run["data_cost"][1:])):
-        raise SystemExit(f"FAILED {name} outputs: the data cost does not fall")
-    files = ["Parfile_run.txt", "model/grav_final_model_full.txt", "data/grav_final.txt",
-             "data/grav_observed.txt", "Paraview/grav_final_model3D_full.vtk", "Paraview/data_grav_final.vtk"]
-    if sensit_written:
-        files += ["SENSIT/sensit_grav_1_0", "SENSIT/sensit_grav_meta.txt"]
-    for f in files:
-        if not os.path.getsize(os.path.join(out_dir, f)) > 0:
-            raise SystemExit(f"FAILED {name} outputs: {f}")
-    model = model_io.read_model_values(os.path.join(out_dir, "model/grav_final_model_full.txt"), NX * NY * NZ)
-    if model.shape != (1, NX * NY * NZ) or not np.isfinite(model).all() or not np.abs(model).max() > 1.0:
-        raise SystemExit(f"FAILED {name} outputs: final model")
-    print(f"  final model {model.shape}: min {model.min():.3f}, max {model.max():.3f} -> ok")
-    run["model"] = model
-    return run
+    out = {"data_costs": {}, "models": {}}
+    for p in kind_problems(kind):
+        prefix, col = PROBLEMS[p]
+        cost = out["data_costs"][p] = [row[col] for row in costs]
+        print(f"  {p} data cost per major = {cost}")
+        if not all(b < a for a, b in zip(cost[:-1], cost[1:])):
+            raise SystemExit(f"FAILED {name} outputs: the {p} data cost does not fall")
+        files = ["Parfile_run.txt", f"model/{prefix}_final_model_full.txt", f"data/{prefix}_final.txt",
+                 f"data/{prefix}_observed.txt", f"Paraview/{prefix}_final_model3D_full.vtk",
+                 f"Paraview/data_{prefix}_final.vtk"]
+        if sensit_written:
+            sfx = "magn" if p == "mag" else "grav"
+            files += [f"SENSIT/sensit_{sfx}_1_0", f"SENSIT/sensit_{sfx}_meta.txt"]
+        for f in files:
+            if not os.path.getsize(os.path.join(out_dir, f)) > 0:
+                raise SystemExit(f"FAILED {name} outputs: {f}")
+        ncomp = 3 if kind == "mvi" else 1
+        model = model_io.read_model_values(os.path.join(out_dir, f"model/{prefix}_final_model_full.txt"), ncells, ncomp)
+        least = 1.0 if p == "grav" else 1e-4  # a density in kg/m^3, a susceptibility in SI
+        if model.shape != (ncomp, ncells) or not np.isfinite(model).all() or not np.abs(model).max() > least:
+            raise SystemExit(f"FAILED {name} outputs: final {p} model")
+        print(f"  final {p} model {model.shape}: min {model.min():.6g}, max {model.max():.6g} -> ok")
+        out["models"][p] = model
+    first = kind_problems(kind)[0]
+    out["data_cost"], out["model"] = out["data_costs"][first], out["models"][first]
+    return out
+
+
+def formats_apart(name, run, ref):
+    """Two runs of one kind in two formats, problem by problem: final model
+    and final data cost held to the formats' tolerance. Returns the spread."""
+    out = {}
+    for p, r in ref["models"].items():
+        m = run["models"][p]
+        dm = float(np.abs(m - r).max() / (r.max() - r.min()))
+        c, cr = run["data_costs"][p][-1], ref["data_costs"][p][-1]
+        dc = abs(c - cr) / cr
+        out[p] = {"model_of_range": dm, "data_cost_rel": dc}
+        print(f"  {name}, {p}: final model differs by {dm:.3e} of its range (tolerance {FORMATS_MODEL_TOL:g}), final "
+              f"data cost {c:.9e} against {cr:.9e}, relative {dc:.3e} (tolerance {FORMATS_COST_RTOL:g})")
+        if not dm <= FORMATS_MODEL_TOL or not dc <= FORMATS_COST_RTOL:
+            raise SystemExit(f"FAILED {name} ({p})")
+    return out
 
 
 def same_bytes(a, b) -> bool:
@@ -354,15 +503,15 @@ def hold_equal(name, run, out_dir, ref, ref_dir, against="the unmeshed run"):
     return out
 
 
-def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters):
-    """One solve_problem_joint_gravmag on the card from a sensitivity cache,
-    over `mesh` (None: unmeshed), with every kernel's count set to 0 just
-    before and read just after."""
+def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters, kind="grav"):
+    """One solve_problem_joint_gravmag of `kind` on the card from a
+    sensitivity cache, over `mesh` (None: unmeshed), with every kernel's
+    count set to 0 just before and read just after."""
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
 
     out_dir = os.path.join(work, f"out_{name}")
-    pf = write_parfile(work, f"Parfile_{name}.txt", inputs, out_dir, N_MINOR, fmt=fmt,
+    pf = write_parfile(work, f"Parfile_{name}.txt", inputs, out_dir, N_MINOR, fmt=fmt, kind=kind,
                        extra=["sensit.readFromFiles = 1", f"sensit.folderPath = {cache_dir}/"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -375,40 +524,51 @@ def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters):
         "s": time.time() - t0, "launches": {k: fn.launches for k, fn in counters.items()},
         "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9,
         "shard_s": res.timings.get("shard_s"), "solve_s": res.timings["solve_s"],
+        "pack_s": res.timings.get("pack_s"), "cache_read_s": res.timings.get("cache_read_s"),
+        "row_weights_s": res.timings["row_weights_s"],
         "lsqr_iterations": res.timings["lsqr_iters"],
         "data_cost": [row[1] for row in read_costs(os.path.join(out_dir, "costs.txt"))],
-        "model": np.asarray(res.models[0].val), "out_dir": out_dir,
+        "model": np.asarray(res.models[min(res.models)].val), "out_dir": out_dir,
+        "models": {i: np.asarray(m.val) for i, m in res.models.items()},
     }
-    if run["lsqr_iterations"] != [N_MINOR] * N_MAJOR or not np.isfinite(run["model"]).all():
+    if run["lsqr_iterations"] != [N_MINOR] * N_MAJOR or not all(np.isfinite(m).all() for m in run["models"].values()):
         raise SystemExit(f"FAILED {name}: LSQR iterations {run['lsqr_iterations']} or a non-finite model")
     where = "unmeshed" if mesh is None else f"over {mesh}"
-    print(f"  {name} ({fmt or 'dense'}, {where}): {run['s']:.1f} s, shard_s {run['shard_s']}, majors' solves "
+    print(f"  {name} ({fmt or 'dense'}, {where}): {run['s']:.1f} s, pack_s {run['pack_s']}, cache_read_s "
+          f"{run['cache_read_s']}, row_weights_s {run['row_weights_s']}, shard_s {run['shard_s']}, majors' solves "
           f"{[round(v, 3) for v in run['solve_s']]} s, data cost per major {run['data_cost']}, peak device "
           f"memory {run['peak_device_GB']:.2f} GB, launches {run['launches']}")
     return run
 
 
-def small_problem_card_against_cpu(work, name, what, **parfile_args):
-    """A small problem on the card (float64 solve, so the float64 variants of
-    the kernels and products carry it) against the same problem on the CPU."""
+def small_problem_card_against_cpu(work, name, what, kind="grav", **parfile_args):
+    """A small problem of `kind` on the card (float64 solve, so the float64
+    variants of the kernels and products carry it) against the same problem
+    on the CPU: every active problem's final model within 1e-6 of its range,
+    its data cost within 1e-6."""
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
 
     small = os.path.join(work, name)
     os.makedirs(small)
-    inputs = write_inputs(small, 16, 16, 8, 8)
+    inputs = write_inputs(small, 16, 16, 8, 8, variants=("mag", "components", "borehole"))
     res = {}
     for dev in ("cpu", "cuda"):
-        pf = write_parfile(small, f"Parfile_{dev}.txt", inputs, os.path.join(small, f"out_{dev}"), 10, **parfile_args)
+        pf = write_parfile(small, f"Parfile_{dev}.txt", inputs, os.path.join(small, f"out_{dev}"), 10, kind=kind,
+                           **parfile_args)
         res[dev] = solve_problem_joint_gravmag(read_parfile(pf), solve_dtype=torch.float64, verbose=False, device=dev)
-    a, b = res["cpu"].models[0].val, res["cuda"].models[0].val
-    rel = float(np.abs(a - b).max() / (a.max() - a.min()))
-    print(f"  small problem ({what}; 16x16x8 cells, 64 observations, f64 solve), card against CPU: "
-          f"final model differs by {rel:.3e} of its range, data cost {res['cuda'].cost_data[0]:.6e} "
-          f"against {res['cpu'].cost_data[0]:.6e} (tolerance 1e-6)")
-    if not rel <= 1e-6 or not abs(res["cuda"].cost_data[0] - res["cpu"].cost_data[0]) <= 1e-6:
-        raise SystemExit(f"FAILED small problem ({what}): card against CPU")
-    return rel
+    worst = 0.0
+    for i in res["cpu"].models:
+        a, b = res["cpu"].models[i].val, res["cuda"].models[i].val
+        rel = float(np.abs(a - b).max() / (a.max() - a.min()))
+        ca, cb = res["cpu"].cost_data[i], res["cuda"].cost_data[i]
+        print(f"  small problem ({what}, {('grav', 'mag')[i]}; 16x16x8 cells, 64 observations, f64 solve), card "
+              f"against CPU: final model {a.shape} differs by {rel:.3e} of its range, data cost {cb:.6e} against "
+              f"{ca:.6e} (tolerance 1e-6)")
+        if not rel <= 1e-6 or not abs(cb - ca) <= 1e-6 or not cb < 1.0:
+            raise SystemExit(f"FAILED small problem ({what}): card against CPU")
+        worst = max(worst, rel)
+    return worst
 
 
 def dense_from_pack(uvals, ubidx, ncols_padded):
@@ -571,6 +731,7 @@ def main() -> int:
 
     from tomofastx_tpu_torch import cli
     from tomofastx_tpu_torch.config.parfile import read_parfile
+    from tomofastx_tpu_torch.inversion import workflow
     from tomofastx_tpu_torch.io import model_io
     from tomofastx_tpu_torch.io.sensit_cache import read_kernel_cache_packed, try_read_kernel_cache
     from tomofastx_tpu_torch.ops import blocked_matvec as bmv
@@ -631,7 +792,7 @@ def main() -> int:
     try:
         # ---- 3. the main paths, through the command-line entry point ----
         t0 = time.time()
-        inputs = write_inputs(work, NX, NY, NZ, 64)
+        inputs = write_inputs(work, NX, NY, NZ, SIDE, variants=("components",))
         print(f"inputs written in {time.time() - t0:.1f} s")
         out = {run: os.path.join(work, f"out_{run}") for run in ("tiled", "tiled_mesh1", "dense", "dense_mesh1", "packed")}
         parfile = write_parfile(work, "Parfile_tiled.txt", inputs, out["tiled"], N_MINOR, fmt="tiled")
@@ -670,12 +831,12 @@ def main() -> int:
             "build_s": r"kernel built in ([0-9.]+)s",
             "compression_rate": r"COMPRESSION RATE = ([0-9.]+)",
             "cache_write_s": r"kernel cached in ([0-9.]+)s",
-            "format": r"grav kernel: dense \(4096, 262144\) torch\.float32"})
+            "format": DENSE_SAID.format(p="grav", rows=NDATA)})
         dense_parfile_mesh = write_parfile(work, "Parfile_dense_mesh1.txt", inputs, out["dense_mesh1"], N_MINOR, fmt=None)
         dense_mesh = run_main_path(cli, counters, "dense (default) --mesh 1", dense_parfile_mesh, out["dense_mesh1"], {
             "build_s": r"kernel built in ([0-9.]+)s",
             "cache_write_s": r"kernel cached in ([0-9.]+)s",
-            "format": r"grav kernel: dense \(4096, 262144\) torch\.float32", **mesh_said}, mesh="1")
+            "format": DENSE_SAID.format(p="grav", rows=NDATA), **mesh_said}, mesh="1")
         # The packed format from the dense run's cache: read_kernel_cache_packed at full width.
         packed_parfile = write_parfile(
             work, "Parfile_packed.txt", inputs, out["packed"], N_MINOR, fmt="packed",
@@ -850,22 +1011,157 @@ def main() -> int:
         if ncards >= 2:
             cards = make_mesh(ncards, device="cuda")
             print(f"solve over {cards}:")
+            for k in range(ncards):
+                torch.cuda.reset_peak_memory_stats(k)
             solves["tiled_cards"] = solve_from_cache(work, "tiled_cards", inputs, cache, "tiled", cards, counters)
+            solves["tiled_cards"]["peak_GB_per_card"] = [torch.cuda.max_memory_allocated(k) / 1e9 for k in range(ncards)]
+            print(f"  peak device memory per card (the kernel assembled on the host, one part a card): "
+                  f"{[round(v, 3) for v in solves['tiled_cards']['peak_GB_per_card']]} GB")
             if solves["tiled_cards"]["launches"]["tile_matvec_sharded"] != ncards * products:
                 raise SystemExit(f"FAILED tiled solve over {ncards} cards: launch count")
             if not np.array_equal(solves["tiled_cards"]["model"], solves["tiled"]["model"]):
                 raise SystemExit(f"FAILED tiled solve over {ncards} cards: not equal to the unmeshed solve")
             print(f"  tiled over {ncards} cards: final model equal to the last bit to the unmeshed solve -> ok")
         else:
-            print("this machine has one card: the solve over make_mesh(device_count) on distinct cards did not run")
+            print("this machine has one card: the solve over make_mesh(device_count) on distinct cards did not run, "
+                  "and no peak per card was read")
+
+        # A mesh of distinct cards assembles each kernel on the host
+        # (parallel.mesh.assembly_device): built into pinned host memory, or
+        # packed from the cache there; weighted there; then each card's part
+        # copied to it. One card makes no such mesh, so the workflow is handed
+        # the host as the assembly device over a one-slot mesh of the card:
+        # the same path, whose one part is the whole kernel.
+        print("the host assembly of a mesh of distinct cards, over a one-slot mesh of the card:")
+        card_assembly = workflow.assembly_device
+        workflow.assembly_device = lambda m: torch.device("cpu")
+        try:
+            solves["tiled_host_assembly"] = host = solve_from_cache(
+                work, "tiled_host_assembly", inputs, cache, "tiled", make_mesh(1, device="cuda"), counters)
+            if host["launches"] != {"tile_matvec": 0, "tile_matvec_sharded": products, "blocked_matvec": 0}:
+                raise SystemExit("FAILED tiled solve assembled on the host: launch count")
+            if not (np.array_equal(host["model"], solves["tiled"]["model"])
+                    and same_bytes(*(os.path.join(r["out_dir"], "costs.txt") for r in (host, solves["tiled"])))):
+                raise SystemExit("FAILED tiled solve assembled on the host: not equal to the unmeshed solve")
+            print(f"  tiled from the cache: packed on the host in {host['pack_s']:.2f} s, weighted there in "
+                  f"{host['row_weights_s']:.2f} s, copied to the card in {host['shard_s']:.2f} s; peak device memory "
+                  f"{host['peak_device_GB']:.2f} GB (packed on the card: {solves['tiled']['peak_device_GB']:.2f} GB); "
+                  "final model and costs.txt equal to the last bit to the unmeshed solve -> ok")
+            out["dense_host"] = os.path.join(work, "out_dense_host")
+            dense_host = run_main_path(cli, counters, "dense (default) --mesh 1, assembled on the host", write_parfile(
+                work, "Parfile_dense_host.txt", inputs, out["dense_host"], N_MINOR, fmt=None), out["dense_host"], {
+                    "build_s": r"kernel built in ([0-9.]+)s",
+                    "cache_write_s": r"kernel cached in ([0-9.]+)s",
+                    "row_weights_host_s": r"row weights applied on cpu in ([0-9.]+)s",
+                    "format": DENSE_SAID.format(p="grav", rows=NDATA), **mesh_said}, mesh="1")
+            if any(dense_host["launches"].values()):
+                raise SystemExit("FAILED dense main path assembled on the host: a kernel of another format was launched")
+            dense_host["against_card_assembly"] = hold_equal(
+                "dense --mesh 1 assembled on the host", dense_host, out["dense_host"], dense, out["dense"])
+            if not dense_host["against_card_assembly"]["equal_to_the_last_bit"]:
+                raise SystemExit("FAILED dense main path assembled on the host: not equal to the last bit")
+            print(f"  dense from scratch: built into pinned host memory in {dense_host['build_s']:.2f} s (on the card: "
+                  f"{dense['build_s']:.2f} s), weighted there in {dense_host['row_weights_host_s']:.2f} s, copied to the "
+                  f"card in {dense_host['shard_s']:.2f} s; peak device memory {dense_host['peak_device_GB']:.2f} GB "
+                  f"(assembled on the card: {dense['peak_device_GB']:.2f} GB)")
+        finally:
+            workflow.assembly_device = card_assembly
+
+        # ---- 10. joint gravity + magnetic main paths, tiled and dense ----
+        joint_dir = os.path.join(work, "joint")
+        os.makedirs(joint_dir)
+        joint_inputs = write_inputs(joint_dir, NX, NY, NZ, SIDE, height=JOINT_HEIGHT, variants=("mag",))
+        joint_out = {f: os.path.join(work, f"out_joint_{f}") for f in ("tiled", "dense")}
+        joint = {}
+        joint["tiled"] = run_main_path(cli, counters, "joint grav+mag tiled", write_parfile(
+            joint_dir, "Parfile_joint_tiled.txt", joint_inputs, joint_out["tiled"], N_MINOR, fmt="tiled", kind="joint"),
+            joint_out["tiled"], {"format": r"grav kernel: tiled", "format_mag": r"mag kernel: tiled"}, kind="joint")
+        # Both problems' products: each solve calls rmatvec once and matvec +
+        # rmatvec per iteration on each operator; the forward d = S m runs for
+        # the synthetic, prior and starting models and after every major.
+        joint_products = 2 * (sum(2 * it + 1 for it in joint["tiled"]["lsqr_iterations"]) + 3 + N_MAJOR)
+        print(f"  tile_matvec.launches = {joint['tiled']['launches']['tile_matvec']} (expected {joint_products} = "
+              f"2 problems x (sum of 2 x iterations + 1 per solve, + {3 + N_MAJOR} forward products))")
+        if joint["tiled"]["launches"] != {"tile_matvec": joint_products, "tile_matvec_sharded": 0, "blocked_matvec": 0}:
+            raise SystemExit("FAILED joint tiled main path: launch count")
+        joint["dense"] = run_main_path(cli, counters, "joint grav+mag dense (default)", write_parfile(
+            joint_dir, "Parfile_joint_dense.txt", joint_inputs, joint_out["dense"], N_MINOR, fmt=None, kind="joint"),
+            joint_out["dense"], {"format": DENSE_SAID.format(p="grav", rows=NDATA),
+                                 "format_mag": DENSE_SAID.format(p="mag", rows=NDATA)}, kind="joint")
+        if any(joint["dense"]["launches"].values()):
+            raise SystemExit("FAILED joint dense main path: a kernel of another format was launched")
+        joint_spread = formats_apart("joint dense against joint tiled", joint["dense"], joint["tiled"])
+
+        # ---- 11. the full FTG tensor, dense, no cache written ----
+        ftg_out = os.path.join(work, "out_ftg")
+        ftg = run_main_path(cli, counters, "FTG full tensor dense (default)", write_parfile(
+            work, "Parfile_ftg.txt", inputs, ftg_out, N_MINOR, fmt=None, kind="ftg", extra=["tpu.sensitWriteCache = 0"]),
+            ftg_out, {"format": DENSE_SAID.format(p="grav", rows=6 * NDATA),
+                      "predicted": r"predicted kernel size = ([0-9.]+) GB \(float32\)"},
+            sensit_written=False, kind="ftg", what=f"{NDATA} observations x 6 components")
+        if any(ftg["launches"].values()) or os.path.exists(os.path.join(ftg_out, "SENSIT")):
+            raise SystemExit("FAILED FTG main path: a kernel was launched, or a cache was written")
+
+        # ---- 12. small problems of every kind, card against CPU ----
+        small_rel.update({
+            "tmi_tiled": small_problem_card_against_cpu(work, "small_tmi", "TMI on susceptibility, tiled",
+                                                        kind="tmi", fmt="tiled"),
+            "magnetization_vector_dense": small_problem_card_against_cpu(
+                work, "small_mvi", "TMI on the magnetization vector, dense", kind="mvi", fmt="dense"),
+            "mag_3_components_packed": small_problem_card_against_cpu(
+                work, "small_mag3", "three-component magnetic data, packed", kind="mag3", fmt="packed"),
+            "borehole_dense": small_problem_card_against_cpu(
+                work, "small_borehole", "TMI with observations inside the grid, dense", kind="borehole", fmt="dense"),
+            "gzz_tiled": small_problem_card_against_cpu(work, "small_gzz", "FTG Gzz, tiled", kind="gzz", fmt="tiled"),
+            "joint_dense": small_problem_card_against_cpu(work, "small_joint", "joint grav+mag, dense", kind="joint",
+                                                          fmt="dense"),
+        })
+
+        # ---- 13. the joint solve from the joint tiled run's cache, unmeshed and over four slots ----
+        print(f"joint solves from the joint tiled run's cache, unmeshed and over {mesh4}:")
+        joint_cache = os.path.join(joint_out["tiled"], "SENSIT")
+        solves["joint_tiled"] = solve_from_cache(joint_dir, "joint_unmeshed", joint_inputs, joint_cache, "tiled",
+                                                 None, counters, kind="joint")
+        solves["joint_tiled_4_slots"] = solve_from_cache(joint_dir, "joint_4_slots", joint_inputs, joint_cache,
+                                                         "tiled", mesh4, counters, kind="joint")
+        if solves["joint_tiled_4_slots"]["launches"] != {
+                "tile_matvec": 0, "tile_matvec_sharded": 4 * joint_products, "blocked_matvec": 0}:
+            raise SystemExit(f"FAILED joint 4-slot solve: launch count (expected {joint_products} x 4 slots)")
+        a, b = solves["joint_tiled"], solves["joint_tiled_4_slots"]
+        if not (all(np.array_equal(a["models"][i], b["models"][i]) for i in (0, 1))
+                and same_bytes(*(os.path.join(r["out_dir"], "costs.txt") for r in (a, b)))):
+            raise SystemExit("FAILED joint 4-slot solve: not equal to the last bit to the unmeshed joint solve")
+        print(f"  joint over 4 slots: {joint_products} x 4 launches of tile_matvec; both final models and costs.txt "
+              "equal to the last bit to the unmeshed joint solve -> ok")
+
+        # ---- 14. tile_matvec on the magnetic problem's packs ----
+        print("full-width magnetic packs:")
+        cfgj = read_parfile(os.path.join(joint_dir, "Parfile_joint_tiled.txt"))
+        t0 = time.time()
+        tkm, metam = tile_kernel_from_cache(joint_cache, cfgj.magn, grid, device)
+        torch.cuda.synchronize()
+        print(f"  magnetic cache packed again in {time.time() - t0:.1f} s (nnz = {metam['nnz']:,}, "
+              f"{metam['nnz'] / (tkm.nrows * tkm.ncols):.4f} of the dense matrix)")
+        mag_packs = {}
+        for pname, uv, ub, n_in, seed in (("magnetic forward", tkm.uvals, tkm.ubidx, tkm.ncols, 8),
+                                          ("magnetic adjoint", tkm.uvalsT, tkm.ubidxT, tkm.nrows, 9)):
+            x64 = seeded_vector(n_in, seed, device)
+            dense_m = dense_from_pack(uv, ub, x64.shape[0])
+            mag_packs[pname] = measure_layout(tmv.tile_matvec, tmv.tile_matvec_plain, f"{pname} pack", uv, ub,
+                                              ub.shape[0] * 8, x64, dense_m)
+            del dense_m
+            torch.cuda.empty_cache()
+        del tkm
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     total_s = time.time() - t_all
     print(f"total {total_s:.1f} s")
+    if total_s > 600:
+        raise SystemExit(f"FAILED: the whole run took {total_s:.1f} s, more than its 600 s")
 
     def report(run):
-        return {k: v for k, v in run.items() if k not in ("model", "sharded", "out_dir")}
+        return {k: v for k, v in run.items() if k not in ("model", "models", "sharded", "out_dir")}
 
     kernels = [
         {
@@ -878,6 +1174,8 @@ def main() -> int:
             "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
             "shape_of_these_times": "forward pack, f32 vector",
             "forward": report(fwd), "adjoint": report(adj),
+            "launches_joint_tiled": joint["tiled"]["launches"]["tile_matvec"],
+            "magnetic_forward": mag_packs["magnetic forward"], "magnetic_adjoint": mag_packs["magnetic adjoint"],
         },
         {
             "name": "tile_matvec_sharded", "route": "cuda",
@@ -891,6 +1189,7 @@ def main() -> int:
             "library_ms": fwd["sharded"]["library_ms"],
             "shape_of_these_times": "forward pack cut over 4 slots on one card, f32 vector",
             "forward": fwd["sharded"], "adjoint": adj["sharded"],
+            "launches_joint_4_slots": solves["joint_tiled_4_slots"]["launches"]["tile_matvec_sharded"],
         },
         {
             "name": "blocked_matvec", "route": "cuda",
@@ -906,9 +1205,12 @@ def main() -> int:
     ]
     print(json.dumps({
         "main_paths": {"tiled": report(tiled), "tiled_mesh1": report(tiled_mesh), "dense": report(dense),
-                       "dense_mesh1": report(dense_mesh), "packed": report(packed)},
+                       "dense_mesh1": report(dense_mesh), "packed": report(packed),
+                       "dense_mesh1_host_assembly": report(dense_host)},
         "mesh1_against_unmeshed": mesh_against_unmeshed, "solves_from_cache": {k: report(v) for k, v in solves.items()},
         "formats_against_tiled": spread, "small_problems_card_against_cpu": small_rel,
+        "joint_main_paths": {k: report(v) for k, v in joint.items()}, "joint_dense_against_tiled": joint_spread,
+        "ftg_main_path": report(ftg),
         "operators": operators, "observations": NDATA, "cells": NX * NY * NZ,
         "kernel_build_s": build_s, "total_s": total_s,
         "memory_bytes_per_s_assumed": MEMORY_BYTES_PER_S, "fp32_flop_per_s_assumed": FP32_FLOP_PER_S,

@@ -132,8 +132,9 @@ def test_lattice_rows_match_jax(shape, uneven):
     for a, b in zip(edges, jedges):
         np.testing.assert_array_equal(a, b)
     X, Y, Z = _points(rng, g, 5)
-    got = tmf._lattice_closed_rows(*[_t(e) for e in edges], _t(X), _t(Y), _t(Z), "grav", 1)
-    assert tuple(got.shape) == (5, shape[2], shape[1], shape[0])
+    got = tmf._lattice_closed_rows(*[_t(e) for e in edges], _t(X), _t(Y), _t(Z), "grav", 1, (0.0, 0.0, 1.0), 0.0, 1, 1)
+    assert tuple(got.shape) == (5, shape[2], shape[1], shape[0], 1, 1)
+    got = got[..., 0, 0]
     for p in range(5):
         want = np.asarray(
             jmf.lattice_rows_for_point(
@@ -151,9 +152,9 @@ def test_lattice_rows_match_percell_rows():
     g = _lattice(6, 6, 4)
     X, Y, Z = _points(rng, g, 4)
     edges = tmf.detect_lattice(TGrid(**g))
-    lat = tmf._lattice_closed_rows(*[_t(e) for e in edges], _t(X), _t(Y), _t(Z), "grav", 1)
+    lat = tmf._lattice_closed_rows(*[_t(e) for e in edges], _t(X), _t(Y), _t(Z), "grav", 1, (0.0, 0.0, 1.0), 0.0, 1, 1)
     bounds = [_t(g[k]) for k in ("X1", "X2", "Y1", "Y2", "Z1", "Z2")]
-    per = tsens.forward_rows("grav", 1, 1, 1, bounds, _t(X), _t(Y), _t(Z))[:, :, 0, 0]
+    per = tsens.forward_rows("grav", 1, 1, 1, (0.0, 0.0, 1.0), 0.0, False, bounds, _t(X), _t(Y), _t(Z))[:, :, 0, 0]
     scale = per.abs().max().item()
     np.testing.assert_allclose(lat.reshape(4, -1).numpy(), per.numpy(), rtol=0, atol=1e-9 * scale)
 
@@ -167,11 +168,16 @@ def test_detect_lattice_rejects_broken_grid():
 
 
 def test_unported_rows_are_refused():
+    """Every forward family is ported; what is still refused are the
+    component counts the reference refuses too (sensitivity_gravmag.F90:211,
+    magnetic_field.f90:118-297), with the reference's messages."""
     e = _t(np.arange(3.0))
-    with pytest.raises(NotImplementedError):
-        tmf._lattice_closed_rows(e, e, e, _t([0.5]), _t([0.5]), _t([-1.0]), "magn", 1)
-    with pytest.raises(NotImplementedError):
-        tsens.forward_rows("grav", 2, 1, 1, [e] * 6, _t([0.5]), _t([0.5]), _t([-1.0]))
+    with pytest.raises(ValueError, match="data components"):
+        tmf._lattice_closed_rows(e, e, e, _t([0.5]), _t([0.5]), _t([-1.0]), "magn", 1, (0.0, 0.0, 1.0), 5e4, 1, 2)
+    with pytest.raises(ValueError, match="model components"):
+        tmf._lattice_closed_rows(e, e, e, _t([0.5]), _t([0.5]), _t([-1.0]), "magn", 1, (0.0, 0.0, 1.0), 5e4, 2, 1)
+    with pytest.raises(ValueError, match="gradiometry data components"):
+        tsens.forward_rows("grav", 2, 1, 3, (0.0, 0.0, 1.0), 0.0, False, [e] * 6, _t([0.5]), _t([0.5]), _t([-1.0]))
 
 
 def test_validate_finite():

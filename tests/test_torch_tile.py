@@ -359,14 +359,19 @@ def test_tile_kernel_from_cache_small_flush_and_missing(tmp_path, monkeypatch):
 
 
 def test_compute_sensitivity_refuses_unported_paths():
+    """Every forward family builds now (the magnetic build:
+    tests/test_torch_magnetics.py); what is refused is the float32 build with
+    far-field quadrature and tpu.f64BuildF32Compress (ROADMAP queue 1 item 5)."""
     g, (X, Y, Z), kw, cw = _problem(4, 4, 2, 3, 1, 0.2, 11)
     par, grid, data = TGravParams(**kw), TGrid(**g), TSurveyData(ndata=3, X=X, Y=Y, Z=Z)
     from tomofastx_tpu_torch.config.parfile import MagParams
 
-    with pytest.raises(NotImplementedError):
-        tsens.compute_sensitivity(MagParams(**kw), grid, data, cw, row_sink=lambda c, s: None, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsens.compute_sensitivity(MagParams(**kw), grid, data, cw, device="cpu")  # the dense build too
+    with pytest.raises(NotImplementedError, match="far-field quadrature"):
+        tsens.compute_sensitivity(par, grid, data, cw, compute_dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="f64BuildF32Compress"):
+        tsens.compute_sensitivity(TGravParams(**kw, f64_build_f32_compress=1), grid, data, cw, device="cpu")
+    assert tsens.compute_sensitivity(MagParams(**kw), grid, data, cw, row_sink=lambda c, s: None, device="cpu").S is None
+    assert tsens.compute_sensitivity(MagParams(**kw), grid, data, cw, device="cpu").S.shape == (3, 32)
     # Without a row_sink a gravity kernel is accumulated densely (tests/test_torch_formats.py).
     assert tsens.compute_sensitivity(par, grid, data, cw, device="cpu").S.shape == (3, 32)
 
@@ -374,9 +379,10 @@ def test_compute_sensitivity_refuses_unported_paths():
 def test_observation_on_a_cell_edge_is_reported():
     """An observation on the grid's top face above a cell edge makes the
     closed forms non-finite. An uncompressed build raises in both packages.
-    (In a compressed build the threshold mask turns the row's NaNs into
-    zeros before the check, in both packages alike: a fault of the reference
-    that the port does not repair on its own.)"""
+    A compressed build raises in the port too: it checks the rows before the
+    threshold, whose mask would turn the row's NaNs into zeros. The JAX
+    package checks after it and stores the row as zeros (an intended
+    divergence, PERF.md)."""
     g, (X, Y, Z), kw, cw = _problem(4, 4, 2, 3, 0, 0.2, 13)
     X[1], Y[1], Z[1] = 50.0, 100.0, 0.0
     with pytest.raises(FloatingPointError):
@@ -389,6 +395,18 @@ def test_observation_on_a_cell_edge_is_reported():
             JGravParams(**kw), JGrid(**g), JSurveyData(ndata=3, X=X, Y=Y, Z=Z), cw,
             row_sink=lambda c, s: None,
         )
+    kw["compression_type"] = 1
+    with pytest.raises(FloatingPointError):
+        tsens.compute_sensitivity(
+            TGravParams(**kw), TGrid(**g), TSurveyData(ndata=3, X=X, Y=Y, Z=Z), cw,
+            row_sink=lambda c, s: None, device="cpu",
+        )
+    chunks = []
+    jsens.compute_sensitivity(
+        JGravParams(**kw), JGrid(**g), JSurveyData(ndata=3, X=X, Y=Y, Z=Z), cw,
+        row_sink=lambda c, s: chunks.append(np.asarray(c)),
+    )
+    assert not np.any(chunks[0][1])  # the JAX package's compressed build stores the row as zeros
 
 
 def test_percell_build_matches_lattice_build(tmp_path):

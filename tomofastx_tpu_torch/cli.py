@@ -16,7 +16,7 @@ import sys
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="tomofastx-torch",
-        description="Tomofast-x on PyTorch/CUDA: 3-D gravity inversion",
+        description="Tomofast-x on PyTorch/CUDA: 3-D joint gravity and magnetic inversion",
     )
     parser.add_argument("-p", "--parfile", help="path to the Parfile")
     parser.add_argument(

@@ -1,4 +1,4 @@
-"""End-to-end gravity inversion workflow.
+"""End-to-end joint gravity and magnetic inversion workflow.
 
 Counterpart of solve_problem_joint_gravmag
 (problem_joint_gravmag.F90:65-613): grid + data loading, depth weights,
@@ -10,12 +10,15 @@ Host-side orchestration is plain Python (it does I/O) on numpy state; the
 numerics of the build, the operator and each major iteration's solve run as
 tensor operations on `device` (inversion/joint.py).
 
-Ported so far: one gravity problem with a stored kernel — dense (the
-default), packed top-k or tile-union (``tpu.kernelFormat = dense | packed |
-tiled | auto``), wavelet-compressed or not — damping and ADMM, on one
-device or on a mesh of slots (``mesh=``: the build's rows and the operator's
-cells split over the slots, parallel/mesh.py). A Parfile that asks for
-anything else is refused with NotImplementedError before any work is done.
+Ported so far: the gravity problem (g_z or gradiometry, Gzz or the full
+tensor), the magnetic problem (TMI or three-component data, susceptibility
+or magnetization vector) and the two together, each with a stored kernel —
+dense (the default), packed top-k or tile-union (``tpu.kernelFormat = dense
+| packed | tiled | auto``), wavelet-compressed or not — damping and ADMM, on
+one device or on a mesh of slots (``mesh=``: the build's rows and the
+operator's cells split over the slots, parallel/mesh.py). A Parfile that
+asks for anything else is refused with NotImplementedError before any work
+is done.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from tomofastx_tpu_torch.models.model import ModelState
 from tomofastx_tpu_torch.ops import sensitivity as sens
 from tomofastx_tpu_torch.ops.sparse_kernel import DenseKernel, apply_row_weights_packed
 from tomofastx_tpu_torch.ops.tile_kernel import apply_row_weights_tiled, tile_kernel_from_cache
-from tomofastx_tpu_torch.parallel.mesh import shard_kernel, slot_bytes_line
+from tomofastx_tpu_torch.parallel.mesh import assembly_device, shard_kernel, slot_bytes_line
 from tomofastx_tpu_torch.utils.memory import report as memory_report
 
 PROBLEM_PREFIX = ("grav", "mag")  # output file name prefixes (reference usage)
@@ -156,16 +159,12 @@ COSTS_HEADER = (
 )
 
 
-def _refuse_unported(cfg: Config, active):
+def _refuse_unported(cfg: Config):
     """Fail before any work on a Parfile that asks for a path of the JAX
     package that this package does not hold yet."""
     ipar = cfg.inversion
     wants = []
-    if active != [GRAV]:
-        wants.append("the magnetic problem (inversion.joint.magn.problemWeight != 0)")
-    par = cfg.grav
-    if par.data_type != 1 or par.ndata_components != 1:
-        wants.append("gravity gradiometry data")
+    par = cfg.grav  # the tpu.* and sensit.* keys set both problems alike
     if par.kernel_format == "matrixfree":
         wants.append("tpu.kernelFormat = matrixfree")
     if par.kernel_store != "float32":
@@ -256,12 +255,23 @@ def solve_problem_joint_gravmag(
     timings: Dict[str, object] = {}
     ipar = cfg.inversion
 
+    def add_time(key, t0):
+        """Seconds since t0, added to timings[key] (summed over the problems)."""
+        sync()
+        dt = time.time() - t0
+        timings[key] = timings.get(key, 0.0) + dt
+        return dt
+
+    # Where each kernel is assembled before a mesh cuts it: the home card
+    # when every slot is on it, else the host (parallel/mesh.py).
+    build_device = device if mesh is None else assembly_device(mesh)
+
     if ipar.method != 1:
         raise ValueError(f"Unknown solver type {ipar.method}! (only 1 = LSQR)")
     active = [i for i in (GRAV, MAGN) if cfg.solve_problem(i)]
     if not active:
         raise ValueError("No active problems (both problem weights are zero).")
-    _refuse_unported(cfg, active)
+    _refuse_unported(cfg)
 
     out_dir = _mkoutdir(cfg)
 
@@ -315,8 +325,7 @@ def solve_problem_joint_gravmag(
             # (sensitivity_gravmag.F90:873-879).
             cache_dir = os.path.join(base_dir, par.sensit_path)
             ctx.column_weight = _read_depth_weight_file(cache_dir, i)
-        sync()
-        timings["depth_weight_s"] = time.time() - t0
+        add_time("depth_weight_s", t0)
 
         fmt = par.kernel_format
         nrows_tot = par.ndata * par.ndata_components
@@ -346,8 +355,8 @@ def solve_problem_joint_gravmag(
 
             def read_capacity(cache_dir):
                 if fmt == "tiled":
-                    return tile_kernel_from_cache(cache_dir, par, ctx.model.grid, device)
-                return read_kernel_cache_packed(cache_dir, par, ctx.model.grid, device=device)
+                    return tile_kernel_from_cache(cache_dir, par, ctx.model.grid, build_device)
+                return read_kernel_cache_packed(cache_dir, par, ctx.model.grid, device=build_device)
 
             pk = meta = None
             if par.sensit_read == 1:
@@ -356,8 +365,7 @@ def solve_problem_joint_gravmag(
                 if pk is None:
                     log(f"WARNING: no readable sensitivity cache for {PROBLEM_PREFIX[i]}; recomputing.")
                 else:
-                    sync()
-                    timings["pack_s"] = time.time() - t0
+                    pack_s = add_time("pack_s", t0)
             if pk is None:
                 log(f"Calculating {PROBLEM_PREFIX[i].upper()} sensitivity kernel (streamed/{fmt})...")
                 # Predicted allocation print before the big build
@@ -373,22 +381,22 @@ def solve_problem_joint_gravmag(
                     kmeta = sens.compute_sensitivity(
                         par, ctx.model.grid, ctx.data, ctx.column_weight,
                         compute_dtype=compute_dtype, store_dtype=torch.float32,
-                        row_sink=writer.write_chunk, device=device, mesh=mesh,
+                        row_sink=writer.write_chunk, device=build_device, mesh=mesh,
                     )
                 finally:
                     writer.close()
                 writer.finalize(kmeta.comp_error)
-                timings["build_s"] = time.time() - t0
-                log(f"  kernel built+cached in {timings['build_s']:.2f}s "
-                    f"({nrows_tot / max(timings['build_s'], 1e-9):.1f} rows/s); "
+                build_s = add_time("build_s", t0)
+                log(f"  kernel built+cached in {build_s:.2f}s "
+                    f"({nrows_tot / max(build_s, 1e-9):.1f} rows/s); "
                     f"COMPRESSION ERROR, r = {kmeta.comp_error:.6e}")
                 t0 = time.time()
                 pk, meta = read_capacity(sensit_dir)
-                sync()
-                timings["pack_s"] = time.time() - t0
-            log(f"  cache packed into {layout} in {timings['pack_s']:.2f}s (nnz = {meta['nnz']:,})")
+                pack_s = add_time("pack_s", t0)
+            log(f"  cache packed into {layout} in {pack_s:.2f}s (nnz = {meta['nnz']:,})")
 
             # Bake in problem weight x data weights (sensitivity_gravmag.F90:836-843).
+            t0 = time.time()
             wrow = (ipar.problem_weight[i] * np.asarray(ctx.data.weight)).reshape(-1)
             if fmt == "tiled":
                 ctx.operator = apply_row_weights_tiled(pk, wrow)
@@ -399,6 +407,7 @@ def solve_problem_joint_gravmag(
                 shapes = (f"rows {tuple(ctx.operator.row_vals.shape)}, "
                           f"heavy columns {tuple(ctx.operator.dense_block.shape)}, "
                           f"light columns {tuple(ctx.operator.light_vals.shape)}; ")
+            log(f"  row weights applied on {build_device} in {add_time('row_weights_s', t0):.2f}s")
             log(
                 f"  {PROBLEM_PREFIX[i]} kernel: {fmt} {ctx.operator.nbytes / 1e6:.1f} MB "
                 f"({shapes}dense would be {nrows_tot * ncols_tot * 4 / 1e6:.1f} MB)"
@@ -411,15 +420,13 @@ def solve_problem_joint_gravmag(
         if par.sensit_read == 1:
             t0 = time.time()
             kernel = try_read_kernel_cache(
-                os.path.join(base_dir, par.sensit_path), par, ctx.model.grid, device
+                os.path.join(base_dir, par.sensit_path), par, ctx.model.grid, build_device
             )
             if kernel is None:
                 log(f"WARNING: no readable sensitivity cache for {PROBLEM_PREFIX[i]}; recomputing.")
             else:
-                sync()
-                timings["cache_read_s"] = time.time() - t0
-                log(f"  cache read into the dense kernel in {timings['cache_read_s']:.2f}s "
-                    f"(nnz = {kernel.nnz:,})")
+                cache_read_s = add_time("cache_read_s", t0)
+                log(f"  cache read into the dense kernel in {cache_read_s:.2f}s (nnz = {kernel.nnz:,})")
         if kernel is None:
             log(f"Calculating {PROBLEM_PREFIX[i].upper()} sensitivity kernel...")
             t0 = time.time()
@@ -439,12 +446,11 @@ def solve_problem_joint_gravmag(
             kernel = sens.compute_sensitivity(
                 par, ctx.model.grid, ctx.data, ctx.column_weight,
                 compute_dtype=compute_dtype, store_dtype=torch.float32,
-                progress=ticker, device=device, mesh=mesh,
+                progress=ticker, device=build_device, mesh=mesh,
             )
-            sync()
-            timings["build_s"] = time.time() - t0
-            log(f"  kernel built in {timings['build_s']:.2f}s "
-                f"({nrows_tot / max(timings['build_s'], 1e-9):.1f} rows/s); "
+            build_s = add_time("build_s", t0)
+            log(f"  kernel built in {build_s:.2f}s "
+                f"({nrows_tot / max(build_s, 1e-9):.1f} rows/s); "
                 f"COMPRESSION RATE = {kernel.nnz / max(kernel.S.numel(), 1):.6f}; "
                 f"COMPRESSION ERROR, r = {kernel.comp_error:.6e}")
             # The reference always persists the kernel
@@ -453,15 +459,16 @@ def solve_problem_joint_gravmag(
             if par.sensit_write:
                 t0 = time.time()
                 write_kernel_cache(sensit_dir, par, kernel, ctx.column_weight)
-                timings["cache_write_s"] = time.time() - t0
-                log(f"  kernel cached in {timings['cache_write_s']:.2f}s")
+                log(f"  kernel cached in {add_time('cache_write_s', t0):.2f}s")
 
         # Bake in problem weight x data weights (sensitivity_gravmag.F90:836-843),
         # in place and in storage precision.
+        t0 = time.time()
         ctx.kernel = sens.apply_row_weights(kernel, ipar.problem_weight[i], ctx.data.weight)
         # Cast once to the solve dtype for the LSQR products (the same tensor
         # comes back for a float32 solve).
         ctx.kernel.S = ctx.kernel.S.to(solve_dtype)
+        log(f"  row weights applied on {build_device} in {add_time('row_weights_s', t0):.2f}s")
         log(f"  {PROBLEM_PREFIX[i]} kernel: dense {tuple(ctx.kernel.S.shape)} {ctx.kernel.S.dtype}, "
             f"{ctx.kernel.S.numel() * ctx.kernel.S.element_size() / 1e6:.1f} MB")
 
@@ -475,8 +482,7 @@ def solve_problem_joint_gravmag(
         for i, ctx in ctxs.items():
             ctx.operator = shard_kernel(ctx.operator, mesh)
             ctx.kernel = None
-        sync()
-        timings["shard_s"] = time.time() - t0
+        add_time("shard_s", t0)
         shape = "x".join(str(v) for v in mesh.devices.shape)
         for i, ctx in ctxs.items():
             log(f"  {PROBLEM_PREFIX[i]} kernel sharded over a {shape} mesh {mesh.axis_names} in "

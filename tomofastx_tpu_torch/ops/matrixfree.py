@@ -1,16 +1,25 @@
 """Corner-lattice closed-form sensitivity rows on tensor-product grids.
 
-This slice of the port holds what the stored-kernel build needs from the
+This part of the port holds what the stored-kernel build needs from the
 matrix-free module: lattice detection, the 2x2x2 corner difference and the
-g_z closed-form rows. The matrix-free operators themselves are not ported
+closed-form rows of every forward family (gravity g_z, FTG Gzz and the full
+tensor, magnetic TMI or three-component data on susceptibility or the
+magnetization vector). The matrix-free operators themselves are not ported
 yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from tomofastx_tpu_torch.ops.prism import G_GRAV, gz_corner_potential
+from tomofastx_tpu_torch.ops.prism import (
+    G_GRAV,
+    combine_mag_tensor,
+    ftg_corner_potentials,
+    gz_corner_potential,
+    mag_corner_potentials,
+)
 
 
 def detect_lattice(grid):
@@ -45,29 +54,55 @@ def detect_lattice(grid):
     return xe, ye, ze
 
 
-def _diff3(F):
-    """D[F](i,j,k) = sum_{K,L,M} (-1)^(K+L+M) F[i+K,j+L,k+M] over the last
-    three axes (per axis out[i] = F[i] - F[i+1]): corners -> cells, keeping
-    the cancellation local to each cell's own 8 corner values."""
+def _diff3(F, axes=(-3, -2, -1)):
+    """D[F](i,j,k) = sum_{K,L,M} (-1)^(K+L+M) F[i+K,j+L,k+M] over the three
+    lattice axes `axes` (per axis out[i] = F[i] - F[i+1]): corners -> cells,
+    keeping the cancellation local to each cell's own 8 corner values."""
     g = F
-    for ax in (-3, -2, -1):
+    for ax in axes:
         n = g.shape[ax]
         g = g.narrow(ax, 0, n - 1) - g.narrow(ax, 1, n - 1)
     return g
 
 
-def _lattice_closed_rows(xe, ye, ze, x, y, z, problem, data_type):
-    """Corner-difference closed-form g_z rows on a lattice, for a batch of
-    observation points x, y, z of shape (B,): (B, nz, ny, nx). Each lattice
-    corner's antiderivative is evaluated once and shared by up to 8 cells
-    (~8x fewer transcendentals than the per-cell 8-corner sums the
-    reference loops, gravity_field.f90:131-195)."""
-    if problem != "grav" or data_type != 1:
-        raise NotImplementedError(
-            "only gravity g_z lattice rows are ported (magnetic and "
-            "gradiometry rows are not yet)"
-        )
+def _lattice_closed_rows(xe, ye, ze, x, y, z, problem, data_type, magv, intensity, nmc, ndc):
+    """Corner-difference closed-form rows on a lattice, for a batch of
+    observation points x, y, z of shape (B,): (B, nz, ny, nx, nmc, ndc).
+    Each lattice corner's antiderivative is evaluated once and shared by up
+    to 8 cells (~8x fewer transcendentals than the per-cell 8-corner sums
+    the reference loops, gravity_field.f90:131-195,
+    magnetic_field.f90:321-457)."""
     cx = (x[:, None] - xe[None, :])[:, None, None, :]
     cy = (y[:, None] - ye[None, :])[:, None, :, None]
     cz = (z[:, None] - ze[None, :])[:, :, None, None]
-    return -G_GRAV * _diff3(gz_corner_potential(cx, cy, cz))
+
+    if problem == "grav" and data_type == 1:
+        rows = -G_GRAV * _diff3(gz_corner_potential(cx, cy, cz))
+        return rows[..., None, None]
+
+    if problem == "grav":  # data_type 2: FTG
+        # The gradiprism kernels flip z internally (ZZ = -(zd - Z)); -cz turns
+        # a +0.0 offset into -0.0, as in the JAX package, which decides the
+        # atan2 branch of an observation on a lattice plane.
+        ps = ftg_corner_potentials(cx, cy, -cz)
+        if ndc == 1:  # Gzz only
+            rows = -G_GRAV * _diff3(ps[2])
+            return rows[..., None, None]
+        rows = torch.stack([-G_GRAV * _diff3(pc) for pc in ps], dim=-1)
+        return rows[..., None, :]
+
+    # Magnetic corner potentials are evaluated at s = corner - obs (the
+    # sharmbox convention, magnetic_field.f90:330-335), not obs - corner:
+    # f3 = log(R + s_z) is singular on the ray {s_x = s_y = 0, s_z < 0},
+    # which with s = corner - obs points up, away from the grid; with
+    # obs - corner an observation exactly above a lattice node would hit
+    # log(0). The combination with the field is linear with scalar
+    # coefficients and D is linear, so the corner potentials are combined
+    # first and each output channel is differenced once (txx = D[f1],
+    # txy = -D[f3], tyz = -D[f4], txz = -D[f5], tzz = -D[f1 + f2]).
+    f1, f2, f3, f4, f5 = mag_corner_potentials(-cx, -cy, -cz)
+    Fc = combine_mag_tensor(
+        (f1, -f3, -f5), (-f3, f2, -f4), (-f5, -f4, -(f1 + f2)),
+        magv, intensity, nmc, ndc,
+    )  # (B, nz+1, ny+1, nx+1, nmc, ndc)
+    return _diff3(Fc, axes=(-5, -4, -3))

@@ -18,10 +18,13 @@ weights_gravmag.f90):
   Li & Oldenburg (2003) is returned for parity with the reference's printout
   (sensitivity_gravmag.F90:282-285, 346-355).
 
-Ported so far: the gravity g_z rows (corner-lattice and per-cell), built
-either into one dense tensor on the device or streamed to a `row_sink`. The
-chunk size is the caller's `batch_size` alone: the JAX package's caps on it
-answer limits of another device and are not carried over.
+Every forward family is ported: gravity g_z, gravity gradiometry (Gzz or
+the full tensor) and magnetics (TMI or three-component data, susceptibility
+or magnetization vector, with the borehole branch), corner-lattice and
+per-cell, built either into one dense tensor on the device or streamed to a
+`row_sink`. The chunk is the caller's `batch_size`, cut to the rows' bytes
+(`_build_batch`) on every device. The JAX package's caps on it answer limits
+of another device and are not carried over.
 """
 
 from __future__ import annotations
@@ -208,18 +211,41 @@ class SensitKernel:
         return xw
 
 
-def forward_rows(problem: str, data_type: int, nmc: int, ndc: int, grid_arrays, xd, yd, zd):
+def forward_rows(problem: str, data_type: int, nmc: int, ndc: int, magv, intensity,
+                 handle_inside: bool, grid_arrays, xd, yd, zd):
     """Raw physics rows for a batch of observation points xd, yd, zd of
     shape (B,) -> (B, N, nmodel_components, ndata_components). The physics
     dispatch of the per-cell build (reference:
-    sensitivity_gravmag.F90:193-219); only gravity g_z is ported."""
+    sensitivity_gravmag.F90:193-219)."""
     X1, X2, Y1, Y2, Z1, Z2 = grid_arrays
-    if problem != "grav" or data_type != 1:
-        raise NotImplementedError(
-            "only gravity g_z rows are ported (magnetic and gradiometry rows are not yet)"
+    xd, yd, zd = xd[:, None], yd[:, None], zd[:, None]
+    if problem == "magn":
+        return prism.magprism_row(
+            xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, magv, intensity,
+            nmodel_components=nmc, ndata_components=ndc, handle_inside=handle_inside,
         )
-    rows = prism.gravi_z(xd[:, None], yd[:, None], zd[:, None], X1, X2, Y1, Y2, Z1, Z2)
-    return rows[:, :, None, None]
+    if data_type == 1:
+        return prism.gravi_z(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)[:, :, None, None]
+    if ndc == 1:
+        return prism.gradi_zz(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)[:, :, None, None]
+    if ndc != 6:
+        # Reference: sensitivity_gravmag.F90:211.
+        raise ValueError("Wrong number of gravity gradiometry data components! (use 1 or 6)")
+    comps = prism.gradi_full(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)
+    return torch.stack(comps, dim=-1)[:, :, None, :]
+
+
+def observation_inside_grid(grid, data) -> bool:
+    """Whether any observation point lies inside the model volume (decides
+    the magnetic 6-subprism borehole branch, magnetic_field.f90:139-141)."""
+    (xmin, xmax), (ymin, ymax), (zmin, zmax) = grid.bounds()
+    return bool(
+        np.any(
+            (data.X > xmin) & (data.X < xmax)
+            & (data.Y > ymin) & (data.Y < ymax)
+            & (data.Z > zmin) & (data.Z < zmax)
+        )
+    )
 
 
 def _compress_lines(lines, nx, ny, nz, compression_type, nel_compressed, store_dtype):
@@ -275,6 +301,22 @@ def _chunk_plan(nd: int, batch: int):
     return plan
 
 
+# Bytes a build chunk may take: the float64 rows and the copies
+# that the corner lattice, the depth weight, the wavelet and the threshold make
+# of them. 2^32 is what 256 g_z rows at 64^3 cells took in every earlier
+# build; a row of the magnetic tensor, with its five corner channels, counts
+# twice.
+BUILD_CHUNK_BYTES = 1 << 32
+
+
+def _build_batch(batch_size: int, problem: str, nmc: int, ndc: int, N: int) -> int:
+    """The chunk of observations for a build: batch_size, or fewer where the
+    rows of nmc x ndc components would pass BUILD_CHUNK_BYTES. The cache rows
+    stream in order, so the files do not depend on the chunk."""
+    per_row = 64 * N * nmc * ndc * (2 if problem == "magn" else 1)
+    return max(1, min(batch_size, BUILD_CHUNK_BYTES // per_row))
+
+
 def compute_sensitivity(
     par,
     grid: Grid,
@@ -318,14 +360,28 @@ def compute_sensitivity(
     sensitivity_gravmag.F90:179-189): the chunk is padded with far-away
     dummy points to a multiple of the slot count, part k is built on slot
     k's device, the parts meet on `device` and the dummy rows are dropped
-    before anything is stored, checked or counted. Rows are built
-    independently, so the kept rows equal the unsharded build's bit for
-    bit."""
-    if isinstance(par, MagParams):
-        raise NotImplementedError("the magnetic kernel build is not ported yet")
+    before anything is stored or counted. Rows are built independently, so
+    the kept rows equal the unsharded build's bit for bit. For a mesh of
+    distinct cards the caller passes the host as `device`
+    (parallel.mesh.assembly_device), so that no card holds the whole
+    kernel."""
+    if compute_dtype != torch.float64 and getattr(par, "far_field_quad", 1):
+        raise NotImplementedError(
+            "a float32 build blends in far-field quadrature (tpu.farFieldQuad), which is not ported "
+            "yet (ROADMAP queue 1 item 5)"
+        )
+    if getattr(par, "f64_build_f32_compress", 0):
+        raise NotImplementedError("tpu.f64BuildF32Compress is not ported yet (ROADMAP queue 1 item 5)")
     N = grid.nelements_total
     nd, ndc, nmc = par.ndata, par.ndata_components, par.nmodel_components
-    problem = "grav"
+
+    is_mag = isinstance(par, MagParams)
+    problem = "magn" if is_mag else "grav"
+    magv = prism.dircos(par.mi, par.md, par.theta) if is_mag else (0.0, 0.0, 1.0)
+    intensity = par.intensity if is_mag else 0.0
+    # Only pay for the 6-subprism in-cell branch when some observation point
+    # lies inside the grid volume.
+    handle_inside = is_mag and observation_inside_grid(grid, data)
 
     device = torch.device(device)
 
@@ -336,9 +392,12 @@ def compute_sensitivity(
     # antiderivatives once per lattice node per observation and difference
     # into per-cell rows. Same corner expressions as the per-cell sums, so
     # values agree to summation-order rounding. Only for float64 physics,
-    # as in the JAX package; opt out with tpu.latticeBuild = 0.
+    # as in the JAX package; opt out with tpu.latticeBuild = 0. The
+    # borehole branch is per-cell and cannot share corners.
     lattice_edges = None
-    if getattr(par, "lattice_build", 1) and compute_dtype == torch.float64:
+    if getattr(par, "lattice_build", 1) and compute_dtype == torch.float64 and (
+        problem == "grav" or not handle_inside
+    ):
         lattice_edges = detect_lattice(grid)
     slots = [device] if mesh is None else mesh.slots
 
@@ -366,22 +425,30 @@ def compute_sensitivity(
     def build_chunk(xd, yd, zd):
         lat, grid_arrays, cw = ops[xd.device]
         if lat:
-            rows = _lattice_closed_rows(*lat, xd, yd, zd, problem, par.data_type)
+            rows = _lattice_closed_rows(*lat, xd, yd, zd, problem, par.data_type, magv, intensity, nmc, ndc)
             rows = rows.reshape(-1, N, nmc, ndc)
         else:
-            rows = forward_rows(problem, par.data_type, nmc, ndc, grid_arrays, xd, yd, zd)
+            rows = forward_rows(
+                problem, par.data_type, nmc, ndc, magv, intensity, handle_inside, grid_arrays, xd, yd, zd
+            )
         rows = rows * cw[:, None, None]  # depth weighting
         rows = rows.permute(0, 3, 2, 1)  # (B, ndc, nmc, N): lines over N
+        # Flagged before the threshold: its mask (|w| > t) is false for NaN
+        # and would store a non-finite row as zeros. The JAX package checks
+        # after it and lets such a row pass a compressed build. The flag
+        # stays on the device until every part of the chunk is built.
+        finite = torch.isfinite(rows).all()
         if par.compression_type > 0:
-            return _compress_lines(
+            return (*_compress_lines(
                 rows, grid.nx, grid.ny, grid.nz, par.compression_type, nel_compressed, store_dtype
-            )
+            ), finite)
         comp = rows.to(store_dtype)
         B = comp.shape[0]
         return (
             comp,
             torch.full((B,), ndc * nmc * N, device=comp.device),
             torch.zeros((B,), dtype=compute_dtype, device=comp.device),
+            finite,
         )
 
     xs, ys, zs = (np.asarray(a, np.float64) for a in (data.X, data.Y, data.Z))
@@ -391,7 +458,8 @@ def compute_sensitivity(
         far = (float(np.max(grid.X2)) + 1.0e6, float(np.max(grid.Y2)) + 1.0e6, float(np.min(grid.Z1)) - 1.0e6)
 
     def build_rows(s, e):
-        """Rows of observations [s, e) -> (comp, nnz, err) on `device`."""
+        """Rows of observations [s, e) -> (comp, nnz, err, finite) on
+        `device`; every part is queued before anything is read back."""
         if mesh is None:
             return build_chunk(t(xs[s:e]), t(ys[s:e]), t(zs[s:e]))
         n, nb = len(slots), e - s
@@ -405,18 +473,26 @@ def compute_sensitivity(
         ]
         if n == 1:
             return tuple(a.to(device) for a in parts[0])
-        return tuple(torch.cat([p[q].to(device) for p in parts])[:nb] for q in range(3))
+        return (
+            *(torch.cat([p[q].to(device) for p in parts])[:nb] for q in range(3)),
+            torch.stack([p[3].to(device) for p in parts]).all(),
+        )
 
     S = None
     if row_sink is None:
-        S = torch.empty((nd * ndc, nmc * N), dtype=store_dtype, device=device)
+        # Assembled on the host for a mesh of distinct cards (the workflow's
+        # parallel.mesh.assembly_device): pinned, so that each card's part
+        # is copied from it without staging.
+        pin = device.type == "cpu" and any(d.type == "cuda" for d in slots)
+        S = torch.empty((nd * ndc, nmc * N), dtype=store_dtype, device=device, pin_memory=pin)
 
+    batch_size = _build_batch(batch_size, problem, nmc, ndc, N)
     nnz_total = 0
     err_total = 0.0
     for s, nb in _chunk_plan(nd, batch_size):
         e = s + nb
-        comp, nnz, err_sum = build_rows(s, e)
-        prism.validate_finite("sensitivity kernel chunk", comp)
+        comp, nnz, err_sum, finite = build_rows(s, e)
+        prism.require_finite("sensitivity kernel chunk", finite)
         if row_sink is not None:
             row_sink(comp, s)
         else:

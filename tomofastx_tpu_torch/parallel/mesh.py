@@ -110,6 +110,21 @@ def make_mesh(spec=None, device="cuda") -> Mesh:
     return Mesh(np.array(devs, dtype=object).reshape(shape), names)
 
 
+def assembly_device(mesh: Mesh) -> torch.device:
+    """Where a kernel is built or read before shard_kernel cuts it over the
+    mesh. When every slot is on the home device (one card holding several
+    slots, or the CPU) that is the home device: the parts are then views of
+    the whole, nothing is copied and the sharded products equal the
+    unsharded ones bit for bit. When the slots are distinct cards it is the
+    host, as in the JAX package (tomofastx_tpu/ops/sensitivity.py:889-894,
+    parallel/mesh.py:102-112): each card then receives its own part and
+    nothing else, so no card has to hold the whole kernel."""
+    home = mesh.home
+    if all(d == home for d in mesh.slots):
+        return home
+    return torch.device("cpu")
+
+
 def obs_axis(mesh: Mesh):
     """The obs axis name when the mesh has one, else None (1-D cells mesh:
     data-space arrays stay whole)."""
