@@ -66,7 +66,26 @@ It needs one CUDA device, nvcc and nothing from the network. It
    over the four slots of 8 (equal to the last bit, tile_matvec_sharded under
    every product);
 14. holds tile_matvec against its plain version on the magnetic problem's
-   forward and adjoint packs and times it as in 5.
+   forward and adjoint packs and times it as in 5;
+15. couples the joint problem of 10, read from its tiled run's cache, by
+   the cross-gradient (central differences), the damping gradient of both
+   problems and a 2-cluster mixture (log objective, global weights), with
+   weights from the row-scale rule of coupling_weights, and runs it through
+   the command-line entry point tiled (tile_matvec under every product,
+   launches counted) and dense, held to each other at the formats'
+   tolerance, then over the four slots of 8 (equal to the last bit); each
+   run solves in the model domain (the wavelet inside every product) and
+   writes the cross-gradient and clustering fields; one LSQR iteration's
+   products are timed block by block;
+16. seven small coupled problems (cross-gradient forward, with a vector
+   field, with the density kept constant; damping gradient with a weights
+   file; clustering with cell weights and the plain objective, and with the
+   log objective; sensit.readFromFiles = 2), tiled and dense, on the card
+   against the CPU;
+17. on small problems through the command-line entry point: a run stopped
+   at its checkpoint and resumed (--resume) against the uninterrupted run;
+   --profile (the trace names tile_matvec's kernel once a launch); and
+   --debug-nans on a NaN datum (exit code 1, FloatingPointError traceback).
 
 Any failed phase ends the run with a non-zero exit code. Without a CUDA
 device it exits with code 2 and prints no result. The last line of a good run
@@ -503,7 +522,7 @@ def hold_equal(name, run, out_dir, ref, ref_dir, against="the unmeshed run"):
     return out
 
 
-def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters, kind="grav"):
+def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters, kind="grav", extra=()):
     """One solve_problem_joint_gravmag of `kind` on the card from a
     sensitivity cache, over `mesh` (None: unmeshed), with every kernel's
     count set to 0 just before and read just after."""
@@ -512,7 +531,7 @@ def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters, kind="g
 
     out_dir = os.path.join(work, f"out_{name}")
     pf = write_parfile(work, f"Parfile_{name}.txt", inputs, out_dir, N_MINOR, fmt=fmt, kind=kind,
-                       extra=["sensit.readFromFiles = 1", f"sensit.folderPath = {cache_dir}/"])
+                       extra=["sensit.readFromFiles = 1", f"sensit.folderPath = {cache_dir}/"] + list(extra))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -541,17 +560,20 @@ def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters, kind="g
     return run
 
 
-def small_problem_card_against_cpu(work, name, what, kind="grav", **parfile_args):
+def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None, **parfile_args):
     """A small problem of `kind` on the card (float64 solve, so the float64
     variants of the kernels and products carry it) against the same problem
     on the CPU: every active problem's final model within 1e-6 of its range,
-    its data cost within 1e-6."""
+    its data cost within 1e-6. coupling(dir, inputs) adds Parfile lines (and
+    the files they name) after the inputs are written."""
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
 
     small = os.path.join(work, name)
     os.makedirs(small)
     inputs = write_inputs(small, 16, 16, 8, 8, variants=("mag", "components", "borehole"))
+    if coupling is not None:
+        parfile_args["extra"] = list(parfile_args.get("extra", ())) + coupling(small, inputs)
     res = {}
     for dev in ("cpu", "cuda"):
         pf = write_parfile(small, f"Parfile_{dev}.txt", inputs, os.path.join(small, f"out_{dev}"), 10, kind=kind,
@@ -721,6 +743,330 @@ class RowBlocks:
 
     def matvec(self, x):
         return self.blocked_matvec(self.bvals, self.bidx, x)
+
+
+# The coupled problem's mixture (inversion.clustering.mixtureFile): the
+# background and the larger block, as (cluster weight, density mu1, s11,
+# susceptibility mu2, s22, s12); s12^2 < s11 s22 keeps the 2-D Gaussian proper.
+MIXTURE = ((1.0, 0.0, 50.0, 0.0, 0.01, 0.1), (1.0, 250.0, 50.0, 0.05, 0.01, 0.1))
+# The steepest the synthetic models change over one cell: block_model's 250
+# kg/m^3, and its susceptibility (a 5000th of it), over the shortest side.
+SYNTH_RANGES = (250.0, 0.05)
+# Each constraint row's largest coefficient against the data block's RMS
+# column norm (coupling_weights).
+ROW_SCALE = 0.1
+
+
+def write_coupling_files(work, ncells, seed=31):
+    """The coupled problem's files beside its inputs: the mixture, per-cell
+    cluster weights (2 clusters), a vector field on the scale of the magnetic
+    model's gradient (SI per m) and per-direction damping-gradient weights.
+    Returns their paths."""
+    rng = np.random.default_rng(seed)
+    cw = rng.uniform(0.2, 1.0, (ncells, 2))
+    files = {
+        "mixture": write_table(os.path.join(work, "mixture.txt"), len(MIXTURE), np.array(MIXTURE), "%.9E"),
+        "cell_weights": write_table(os.path.join(work, "cell_weights.txt"), f"{ncells} 2",
+                                    cw / cw.sum(1, keepdims=True), "%.12E"),
+        "vector_field": write_table(os.path.join(work, "vector_field.txt"), ncells,
+                                    1e-5 * rng.normal(size=(ncells, 3)), "%.12E"),
+    }
+    for sfx in ("grav", "magn"):
+        files[f"dgw_{sfx}"] = write_table(os.path.join(work, f"dgw_{sfx}.txt"), ncells,
+                                          rng.uniform(0.5, 1.5, (ncells, 3)), "%.12E")
+    return files
+
+
+def coupling_weights(cache_dir, cfg):
+    """The constraint weights of a joint problem by the row-scale rule, from
+    its sensitivity cache: each constraint row's largest coefficient is at
+    most ROW_SCALE x the RMS column norm of its problem's weighted data block
+    (problem weight x ||S||_F / sqrt(N); the wavelet is orthonormal, so the
+    model domain has the stored kernel's norm). The coefficients are bounded
+    by the largest column weight cw and: for the damping gradient, problem
+    weight x beta / the shortest cell side; for the cross-gradient, weight x
+    the other model's steepest gradient (the synthetic model's range over
+    the shortest side); for the clustering, weight x the mixture's largest
+    derivative over the models' ranges. The data blocks then keep most of
+    each column, so the data costs still fall, while every constraint's cost
+    column (sums of squares of the models' own differences, of tau, and of
+    the weighted mixture misfit) stays far above rounding. Returns the
+    weights and the scales they came from."""
+    from tomofastx_tpu_torch.io import model_io
+    from tomofastx_tpu_torch.io.sensit_cache import iter_cache_rows, read_cache_meta
+
+    pw = cfg.inversion.problem_weight
+    rms, cw_max = [], []
+    for i, (par, sfx) in enumerate(((cfg.grav, "grav"), (cfg.magn, "magn"))):
+        grid = model_io.read_model_grid(par.model_grid_file, par.nx, par.ny, par.nz)
+        meta = read_cache_meta(cache_dir, par, grid)
+        ss = sum(float(np.dot(v.astype(np.float64), v)) for *_, v in iter_cache_rows(cache_dir, meta))
+        rms.append(pw[i] * np.sqrt(ss / grid.nelements_total))
+        cw_max.append(float(np.fromfile(os.path.join(cache_dir, f"sensit_{sfx}_weight"), np.float64, offset=4).max()))
+    dmin = float(min(grid.dX().min(), grid.dY().min(), grid.dZ().min()))
+    grad = [r / dmin for r in SYNTH_RANGES]
+    deriv = [0.0, 0.0]
+    for _, _, s11, _, s22, s12 in MIXTURE:
+        det = abs(s12**4 - s11**2 * s22**2)
+        deriv[0] = max(deriv[0], (s22**2 * SYNTH_RANGES[0] + s12**2 * SYNTH_RANGES[1]) / det)
+        deriv[1] = max(deriv[1], (s12**2 * SYNTH_RANGES[0] + s11**2 * SYNTH_RANGES[1]) / det)
+    target = [ROW_SCALE * r for r in rms]
+    weights = {
+        "beta": [target[i] * dmin / (pw[i] * cw_max[i]) for i in (0, 1)],
+        "cross_gradient": min(target[0] / (cw_max[0] * grad[1]), target[1] / (cw_max[1] * grad[0])),
+        "clustering": [target[i] / (cw_max[i] * deriv[i]) for i in (0, 1)],
+    }
+    scales = {"rms_column": rms, "cw_max": cw_max, "shortest_side": dmin, "gradient_bound": grad,
+              "mixture_derivative_bound": deriv}
+    return weights, scales
+
+
+COUPLINGS = ("cross_gradient", "damping_gradient", "clustering")
+
+
+def coupling_lines(weights, files, kinds=COUPLINGS, extra=()):
+    """The Parfile lines of the coupled problem's constraints `kinds`, then
+    `extra` (a later line of a key overrides an earlier one)."""
+    lines = []
+    if "cross_gradient" in kinds:
+        lines += [f"inversion.crossGradient.weight = {weights['cross_gradient']:.6e}",
+                  "inversion.crossGradient.derivativeType = 2"]
+    if "damping_gradient" in kinds:
+        lines += [f"inversion.dampingGradient.grav.weight = {weights['beta'][0]:.6e}",
+                  f"inversion.dampingGradient.magn.weight = {weights['beta'][1]:.6e}"]
+    if "clustering" in kinds:
+        lines += [f"inversion.clustering.grav.weight = {weights['clustering'][0]:.6e}",
+                  f"inversion.clustering.magn.weight = {weights['clustering'][1]:.6e}",
+                  f"inversion.clustering.nClusters = {len(MIXTURE)}",
+                  f"inversion.clustering.mixtureFile = {files['mixture']}",
+                  "inversion.clustering.constraintsType = 1"]
+    return lines + list(extra)
+
+
+def check_coupled_outputs(name, out_dir, columns):
+    """costs.txt columns 9-20 of every major finite, the constraint columns
+    `columns` (1-based) > 0, and the coupling fields' VTK files written.
+    Returns the constraint columns per major."""
+    rows = read_costs(os.path.join(out_dir, "costs.txt"))[1:-1]
+    got = {c: [row[c - 1] for row in rows] for c in range(9, 21)}
+    if not all(np.isfinite(v) for vals in got.values() for v in vals):
+        raise SystemExit(f"FAILED {name}: a non-finite cost in columns 9-20")
+    if not all(v > 0.0 for c in columns for v in got[c]):
+        raise SystemExit(f"FAILED {name}: a constraint cost column is not > 0: {got}")
+    for field in ("cross_grad", "clustering"):
+        f = os.path.join(out_dir, "Paraview", f"{field}_final_model3D_full.vtk")
+        if not os.path.getsize(f) > 0:
+            raise SystemExit(f"FAILED {name}: {f}")
+    print(f"  {name}: costs.txt columns 9-20 finite, columns {columns[0]}-{columns[-1]} > 0 in every major "
+          f"(cross-gradient x, y, z {[f'{v:.3e}' for v in got[16]]}, {[f'{v:.3e}' for v in got[17]]}, "
+          f"{[f'{v:.3e}' for v in got[18]]}; clustering {[f'{v:.3e}' for v in got[19]]}, "
+          f"{[f'{v:.3e}' for v in got[20]]}); both coupling VTK files written -> ok")
+    return {str(c): v for c, v in got.items()}
+
+
+@contextlib.contextmanager
+def capturing_the_system(workflow):
+    """workflow.make_solver wrapped so that the spec and the tensors of the
+    last major's solve are kept, for timing its blocks after the run, and a
+    host copy of every major's model updates ("deltas"), for holding two runs
+    equal to the last bit. The solve itself is unchanged."""
+    kept = {"deltas": []}
+    orig = workflow.make_solver
+
+    def make(spec):
+        solve = orig(spec)
+
+        def run(arrays):
+            kept.update(spec=spec, arrays=arrays)
+            out = solve(arrays)
+            kept["deltas"].append([d.cpu() for d in out["delta"]])
+            return out
+        return run
+
+    workflow.make_solver = make
+    try:
+        yield kept
+    finally:
+        workflow.make_solver = orig
+
+
+def cuda_kernel_events(fn):
+    """The kernels fn() launches on the card, by torch.profiler (memory
+    copies and sets left out)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def time_blocks(spec, arrays):
+    """Milliseconds of one LSQR iteration's products of the coupled system,
+    block by block (CUDA events, median of 20), with the whole system's
+    matvec and rmatvec beside them, and the kernels one iteration launches."""
+    from tomofastx_tpu_torch.inversion import joint
+
+    with torch.no_grad():
+        system = joint.assemble_system(spec, arrays)
+        seg, N, cube = spec.seg_size, spec.N, (spec.nz, spec.ny, spec.nx)
+        dev, dt = system.b.device, system.b.dtype
+        g = torch.Generator(device="cpu").manual_seed(11)
+        x = torch.randn(len(spec.active) * seg, generator=g, dtype=torch.float64).to(dev, dt)
+        u = torch.randn(system.b.numel(), generator=g, dtype=torch.float64).to(dev, dt)
+        segs = [x[a * seg : (a + 1) * seg] for a in range(len(spec.active))]
+        S, blocks = arrays["S"], system.blocks
+        ms = {"system matvec": time_cuda(lambda: system.matvec(x)),
+              "system rmatvec": time_cuda(lambda: system.rmatvec(u))}
+        pos = 0
+        for a, p in enumerate(("grav", "mag")):
+            rows = spec.ndata_rows[a]
+            ua, pos = u[pos : pos + rows], pos + rows
+            xw, ga = joint._to_solver(spec, segs[a]), S[a].rmatvec(ua)
+            ms[f"{p} operator matvec"] = time_cuda(lambda a=a, xw=xw: S[a].matvec(xw))
+            ms[f"{p} operator rmatvec"] = time_cuda(lambda a=a, ua=ua: S[a].rmatvec(ua))
+            ms[f"{p} _to_solver"] = time_cuda(lambda a=a: joint._to_solver(spec, segs[a]))
+            ms[f"{p} _from_solver"] = time_cuda(lambda ga=ga: joint._from_solver(spec, ga))
+            dg = [op for _, _, op in blocks["damping_gradient"].get(a, [])]
+            if dg:
+                ms[f"{p} damping gradient matvec"] = time_cuda(
+                    lambda a=a, dg=dg: [op.matvec(segs[a].reshape(cube)) for op in dg])
+                ms[f"{p} damping gradient rmatvec"] = time_cuda(lambda dg=dg: [op.rmatvec(u[:N]) for op in dg])
+            for kind in ("damping", "admm", "clustering"):
+                op = blocks[kind].get(a)
+                if op is not None:
+                    ms[f"{p} {kind} matvec and rmatvec"] = time_cuda(
+                        lambda op=op, a=a: (op.dcoef * segs[a].reshape(op.dcoef.shape[-1:]), op.dcoef * u[:N]))
+        xg = blocks["cross_gradient"]
+        if xg is not None:
+            ms["cross-gradient matvec"] = time_cuda(lambda: xg.matvec(segs[0].reshape(cube), segs[1].reshape(cube)))
+            ms["cross-gradient rmatvec"] = time_cuda(lambda: xg.rmatvec(u[: 3 * N]))
+        launches = {"system matvec + rmatvec": len(cuda_kernel_events(lambda: (system.matvec(x), system.rmatvec(u))))}
+        if xg is not None:
+            launches["cross-gradient matvec + rmatvec"] = len(cuda_kernel_events(
+                lambda: (xg.matvec(segs[0].reshape(cube), segs[1].reshape(cube)), xg.rmatvec(u[: 3 * N]))))
+    return ms, launches
+
+
+def small_coupling(variant):
+    """For small_problem_card_against_cpu: writes the coupled problem's files
+    beside a small problem's inputs, runs the plain joint problem once on the
+    CPU (0 majors: its cache only) for the weights of coupling_weights, and
+    returns the Parfile lines of `variant`."""
+    from tomofastx_tpu_torch.config.parfile import read_parfile
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
+
+    def lines(small, inputs):
+        nx, ny, nz = inputs["size"]
+        f = write_coupling_files(small, nx * ny * nz)
+        probe = os.path.join(small, "out_probe")
+        pf = write_parfile(small, "Parfile_probe.txt", inputs, probe, 10, kind="joint", fmt="dense",
+                           extra=["inversion.nMajorIterations = 0"])
+        solve_problem_joint_gravmag(read_parfile(pf), solve_dtype=torch.float64, verbose=False, device="cpu")
+        weights, _ = coupling_weights(os.path.join(probe, "SENSIT"), read_parfile(pf))
+        kinds, extra = {
+            "cross_gradient_forward": (["cross_gradient"], ["inversion.crossGradient.derivativeType = 1"]),
+            "cross_gradient_vector_field": (["cross_gradient"], [
+                "inversion.crossGradient.vectorFieldType = 2",
+                f"inversion.crossGradient.vectorFieldFile = {f['vector_field']}"]),
+            "cross_gradient_grav_kept_constant": (["cross_gradient"],
+                                                  ["inversion.crossGradient.grav.keepModelConstant = 1"]),
+            "damping_gradient_weights_file": (["damping_gradient"], [
+                "inversion.dampingGradient.weightType = 2",
+                f"inversion.dampingGradient.grav.weightsFile = {f['dgw_grav']}",
+                f"inversion.dampingGradient.magn.weightsFile = {f['dgw_magn']}"]),
+            "clustering_normal_cell_weights": (["clustering"], [
+                "inversion.clustering.optimizationType = 1", "inversion.clustering.constraintsType = 2",
+                f"inversion.clustering.cellWeightsFile = {f['cell_weights']}"]),
+            "clustering_log": (["clustering"], []),
+            "read_from_files_2": (COUPLINGS, ["sensit.readFromFiles = 2", f"sensit.folderPath = {probe}/SENSIT/"]),
+            "all_three": (COUPLINGS, []),
+        }[variant]
+        return coupling_lines(weights, f, kinds, extra)
+    return lines
+
+
+def load_npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def phase_17(cli, counters, tmv, work):
+    """Resume, --profile and --debug-nans of the command line on the card,
+    on small problems (16 x 16 x 8 cells, 64 observations, f32 solve)."""
+    late = os.path.join(work, "late")
+    os.makedirs(late)
+    inputs = write_inputs(late, 16, 16, 8, 8, variants=("mag",))
+    out = {}
+
+    # A coupled tiled problem to 4 majors, checkpointed every 2; then the
+    # same problem stopped after 2 and resumed to 4.
+    extra = small_coupling("all_three")(late, inputs) + ["inversion.writeModelEveryNiter = 2"]
+    dirs = {k: os.path.join(late, f"out_{k}") for k in ("full", "resumed")}
+
+    def run(name, out_dir, majors, *flags):
+        pf = write_parfile(late, f"Parfile_{name}.txt", inputs, out_dir, 10, fmt="tiled", kind="joint",
+                           extra=extra + [f"inversion.nMajorIterations = {majors}"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["-p", pf, "--device", "cuda", "-q"] + list(flags))
+        if rc != 0:
+            raise SystemExit(f"FAILED resume: the {name} run returned {rc}")
+
+    run("full", dirs["full"], 4)
+    run("stopped", dirs["resumed"], 2)
+    run("resumed", dirs["resumed"], 4, "--resume")
+    cks = [load_npz(os.path.join(dirs[k], "checkpoint.npz")) for k in ("full", "resumed")]
+    if int(cks[1]["it"]) != 4:
+        raise SystemExit(f"FAILED resume: the resumed run's checkpoint says major {int(cks[1]['it'])}")
+    equal = {k: bool(np.array_equal(cks[0][k], cks[1][k])) for k in cks[0]}
+    files = [f"model/{p}_final_model_full.txt" for p in ("grav", "mag")]
+    equal.update({f: same_bytes(*(os.path.join(dirs[k], f) for k in ("full", "resumed"))) for f in files})
+    worst = max(float(np.abs(cks[1][k] - cks[0][k]).max() / max(np.abs(cks[0][k]).max(), 1e-300))
+                for k in cks[0] if k.startswith(("model_", "admm_")))
+    out["resume"] = {"equal": equal, "worst_relative": worst}
+    if all(equal.values()):
+        print("resume on the card (coupled tiled, 4 majors against 2 + --resume to 4): checkpoint arrays and final "
+              "models equal to the last bit to the uninterrupted run -> ok")
+    else:
+        print(f"resume on the card: NOT equal to the last bit ({equal}); largest difference {worst:.3e} relative "
+              "(tolerance 1e-8)")
+        if not worst <= 1e-8:
+            raise SystemExit("FAILED resume: the resumed run differs from the uninterrupted one")
+
+    # --profile: a Chrome trace that names tile_matvec's kernel once a launch.
+    trace_dir = os.path.join(late, "trace")
+    pf = write_parfile(late, "Parfile_profile.txt", inputs, os.path.join(late, "out_profile"), 10, fmt="tiled")
+    for fn in counters.values():
+        fn.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["-p", pf, "--device", "cuda", "-q", "--profile", trace_dir])
+    launches = tmv.tile_matvec.launches
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    named = [e for e in events if e.get("cat") == "kernel" and "tile_matvec_kernel" in e.get("name", "")]
+    out["profile"] = {"rc": rc, "trace_events": len(events), "tile_matvec_kernel_events": len(named),
+                      "tile_matvec_launches": launches,
+                      "kernel_name": named[0]["name"] if named else None}
+    print(f"--profile: {len(events)} events in trace.json, {len(named)} of the kernel "
+          f"{out['profile']['kernel_name']!r} against {launches} launches counted by the wrapper")
+    if rc != 0 or not named or len(named) != launches:
+        raise SystemExit("FAILED --profile: the trace does not show each launch of tile_matvec's kernel")
+
+    # --debug-nans: a NaN among the observed data stops the run with a
+    # FloatingPointError traceback and exit code 1, as a user runs it.
+    table = np.loadtxt(inputs["data"], skiprows=1)
+    table[5, 3] = np.nan
+    data_nan = write_table(os.path.join(late, "data_nan.txt"), table.shape[0], table, "%.6f")
+    pf = write_parfile(late, "Parfile_nan.txt", inputs, os.path.join(late, "out_nan"), 10, fmt="tiled", extra=[
+        f"forward.data.grav.dataGridFile = {data_nan}", "forward.data.grav.useSyntheticModelForDataValues = 0"])
+    p = subprocess.run([sys.executable, "-m", "tomofastx_tpu_torch", "-p", pf, "--debug-nans", "-q"], cwd=late,
+                       env=dict(os.environ, PYTHONPATH=HERE), capture_output=True, text=True, timeout=300)
+    said = [ln for ln in p.stderr.splitlines() if ln.startswith("FloatingPointError")]
+    out["debug_nans"] = {"rc": p.returncode, "said": said}
+    print(f"--debug-nans with a NaN datum: exit code {p.returncode}, {said}")
+    if p.returncode != 1 or "Traceback" not in p.stderr or not said:
+        raise SystemExit(f"FAILED --debug-nans: {p.stdout[-2000:]}{p.stderr[-2000:]}")
+    return out
 
 
 def main() -> int:
@@ -1152,6 +1498,86 @@ def main() -> int:
             del dense_m
             torch.cuda.empty_cache()
         del tkm
+
+        # ---- 15. the coupled joint problem at full width: cross-gradient, damping gradient, clustering ----
+        print("coupled joint grav+mag (cross-gradient, damping gradient, clustering) from the joint tiled run's cache:")
+        t0 = time.time()
+        files = write_coupling_files(joint_dir, NX * NY * NZ)
+        weights, scales = coupling_weights(joint_cache, cfgj)
+        coupled_extra = coupling_lines(weights, files) + [
+            "sensit.readFromFiles = 1", f"sensit.folderPath = {joint_cache}/"]
+        print(f"  weights by the row-scale rule ({time.time() - t0:.1f} s): {json.dumps(weights)}; "
+              f"from {json.dumps(scales)}")
+        coupled_out = {f: os.path.join(work, f"out_coupled_{f}") for f in ("tiled", "dense")}
+        coupled = {}
+        coupled_said = {"wavelet_domain": r"WAVELET_DOMAIN = False"}
+        with capturing_the_system(workflow) as captured:
+            coupled["tiled"] = run_main_path(cli, counters, "coupled joint tiled", write_parfile(
+                joint_dir, "Parfile_coupled_tiled.txt", joint_inputs, coupled_out["tiled"], N_MINOR, fmt="tiled",
+                kind="joint", extra=coupled_extra), coupled_out["tiled"],
+                {**coupled_said, "format": r"grav kernel: tiled", "format_mag": r"mag kernel: tiled"},
+                sensit_written=False, kind="joint")
+        print(f"  tile_matvec.launches = {coupled['tiled']['launches']['tile_matvec']} (expected {joint_products}, "
+              "as in the joint run: the constraint blocks do not touch S)")
+        if coupled["tiled"]["launches"] != {"tile_matvec": joint_products, "tile_matvec_sharded": 0,
+                                            "blocked_matvec": 0}:
+            raise SystemExit("FAILED coupled tiled main path: launch count")
+        coupled["tiled"]["costs_9_20"] = check_coupled_outputs("coupled tiled", coupled_out["tiled"],
+                                                               list(range(10, 21)))
+        blocks_ms, blocks_launches = time_blocks(captured["spec"], captured["arrays"])
+        per_iteration = [s / N_MINOR * 1e3 for s in coupled["tiled"]["major_s"]]
+        print("  coupled system, one LSQR iteration's products by block (ms, CUDA events, f32, median of 20): "
+              + json.dumps({k: round(v, 4) for k, v in blocks_ms.items()}))
+        print(f"  kernels launched by one system matvec + rmatvec: {json.dumps(blocks_launches)}; whole majors "
+              f"{[round(v, 3) for v in per_iteration]} ms per LSQR iteration (the joint run without the "
+              f"constraints: {[round(v / N_MINOR * 1e3, 3) for v in joint['tiled']['major_s']]})")
+        coupled["blocks_ms"], coupled["blocks_launches"] = blocks_ms, blocks_launches
+        # The operators of the captured tensors go before the next run.
+        del captured["arrays"]
+        torch.cuda.empty_cache()
+        coupled["dense"] = run_main_path(cli, counters, "coupled joint dense (default)", write_parfile(
+            joint_dir, "Parfile_coupled_dense.txt", joint_inputs, coupled_out["dense"], N_MINOR, fmt=None,
+            kind="joint", extra=coupled_extra), coupled_out["dense"],
+            {**coupled_said, "format": DENSE_SAID.format(p="grav", rows=NDATA),
+             "format_mag": DENSE_SAID.format(p="mag", rows=NDATA)}, sensit_written=False, kind="joint")
+        if any(coupled["dense"]["launches"].values()):
+            raise SystemExit("FAILED coupled dense main path: a kernel of another format was launched")
+        coupled["dense"]["costs_9_20"] = check_coupled_outputs("coupled dense", coupled_out["dense"],
+                                                               list(range(10, 21)))
+        coupled_spread = formats_apart("coupled dense against coupled tiled", coupled["dense"], coupled["tiled"])
+
+        # Over four slots of the card: the same start, so equal model
+        # updates in every major mean equal final models.
+        with capturing_the_system(workflow) as captured4:
+            solves["coupled_tiled_4_slots"] = four = solve_from_cache(
+                joint_dir, "coupled_4_slots", joint_inputs, joint_cache, "tiled", mesh4, counters, kind="joint",
+                extra=coupling_lines(weights, files))
+        if four["launches"] != {"tile_matvec": 0, "tile_matvec_sharded": 4 * joint_products, "blocked_matvec": 0}:
+            raise SystemExit(f"FAILED coupled 4-slot solve: launch count (expected {joint_products} x 4 slots)")
+        equal_updates = len(captured4["deltas"]) == len(captured["deltas"]) == N_MAJOR and all(
+            torch.equal(a, b) for da, db in zip(captured4["deltas"], captured["deltas"]) for a, b in zip(da, db))
+        if not (equal_updates and same_bytes(os.path.join(four["out_dir"], "costs.txt"),
+                                             os.path.join(coupled_out["tiled"], "costs.txt"))):
+            raise SystemExit("FAILED coupled 4-slot solve: not equal to the last bit to the unmeshed coupled run")
+        print(f"  coupled over 4 slots: {joint_products} x 4 launches of tile_matvec; both problems' model updates "
+              "in every major and costs.txt equal to the last bit to the unmeshed coupled run -> ok")
+        del captured, captured4
+
+
+        # ---- 16. small coupled problems, card against CPU ----
+        small_rel.update({
+            f"coupled_{variant}_{fmt or 'dense'}": small_problem_card_against_cpu(
+                work, f"small_coupled_{variant}", f"joint grav+mag, {variant.replace('_', ' ')}, {fmt or 'dense'}",
+                kind="joint", fmt=fmt, coupling=small_coupling(variant))
+            for variant, fmt in (("cross_gradient_forward", "tiled"), ("cross_gradient_vector_field", None),
+                                 ("cross_gradient_grav_kept_constant", "tiled"),
+                                 ("damping_gradient_weights_file", None),
+                                 ("clustering_normal_cell_weights", "tiled"), ("clustering_log", None),
+                                 ("read_from_files_2", "tiled"))
+        })
+
+        # ---- 17. resume, --profile and --debug-nans on the card ----
+        late = phase_17(cli, counters, tmv, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1175,6 +1601,7 @@ def main() -> int:
             "shape_of_these_times": "forward pack, f32 vector",
             "forward": report(fwd), "adjoint": report(adj),
             "launches_joint_tiled": joint["tiled"]["launches"]["tile_matvec"],
+            "launches_coupled_tiled": coupled["tiled"]["launches"]["tile_matvec"],
             "magnetic_forward": mag_packs["magnetic forward"], "magnetic_adjoint": mag_packs["magnetic adjoint"],
         },
         {
@@ -1190,6 +1617,7 @@ def main() -> int:
             "shape_of_these_times": "forward pack cut over 4 slots on one card, f32 vector",
             "forward": fwd["sharded"], "adjoint": adj["sharded"],
             "launches_joint_4_slots": solves["joint_tiled_4_slots"]["launches"]["tile_matvec_sharded"],
+            "launches_coupled_4_slots": solves["coupled_tiled_4_slots"]["launches"]["tile_matvec_sharded"],
         },
         {
             "name": "blocked_matvec", "route": "cuda",
@@ -1211,6 +1639,10 @@ def main() -> int:
         "formats_against_tiled": spread, "small_problems_card_against_cpu": small_rel,
         "joint_main_paths": {k: report(v) for k, v in joint.items()}, "joint_dense_against_tiled": joint_spread,
         "ftg_main_path": report(ftg),
+        "coupled_main_paths": {k: report(v) for k, v in coupled.items() if isinstance(v, dict) and "launches" in v},
+        "coupled_dense_against_tiled": coupled_spread, "coupling_weights": weights, "coupling_scales": scales,
+        "coupled_blocks_ms": coupled["blocks_ms"], "coupled_blocks_launches": coupled["blocks_launches"],
+        "resume_profile_debug_nans": late,
         "operators": operators, "observations": NDATA, "cells": NX * NY * NZ,
         "kernel_build_s": build_s, "total_s": total_s,
         "memory_bytes_per_s_assumed": MEMORY_BYTES_PER_S, "fp32_flop_per_s_assumed": FP32_FLOP_PER_S,

@@ -135,13 +135,30 @@ def _costs(path):
 
 
 def _tree(root):
-    """Relative paths of all files under root, bar SENSIT and the JAX
-    package's checkpoint (resume is not ported yet)."""
+    """Relative paths of all files under root, bar SENSIT."""
     return sorted(
         os.path.relpath(os.path.join(d, f), root)
         for d, _, files in os.walk(root) for f in files
-        if f != "checkpoint.npz" and not os.path.relpath(d, root).startswith("SENSIT")
+        if not os.path.relpath(d, root).startswith("SENSIT")
     )
+
+
+def _same_checkpoint(a, b, tol=1e-8):
+    """Two checkpoint.npz files: the same keys; the counters and the active
+    problems equal; each problem's model, prior and ADMM state (all in the
+    model's units) to `tol` of the range of its model, rho rtol `tol`."""
+    with np.load(a) as za, np.load(b) as zb:
+        assert sorted(za.files) == sorted(zb.files)
+        for k in za.files:
+            va, vb = za[k], zb[k]
+            assert va.shape == vb.shape, k
+            if k in ("m", "it", "active"):
+                np.testing.assert_array_equal(vb, va, err_msg=k)
+            elif k == "rho_admm":
+                np.testing.assert_allclose(vb, va, rtol=tol, atol=1e-300, err_msg=k)
+            else:
+                model = za["model_" + k.rsplit("_", 1)[1]]
+                np.testing.assert_allclose(vb, va, rtol=0, atol=tol * (model.max() - model.min()), err_msg=k)
 
 
 def _same_bytes(a, b):
@@ -152,7 +169,8 @@ def _same_bytes(a, b):
 def _compare(kind, rj, jout, rt, tout, priors=1):
     """costs.txt column by column rtol 1e-8, every active problem's final
     model to 1e-8 of its range and final data rtol 1e-8, the same output
-    files, the observed data and the synthetic models' VTK byte-equal."""
+    files, the checkpoints by keys and values at the same tolerances, the
+    observed data and the synthetic models' VTK byte-equal."""
     _, active, ndc = KINDS[kind]
     assert rt.timings["lsqr_iters"] == [NITER] * 3 * priors
     cj, ct = _costs(os.path.join(jout, "costs.txt")), _costs(os.path.join(tout, "costs.txt"))
@@ -169,6 +187,8 @@ def _compare(kind, rj, jout, rt, tout, priors=1):
     np.testing.assert_allclose(rt.cost_data, rj.cost_data, rtol=1e-8, atol=1e-300)
     np.testing.assert_allclose(rt.cost_model, rj.cost_model, rtol=1e-8, atol=1e-300)
     assert _tree(tout) == _tree(jout)
+    assert os.path.exists(os.path.join(jout, "checkpoint.npz"))  # writeModelEveryNiter = 2
+    _same_checkpoint(os.path.join(jout, "checkpoint.npz"), os.path.join(tout, "checkpoint.npz"))
     for i in active:
         prefix = ("grav", "mag")[i]
         for f in (f"data/{prefix}_observed.txt", f"Paraview/data_{prefix}_observed.vtk",

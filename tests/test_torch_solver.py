@@ -219,8 +219,10 @@ def _torch_spec(js):
         {"apply_local_damping_weight": True, "wavelet_domain": False},
         {"target_misfit": 1.0, "niter": 40},
         {"compression_type": 2},
+        {"beta": (1e-2, 0.0), "add_damping_gradient": (True, False), "wavelet_domain": False},
     ],
-    ids=["wavelet", "model-domain", "uncompressed", "no-admm", "no-damping", "local-weight", "target-misfit", "d4"],
+    ids=["wavelet", "model-domain", "uncompressed", "no-admm", "no-damping", "local-weight", "target-misfit", "d4",
+         "damping-gradient"],
 )
 def test_solver_matches_jax(kw):
     """One major iteration's solve from identical state (convert.py): same
@@ -245,17 +247,20 @@ def test_solver_matches_jax(kw):
     maxs = np.array([10.0, 110.0])[:, None].repeat(N, 1)
     bw = rng.uniform(0.5, 1.5, N)
     dw = rng.uniform(0.5, 1.5, N)
+    dgw = rng.uniform(0.5, 1.5, (3, N))
+    dxyz = [rng.uniform(0.5, 2.0, n) for n in (js.nx, js.ny, js.nz)]
     resid = rng.normal(size=(nd, 1))
 
     tarr = convert.solver_state_from_numpy([model], [prior], [cw], [z], [u], rho, device="cpu")
     tarr.update(S=(tk,), residuals=(_t(resid),), min_bound=(_t(mins),), max_bound=(_t(maxs),),
-                bound_weight=(_t(bw),), damping_weight=(_t(dw),))
+                bound_weight=(_t(bw),), damping_weight=(_t(dw),), damping_grad_weight=(_t(dgw),),
+                dX=_t(dxyz[0]), dY=_t(dxyz[1]), dZ=_t(dxyz[2]))
     J = jnp.asarray
     jarr = dict(
-        S=(jk,), cw=(J(cw),), dX=J(np.ones(8)), dY=J(np.ones(4)), dZ=J(np.ones(4)),
+        S=(jk,), cw=(J(cw),), dX=J(dxyz[0]), dY=J(dxyz[1]), dZ=J(dxyz[2]),
         model=(J(model),), prior=(J(prior),), residuals=(J(resid),), admm_z=(J(z),), admm_u=(J(u),),
         rho_admm=J(rho), min_bound=(J(mins),), max_bound=(J(maxs),), bound_weight=(J(bw),),
-        damping_weight=(J(dw),), damping_grad_weight=(J(np.ones((3, 1))),),
+        damping_weight=(J(dw),), damping_grad_weight=(J(dgw),),
     )
     tout = tjoint.make_solver(ts)(tarr)
     jout = jjoint.make_solver(js)(jarr)

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from tomofastx_tpu.config.parfile import parse_parfile_lines as jparse
 from tomofastx_tpu.inversion.workflow import solve_problem_joint_gravmag as jsolve
 
+from test_torch_joint import _same_checkpoint
 from util_fixtures import surface_data_points, write_data_grid_file, write_grid_file, write_values_file
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,12 +70,8 @@ inversion.admm.dataCostThreshold = 1.0
 
 
 def _tree(root):
-    """Relative paths of all files under root, bar the JAX package's
-    checkpoint (resume is not ported yet)."""
-    return sorted(
-        os.path.relpath(os.path.join(d, f), root)
-        for d, _, files in os.walk(root) for f in files if f != "checkpoint.npz"
-    )
+    """Relative paths of all files under root."""
+    return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, files in os.walk(root) for f in files)
 
 
 def _costs(path):
@@ -125,6 +122,8 @@ def _compare(rj, rt, jout, tout, rho_mult, niter, cost_tol, model_tol):
     np.testing.assert_allclose(rt.cost_data, rj.cost_data, **cost_tol)
     np.testing.assert_allclose(rt.cost_model, rj.cost_model, **cost_tol)
     assert [h["iteration"] for h in rt.costs_history] == [1, 2, 3]
+    # writeModelEveryNiter = 2: both packages checkpoint after major 2.
+    _same_checkpoint(os.path.join(jout, "checkpoint.npz"), os.path.join(tout, "checkpoint.npz"), model_tol)
 
 
 @CASES
@@ -299,16 +298,13 @@ def test_stop_file_ends_the_loop(tmp_path):
 
 @pytest.mark.parametrize(
     "extra",
-    [
-        "tpu.kernelFormat = matrixfree", "sensit.readFromFiles = 2", "inversion.dampingGradient.grav.weight = 1.0",
-        "tpu.f64BuildF32Compress = 1",
-        "inversion.dampingGradient.magn.weight = 1.0", "tpu.kernelStoreDtype = bfloat16", "tpu.refineForward = 1",
-        "inversion.crossGradient.weight = 1.0", "inversion.clustering.grav.weight = 1.0",
-    ],
+    ["tpu.kernelFormat = matrixfree", "tpu.f64BuildF32Compress = 1", "tpu.kernelStoreDtype = bfloat16",
+     "tpu.refineForward = 1"],
 )
 def test_unported_parfile_features_are_refused(tmp_path, extra):
     """What the port still refuses, before any work (the magnetic problem and
-    gradiometry run since they were ported: tests/test_torch_joint.py)."""
+    gradiometry run since they were ported: tests/test_torch_joint.py; the
+    constraints and sensit.readFromFiles = 2: the test below)."""
     from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
 
@@ -316,6 +312,59 @@ def test_unported_parfile_features_are_refused(tmp_path, extra):
     with pytest.raises(NotImplementedError):
         tsolve(tparse(lines(str(tmp_path / "a")) + [extra]), verbose=False, device="cpu")
     assert not (tmp_path / "a").exists()  # refused before any work
+
+
+@pytest.mark.parametrize(
+    "extra",
+    ["sensit.readFromFiles = 2", "inversion.dampingGradient.grav.weight = 1.e-9",
+     "inversion.dampingGradient.magn.weight = 1.0", "inversion.crossGradient.weight = 1.0",
+     "inversion.clustering.grav.weight = 1.0"],
+)
+def test_formerly_refused_parfile_features_match_jax(tmp_path, extra):
+    """The Parfile lines the port refused until the constraints were ported,
+    on the gravity-only problem, through both packages. The damping gradient
+    (of the active problem or of the inactive one) and sensit.readFromFiles =
+    2 (the depth weight from the cache of a first JAX run, the kernel built
+    again by each package) run in both: costs rtol 1e-6, the model to 1e-6 of
+    its range, the tolerances of two builds (test_slice_from_scratch). The
+    cross-gradient and clustering need both problems: ValueError in both,
+    with no data written."""
+    import torch
+
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
+
+    lines = _write_problem(str(tmp_path), 8, 8, 4, 16, niter=8)
+    extra_lines = [extra]
+    if extra.startswith("sensit"):
+        jsolve(jparse(lines(str(tmp_path / "cache"))), solve_dtype=jnp.float64, compute_dtype=jnp.float64,
+               verbose=False)
+        extra_lines.append(f"sensit.folderPath = {tmp_path}/cache/SENSIT/")
+    if "clustering" in extra:
+        # The mixture is read before the problems are counted, in both packages.
+        (tmp_path / "mixture.txt").write_text("2\n1.0 0.0 50.0 0.0 0.01 0.1\n1.0 250.0 50.0 0.05 0.01 0.1\n")
+        extra_lines += ["inversion.clustering.nClusters = 2", "inversion.clustering.constraintsType = 1",
+                        f"inversion.clustering.mixtureFile = {tmp_path}/mixture.txt"]
+    jout, tout = str(tmp_path / "jax_out"), str(tmp_path / "torch_out")
+    if "crossGradient" in extra or "clustering" in extra:
+        for solve, parse, kw in ((jsolve, jparse, {}), (tsolve, tparse, {"device": "cpu"})):
+            with pytest.raises(ValueError, match="BOTH problems"):
+                solve(parse(lines(jout) + extra_lines), verbose=False, **kw)
+        return
+    rj = jsolve(jparse(lines(jout) + extra_lines), solve_dtype=jnp.float64, compute_dtype=jnp.float64, verbose=False)
+    rt = tsolve(tparse(lines(tout) + extra_lines), solve_dtype=torch.float64, verbose=False, device="cpu")
+    _compare(rj, rt, jout, tout, 1.0, 8, dict(rtol=1e-6, atol=1e-8), 1e-6)
+    assert _tree(tout) == _tree(jout)
+    if extra.startswith("sensit"):
+        # The depth weight is the cache's, and each package wrote a cache of
+        # its own build with that weight.
+        assert "build_s" in rt.timings
+        for out in (jout, tout):
+            with open(f"{tmp_path}/cache/SENSIT/sensit_grav_weight", "rb") as a, \
+                    open(f"{out}/SENSIT/sensit_grav_weight", "rb") as b:
+                assert a.read() == b.read()
+    if "dampingGradient.grav" in extra:
+        assert all(c > 0.0 for row in _costs(os.path.join(tout, "costs.txt"))[1:-1] for c in row[9:12])
 
 
 def _run(args, cwd):
@@ -400,7 +449,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package(path):
                                     "tomofastx_tpu_torch.ops.blocked_matvec", "tomofastx_tpu_torch.ops.sparse_kernel",
                                     "tomofastx_tpu_torch.io.sensit_cache", "tomofastx_tpu_torch.ops.prism",
                                     "tomofastx_tpu_torch.ops.matrixfree", "tomofastx_tpu_torch.ops.sensitivity",
-                                    "tomofastx_tpu_torch.parallel.mesh"])
+                                    "tomofastx_tpu_torch.parallel.mesh", "tomofastx_tpu_torch.inversion.operators",
+                                    "tomofastx_tpu_torch.inversion.joint"])
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package(module):
     code = (
         f"import sys; import {module}; "

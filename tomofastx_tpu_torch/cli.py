@@ -8,6 +8,7 @@ slot of a mesh (``--mesh``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import shutil
 import sys
@@ -42,6 +43,23 @@ def main(argv=None):
         "a 2-D obs x cells mesh given as RxC (e.g. 2x4: data rows over 2, "
         "model columns over 4; 0 = no mesh). On cuda the slots are distinct "
         "cards; on cpu every slot is the CPU",
+    )
+    parser.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="trace the run with torch.profiler (CPU and, on cuda, the device's "
+        "kernels) and write it into DIR as a Chrome trace (trace.json)",
+    )
+    parser.add_argument(
+        "--debug-nans", action="store_true",
+        help="check that each major iteration's costs, LSQR residual and model "
+        "updates are finite, stop with FloatingPointError at the first that is "
+        "not, and show its traceback",
+    )
+    parser.add_argument(
+        "--resume", action="store_true",
+        help="resume from <output>/checkpoint.npz (written every "
+        "writeModelEveryNiter iterations, by this package or the JAX one): "
+        "restores models, ADMM duals, rho and the iteration counter",
     )
     parser.add_argument("-q", "--quiet", action="store_true")
     args = parser.parse_args(argv)
@@ -96,16 +114,29 @@ def main(argv=None):
     precision = args.precision or ("double" if device.type == "cpu" else "single")
     solve_dtype = torch.float64 if precision == "double" else torch.float32
 
+    profiler = contextlib.nullcontext()
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
     try:
-        solve_problem_joint_gravmag(
-            cfg, base_dir=args.base_dir, solve_dtype=solve_dtype,
-            verbose=not args.quiet, device=device, mesh=mesh,
-        )
+        with profiler:
+            solve_problem_joint_gravmag(
+                cfg, base_dir=args.base_dir, solve_dtype=solve_dtype,
+                verbose=not args.quiet, device=device, mesh=mesh,
+                resume=args.resume, debug_nans=args.debug_nans,
+            )
     except (FileNotFoundError, ValueError, FloatingPointError, NotImplementedError) as e:
         # Clean fail-fast diagnostics, like the reference's exit_MPI banner
-        # (mpi_tools.F90:30-54).
+        # (mpi_tools.F90:30-54). Re-raise with --debug-nans for tracebacks.
+        if args.debug_nans:
+            raise
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     print("THE END.")
     return 0
 

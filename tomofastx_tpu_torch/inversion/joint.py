@@ -8,14 +8,15 @@ model update — is one function of a dictionary of tensors.
 
 Row-block order of the stacked system (norms are order-independent; this
 fixes the layout): [data blocks per active problem] then per active problem
-[damping (ncomp*N rows)], then ADMM blocks (N rows each). The gradient,
-cross-gradient and clustering blocks are not ported yet.
+[damping (ncomp*N rows), damping-gradient (3*ncomp*N rows)], then ADMM
+blocks (N rows each), then cross-gradient (3N), then clustering (N per
+problem).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -40,8 +41,18 @@ class SystemSpec:
     alpha: Tuple[float, float]
     norm_power: float
     add_damping: Tuple[bool, bool]
+    beta: Tuple[float, float]
+    add_damping_gradient: Tuple[bool, bool]
     admm_enabled: Tuple[bool, bool]
     nlithos: int
+    cross_grad: bool
+    cross_grad_weight: float
+    der_type: int
+    keep_model_constant: Tuple[int, int]
+    vec_field_type: int
+    clustering: bool
+    clustering_weight_glob: Tuple[float, float]
+    clustering_opt_type: int
     apply_local_damping_weight: bool
     niter: int
     rmin: float
@@ -118,177 +129,289 @@ def _from_solver(spec: SystemSpec, seg):
     ).reshape(-1)
 
 
-def _build_solve_fn(spec: SystemSpec):
-    """Build the per-major-iteration solve function."""
+class System(NamedTuple):
+    """One major iteration's linearised system: its right-hand side, its
+    products, and what the assembly computed on the way. `blocks` holds the
+    constraint operators by kind ("damping", "damping_gradient", "admm",
+    "cross_gradient", "clustering"), for whoever times them one by one."""
 
+    b: torch.Tensor
+    matvec: Callable
+    rmatvec: Callable
+    misfit_fn: Callable
+    costs: Dict
+    extras: Dict
+    admm_z: Tuple
+    admm_u: Tuple
+    blocks: Dict
+
+
+def assemble_system(spec: SystemSpec, arr: Dict) -> System:
+    """ADMM dual update, constraint linearisation and the stacked operator
+    of one major iteration (everything of the solve before LSQR)."""
     nseg = len(spec.active)
     seg = spec.seg_size
     offsets = [a * seg for a in range(nseg)]
-    ncols = nseg * seg
+    cube_shape = (spec.nz, spec.ny, spec.nx)
     wconv = spec.compression_type > 0 and not spec.wavelet_domain
 
-    def solve_once(arr: Dict):
-        S = arr["S"]  # tuple per active problem: operators with matvec/rmatvec
-        cw = arr["cw"]  # tuple (N,)
+    S = arr["S"]  # tuple per active problem: operators with matvec/rmatvec
+    cw = arr["cw"]  # tuple (N,)
 
-        costs = {}
+    costs = {}
+    extras = {}
 
-        # ---------------- ADMM dual update + x0 ----------------
-        new_z, new_u = [], []
-        admm_x0 = []
+    # ---------------- ADMM dual update + x0 ----------------
+    new_z, new_u = [], []
+    admm_x0 = []
+    for a, i in enumerate(spec.active):
+        if spec.admm_enabled[i]:
+            x_comp = arr["model"][a][spec.admm_comp]
+            z, u, x0 = admm_iterate(
+                arr["admm_z"][a], arr["admm_u"][a], x_comp,
+                arr["min_bound"][a], arr["max_bound"][a],
+            )
+            new_z.append(z)
+            new_u.append(u)
+            admm_x0.append(x0)
+            # ADMM cost |x - z| / |z| (joint_inverse_problem.F90:522-525,
+            # costs.f90: cost(arr1=z, arr2=x)).
+            denom = torch.sum(z**2)
+            costs[f"admm_cost_{i}"] = torch.where(
+                denom != 0.0,
+                torch.sqrt(torch.sum((z - x_comp) ** 2) / torch.where(denom != 0.0, denom, 1.0)),
+                0.0,
+            )
+        else:
+            new_z.append(arr["admm_z"][a])
+            new_u.append(arr["admm_u"][a])
+            admm_x0.append(None)
+            costs[f"admm_cost_{i}"] = torch.zeros((), dtype=cw[a].dtype, device=cw[a].device)
+
+    # ---------------- constraint blocks ----------------
+    damping_ops = {}
+    dampgrad_ops = {}
+    admm_ops = {}
+    xgrad_op = None
+    clustering_ops = {}
+    if spec.cross_grad or any(spec.add_damping_gradient):
+        dXdYdZ = (arr["dX"], arr["dY"], arr["dZ"])
+
+    for a, i in enumerate(spec.active):
+        if spec.add_damping[i]:
+            lw = arr["damping_weight"][a] if spec.apply_local_damping_weight else None
+            damping_ops[a] = ops.make_damping(
+                spec.alpha[i], spec.problem_weight[i], spec.norm_power,
+                arr["model"][a], arr["prior"][a], cw[a], lw,
+                spec.wavelet_domain, spec.compression_type,
+                spec.nx, spec.ny, spec.nz,
+            )
+            costs[f"damping_cost_{i}"] = damping_ops[a].cost
+
+        if spec.add_damping_gradient[i]:
+            per_dir = []
+            for k in range(spec.ncomp):
+                for direction in (1, 2, 3):
+                    op = ops.make_damping_gradient(
+                        spec.beta[i], spec.problem_weight[i],
+                        arr["model"][a][k], cw[a],
+                        arr["damping_grad_weight"][a][direction - 1],
+                        *dXdYdZ, spec.nx, spec.ny, spec.nz, direction,
+                    )
+                    per_dir.append((k, direction, op))
+            dampgrad_ops[a] = per_dir
+            # Sum cost over components per direction
+            # (joint_inverse_problem.F90:483-486).
+            for direction in (1, 2, 3):
+                costs[f"damping_gradient_cost_{'xyz'[direction - 1]}_{i}"] = sum(
+                    op.cost for (k, d, op) in per_dir if d == direction
+                )
+
+        if spec.admm_enabled[i]:
+            # ADMM quadratic term via the damping machinery with
+            # alpha = rho_ADMM, norm 2, local weight = bound_weight
+            # (joint_inverse_problem.F90:509-520). rho changes between
+            # major iterations, so it comes with the tensors.
+            rho = arr["rho_admm"][i]
+            cwk = cw[a]
+            diff = torch.where(
+                cwk != 0.0,
+                (arr["model"][a][spec.admm_comp] - admm_x0[a]) / torch.where(cwk != 0.0, cwk, 1.0),
+                0.0,
+            )
+            if spec.compression_type > 0 and spec.wavelet_domain:
+                diff = W.forward_wavelet_flat(diff, spec.nx, spec.ny, spec.nz, spec.compression_type)
+            base = rho * spec.problem_weight[i]
+            bw = arr["bound_weight"][a]
+            admm_ops[a] = ops.DampingOp(
+                dcoef=(base * bw)[None, :],
+                rhs=(-base * diff * bw)[None, :],
+                cost=torch.zeros((), dtype=cwk.dtype, device=cwk.device),
+            )
+
+    if spec.cross_grad:
+        a1, a2 = 0, 1  # requires both problems active
+        xgrad_op = ops.make_cross_gradient(
+            arr["model"][a1][0], arr["model"][a2][0], cw[a1], cw[a2],
+            spec.cross_grad_weight, spec.der_type, spec.keep_model_constant,
+            arr.get("vec_field"), spec.vec_field_type,
+            *dXdYdZ, spec.nx, spec.ny, spec.nz,
+        )
+        costs["cross_grad_cost"] = xgrad_op.cost
+        extras["cross_grad_magnitude"] = xgrad_op.magnitude
+
+    if spec.clustering:
+        for t in range(2):
+            op = ops.make_clustering(
+                arr["model"][0][0], arr["model"][1][0],
+                cw[0], cw[1],
+                spec.clustering_weight_glob,
+                arr["mixture_mu"], arr["mixture_sigma"],
+                arr["cell_weight"], arr["mixture_max"],
+                spec.clustering_opt_type, t,
+            )
+            clustering_ops[t] = op
+            costs[f"clustering_cost_{t}"] = op.cost
+        extras["clustering_probabilities"] = clustering_ops[0].probabilities
+
+    # ---------------- right-hand side ----------------
+    b_parts = []
+    for a, i in enumerate(spec.active):
+        b_parts.append(spec.problem_weight[i] * arr["residuals"][a].reshape(-1))
+    for a, i in enumerate(spec.active):
+        if a in damping_ops:
+            b_parts.append(damping_ops[a].rhs.reshape(-1))
+        if a in dampgrad_ops:
+            for (_, _, op) in dampgrad_ops[a]:
+                b_parts.append(op.rhs)
+    for a, i in enumerate(spec.active):
+        if a in admm_ops:
+            b_parts.append(admm_ops[a].rhs.reshape(-1))
+    if xgrad_op is not None:
+        b_parts.append(xgrad_op.rhs.reshape(-1))
+    for t, op in clustering_ops.items():
+        b_parts.append(op.rhs)
+    b = torch.cat(b_parts)
+
+    ndata_total = sum(spec.ndata_rows)
+
+    # ---------------- operator closures ----------------
+    def split_x(x):
+        return [x[off : off + seg].reshape(spec.ncomp, spec.N) for off in offsets]
+
+    def sensit_matvec(segs):
+        parts = []
         for a, i in enumerate(spec.active):
-            if spec.admm_enabled[i]:
-                x_comp = arr["model"][a][spec.admm_comp]
-                z, u, x0 = admm_iterate(
-                    arr["admm_z"][a], arr["admm_u"][a], x_comp,
-                    arr["min_bound"][a], arr["max_bound"][a],
-                )
-                new_z.append(z)
-                new_u.append(u)
-                admm_x0.append(x0)
-                # ADMM cost |x - z| / |z| (joint_inverse_problem.F90:522-525,
-                # costs.f90: cost(arr1=z, arr2=x)).
-                denom = torch.sum(z**2)
-                costs[f"admm_cost_{i}"] = torch.where(
-                    denom != 0.0,
-                    torch.sqrt(torch.sum((z - x_comp) ** 2) / torch.where(denom != 0.0, denom, 1.0)),
-                    0.0,
-                )
-            else:
-                new_z.append(arr["admm_z"][a])
-                new_u.append(arr["admm_u"][a])
-                admm_x0.append(None)
-                costs[f"admm_cost_{i}"] = torch.zeros((), dtype=cw[a].dtype, device=cw[a].device)
+            xw = _to_solver(spec, segs[a].reshape(-1)) if wconv else segs[a].reshape(-1)
+            parts.append(S[a].matvec(xw))
+        return parts
 
-        # ---------------- constraint blocks ----------------
-        damping_ops = {}
-        admm_ops = {}
-
-        for a, i in enumerate(spec.active):
-            if spec.add_damping[i]:
-                lw = arr["damping_weight"][a] if spec.apply_local_damping_weight else None
-                damping_ops[a] = ops.make_damping(
-                    spec.alpha[i], spec.problem_weight[i], spec.norm_power,
-                    arr["model"][a], arr["prior"][a], cw[a], lw,
-                    spec.wavelet_domain, spec.compression_type,
-                    spec.nx, spec.ny, spec.nz,
-                )
-                costs[f"damping_cost_{i}"] = damping_ops[a].cost
-
-            if spec.admm_enabled[i]:
-                # ADMM quadratic term via the damping machinery with
-                # alpha = rho_ADMM, norm 2, local weight = bound_weight
-                # (joint_inverse_problem.F90:509-520). rho changes between
-                # major iterations, so it comes with the tensors.
-                rho = arr["rho_admm"][i]
-                cwk = cw[a]
-                diff = torch.where(
-                    cwk != 0.0,
-                    (arr["model"][a][spec.admm_comp] - admm_x0[a]) / torch.where(cwk != 0.0, cwk, 1.0),
-                    0.0,
-                )
-                if spec.compression_type > 0 and spec.wavelet_domain:
-                    diff = W.forward_wavelet_flat(diff, spec.nx, spec.ny, spec.nz, spec.compression_type)
-                base = rho * spec.problem_weight[i]
-                bw = arr["bound_weight"][a]
-                admm_ops[a] = ops.DampingOp(
-                    dcoef=(base * bw)[None, :],
-                    rhs=(-base * diff * bw)[None, :],
-                    cost=torch.zeros((), dtype=cwk.dtype, device=cwk.device),
-                )
-
-        # ---------------- right-hand side ----------------
-        b_parts = []
-        for a, i in enumerate(spec.active):
-            b_parts.append(spec.problem_weight[i] * arr["residuals"][a].reshape(-1))
+    def matvec(x):
+        segs = split_x(x)
+        parts = sensit_matvec(segs)
         for a, i in enumerate(spec.active):
             if a in damping_ops:
-                b_parts.append(damping_ops[a].rhs.reshape(-1))
+                parts.append(damping_ops[a].matvec(segs[a]))
+            if a in dampgrad_ops:
+                for (k, d, op) in dampgrad_ops[a]:
+                    parts.append(op.matvec(segs[a][k].reshape(cube_shape)))
         for a, i in enumerate(spec.active):
             if a in admm_ops:
-                b_parts.append(admm_ops[a].rhs.reshape(-1))
-        b = torch.cat(b_parts)
+                parts.append(admm_ops[a].matvec(segs[a][spec.admm_comp : spec.admm_comp + 1]))
+        if xgrad_op is not None:
+            parts.append(xgrad_op.matvec(segs[0][0].reshape(cube_shape), segs[1][0].reshape(cube_shape)))
+        for t, op in clustering_ops.items():
+            parts.append(op.dcoef * segs[t][0])
+        return torch.cat(parts)
 
-        ndata_total = sum(spec.ndata_rows)
-
-        # ---------------- operator closures ----------------
-        def split_x(x):
-            return [x[off : off + seg].reshape(spec.ncomp, spec.N) for off in offsets]
-
-        def sensit_matvec(segs):
-            parts = []
-            for a, i in enumerate(spec.active):
-                xw = _to_solver(spec, segs[a].reshape(-1)) if wconv else segs[a].reshape(-1)
-                parts.append(S[a].matvec(xw))
-            return parts
-
-        def matvec(x):
-            segs = split_x(x)
-            parts = sensit_matvec(segs)
-            for a, i in enumerate(spec.active):
-                if a in damping_ops:
-                    parts.append(damping_ops[a].matvec(segs[a]))
-            for a, i in enumerate(spec.active):
-                if a in admm_ops:
-                    parts.append(admm_ops[a].matvec(segs[a][spec.admm_comp : spec.admm_comp + 1]))
-            return torch.cat(parts)
-
-        def rmatvec(u):
-            out = []
-            pos = 0
-            for a, i in enumerate(spec.active):
-                rows = spec.ndata_rows[a]
-                g = S[a].rmatvec(u[pos : pos + rows])
-                if wconv:
-                    g = _from_solver(spec, g)
-                # A fresh tensor per problem: the blocks below add into it.
-                out.append(g.reshape(spec.ncomp, spec.N).clone())
+    def rmatvec(u):
+        out = []
+        pos = 0
+        for a, i in enumerate(spec.active):
+            rows = spec.ndata_rows[a]
+            g = S[a].rmatvec(u[pos : pos + rows])
+            if wconv:
+                g = _from_solver(spec, g)
+            # A fresh tensor per problem: the blocks below add into it, and
+            # the operator's output must not see those adds.
+            out.append(g.reshape(spec.ncomp, spec.N).clone())
+            pos += rows
+        for a, i in enumerate(spec.active):
+            if a in damping_ops:
+                rows = spec.ncomp * spec.N
+                out[a] = out[a] + damping_ops[a].rmatvec(u[pos : pos + rows])
                 pos += rows
-            for a, i in enumerate(spec.active):
-                if a in damping_ops:
-                    rows = spec.ncomp * spec.N
-                    out[a] = out[a] + damping_ops[a].rmatvec(u[pos : pos + rows])
-                    pos += rows
-            for a, i in enumerate(spec.active):
-                if a in admm_ops:
+            if a in dampgrad_ops:
+                for (k, d, op) in dampgrad_ops[a]:
                     rows = spec.N
-                    contrib = admm_ops[a].rmatvec(u[pos : pos + rows])
-                    out[a][spec.admm_comp] += contrib.reshape(-1)
+                    out[a][k] += op.rmatvec(u[pos : pos + rows]).reshape(-1)
                     pos += rows
-            return torch.cat([o.reshape(-1) for o in out])
+        for a, i in enumerate(spec.active):
+            if a in admm_ops:
+                rows = spec.N
+                contrib = admm_ops[a].rmatvec(u[pos : pos + rows])
+                out[a][spec.admm_comp] += contrib.reshape(-1)
+                pos += rows
+        if xgrad_op is not None:
+            rows = 3 * spec.N
+            g1, g2 = xgrad_op.rmatvec(u[pos : pos + rows])
+            out[0][0] += g1.reshape(-1)
+            out[1][0] += g2.reshape(-1)
+            pos += rows
+        for t, op in clustering_ops.items():
+            rows = spec.N
+            out[t][0] += op.dcoef * u[pos : pos + rows]
+            pos += rows
+        return torch.cat([o.reshape(-1) for o in out])
 
-        # Data misfit early-exit check (lsqr_solver2.F90:168-189).
-        b0_data = b[:ndata_total]
+    # Data misfit early-exit check (lsqr_solver2.F90:168-189).
+    b0_data = b[:ndata_total]
 
-        def misfit_fn(x):
-            Sx = torch.cat(sensit_matvec(split_x(x)))
-            return torch.sqrt(torch.sum((Sx - b0_data) ** 2) / ndata_total)
+    def misfit_fn(x):
+        Sx = torch.cat(sensit_matvec(split_x(x)))
+        return torch.sqrt(torch.sum((Sx - b0_data) ** 2) / ndata_total)
+
+    blocks = {"damping": damping_ops, "damping_gradient": dampgrad_ops, "admm": admm_ops,
+              "cross_gradient": xgrad_op, "clustering": clustering_ops}
+    return System(b=b, matvec=matvec, rmatvec=rmatvec, misfit_fn=misfit_fn, costs=costs, extras=extras,
+                  admm_z=tuple(new_z), admm_u=tuple(new_u), blocks=blocks)
+
+
+def _build_solve_fn(spec: SystemSpec):
+    """Build the per-major-iteration solve function."""
+
+    seg = spec.seg_size
+    ncols = len(spec.active) * seg
+
+    def solve_once(arr: Dict):
+        system = assemble_system(spec, arr)
 
         # ---------------- LSQR ----------------
         res = lsqr_solve(
-            matvec, rmatvec, b, ncols,
+            system.matvec, system.rmatvec, system.b, ncols,
             niter=spec.niter,
             rmin=spec.rmin, gamma=spec.gamma,
             target_misfit=spec.target_misfit,
-            misfit_fn=misfit_fn if spec.target_misfit > 0.0 else None,
+            misfit_fn=system.misfit_fn if spec.target_misfit > 0.0 else None,
         )
 
         # ---------------- convert update to model space ----------------
         deltas = []
         for a, i in enumerate(spec.active):
-            d = res.x[offsets[a] : offsets[a] + seg]
+            d = res.x[a * seg : (a + 1) * seg]
             if spec.compression_type > 0 and spec.wavelet_domain:
                 d = _from_solver(spec, d)
-            d = d.reshape(spec.ncomp, spec.N) * cw[a][None, :]  # rescale_model
+            d = d.reshape(spec.ncomp, spec.N) * arr["cw"][a][None, :]  # rescale_model
             deltas.append(d)
 
         return {
             "delta": tuple(deltas),
-            "costs": costs,
-            "admm_z": tuple(new_z),
-            "admm_u": tuple(new_u),
+            "costs": system.costs,
+            "admm_z": system.admm_z,
+            "admm_u": system.admm_u,
             "lsqr_iters": res.iters,
             "lsqr_r": res.r,
+            "extras": system.extras,
         }
 
     return solve_once
@@ -296,5 +419,6 @@ def _build_solve_fn(spec: SystemSpec):
 
 def make_solver(spec: SystemSpec):
     """Per-major-iteration solve: solve(arrays) -> dict with delta models,
-    costs, new ADMM state and LSQR stats. Runs eagerly, without gradients."""
+    costs, new ADMM state, LSQR stats and output fields (extras). Runs
+    eagerly, without gradients."""
     return torch.no_grad()(_build_solve_fn(spec))

@@ -14,11 +14,13 @@ Ported so far: the gravity problem (g_z or gradiometry, Gzz or the full
 tensor), the magnetic problem (TMI or three-component data, susceptibility
 or magnetization vector) and the two together, each with a stored kernel —
 dense (the default), packed top-k or tile-union (``tpu.kernelFormat = dense
-| packed | tiled | auto``), wavelet-compressed or not — damping and ADMM, on
-one device or on a mesh of slots (``mesh=``: the build's rows and the
-operator's cells split over the slots, parallel/mesh.py). A Parfile that
-asks for anything else is refused with NotImplementedError before any work
-is done.
+| packed | tiled | auto``), wavelet-compressed or not, built, read from a
+cache or rebuilt with the cache's depth weight (``sensit.readFromFiles = 0 |
+1 | 2``) — with damping, damping gradient, ADMM, and the coupling of the two
+problems by cross-gradient and clustering, on one device or on a mesh of
+slots (``mesh=``: the build's rows and the operator's cells split over the
+slots, parallel/mesh.py); checkpoints and resume. A Parfile that asks for
+anything else is refused with NotImplementedError before any work is done.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 
 from tomofastx_tpu_torch.config.parfile import Config, GRAV, MAGN
 from tomofastx_tpu_torch.inversion.joint import SystemSpec, decide_wavelet_domain, make_solver
+from tomofastx_tpu_torch.inversion.operators import gaussian_mixture
 from tomofastx_tpu_torch.io import data_io, model_io, vtk
 from tomofastx_tpu_torch.io.sensit_cache import (
     SensitStreamWriter,
@@ -40,6 +43,7 @@ from tomofastx_tpu_torch.io.sensit_cache import (
     try_read_kernel_cache,
     write_kernel_cache,
 )
+from tomofastx_tpu_torch.io.tableio import load_table
 from tomofastx_tpu_torch.models.data import SurveyData
 from tomofastx_tpu_torch.models.model import ModelState
 from tomofastx_tpu_torch.ops import sensitivity as sens
@@ -162,9 +166,8 @@ COSTS_HEADER = (
 def _refuse_unported(cfg: Config):
     """Fail before any work on a Parfile that asks for a path of the JAX
     package that this package does not hold yet."""
-    ipar = cfg.inversion
     wants = []
-    par = cfg.grav  # the tpu.* and sensit.* keys set both problems alike
+    par = cfg.grav  # the tpu.* keys set both problems alike
     if par.kernel_format == "matrixfree":
         wants.append("tpu.kernelFormat = matrixfree")
     if par.kernel_store != "float32":
@@ -173,14 +176,6 @@ def _refuse_unported(cfg: Config):
         wants.append("tpu.refineForward")
     if par.f64_build_f32_compress:
         wants.append("tpu.f64BuildF32Compress")
-    if par.sensit_read == 2:
-        wants.append("sensit.readFromFiles = 2")
-    if any(b != 0.0 for b in ipar.beta):
-        wants.append("the damping-gradient constraint")
-    if ipar.cross_grad_weight != 0.0:
-        wants.append("the cross-gradient constraint")
-    if any(w != 0.0 for w in ipar.clustering_weight_glob):
-        wants.append("the clustering constraint")
     if wants:
         raise NotImplementedError("not ported to this package yet: " + "; ".join(wants))
 
@@ -212,6 +207,8 @@ def solve_problem_joint_gravmag(
     verbose: bool = True,
     device="cuda",
     mesh=None,
+    resume: bool = False,
+    debug_nans: bool = False,
 ) -> WorkflowResult:
     """Run the full inversion described by a Parfile configuration on
     `device` ("cuda" unless the caller asks for "cpu").
@@ -227,7 +224,16 @@ def solve_problem_joint_gravmag(
     solve_dtype defaults to float32 on a CUDA device and float64 on the CPU;
     compute_dtype (the kernel build) to float64 — the reference computes in
     double and stores single (global_typedefs.F90:37-45), and a float32
-    build suffers cancellation in the prism integrals."""
+    build suffers cancellation in the prism integrals.
+
+    resume=True restarts from <output>/checkpoint.npz if present (written
+    every writeModelEveryNiter iterations together with the model
+    snapshots): restores models, ADMM dual state z/u, rho, and the
+    iteration counter. Either package reads the other's checkpoint.
+
+    debug_nans=True checks, at the end of each major's solve, that its
+    costs, the LSQR residual and each problem's model update are finite, and
+    raises FloatingPointError naming the first that is not."""
     device = torch.device(device)
     if mesh is not None:
         if mesh.home.type != device.type:
@@ -320,9 +326,12 @@ def solve_problem_joint_gravmag(
             cw = sens.apply_local_depth_weighting(par, cw)
             ctx.column_weight = cw
         else:
-            # The stored weight already contains the column-weight
-            # multiplier and local weighting, so neither is re-applied
-            # (sensitivity_gravmag.F90:873-879).
+            # read = 1 and read = 2 both take the depth weight from the
+            # cache (sensitivity_gravmag.F90:873-879). The stored weight
+            # already contains the column-weight multiplier and local
+            # weighting, so neither is re-applied. The kernel itself is
+            # re-read for read = 1 and built again for read = 2 (F90:195-202)
+            # below.
             cache_dir = os.path.join(base_dir, par.sensit_path)
             ctx.column_weight = _read_depth_weight_file(cache_dir, i)
         add_time("depth_weight_s", t0)
@@ -498,12 +507,29 @@ def solve_problem_joint_gravmag(
         for i, ctx in ctxs.items():
             model_io.set_model_bounds(_with_paths(ipar, base_dir), ctx.model, i)
 
-    # ---- damping local weights ----
+    # ---- damping-gradient and damping local weights ----
     for i, ctx in ctxs.items():
+        if ipar.beta[i] != 0.0:
+            ctx.model.allocate_damping_gradient_arrays()
+            if ipar.damp_grad_weight_type > 1:
+                model_io.read_damping_gradient_weights(
+                    ctx.model, os.path.join(base_dir, ipar.damping_gradient_file[i])
+                )
         if ipar.apply_local_damping_weight > 0:
             model_io.read_damping_weights(
                 ctx.model, os.path.join(base_dir, ipar.damping_weight_file[i])
             )
+
+    # ---- cross-gradient vector field / clustering mixtures ----
+    vec_field = None
+    if ipar.cross_grad_weight != 0.0 and ipar.vec_field_type > 0:
+        vec_field = model_io.read_vector_field(
+            os.path.join(base_dir, ipar.vec_field_file), ipar.nelements_total
+        )
+
+    mixture = None
+    if ipar.clustering_weight_glob[0] != 0.0 or ipar.clustering_weight_glob[1] != 0.0:
+        mixture = _read_mixtures(cfg, base_dir)
 
     # ---- synthetic data (problem_joint_gravmag.F90:277-362) ----
     for i, ctx in ctxs.items():
@@ -553,25 +579,58 @@ def solve_problem_joint_gravmag(
         add_damping=tuple(
             ipar.alpha[i] != 0.0 and ipar.problem_weight[i] != 0.0 for i in (0, 1)
         ),
+        beta=ipar.beta,
+        add_damping_gradient=tuple(
+            ipar.beta[i] != 0.0 and ipar.problem_weight[i] != 0.0 for i in (0, 1)
+        ),
         admm_enabled=tuple(
             ipar.admm_type > 0 and ipar.problem_weight[i] != 0.0 for i in (0, 1)
         ),
         nlithos=ipar.nlithos,
+        cross_grad=ipar.cross_grad_weight != 0.0,
+        cross_grad_weight=ipar.cross_grad_weight,
+        der_type=ipar.derivative_type,
+        keep_model_constant=ipar.keep_model_constant,
+        vec_field_type=ipar.vec_field_type,
+        clustering=(ipar.clustering_weight_glob[0] != 0.0 or ipar.clustering_weight_glob[1] != 0.0),
+        clustering_weight_glob=ipar.clustering_weight_glob,
+        clustering_opt_type=ipar.clustering_opt_type,
         apply_local_damping_weight=ipar.apply_local_damping_weight > 0,
         niter=ipar.niter,
         rmin=ipar.rmin,
         gamma=ipar.gamma,
         target_misfit=ipar.target_misfit,
     )
+    if (spec.cross_grad or spec.clustering) and len(active) < 2:
+        raise ValueError(
+            "Cross-gradient and clustering constraints require BOTH problems "
+            "active (nonzero inversion.joint.*.problemWeight); the reference "
+            "would dereference an unallocated second model here."
+        )
     log(f"WAVELET_DOMAIN = {spec.wavelet_domain}")
     solver = make_solver(spec)
 
-    # Static per-run tensors. Those of disabled features are left out: the
-    # solve only reads them under the corresponding spec flag.
+    # Static per-run tensors. Those of disabled features are left out (the
+    # solve only reads them under the corresponding spec flag), and so is a
+    # disabled problem's entry of a per-problem tuple (None). With a mesh
+    # they stay on the home device with the vectors: only the operators are
+    # sharded.
     static_arrays = {
         "S": tuple(ctxs[i].operator for i in active),
         "cw": tuple(on_device(ctxs[i].column_weight) for i in active),
+        "dX": on_device(g0.dX()),
+        "dY": on_device(g0.dY()),
+        "dZ": on_device(g0.dZ()),
     }
+    if any(spec.add_damping_gradient[i] for i in active):
+        static_arrays["damping_grad_weight"] = tuple(
+            on_device(ctxs[i].model.damping_grad_weight) if spec.add_damping_gradient[i] else None
+            for i in active
+        )
+    if vec_field is not None:
+        static_arrays["vec_field"] = on_device(vec_field)
+    if mixture is not None:
+        static_arrays.update({k: on_device(v) for k, v in mixture.items()})
     if spec.apply_local_damping_weight:
         static_arrays["damping_weight"] = tuple(
             on_device(ctxs[i].model.damping_weight) for i in active
@@ -644,11 +703,30 @@ def solve_problem_joint_gravmag(
             log(f"data cost (initial) [{PROBLEM_PREFIX[i]}] = {cost_data[i]}")
         log(f"  entering the major loop at t+{time.time() - t_start:.2f}s")
 
-        with open(os.path.join(out_dir, "costs.txt"), "w") as costs_f:
-            costs_f.write(COSTS_HEADER + "\n")
+        it_start = 1
+        ckpt_path = os.path.join(out_dir, "checkpoint.npz")
+        if resume and os.path.exists(ckpt_path):
+            ck = load_checkpoint(ckpt_path)
+            if int(ck["m"]) == m:
+                it_start = int(ck["it"]) + 1
+                rho_admm = [float(v) for v in ck["rho_admm"]]
+                for a, i in enumerate(active):
+                    ctxs[i].model.val = ck[f"model_{i}"]
+                    ctxs[i].model.val_prior = ck[f"prior_{i}"]
+                    admm_z[a] = on_device(ck[f"admm_z_{i}"])
+                    admm_u[a] = on_device(ck[f"admm_u_{i}"])
+                    _calculate_data(ctxs[i], cfg, solve_dtype, device)
+                    cost_data[i] = ctxs[i].data.get_cost()
+                    cost_model[i] = _calculate_model_cost(ctxs[i], ipar.norm_power)
+                log(f"Resumed from checkpoint at iteration {it_start - 1}.")
+
+        extras_np = {}
+        with open(os.path.join(out_dir, "costs.txt"), "a" if it_start > 1 else "w") as costs_f:
+            if it_start == 1:
+                costs_f.write(COSTS_HEADER + "\n")
 
             # ---- major inversion loop (host-driven) ----
-            for it in range(1, ipar.ninversions + 1):
+            for it in range(it_start, ipar.ninversions + 1):
                 # The reference polls ./stop in the cwd
                 # (problem_joint_gravmag.F90:688); the output dir is also
                 # accepted because base_dir/input trees may be read-only.
@@ -675,17 +753,20 @@ def solve_problem_joint_gravmag(
                 )
 
                 out = solver(arrays)
+                if debug_nans:
+                    _require_finite(out, active, it)
                 sync()
                 timings["solve_s"].append(time.time() - t_it)
                 timings["lsqr_iters"].append(int(out["lsqr_iters"]))
-                if m == 1 and it == 1:
+                if m == 1 and it == it_start:
                     # Memory checkpoint 3/4: after the first LSQR solve
                     # (lsqr_solver2.F90:293-299).
                     log(memory_report("(first solve) ", device))
 
                 admm_z = list(out["admm_z"])
                 admm_u = list(out["admm_u"])
-                last_costs = {k: float(v) for k, v in out["costs"].items()}
+                last_costs = {k: float(v) if v.ndim == 0 else v.cpu().numpy() for k, v in out["costs"].items()}
+                extras_np = {k: v.cpu().numpy() for k, v in out["extras"].items()}
 
                 # Update models + new data.
                 for a, i in enumerate(active):
@@ -726,6 +807,12 @@ def solve_problem_joint_gravmag(
                             rho_admm[i] = ipar.weight_multiplier_ADMM * rho_admm[i]
                             log(f"Increased the ADMM weight to: {rho_admm[i]}")
 
+                # Checkpoint after the rho adjustment: the adjustment belongs
+                # to the completed iteration, so a resumed run must start
+                # it+1 with the adjusted weight.
+                if ipar.write_model_niter > 0 and it % ipar.write_model_niter == 0:
+                    save_checkpoint(ckpt_path, active, ctxs, admm_z, admm_u, rho_admm, m, it)
+
             # Final costs row (problem_joint_gravmag.F90:550).
             costs_f.write(
                 f" {ipar.ninversions} {cost_data[0]:.9E} {cost_data[1]:.9E}"
@@ -745,6 +832,18 @@ def solve_problem_joint_gravmag(
             _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_misfit", 2)
             ctx.data.val_calc = saved
 
+        # The coupling fields of the last major (F90 output of the joint run).
+        ctx0 = ctxs[active[0]]
+        g = ctx0.model.grid
+        for key, name in (("cross_grad_magnitude", "cross_grad"), ("clustering_probabilities", "clustering")):
+            if key in extras_np:
+                vtk.write_struct_grid(
+                    os.path.join(out_dir, "Paraview", f"{name}_final_model3D_full.vtk"),
+                    extras_np[key][:, None],
+                    g.X1, g.Y1, g.Z1, g.X2, g.Y2, g.Z2, g.nx, g.ny, g.nz,
+                    invert_z=True, units_mult=ctx0.model.units_mult, label=ctx0.model.vtk_label,
+                )
+
     result.models = {i: ctxs[i].model for i in active}
     result.data = {i: ctxs[i].data for i in active}
     result.cost_data = cost_data
@@ -758,18 +857,57 @@ def solve_problem_joint_gravmag(
 
 def _costs_row(it, cost_data, cost_model, costs, rho_admm) -> str:
     """One costs.txt row in the reference's 20-column layout
-    (problem_joint_gravmag.F90:519-528). The columns of the constraints
-    that are not ported yet stay 0, as they do when those are off."""
+    (problem_joint_gravmag.F90:519-528)."""
 
     def get(key):
         return float(costs.get(key, 0.0))
 
+    xg = costs.get("cross_grad_cost", np.zeros(3))
+    xg = np.asarray(xg) if np.ndim(xg) else np.array([xg, 0, 0])
     vals = [
         cost_data[0], cost_data[1], cost_model[0], cost_model[1],
         get("admm_cost_0"), get("admm_cost_1"),
         rho_admm[0], rho_admm[1],
-    ] + [0.0] * 11
+        get("damping_gradient_cost_x_0"), get("damping_gradient_cost_y_0"), get("damping_gradient_cost_z_0"),
+        get("damping_gradient_cost_x_1"), get("damping_gradient_cost_y_1"), get("damping_gradient_cost_z_1"),
+        float(xg[0]), float(xg[1]), float(xg[2]),
+        get("clustering_cost_0"), get("clustering_cost_1"),
+    ]
     return f" {it} " + " ".join(f"{v:.9E}" for v in vals)
+
+
+def _require_finite(out, active, it):
+    """Raise FloatingPointError naming the first of a major's costs, LSQR
+    residual and model updates (in that order) that is not finite. PyTorch
+    has no trap on the operation that makes a NaN, as jax_debug_nans is, so
+    the check comes at the end of the major's solve."""
+    named = [(f"cost {k}", v) for k, v in out["costs"].items()]
+    named.append(("LSQR relative residual", out["lsqr_r"]))
+    named += [(f"{PROBLEM_PREFIX[i]} model update", d) for i, d in zip(active, out["delta"])]
+    for name, t in named:
+        if not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(f"non-finite values in the {name} of major iteration {it}")
+
+
+def save_checkpoint(path, active, ctxs, admm_z, admm_u, rho_admm, m, it):
+    """Mid-run state checkpoint (beyond the reference, which only snapshots
+    models and loses the ADMM dual state on restart). The file name and keys
+    are those of the JAX package, so either package resumes from the
+    other's checkpoint."""
+    payload = {"m": m, "it": it, "rho_admm": np.asarray(rho_admm), "active": np.asarray(active)}
+    for a, i in enumerate(active):
+        payload[f"model_{i}"] = np.asarray(ctxs[i].model.val)
+        payload[f"prior_{i}"] = np.asarray(ctxs[i].model.val_prior)
+        payload[f"admm_z_{i}"] = admm_z[a].cpu().numpy()
+        payload[f"admm_u_{i}"] = admm_u[a].cpu().numpy()
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **payload)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
 
 
 def _with_paths(ipar, base_dir):
@@ -792,3 +930,45 @@ def _read_depth_weight_file(cache_dir: str, problem_index: int) -> np.ndarray:
         n = int(np.fromfile(f, np.int32, 1)[0])
         w = np.fromfile(f, np.float64, n)
     return w
+
+
+def _read_mixtures(cfg: Config, base_dir: str) -> dict:
+    """Clustering mixture + cell weights (reference:
+    clustering_read_mixtures, clustering.F90:163-278), as float64 arrays."""
+    ipar = cfg.inversion
+    C = ipar.nclusters
+    N = ipar.nelements_total
+    with open(os.path.join(base_dir, ipar.mixture_file)) as f:
+        nclusters_read = int(f.readline().split()[0])
+        if nclusters_read != C:
+            raise ValueError("The number of clusters is inconsistent!")
+    table = load_table(os.path.join(base_dir, ipar.mixture_file), skiprows=1)
+    cluster_weight = table[:, 0]
+    mu = np.stack([table[:, 1], table[:, 3]])  # (2, C)
+    sigma = np.stack([table[:, 2], table[:, 4], table[:, 5]])  # (3, C): s11, s22, s12
+
+    if ipar.clustering_constraints_type != 1:
+        with open(os.path.join(base_dir, ipar.cell_weights_file)) as f:
+            n_read, c_read = (int(t) for t in f.readline().split()[:2])
+            if n_read != N or c_read != C:
+                raise ValueError("The clustering cell weights are inconsistent!")
+        cell_weight = load_table(os.path.join(base_dir, ipar.cell_weights_file), skiprows=1)[:, :C]
+    else:
+        cw = cluster_weight / cluster_weight.sum()
+        cell_weight = np.repeat(cw[None, :], N, axis=0)
+
+    # Maximum of the mixture, assumed at one of the cluster centers
+    # (clustering.F90:654-678), in float64 on the host.
+    weight_loc = tuple(1.0 if w != 0.0 else 0.0 for w in ipar.clustering_weight_glob)
+    mu_t, sigma_t, cell_t = (torch.as_tensor(a, dtype=torch.float64) for a in (mu, sigma, cell_weight))
+    maxima = []
+    for c in range(C):
+        v1 = torch.full((N,), float(mu[0, c]), dtype=torch.float64)
+        v2 = torch.full((N,), float(mu[1, c]), dtype=torch.float64)
+        g, _ = gaussian_mixture(v1, v2, mu_t, sigma_t, cell_t, weight_loc)
+        maxima.append(g.numpy())
+    mixture_max = np.max(np.stack(maxima), axis=0)
+
+    return dict(
+        mixture_mu=mu, mixture_sigma=sigma, cell_weight=cell_weight, mixture_max=mixture_max
+    )

@@ -183,7 +183,8 @@ def shard_system_arrays(arrays: dict, mesh: Mesh) -> dict:
         if key in ("S", "S_fwd"):
             out[key] = tuple(shard_kernel(k, mesh) for k in val)
         elif isinstance(val, tuple):
-            out[key] = tuple(v.to(mesh.home) for v in val)
+            # None stands for a problem whose block is off.
+            out[key] = tuple(None if v is None else v.to(mesh.home) for v in val)
         elif isinstance(val, torch.Tensor):
             out[key] = val.to(mesh.home)
         else:
