@@ -85,7 +85,30 @@ It needs one CUDA device, nvcc and nothing from the network. It
 17. on small problems through the command-line entry point: a run stopped
    at its checkpoint and resumed (--resume) against the uninterrupted run;
    --profile (the trace names tile_matvec's kernel once a launch); and
-   --debug-nans on a NaN datum (exit code 1, FloatingPointError traceback).
+   --debug-nans on a NaN datum (exit code 1, FloatingPointError traceback);
+18. builds the native table reader (io/_native/fasttab.cpp) from the
+   checkout's source, and holds it against numpy on the smoke grid and model
+   (the files byte for byte, the values to the last bit), with both readers'
+   times;
+19. tpu.kernelFormat = matrixfree, uncompressed, through the command-line
+   entry point on the survey of 3 (BTTBKernel): against a dense uncompressed
+   run of the same Parfile at the formats' tolerance, --mesh 1 to the last
+   bit, and over the four slots of 8 with the layers split;
+20. the same on a draped survey (heights varying from point to point:
+   LatticeMatrixFreeKernel with its float32 tiered blend), LATTICE_DEPTH
+   deep: against a dense uncompressed run, --mesh 1 to the last bit, and
+   256 float32 rows against the float64 closed forms;
+21. a grid whose top layer follows a topography (MatrixFreeKernel with its
+   near patch): its products against the dense uncompressed matrix, then a
+   GENERIC_DEPTH solve through the command-line entry point;
+22. kernelFormat = auto on 128 x 128 x 64 cells and 16384 observations
+   (uncompressed; a dense kernel of 68.7 GB): the log says matrix-free and
+   names BTTBKernel, the data cost falls, 64 rows of the forward data against
+   closed-form rows in float64; phases 19-22 time each operator's matvec and
+   rmatvec beside the bytes it holds;
+23. seven small float64 matrix-free problems (BTTB g_z and FTG, lattice g_z
+   and TMI, per-cell g_z and borehole TMI, lattice g_z over four slots of the
+   card) on the card against the CPU.
 
 Any failed phase ends the run with a non-zero exit code. Without a CUDA
 device it exits with code 2 and prints no result. The last line of a good run
@@ -240,9 +263,11 @@ def block_model(nx, ny, nz):
 
 
 def write_table(path, header, table, fmt):
-    with open(path, "w") as f:
-        f.write(f"{header}\n")
-        np.savetxt(f, table, fmt=fmt)
+    """A header line, then the table: the port's native writer, whose files
+    are np.savetxt's byte for byte (phase 18 holds it to that)."""
+    from tomofastx_tpu_torch.io.tableio import save_table
+
+    save_table(path, table, fmt=fmt, header=str(header))
     return path
 
 
@@ -252,7 +277,11 @@ def write_inputs(work, nx, ny, nz, ndata_side, height=1.0, variants=()):
     the Parfile has to name. `variants` adds the inputs of other kinds:
     "mag" (susceptibility and magnetization-vector models of the same
     blocks), "components" (observation files of 3 and 6 value columns),
-    "borehole" (every other observation inside a cell, off every face)."""
+    "borehole" (every other observation inside a cell, off every face),
+    "draped" (the same points at heights that vary from point to point:
+    no BTTB geometry, data_draped), "topography" (the grid with its top
+    layer's upper faces following a surface per column: no lattice,
+    grid_topo)."""
     # Cells longer in x than in y: on square cells an observation above the
     # grid's diagonal sees equal wavelet coefficients in mirrored pairs, and
     # which of a pair survives the threshold would hang on the last bit.
@@ -262,10 +291,13 @@ def write_inputs(work, nx, ny, nz, ndata_side, height=1.0, variants=()):
     table = np.column_stack(
         [i * h[0], (i + 1) * h[0], j * h[1], (j + 1) * h[1], k * h[2], (k + 1) * h[2], i + 1, j + 1, k + 1]
     )
-    grid_path = os.path.join(work, "grid.txt")
-    with open(grid_path, "w") as f:
-        f.write(f"{nx * ny * nz}\n")
-        np.savetxt(f, table, fmt="%.3f %.3f %.3f %.3f %.3f %.3f %d %d %d")
+    grid_fmt = "%.3f %.3f %.3f %.3f %.3f %.3f %d %d %d"
+    grid_path = write_table(os.path.join(work, "grid.txt"), nx * ny * nz, table, grid_fmt)
+    if "topography" in variants:
+        topo = table.copy()
+        top = k == 0
+        topo[top, 4] += 0.2 * h[2] * (1.5 + np.sin(0.7 * i[top] + 1.3 * j[top]))  # 5 to 25 m of the top layer
+        write_table(os.path.join(work, "grid_topo.txt"), nx * ny * nz, topo, grid_fmt)
 
     step = nx // ndata_side
     jj, ii = np.meshgrid(np.arange(0, ny, step), np.arange(0, nx, step), indexing="ij")
@@ -288,6 +320,11 @@ def write_inputs(work, nx, ny, nz, ndata_side, height=1.0, variants=()):
     if "components" in variants:
         for ncomp in (3, 6):
             inputs[f"data{ncomp}"] = data_file(f"data{ncomp}.txt", X, Y, Z, ncomp)
+    if "draped" in variants:
+        zdrape = -height - 30.0 * (0.5 + 0.5 * np.sin(0.013 * X + 0.021 * Y))
+        inputs["data_draped"] = data_file("data_draped.txt", X, Y, zdrape)
+    if "topography" in variants:
+        inputs["grid_topo"] = os.path.join(work, "grid_topo.txt")
     if "borehole" in variants:
         zb = Z.copy()
         zb[1::2] = 60.0 + (7.3 * np.arange(X.size // 2)) % (nz * h[2] - 120.0)
@@ -346,7 +383,8 @@ def kind_problems(kind):
     return ["mag"] if kind in ("tmi", "mag3", "mvi", "borehole") else ["grav", "mag"] if kind == "joint" else ["grav"]
 
 
-def write_parfile(work, name, inputs, out_dir, n_minor, fmt="tiled", compression=1, extra=(), kind="grav"):
+def write_parfile(work, name, inputs, out_dir, n_minor, fmt="tiled", compression=1, extra=(), kind="grav",
+                  n_major=N_MAJOR):
     """The Parfile of one run of `kind` (KIND_LINES) on `inputs`. fmt = None
     leaves the tpu.kernelFormat line out, which means the default format."""
     nx, ny, nz = inputs["size"]
@@ -366,7 +404,7 @@ forward.data.grav.syntheticModelFile = {inputs["synth"]}
 forward.depthWeighting.type = 2
 forward.matrixCompression.type = {compression}
 forward.matrixCompression.rate = 0.15
-inversion.nMajorIterations = {N_MAJOR}
+inversion.nMajorIterations = {n_major}
 inversion.nMinorIterations = {n_minor}
 inversion.modelDamping.grav.weight = 1.d-11
 inversion.admm.enableADMM = 1
@@ -387,13 +425,16 @@ def read_costs(path):
 
 
 def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_written=True, mesh=None, kind="grav",
-                  what=f"{NDATA} observations"):
+                  what=f"{NDATA} observations", depth=(N_MAJOR, N_MINOR), ncells=NX * NY * NZ,
+                  compression="Haar rate 0.15"):
     """One run of the command-line entry point on the card (with --mesh
     `mesh` when given), with every kernel's count set to 0 just before and
     read just after; then the checks of its log and its outputs, for every
-    problem of `kind`. Returns what the run left to report."""
-    print(f"{name} main path: {what} x {NX * NY * NZ} cells, Haar rate 0.15, "
-          f"{N_MAJOR} majors x {N_MINOR} minors, f32 solve on cuda" + (f", --mesh {mesh}" if mesh else ""))
+    problem of `kind`. depth: the Parfile's (majors, minors). Returns what
+    the run left to report."""
+    n_major, n_minor = depth
+    print(f"{name} main path: {what} x {ncells} cells, {compression}, "
+          f"{n_major} majors x {n_minor} minors, f32 solve on cuda" + (f", --mesh {mesh}" if mesh else ""))
     torch.cuda.reset_peak_memory_stats()
     tee = Tee(sys.stdout)
     for fn in counters.values():
@@ -419,18 +460,18 @@ def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_writte
             raise SystemExit(f"FAILED {name} main path: the log lacks the line of {key} ({pattern})")
         if m.groups():
             run[key] = float(m.group(1))
-    if run["lsqr_iterations"] != [N_MINOR] * N_MAJOR:
+    if run["lsqr_iterations"] != [n_minor] * n_major:
         raise SystemExit(f"FAILED {name} main path: LSQR iterations {run['lsqr_iterations']}")
     said = [f"{k} = {run[k]}" for k in must_say if k in run] + [f"builds {run['builds_s']} s", f"packs {run['packs_s']} s"]
     print(f"  {name} main path took {run['main_path_s']:.1f} s: " + ", ".join(said)
           + f", majors {run['major_s']} s; peak device memory {run['peak_device_GB']:.2f} GB; "
           f"launches {run['launches']}")
 
-    run.update(check_outputs(name, out_dir, kind, NX * NY * NZ, sensit_written))
+    run.update(check_outputs(name, out_dir, kind, ncells, sensit_written, n_major))
     return run
 
 
-def check_outputs(name, out_dir, kind, ncells, sensit_written=True):
+def check_outputs(name, out_dir, kind, ncells, sensit_written=True, n_major=N_MAJOR):
     """costs.txt (every active problem's data cost falls from major to
     major), the output files and each final model of a run of `kind`.
     Returns {"data_costs", "models"} by problem, and "data_cost" and "model"
@@ -438,7 +479,7 @@ def check_outputs(name, out_dir, kind, ncells, sensit_written=True):
     from tomofastx_tpu_torch.io import model_io
 
     costs = read_costs(os.path.join(out_dir, "costs.txt"))
-    if len(costs) != N_MAJOR + 1 or not all(np.isfinite(v) for row in costs for v in row):
+    if len(costs) != n_major + 1 or not all(np.isfinite(v) for row in costs for v in row):
         raise SystemExit(f"FAILED {name} outputs: costs.txt")
     out = {"data_costs": {}, "models": {}}
     for p in kind_problems(kind):
@@ -560,25 +601,35 @@ def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters, kind="g
     return run
 
 
-def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None, **parfile_args):
+def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None, swap=None, mesh=None,
+                                   operator=None, **parfile_args):
     """A small problem of `kind` on the card (float64 solve, so the float64
     variants of the kernels and products carry it) against the same problem
     on the CPU: every active problem's final model within 1e-6 of its range,
     its data cost within 1e-6. coupling(dir, inputs) adds Parfile lines (and
-    the files they name) after the inputs are written."""
+    the files they name) after the inputs are written; swap maps an input
+    to another of write_inputs' (e.g. {"data": "data_draped"}); mesh is the
+    card run's (a Mesh of the card's slots); operator, the matrix-free class
+    both runs must log."""
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
 
     small = os.path.join(work, name)
     os.makedirs(small)
-    inputs = write_inputs(small, 16, 16, 8, 8, variants=("mag", "components", "borehole"))
+    inputs = write_inputs(small, 16, 16, 8, 8, variants=("mag", "components", "borehole", "draped", "topography"))
+    inputs.update({k: inputs[v] for k, v in (swap or {}).items()})
     if coupling is not None:
         parfile_args["extra"] = list(parfile_args.get("extra", ())) + coupling(small, inputs)
     res = {}
     for dev in ("cpu", "cuda"):
         pf = write_parfile(small, f"Parfile_{dev}.txt", inputs, os.path.join(small, f"out_{dev}"), 10, kind=kind,
                            **parfile_args)
-        res[dev] = solve_problem_joint_gravmag(read_parfile(pf), solve_dtype=torch.float64, verbose=False, device=dev)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            res[dev] = solve_problem_joint_gravmag(read_parfile(pf), solve_dtype=torch.float64, device=dev,
+                                                   mesh=mesh if dev == "cuda" else None)
+        if operator is not None and f"kernel: matrix-free ({operator}," not in log.getvalue():
+            raise SystemExit(f"FAILED small problem ({what}): the {dev} run did not take {operator}")
     worst = 0.0
     for i in res["cpu"].models:
         a, b = res["cpu"].models[i].val, res["cuda"].models[i].val
@@ -986,6 +1037,18 @@ def small_coupling(variant):
     return lines
 
 
+def jsonable(obj):
+    """obj for json.dumps: runs without their models and output folders,
+    numpy scalars as Python numbers."""
+    if isinstance(obj, dict):
+        return {str(k): jsonable(v) for k, v in obj.items() if k not in ("model", "models", "sharded", "out_dir")}
+    if isinstance(obj, (list, tuple)):
+        return [jsonable(v) for v in obj]
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
 def load_npz(path):
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
@@ -1069,6 +1132,330 @@ def phase_17(cli, counters, tmv, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-23: the native table reader and the matrix-free operators.
+# ---------------------------------------------------------------------------
+
+# The matrix-free solves' depths, cut to fit the script's time: one product
+# takes ~0.3-0.5 s on the lattice operator and ~1.4 s on the per-cell one at
+# 4096 x 262144 (PERF.md), against ~0.5 ms on the BTTB operator.
+LATTICE_DEPTH = (2, 2)
+GENERIC_DEPTH = (2, 1)
+# JAX's bounds for its blended float32 operators against float64: a whole
+# row (tests/test_matrixfree.py:1065) and a product (:570, :999).
+ROW_BLEND_RTOL, PRODUCT_BLEND_RTOL = 2e-5, 5e-5
+AUTO_SIZE, AUTO_SIDE = (128, 128, 64), 128
+
+
+def matrixfree_said(cls):
+    return {"format": r"grav kernel: matrix-free \(" + cls + r", no row storage; ([0-9.]+) MB"}
+
+
+def time_operator(name, op, reps=20, warm=3):
+    """matvec and rmatvec of a full-width operator by CUDA events beside the
+    bytes it holds and the kernels one product launches (torch.profiler);
+    and two rmatvecs (whose scatter is the one step with an order) equal to
+    the last bit."""
+    g = torch.Generator(device="cpu").manual_seed(17)
+    dt = op.cw.dtype if hasattr(op, "cw") else op.whole.cw.dtype
+    x = torch.randn(op.ncols, generator=g, dtype=torch.float64).to("cuda", dt)
+    u = torch.randn(op.nrows * (op.ndc if hasattr(op, "ndc") else op.phys.ndc), generator=g,
+                    dtype=torch.float64).to("cuda", dt)
+    out = {"matvec_ms": time_cuda(lambda: op.matvec(x), warm=warm, reps=reps),
+           "rmatvec_ms": time_cuda(lambda: op.rmatvec(u), warm=warm, reps=reps),
+           "bytes": op.nbytes}
+    # A profiled short product can come back short of its kernels (a run
+    # counted 0 for a BTTB matvec that launches 10): the larger count of two.
+    tries = 2 if out["matvec_ms"] < 10.0 else 1
+    for f, v in (("matvec", x), ("rmatvec", u)):
+        out[f"launches_{f}"] = max(len(cuda_kernel_events(lambda: getattr(op, f)(v))) for _ in range(tries))
+    same = torch.equal(op.rmatvec(u), op.rmatvec(u))
+    print(f"  {name} ({type(op).__name__}): matvec {out['matvec_ms']:.3f} ms, rmatvec {out['rmatvec_ms']:.3f} ms "
+          f"(CUDA events, median of {reps}), {out['bytes'] / 1e6:.1f} MB held on the card, "
+          f"{out['launches_matvec']} and {out['launches_rmatvec']} kernels a product; two rmatvecs equal to the "
+          f"last bit: {same}")
+    if not same:
+        raise SystemExit(f"FAILED {name}: two products of the same vector differ")
+    return out
+
+
+def phase_18(work, inputs):
+    """The native table reader: built from the checkout's source on this
+    machine, written and read against numpy on the smoke grid and model."""
+    import ctypes
+
+    from tomofastx_tpu_torch.io import _native, tableio
+
+    print("native table reader (io/_native/fasttab.cpp):")
+    t0 = time.time()
+    lib_path = os.path.join(work, "fasttab", "libfasttab.so")
+    os.makedirs(os.path.dirname(lib_path))
+    _native._build(lib_path)
+    ctypes.CDLL(lib_path)
+    build_s = time.time() - t0
+    if tableio._native_lib() is None:
+        raise SystemExit(f"FAILED native table reader: {_native.build_error()}")
+    out = {"build_s": build_s, "library": os.path.relpath(_native.library_path(), HERE)}
+    for name, fmt in (("grid", "%.3f %.3f %.3f %.3f %.3f %.3f %d %d %d"), ("synth", "%.9E")):
+        path = inputs[name]
+        with open(path) as f:
+            header = f.readline().rstrip("\n")
+        t0 = time.time()
+        want = np.loadtxt(path, skiprows=1, ndmin=2)
+        numpy_s = time.time() - t0
+        t0 = time.time()
+        got = tableio.load_table(path, skiprows=1)
+        native_s = time.time() - t0
+        mine, theirs = os.path.join(work, f"{name}_native.txt"), os.path.join(work, f"{name}_numpy.txt")
+        t0 = time.time()
+        tableio.save_table(mine, want, fmt=fmt, header=header)
+        write_native_s = time.time() - t0
+        t0 = time.time()
+        with open(theirs, "w") as f:
+            f.write(f"{header}\n")
+            np.savetxt(f, want, fmt=fmt)
+        write_numpy_s = time.time() - t0
+        same_read, same_bytes_ = bool(np.array_equal(got, want)), same_bytes(mine, theirs) and same_bytes(mine, path)
+        out[name] = {"rows": int(want.shape[0]), "read_native_s": native_s, "read_numpy_s": numpy_s,
+                     "write_native_s": write_native_s, "write_numpy_s": write_numpy_s}
+        print(f"  {name} file, {want.shape[0]} rows x {want.shape[1]}: read natively in {native_s:.3f} s against "
+              f"{numpy_s:.3f} s by np.loadtxt (equal to the last bit: {same_read}); written in {write_native_s:.3f} s "
+              f"against {write_numpy_s:.3f} s by np.savetxt (byte-identical: {same_bytes_})")
+        if not (same_read and same_bytes_):
+            raise SystemExit(f"FAILED native table reader: the {name} file")
+    print(f"  built from the checkout's source in {build_s:.2f} s; the package's own copy: {out['library']} -> ok")
+    return out
+
+
+def lattice_rows(op, s, e):
+    """The float32 rows of observations [s, e) of a blended lattice
+    operator, as its products apply them: the 2^3 rule on every cell plus
+    each point's window correction (one scatter per row; no cell repeats
+    within a window)."""
+    xs, ys, zs, i0 = op.xd[s:e], op.yd[s:e], op.zd[s:e], op.wi0[s:e]
+    rows = op._base_rows(xs, ys, zs).reshape(e - s, -1).clone()
+    iz, iy, ix = op._window_index(i0)
+    flat = (iz[:, :, None, None] * op.ny + iy[:, None, :, None]) * op.nx + ix[:, None, None, :]
+    rows.scatter_add_(1, flat.reshape(e - s, -1), op._corr_window(xs, ys, zs, i0).reshape(e - s, -1))
+    return rows
+
+
+def closed_rows_f64(grid_path, data_path, points, size):
+    """Closed-form g_z rows (float64, the corner lattice) of the given data
+    rows: (len(points), N)."""
+    from tomofastx_tpu_torch.io import model_io
+    from tomofastx_tpu_torch.ops.matrixfree import detect_lattice, lattice_rows_for_point
+
+    grid = model_io.read_model_grid(grid_path, *size)
+    edges = [torch.as_tensor(e, dtype=torch.float64, device="cuda") for e in detect_lattice(grid)]
+    table = np.loadtxt(data_path, skiprows=1, ndmin=2)[points]
+    pts = [torch.as_tensor(table[:, c], dtype=torch.float64, device="cuda") for c in range(3)]
+    return lattice_rows_for_point(*edges, *pts, "grav", 1, (0.0, 0.0, 1.0), 0.0, 1, 1).reshape(len(points), -1)
+
+
+def phase_19(cli, counters, workflow, work, inputs, mesh4):
+    """BTTB at full width through the command line: against a dense
+    uncompressed run of the same Parfile, --mesh 1 to the last bit, four
+    slots of the card with the layers split."""
+    from tomofastx_tpu_torch.config.parfile import read_parfile
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
+
+    print("BTTB matrix-free (observations on the cell-centre lattice at one height):")
+    out = {f: os.path.join(work, f"out_bttb_{f}") for f in ("run", "mesh1", "dense", "four")}
+    pf = {f: write_parfile(work, f"Parfile_bttb_{f}.txt", inputs, out[f], N_MINOR, fmt="matrixfree", compression=0)
+          for f in ("run", "mesh1", "four")}
+    pf["dense"] = write_parfile(work, "Parfile_bttb_dense.txt", inputs, out["dense"], N_MINOR, fmt=None,
+                                compression=0, extra=["tpu.sensitWriteCache = 0"])
+    said = matrixfree_said("BTTBKernel")
+    runs = {}
+    with capturing_the_system(workflow) as cap:
+        runs["run"] = run_main_path(cli, counters, "BTTB", pf["run"], out["run"], said, sensit_written=False,
+                                    compression="uncompressed")
+    op = cap["arrays"]["S"][0]
+    del cap["arrays"]
+    times = time_operator("BTTB at 4096 x 262144", op)
+    del op
+    runs["mesh1"] = run_main_path(cli, counters, "BTTB --mesh 1", pf["mesh1"], out["mesh1"],
+                                  {**said, "slot0_MB": r"slot 0 \(cuda:0\) ([0-9.]+) MB"}, sensit_written=False,
+                                  compression="uncompressed", mesh="1")
+    held = hold_equal("BTTB --mesh 1", runs["mesh1"], out["mesh1"], runs["run"], out["run"])
+    if not held["equal_to_the_last_bit"]:
+        raise SystemExit("FAILED BTTB --mesh 1: not equal to the last bit to the unmeshed run")
+    runs["dense"] = run_main_path(cli, counters, "dense uncompressed (same Parfile)", pf["dense"], out["dense"],
+                                  {"format": DENSE_SAID.format(p="grav", rows=NDATA)}, sensit_written=False,
+                                  compression="uncompressed")
+    spread = formats_apart("BTTB against dense uncompressed", runs["run"], runs["dense"])
+    t0 = time.time()
+    res = solve_problem_joint_gravmag(read_parfile(pf["four"]), verbose=False, device="cuda", mesh=mesh4)
+    torch.cuda.synchronize()
+    four = {"s": time.time() - t0, "model": res.models[0].val,
+            "data_cost": [row[1] for row in read_costs(os.path.join(out["four"], "costs.txt"))]}
+    four_spread = formats_apart(f"BTTB over {mesh4} (layers split, 16 a slot) against unmeshed",
+                                {"models": {"grav": four["model"]}, "data_costs": {"grav": four["data_cost"]}}, runs["run"])
+    print(f"  BTTB over four slots of the card: {four['s']:.1f} s, data cost per major {four['data_cost']}")
+    return {"runs": runs, "operator": times, "mesh1": held, "against_dense": spread,
+            "four_slots": {"s": four["s"], "data_cost": four["data_cost"], **four_spread}}
+
+
+def phase_20(cli, counters, workflow, work, inputs):
+    """The corner-lattice operator's float32 tiered blend at full width on a
+    draped survey: against a dense uncompressed run of the same survey,
+    --mesh 1 to the last bit, and 256 of its rows against the float64
+    closed forms."""
+    print(f"lattice matrix-free (the same grid, a draped survey), {LATTICE_DEPTH[0]} majors x {LATTICE_DEPTH[1]} "
+          "minors:")
+    draped = dict(inputs, data=inputs["data_draped"])
+    out = {f: os.path.join(work, f"out_lattice_{f}") for f in ("run", "mesh1", "dense")}
+    pf = {f: write_parfile(work, f"Parfile_lattice_{f}.txt", draped, out[f], LATTICE_DEPTH[1], fmt="matrixfree",
+                           compression=0, n_major=LATTICE_DEPTH[0]) for f in ("run", "mesh1")}
+    pf["dense"] = write_parfile(work, "Parfile_lattice_dense.txt", draped, out["dense"], LATTICE_DEPTH[1], fmt=None,
+                                compression=0, extra=["tpu.sensitWriteCache = 0"], n_major=LATTICE_DEPTH[0])
+    said = matrixfree_said("LatticeMatrixFreeKernel")
+    kw = dict(sensit_written=False, compression="uncompressed", depth=LATTICE_DEPTH, what=f"{NDATA} draped observations")
+    runs = {}
+    with capturing_the_system(workflow) as cap:
+        runs["run"] = run_main_path(cli, counters, "lattice", pf["run"], out["run"], said, **kw)
+    op = cap["arrays"]["S"][0]
+    del cap["arrays"]
+    if not op.far_quad:
+        raise SystemExit("FAILED lattice: the float32 operator does not blend")
+    times = time_operator(f"lattice at 4096 x 262144, windows {op.win}", op, reps=2, warm=1)
+    worst, nrows = 0.0, min(256, NDATA)
+    for s in range(0, nrows, 128):
+        e = min(s + 128, nrows)
+        rows = lattice_rows(op, s, e).double()
+        ref = closed_rows_f64(inputs["grid"], inputs["data_draped"], np.arange(s, e), (NX, NY, NZ))
+        rel = ((rows - ref).norm(dim=1) / ref.norm(dim=1)).max().item()
+        worst = max(worst, rel)
+        del rows, ref
+    print(f"  {nrows} float32 rows against the float64 closed forms: worst relative error {worst:.3e} (bound "
+          f"{ROW_BLEND_RTOL:g}, the JAX package's at tests/test_matrixfree.py:1065)")
+    if not worst < ROW_BLEND_RTOL:
+        raise SystemExit("FAILED lattice: float32 rows off the float64 closed forms")
+    del op
+    runs["mesh1"] = run_main_path(cli, counters, "lattice --mesh 1", pf["mesh1"], out["mesh1"], said, mesh="1", **kw)
+    held = hold_equal("lattice --mesh 1", runs["mesh1"], out["mesh1"], runs["run"], out["run"])
+    if not held["equal_to_the_last_bit"]:
+        raise SystemExit("FAILED lattice --mesh 1: not equal to the last bit to the unmeshed run")
+    runs["dense"] = run_main_path(cli, counters, "dense uncompressed (same survey)", pf["dense"], out["dense"],
+                                  {"format": DENSE_SAID.format(p="grav", rows=NDATA)}, **kw)
+    spread = formats_apart("lattice against dense uncompressed", runs["run"], runs["dense"])
+    return {"runs": runs, "operator": times, "rows_worst_relative": worst, "mesh1": held, "against_dense": spread}
+
+
+def phase_21(cli, counters, work, inputs):
+    """The per-cell operator with its near patch on a grid that is no
+    lattice: products against the dense uncompressed matrix of the same
+    grid, then a short solve through the command line."""
+    from tomofastx_tpu_torch.config.parfile import read_parfile
+    from tomofastx_tpu_torch.io import data_io, model_io
+    from tomofastx_tpu_torch.ops import sensitivity as sens
+    from tomofastx_tpu_torch.ops.matrixfree import MatrixFreeKernel, make_matrixfree_kernel
+
+    print(f"per-cell matrix-free (the top layer follows a topography), {GENERIC_DEPTH[0]} majors x "
+          f"{GENERIC_DEPTH[1]} minors:")
+    topo = dict(inputs, grid=inputs["grid_topo"])
+    out = os.path.join(work, "out_generic")
+    pf = write_parfile(work, "Parfile_generic.txt", topo, out, GENERIC_DEPTH[1], fmt="matrixfree", compression=0,
+                       n_major=GENERIC_DEPTH[0])
+    par = read_parfile(pf).grav
+    grid = model_io.read_model_grid(topo["grid"], NX, NY, NZ)
+    data = data_io.read_data_points(topo["data"], NDATA, 1, grid_only=True)
+    ones = np.ones(NX * NY * NZ)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    op = make_matrixfree_kernel(par, grid, data, ones, 1.0, np.ones((NDATA, 1)), torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    if not (isinstance(op, MatrixFreeKernel) and op.phys.far_quad):
+        raise SystemExit(f"FAILED per-cell: {type(op).__name__} built, or no blend")
+    print(f"  operator built in {build_s:.2f} s (near candidates per point K = {op.near_idx.shape[1]}, the probe "
+          "matvec included)")
+    times = time_operator("per-cell at 4096 x 262144", op, reps=1, warm=0)  # the probe matvec warmed it
+    S = sens.compute_sensitivity(par, grid, data, ones, store_dtype=torch.float32, device="cuda").S
+    g = torch.Generator(device="cpu").manual_seed(23)
+    x = torch.randn(S.shape[1], generator=g, dtype=torch.float64).to("cuda", torch.float32)
+    u = torch.randn(S.shape[0], generator=g, dtype=torch.float64).to("cuda", torch.float32)
+    errs = {}
+    for what, got, want in (("matvec", op.matvec(x), torch.mv(S, x)), ("rmatvec", op.rmatvec(u), torch.mv(S.T, u))):
+        errs[what] = float((got.double() - want.double()).norm() / want.double().norm())
+        print(f"  {what} against the dense uncompressed (f64-built, f32-stored) matrix: relative error "
+              f"{errs[what]:.3e} (bound {PRODUCT_BLEND_RTOL:g}, the JAX package's for its blended operators)")
+        if not errs[what] <= PRODUCT_BLEND_RTOL:
+            raise SystemExit(f"FAILED per-cell: {what} against the dense matrix")
+    del S, op
+    torch.cuda.empty_cache()
+    run = run_main_path(cli, counters, "per-cell", pf, out, matrixfree_said("MatrixFreeKernel"), sensit_written=False,
+                        compression="uncompressed", depth=GENERIC_DEPTH)
+    return {"operator": times, "build_s": build_s, "against_dense": errs, "run": run}
+
+
+def phase_22(cli, counters, work):
+    """kernelFormat = auto at the size it exists for: g_z on 128 x 128 x 64
+    cells with 16384 observations, uncompressed; a dense float32 kernel
+    would take 68.7 GB."""
+    from tomofastx_tpu_torch.ops.bttb import BTTBKernel
+
+    nx, ny, nz = AUTO_SIZE
+    ncells, nd = nx * ny * nz, AUTO_SIDE * AUTO_SIDE
+    print(f"kernelFormat = auto, {nd} observations x {ncells} cells, uncompressed (dense would be "
+          f"{nd * ncells * 4 / 1e9:.1f} GB against 0.55 x {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB):")
+    auto_dir = os.path.join(work, "auto")
+    os.makedirs(auto_dir)
+    t0 = time.time()
+    inputs = write_inputs(auto_dir, nx, ny, nz, AUTO_SIDE)
+    print(f"  inputs written in {time.time() - t0:.1f} s")
+    out = os.path.join(work, "out_auto")
+    pf = write_parfile(auto_dir, "Parfile_auto.txt", inputs, out, N_MINOR, fmt="auto", compression=0,
+                       extra=["forward.depthWeighting.type = 1"])
+    import tomofastx_tpu_torch.inversion.workflow as workflow
+
+    with capturing_the_system(workflow) as cap:
+        run = run_main_path(cli, counters, "auto", pf, out, {
+            "dense_GB": r"grav kernel format auto: dense would be ([0-9.]+) GB .*-> matrix-free",
+            **matrixfree_said("BTTBKernel")}, sensit_written=False, compression="uncompressed", ncells=ncells,
+            what=f"{nd} observations")
+    op = cap["arrays"]["S"][0]
+    del cap["arrays"]
+    if not isinstance(op, BTTBKernel):
+        raise SystemExit(f"FAILED auto: {type(op).__name__}")
+    times = time_operator(f"BTTB at {nd} x {ncells}, table {tuple(op.Tf.shape)}", op)
+    del op
+    # 64 rows of the forward data (the synthetic model's data the run wrote)
+    # against closed-form rows in float64.
+    rows = np.arange(0, nd, nd // 64)
+    table = np.loadtxt(os.path.join(out, "data", "grav_observed.txt"), skiprows=1, ndmin=2)
+    want = closed_rows_f64(inputs["grid"], inputs["data"], rows, AUTO_SIZE) @ torch.as_tensor(
+        block_model(nx, ny, nz).reshape(-1), dtype=torch.float64, device="cuda")
+    from tomofastx_tpu_torch.config.parfile import read_parfile
+
+    units = read_parfile(pf).grav.data_units_mult  # the file holds d / units
+    got = torch.as_tensor(table[rows, 3] * units, dtype=torch.float64, device="cuda")
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"  64 rows of the forward data against float64 closed-form rows: max error {err:.3e} of max|d| "
+          f"(tolerance {RTOL_F32_FORWARD:g})")
+    if not err <= RTOL_F32_FORWARD:
+        raise SystemExit("FAILED auto: forward data against the closed forms")
+    return {"run": run, "operator": times, "forward_rows_max_err": err}
+
+
+def phase_23(work, mesh4):
+    """Small float64 matrix-free problems, card against CPU."""
+    cases = [
+        ("bttb_gz", "BTTB g_z", dict(operator="BTTBKernel")),
+        ("bttb_ftg", "BTTB FTG full tensor", dict(operator="BTTBKernel", kind="ftg")),
+        ("lattice_gz", "lattice g_z, draped", dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"})),
+        ("lattice_tmi", "lattice TMI, draped", dict(operator="LatticeMatrixFreeKernel", kind="tmi",
+                                                    swap={"data": "data_draped"})),
+        ("generic_gz", "per-cell g_z, topography", dict(operator="MatrixFreeKernel", swap={"grid": "grid_topo"})),
+        ("generic_borehole_tmi", "per-cell TMI, borehole", dict(operator="MatrixFreeKernel", kind="borehole")),
+        ("lattice_gz_4_slots", "lattice g_z, draped, four slots of the card",
+         dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"}, mesh=mesh4)),
+    ]
+    return {name: small_problem_card_against_cpu(work, f"small_mf_{name}", f"matrix-free {what}", fmt="matrixfree",
+                                                 compression=0, **kw) for name, what, kw in cases}
+
+
 def main() -> int:
     t_all = time.time()
     if not torch.cuda.is_available():
@@ -1138,7 +1525,7 @@ def main() -> int:
     try:
         # ---- 3. the main paths, through the command-line entry point ----
         t0 = time.time()
-        inputs = write_inputs(work, NX, NY, NZ, SIDE, variants=("components",))
+        inputs = write_inputs(work, NX, NY, NZ, SIDE, variants=("components", "draped", "topography"))
         print(f"inputs written in {time.time() - t0:.1f} s")
         out = {run: os.path.join(work, f"out_{run}") for run in ("tiled", "tiled_mesh1", "dense", "dense_mesh1", "packed")}
         parfile = write_parfile(work, "Parfile_tiled.txt", inputs, out["tiled"], N_MINOR, fmt="tiled")
@@ -1267,9 +1654,13 @@ def main() -> int:
         print(f"  {TOP_BLOCKS} blocks of largest energy per row: {tuple(tvals.shape)}, "
               f"{kept:.6f} of the matrix's energy")
         bmv.check_block_ids(tidx, S.shape[1])
+        # The same function as a dense matrix that holds only those blocks:
+        # torch.mv on it is the library call for this layout.
+        dense_top = torch.zeros_like(S)
+        dense_top.view(S.shape[0], -1, 128).scatter_(1, tidx.long()[:, :, None].expand(-1, -1, 128), tvals)
         top = measure_layout(blocked_matvec, blocked_matvec_plain, f"row blocks, top {TOP_BLOCKS}",
-                             tvals, tidx, S.shape[0], x64, None)
-        del tvals, tidx
+                             tvals, tidx, S.shape[0], x64, dense_top)
+        del tvals, tidx, dense_top
 
         # The path that runs blocked_matvec: the port's forward-data and LSQR
         # entry points with the row-block layout as the forward operator, held
@@ -1578,6 +1969,19 @@ def main() -> int:
 
         # ---- 17. resume, --profile and --debug-nans on the card ----
         late = phase_17(cli, counters, tmv, work)
+
+        # ---- 18-23. the native table reader, the matrix-free operators, auto ----
+        mf = {"reader": phase_18(work, inputs)}
+        mf["bttb"] = phase_19(cli, counters, workflow, work, inputs, mesh4)
+        mf["lattice"] = phase_20(cli, counters, workflow, work, inputs)
+        mf["generic"] = phase_21(cli, counters, work, inputs)
+        mf["auto"] = phase_22(cli, counters, work)
+        small_rel.update({f"matrixfree_{k}": v for k, v in phase_23(work, mesh4).items()})
+        for name, run in [(f"bttb {k}", v) for k, v in mf["bttb"]["runs"].items()] + [
+                (f"lattice {k}", v) for k, v in mf["lattice"]["runs"].items()] + [
+                ("per-cell", mf["generic"]["run"]), ("auto", mf["auto"]["run"])]:
+            if any(run["launches"].values()):
+                raise SystemExit(f"FAILED {name}: a stored-kernel format's kernel was launched")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1642,7 +2046,7 @@ def main() -> int:
         "coupled_main_paths": {k: report(v) for k, v in coupled.items() if isinstance(v, dict) and "launches" in v},
         "coupled_dense_against_tiled": coupled_spread, "coupling_weights": weights, "coupling_scales": scales,
         "coupled_blocks_ms": coupled["blocks_ms"], "coupled_blocks_launches": coupled["blocks_launches"],
-        "resume_profile_debug_nans": late,
+        "resume_profile_debug_nans": late, "matrixfree": jsonable(mf),
         "operators": operators, "observations": NDATA, "cells": NX * NY * NZ,
         "kernel_build_s": build_s, "total_s": total_s,
         "memory_bytes_per_s_assumed": MEMORY_BYTES_PER_S, "fp32_flop_per_s_assumed": FP32_FLOP_PER_S,

@@ -256,7 +256,7 @@ def test_sharded_packed_kernel_matches_jax():
 @pytest.mark.parametrize("what", ["object", "dense SensitKernel"])
 def test_unported_operator_types_are_refused(what):
     op = object() if what == "object" else tsens.SensitKernel(torch.zeros(2, 8), 2, 1, 1, 2, 2, 2, 0)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="not a sensitivity operator"):
         tmesh.shard_kernel(op, tmesh.make_mesh(2, device="cpu"))
 
 

@@ -234,9 +234,11 @@ def test_dense_run_without_cache_write(tmp_path):
     assert "cache_write_s" not in r.timings and r.costs_history[-1]["cost_data"][0] < 1.0
 
 
-def test_auto_refuses_an_uncompressed_kernel_too_large_for_the_device(tmp_path, monkeypatch):
+def test_auto_refuses_an_uncompressed_kernel_too_large_for_the_device(tmp_path, monkeypatch, capsys):
     """Uncompressed auto: a dense kernel above 55 % of the device's memory
-    is where the JAX package turns matrix-free; the port says so and stops."""
+    is refused a stored kernel and goes matrix-free, as in the JAX package
+    (the operators against JAX: tests/test_torch_matrixfree.py); below it
+    the kernel is dense and cached."""
     from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
     from tomofastx_tpu_torch.inversion import workflow as twf
 
@@ -244,10 +246,13 @@ def test_auto_refuses_an_uncompressed_kernel_too_large_for_the_device(tmp_path, 
     dense_bytes = 16 * 256 * 4
     assert twf._device_memory_bytes(__import__("torch").device("cpu")) > dense_bytes
     monkeypatch.setattr(twf, "_device_memory_bytes", lambda device: int(dense_bytes / 0.56))
-    with pytest.raises(NotImplementedError, match="matrix-free"):
-        twf.solve_problem_joint_gravmag(tparse(lines(str(tmp_path / "a"))), verbose=False, device="cpu")
+    twf.solve_problem_joint_gravmag(tparse(lines(str(tmp_path / "a"))), device="cpu")
+    said = capsys.readouterr().out
+    assert "-> matrix-free" in said and "grav kernel: matrix-free (LatticeMatrixFreeKernel" in said
+    assert not (tmp_path / "a" / "SENSIT").exists()
     monkeypatch.setattr(twf, "_device_memory_bytes", lambda device: int(dense_bytes / 0.54))
     twf.solve_problem_joint_gravmag(tparse(lines(str(tmp_path / "b"))), verbose=False, device="cpu")
+    assert (tmp_path / "b" / "SENSIT").exists()
 
 
 def test_float32_solve_on_cpu_close_to_float64(tmp_path):
@@ -298,13 +303,13 @@ def test_stop_file_ends_the_loop(tmp_path):
 
 @pytest.mark.parametrize(
     "extra",
-    ["tpu.kernelFormat = matrixfree", "tpu.f64BuildF32Compress = 1", "tpu.kernelStoreDtype = bfloat16",
-     "tpu.refineForward = 1"],
+    ["tpu.f64BuildF32Compress = 1", "tpu.kernelStoreDtype = bfloat16", "tpu.refineForward = 1"],
 )
 def test_unported_parfile_features_are_refused(tmp_path, extra):
     """What the port still refuses, before any work (the magnetic problem and
     gradiometry run since they were ported: tests/test_torch_joint.py; the
-    constraints and sensit.readFromFiles = 2: the test below)."""
+    constraints and sensit.readFromFiles = 2: the test below;
+    tpu.kernelFormat = matrixfree: tests/test_torch_matrixfree.py)."""
     from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
 
@@ -403,7 +408,7 @@ def test_cli_runs_a_parfile_without_a_kernel_format_line(tmp_path):
 def test_cli_fails_cleanly(tmp_path):
     lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
     par = tmp_path / "Parfile.txt"
-    par.write_text("\n".join(lines(str(tmp_path / "out")) + ["tpu.kernelFormat = matrixfree"]))
+    par.write_text("\n".join(lines(str(tmp_path / "out")) + ["tpu.refineForward = 1"]))
     p = _run(["-m", "tomofastx_tpu_torch", "-p", str(par), "--device", "cpu", "-q"], str(tmp_path))
     assert p.returncode == 1 and "not ported" in p.stderr
     p = _run(["-m", "tomofastx_tpu_torch", "-p", str(tmp_path / "nothing.txt"), "--device", "cpu"], str(tmp_path))

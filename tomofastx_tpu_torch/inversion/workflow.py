@@ -16,10 +16,13 @@ or magnetization vector) and the two together, each with a stored kernel —
 dense (the default), packed top-k or tile-union (``tpu.kernelFormat = dense
 | packed | tiled | auto``), wavelet-compressed or not, built, read from a
 cache or rebuilt with the cache's depth weight (``sensit.readFromFiles = 0 |
-1 | 2``) — with damping, damping gradient, ADMM, and the coupling of the two
-problems by cross-gradient and clustering, on one device or on a mesh of
-slots (``mesh=``: the build's rows and the operator's cells split over the
-slots, parallel/mesh.py); checkpoints and resume. A Parfile that asks for
+1 | 2``) — or with no stored kernel (``tpu.kernelFormat = matrixfree``, and
+``auto`` on an uncompressed kernel too large for the device: the BTTB,
+corner-lattice or per-cell operators of ops/matrixfree.py) — with damping,
+damping gradient, ADMM, and the coupling of the two problems by
+cross-gradient and clustering, on one device or on a mesh of slots
+(``mesh=``: the build's rows and the operator's cells split over the slots,
+parallel/mesh.py); checkpoints and resume. A Parfile that asks for
 anything else is refused with NotImplementedError before any work is done.
 """
 
@@ -47,6 +50,7 @@ from tomofastx_tpu_torch.io.tableio import load_table
 from tomofastx_tpu_torch.models.data import SurveyData
 from tomofastx_tpu_torch.models.model import ModelState
 from tomofastx_tpu_torch.ops import sensitivity as sens
+from tomofastx_tpu_torch.ops.matrixfree import make_matrixfree_kernel
 from tomofastx_tpu_torch.ops.sparse_kernel import DenseKernel, apply_row_weights_packed
 from tomofastx_tpu_torch.ops.tile_kernel import apply_row_weights_tiled, tile_kernel_from_cache
 from tomofastx_tpu_torch.parallel.mesh import assembly_device, shard_kernel, slot_bytes_line
@@ -65,7 +69,7 @@ class ProblemContext:
     data: SurveyData = None
     column_weight: np.ndarray = None
     kernel: object = None  # row-weighted dense SensitKernel (dense format only)
-    operator: object = None  # row-weighted operator (Dense-, Packed- or TileKernel)
+    operator: object = None  # row-weighted operator (Dense-, Packed-, TileKernel or matrix-free)
     residuals: np.ndarray = None
 
 
@@ -168,8 +172,6 @@ def _refuse_unported(cfg: Config):
     package that this package does not hold yet."""
     wants = []
     par = cfg.grav  # the tpu.* keys set both problems alike
-    if par.kernel_format == "matrixfree":
-        wants.append("tpu.kernelFormat = matrixfree")
     if par.kernel_store != "float32":
         wants.append("tpu.kernelStoreDtype = bfloat16")
     if par.refine_forward:
@@ -181,7 +183,8 @@ def _refuse_unported(cfg: Config):
 
 
 def _device_memory_bytes(device) -> int:
-    """Total memory of the device the kernel would live on."""
+    """Total memory of the device the kernel would live on: the card's own
+    total (the JAX package reads its TPU's bytes_limit, 16 GB by default)."""
     if device.type == "cuda":
         return torch.cuda.mem_get_info(device)[1]
     return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
@@ -341,16 +344,28 @@ def solve_problem_joint_gravmag(
         ncols_tot = ctx.model.grid.nelements_total * par.nmodel_components
         if fmt == "auto" and par.compression_type == 0:
             # Capacity-aware auto (uncompressed): a dense kernel that cannot
-            # share the device with the solver's working set belongs to the
-            # matrix-free operators, which this package does not hold yet.
+            # share the device with the solver's working set falls back to
+            # the matrix-free operators (BTTB on gridded surveys, the corner
+            # lattice or per-cell rows otherwise).
             dense_bytes = nrows_tot * ncols_tot * 4
             total = _device_memory_bytes(device)
             if dense_bytes > 0.55 * total:
-                raise NotImplementedError(
-                    f"{PROBLEM_PREFIX[i]} kernel format auto: dense would be "
-                    f"{dense_bytes / 1e9:.1f} GB (> 55% of {total / 1e9:.0f} GB of device memory) "
-                    "-> matrix-free, which is not ported to this package yet"
-                )
+                log(f"  {PROBLEM_PREFIX[i]} kernel format auto: dense would be {dense_bytes / 1e9:.1f} GB "
+                    f"(> 55% of {total / 1e9:.0f} GB of device memory) -> matrix-free")
+                fmt = "matrixfree"
+
+        if fmt == "matrixfree":
+            # No stored kernel: the operator regenerates its rows in every
+            # product (ops/matrixfree.py), on the home device; a mesh cuts
+            # it below. Nothing is written to the cache.
+            ctx.kernel = None
+            ctx.operator = make_matrixfree_kernel(
+                par, ctx.model.grid, ctx.data, ctx.column_weight, ipar.problem_weight[i], ctx.data.weight,
+                solve_dtype, pad_cells_to=len(mesh.slots) if mesh is not None else 1, device=device,
+            )
+            log(f"  {PROBLEM_PREFIX[i]} kernel: matrix-free ({type(ctx.operator).__name__}, no row storage; "
+                f"{ctx.operator.nbytes / 1e6:.1f} MB on {device})")
+            continue
         if fmt == "auto":
             fmt = "packed" if par.compression_type > 0 else "dense"
 

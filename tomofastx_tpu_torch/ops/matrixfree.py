@@ -1,18 +1,48 @@
-"""Corner-lattice closed-form sensitivity rows on tensor-product grids.
+"""Matrix-free sensitivity operators: recompute prism responses on the fly.
 
-This part of the port holds what the stored-kernel build needs from the
-matrix-free module: lattice detection, the 2x2x2 corner difference and the
-closed-form rows of every forward family (gravity g_z, FTG Gzz and the full
+Counterpart of tomofastx_tpu/ops/matrixfree.py. The reference's answer to
+kernel memory is wavelet compression and a disk cache
+(sensitivity_gravmag.F90); the matrix-free answer is to store no kernel at
+all and regenerate the rows of a chunk of observations inside every
+product. The closed-form prism integrals are a few hundred operations per
+(datum, cell) pair and need no memory traffic, so a survey whose kernel
+outgrows the card still solves. Select with ``tpu.kernelFormat =
+matrixfree`` (compression off), or ``auto`` falls back to it when a dense
+kernel would not fit.
+
+Three operators, the fastest that applies wins (make_matrixfree_kernel):
+- BTTBKernel (ops/bttb.py): per-layer 2-D FFT convolutions, on a uniform
+  lattice with the observations on a commensurate lattice at one height;
+- LatticeMatrixFreeKernel: the corner-lattice factorization of the closed
+  forms on any tensor-product grid;
+- MatrixFreeKernel: per-cell rows on any grid.
+
+In float32 the lattice and per-cell operators blend in the far-field
+Gauss-Legendre quadrature (prism.FAR_QUAD_RADIUS): the closed forms'
+8-corner cancellation turns float32 rounding into noise far from a cell.
+Every forward family is supported (gravity g_z, FTG Gzz and the full
 tensor, magnetic TMI or three-component data on susceptibility or the
-magnetization vector). The matrix-free operators themselves are not ported
-yet.
+magnetization vector); depth weighting (the column weight) and the
+problem x data row weights are applied on the fly
+(sensitivity_gravmag.F90:228, 836-843).
+
+The JAX package corrects each observation's near cells with a sequential
+per-point scan, a workaround for a TPU worker crash. Here a chunk's
+corrections are gathered and scattered in one batch; the adjoint's scatter
+sums every cell's terms in one fixed order (_index_add_in_order), so two
+runs agree to the last bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
 import numpy as np
 import torch
 
+from tomofastx_tpu_torch.ops import prism
 from tomofastx_tpu_torch.ops.prism import (
     G_GRAV,
     combine_mag_tensor,
@@ -20,6 +50,297 @@ from tomofastx_tpu_torch.ops.prism import (
     gz_corner_potential,
     mag_corner_potentials,
 )
+
+PROBE_ABORT = (
+    "Data coordinate coincides with model grid boundary. Adjust the model grid! (non-finite "
+    "matrix-free probe matvec; reference aborts here, gravity_field.f90:99-107)"
+)
+
+
+def _index_add_in_order(target: torch.Tensor, index: torch.Tensor, values: torch.Tensor):
+    """target[index] += values (1-D), duplicates summed in one fixed order:
+    index_put_ with accumulate under torch's deterministic mode (sort-based
+    on CUDA, serial on the CPU), not atomics."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        target.index_put_((index,), values, accumulate=True)
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
+def _in_float64(cells, xs, ys, zs):
+    """A blend's near-cell operands in float64: (cells, xs, ys, zs).
+
+    The blended float32 operators evaluate the closed forms of the near
+    cells (a few hundred a point) in float64 and round the rows to the
+    operator's dtype: float32 corner sums carry a cancellation error that
+    the quadrature does not, and the card runs float64 natively. The JAX
+    package evaluates them in float32 (float64 is emulated on a TPU); the
+    port's float32 operators are the more accurate for it (PERF.md)."""
+    return tuple(c.double() for c in cells), xs.double(), ys.double(), zs.double()
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+# =============================================================================
+# The generic per-cell operator
+# =============================================================================
+
+
+@dataclass(frozen=True)
+class _Physics:
+    """Static physics description."""
+
+    problem: str  # "grav" | "magn"
+    data_type: int  # gravity: 1 = g, 2 = gradiometry
+    nmc: int  # model components
+    ndc: int  # data components
+    magv: Tuple[float, float, float]
+    intensity: float
+    handle_inside: bool
+    # Compensated-float32 blend: far cells by Gauss quadrature (see
+    # ops/prism.py). Set for float32 per-cell operators.
+    far_quad: bool = False
+
+
+def _rows(phys: _Physics, grid6, xs, ys, zs, base_only=False):
+    """(B, N, nmc, ndc) physics rows for a batch of observation points, by
+    the dispatch the stored build uses (ops/sensitivity.py::forward_rows).
+    base_only=True: the 27-point quadrature for every cell; the blended
+    operator adds the near cells' closed-form difference by _corr_rows."""
+    from tomofastx_tpu_torch.ops.sensitivity import _forward_rows_quad, forward_rows
+
+    args = (phys.problem, phys.data_type, phys.nmc, phys.ndc, phys.magv, phys.intensity)
+    if base_only:
+        return _forward_rows_quad(*args, grid6, xs, ys, zs)
+    return forward_rows(*args, phys.handle_inside, grid6, xs, ys, zs, far_quad=phys.far_quad)
+
+
+def _corr_rows(phys: _Physics, grid6, xs, ys, zs, idx):
+    """(B, K, nmc, ndc) near-patch correction rows on each point's candidate
+    cells idx (B, K): where(near, closed - quad, 0), so that the blended
+    operator is quadrature everywhere plus this correction. The closed forms
+    are evaluated in float64 (_in_float64)."""
+    from tomofastx_tpu_torch.ops.sensitivity import _forward_rows_quad, forward_rows
+
+    sub = tuple(a[idx] for a in grid6)
+    args = (phys.problem, phys.data_type, phys.nmc, phys.ndc, phys.magv, phys.intensity)
+    closed = forward_rows(*args, phys.handle_inside, *_in_float64(sub, xs, ys, zs)).to(xs.dtype)
+    quad = _forward_rows_quad(*args, sub, xs, ys, zs)
+    near = ~prism.far_mask(xs[:, None], ys[:, None], zs[:, None], *sub)
+    return torch.where(near[..., None, None], closed - quad, torch.zeros_like(closed))
+
+
+def near_cell_indices(grid6, xd, yd, zd, margin=1.001):
+    """(npoints, K) int64 candidate near-cell indices for the generic blended
+    operator, computed once at construction on the grid's device.
+
+    K = the most cells any point has within margin x the blend radius (in
+    own-half-diagonal units, the prism.far_mask criterion), rounded up to a
+    multiple of 8; each point keeps the K cells of largest nearness score
+    radius^2 d2 - r2, so all of its truly near cells are in (their count is
+    at most K and their scores top the order). The margin absorbs rounding
+    between this pass and the operator's own mask. Ties at the K-th place
+    may be ordered otherwise than by the JAX package's top_k; the near
+    cells are in either way."""
+    N = grid6[0].shape[0]
+    npts = xd.shape[0]
+    # The JAX package's chunk: about 0.5 GB of float32 scores.
+    chunk = max(8, min(512, (1 << 29) // (4 * max(N, 1))))
+    rad = prism.FAR_QUAD_RADIUS * margin
+    X1, X2, Y1, Y2, Z1, Z2 = grid6
+    cx, cy, cz = 0.5 * (X1 + X2), 0.5 * (Y1 + Y2), 0.5 * (Z1 + Z2)
+    hx, hy, hz = 0.5 * (X2 - X1), 0.5 * (Y2 - Y1), 0.5 * (Z2 - Z1)
+    d2 = hx * hx + hy * hy + hz * hz
+    spans = [(s, min(npts, s + chunk)) for s in range(0, npts, chunk)]
+
+    counts = torch.stack([
+        (~prism.far_mask(xd[s:e, None], yd[s:e, None], zd[s:e, None], *grid6, radius=rad)).sum(1).max()
+        for s, e in spans
+    ])
+    K = int(counts.max())
+    K = min(max(((K + 7) // 8) * 8, 8), N)
+
+    def top(s, e):
+        r2 = (cx - xd[s:e, None]) ** 2 + (cy - yd[s:e, None]) ** 2 + (cz - zd[s:e, None]) ** 2
+        return torch.topk((rad * rad) * d2 - r2, K, dim=1).indices
+
+    return torch.cat([top(s, e) for s, e in spans])
+
+
+@dataclass
+class MatrixFreeKernel:
+    """Row-regenerating sensitivity operator ((nrows*ndc) x (nmc*N_true)).
+
+    The cell axis may be zero-padded (N >= N_true) so that it divides a
+    mesh: padding cells are dummy prisms far outside the model volume with
+    cw = 0, so their rows contribute nothing; matvec pads x and rmatvec
+    slices the gradient back. cell_lo is the first cell of this operator's
+    cells when it is one slot's part of a cells-sharded operator
+    (ShardedMatrixFreeKernel); near_idx keeps the whole grid's numbering."""
+
+    grid6: tuple  # (X1, X2, Y1, Y2, Z1, Z2), each (N,)
+    xd: torch.Tensor  # (nrows_padded,)
+    yd: torch.Tensor
+    zd: torch.Tensor
+    cw: torch.Tensor  # (N,) column weight; 0 on cell padding
+    row_w: torch.Tensor  # (nrows_padded, ndc) problem x data weights; 0 on padding
+    phys: _Physics
+    chunk: int
+    nrows: int  # true data count
+    N_true: int = None  # logical cell count; None = no cell padding
+    # (nrows_padded, K) candidate near-cell indices (near_cell_indices) for
+    # the blend; None when phys.far_quad is off.
+    near_idx: torch.Tensor = None
+    cell_lo: int = 0
+
+    @property
+    def N(self) -> int:
+        return self.grid6[0].shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.phys.nmc * (self.N_true if self.N_true is not None else self.N)
+
+    @property
+    def nbytes(self) -> int:
+        return _nbytes(*self.grid6, self.xd, self.yd, self.zd, self.cw, self.row_w, self.near_idx)
+
+    @property
+    def _patched(self) -> bool:
+        return self.phys.far_quad and self.near_idx is not None
+
+    def _chunks(self):
+        return [slice(s, s + self.chunk) for s in range(0, self.xd.shape[0], self.chunk)]
+
+    def _local_candidates(self, sl):
+        """(idx, valid): this chunk's candidate cells in this operator's own
+        numbering, and which of them are its cells."""
+        idx = self.near_idx[sl] - self.cell_lo
+        valid = (idx >= 0) & (idx < self.N)
+        return idx.clamp(0, self.N - 1), valid
+
+    def _padded_model(self, x):
+        x2 = x.reshape(self.phys.nmc, -1)
+        if x2.shape[1] < self.N:
+            x2 = torch.nn.functional.pad(x2, (0, self.N - x2.shape[1]))
+        return x2
+
+    def _partial_matvec(self, xw):
+        """(nrows_padded, ndc) sum over this operator's cells of
+        rows x (cw x), before the row weights."""
+        out = []
+        for sl in self._chunks():
+            xs, ys, zs = self.xd[sl], self.yd[sl], self.zd[sl]
+            d = torch.einsum("bnkd,kn->bd", _rows(self.phys, self.grid6, xs, ys, zs, base_only=self._patched), xw)
+            if self._patched:
+                idx, valid = self._local_candidates(sl)
+                corr = _corr_rows(self.phys, self.grid6, xs, ys, zs, idx)
+                corr = torch.where(valid[..., None, None], corr, torch.zeros_like(corr))
+                d = d + torch.einsum("bjkd,kbj->bd", corr, xw[:, idx])
+            out.append(d)
+        return torch.cat(out)
+
+    def _partial_rmatvec(self, u_pad):
+        """(nmc, N) sum over the observations of rows^T u, before cw."""
+        nmc = self.phys.nmc
+        g = torch.zeros((nmc, self.N), dtype=u_pad.dtype, device=u_pad.device)
+        for sl in self._chunks():
+            xs, ys, zs, uc = self.xd[sl], self.yd[sl], self.zd[sl], u_pad[sl]
+            g = g + torch.einsum("bnkd,bd->kn", _rows(self.phys, self.grid6, xs, ys, zs, base_only=self._patched), uc)
+            if self._patched:
+                idx, valid = self._local_candidates(sl)
+                corr = _corr_rows(self.phys, self.grid6, xs, ys, zs, idx)
+                corr = torch.where(valid[..., None, None], corr, torch.zeros_like(corr))
+                vals = torch.einsum("bjkd,bd->kbj", corr, uc)  # (nmc, B, K)
+                flat = torch.arange(nmc, device=g.device)[:, None, None] * self.N + idx[None]
+                _index_add_in_order(g.view(-1), flat.reshape(-1), vals.reshape(-1))
+        return g
+
+    def _padded_residual(self, u):
+        u_pad = torch.zeros((self.xd.shape[0], self.phys.ndc), dtype=u.dtype, device=u.device)
+        u_pad[: self.nrows] = u.reshape(self.nrows, self.phys.ndc)
+        return u_pad * self.row_w
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        d = self._partial_matvec(self.cw[None, :] * self._padded_model(x))
+        return (self.row_w * d)[: self.nrows].reshape(-1)
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        g = self.cw[None, :] * self._partial_rmatvec(self._padded_residual(u))
+        if self.N_true is not None and self.N_true != self.N:
+            g = g[:, : self.N_true]
+        return g.reshape(-1)
+
+
+@dataclass
+class ShardedMatrixFreeKernel:
+    """A MatrixFreeKernel cut over the cells: slot s holds the cells
+    [s*N/n, (s+1)*N/n) with their column weights, and every observation.
+    matvec adds the slots' partial data on the home device in slot order;
+    rmatvec concatenates the slots' gradients. The candidate near cells
+    stay in the whole grid's numbering; each slot corrects those of its
+    own. `whole` is the unsharded operator on the home device, which pads
+    the vectors and weights the rows."""
+
+    whole: MatrixFreeKernel
+    parts: list
+    mesh: object  # parallel.mesh.Mesh
+
+    @classmethod
+    def shard(cls, k: MatrixFreeKernel, mesh) -> "ShardedMatrixFreeKernel":
+        n = len(mesh.slots)
+        if k.N % n:
+            raise ValueError(
+                f"matrix-free kernel has {k.N} (padded) cells, not divisible by the {n}-slot mesh; "
+                f"build it with pad_cells_to={n}"
+            )
+        per = k.N // n
+        parts = []
+        for s, dev in enumerate(mesh.slots):
+            sl = slice(s * per, (s + 1) * per)
+            parts.append(dataclasses.replace(
+                k, grid6=tuple(a[sl].to(dev) for a in k.grid6), xd=k.xd.to(dev), yd=k.yd.to(dev),
+                zd=k.zd.to(dev), cw=k.cw[sl].to(dev), row_w=k.row_w.to(dev),
+                near_idx=None if k.near_idx is None else k.near_idx.to(dev), N_true=None, cell_lo=s * per,
+            ))
+        whole = dataclasses.replace(k, **{f: getattr(k, f).to(mesh.home) for f in ("xd", "cw", "row_w")})
+        return cls(whole, parts, mesh)
+
+    @property
+    def nrows(self) -> int:
+        return self.whole.nrows
+
+    @property
+    def ncols(self) -> int:
+        return self.whole.ncols
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        home, x2 = self.mesh.home, self.whole._padded_model(x)
+        d = None
+        for p in self.parts:
+            xs = x2[:, p.cell_lo : p.cell_lo + p.N].to(p.cw.device)
+            part = p._partial_matvec(p.cw[None, :] * xs).to(home)
+            d = part if d is None else d + part
+        return (self.whole.row_w * d)[: self.nrows].reshape(-1)
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        home, u_pad = self.mesh.home, self.whole._padded_residual(u)
+        g = torch.cat([(p.cw[None, :] * p._partial_rmatvec(u_pad.to(p.cw.device))).to(home) for p in self.parts],
+                      dim=1)
+        return g[:, : self.ncols // self.whole.phys.nmc].reshape(-1)
+
+    def slot_bytes(self) -> list:
+        return [p.nbytes for p in self.parts]
+
+
+# =============================================================================
+# The corner-lattice operator
+# =============================================================================
 
 
 def detect_lattice(grid):
@@ -68,13 +389,14 @@ def _diff3(F, axes=(-3, -2, -1)):
 def _lattice_closed_rows(xe, ye, ze, x, y, z, problem, data_type, magv, intensity, nmc, ndc):
     """Corner-difference closed-form rows on a lattice, for a batch of
     observation points x, y, z of shape (B,): (B, nz, ny, nx, nmc, ndc).
-    Each lattice corner's antiderivative is evaluated once and shared by up
-    to 8 cells (~8x fewer transcendentals than the per-cell 8-corner sums
-    the reference loops, gravity_field.f90:131-195,
+    The edges are shared, (n+1,), or each point's own, (B, n+1) (a window
+    of the lattice). Each lattice corner's antiderivative is evaluated once
+    and shared by up to 8 cells (~8x fewer transcendentals than the
+    per-cell 8-corner sums the reference loops, gravity_field.f90:131-195,
     magnetic_field.f90:321-457)."""
-    cx = (x[:, None] - xe[None, :])[:, None, None, :]
-    cy = (y[:, None] - ye[None, :])[:, None, :, None]
-    cz = (z[:, None] - ze[None, :])[:, :, None, None]
+    cx = (x[:, None] - xe)[:, None, None, :]
+    cy = (y[:, None] - ye)[:, None, :, None]
+    cz = (z[:, None] - ze)[:, :, None, None]
 
     if problem == "grav" and data_type == 1:
         rows = -G_GRAV * _diff3(gz_corner_potential(cx, cy, cz))
@@ -106,3 +428,465 @@ def _lattice_closed_rows(xe, ye, ze, x, y, z, problem, data_type, magv, intensit
         magv, intensity, nmc, ndc,
     )  # (B, nz+1, ny+1, nx+1, nmc, ndc)
     return _diff3(Fc, axes=(-5, -4, -3))
+
+
+def _lattice_bounds(xe, ye, ze):
+    """Cell bounds of a lattice (edges (n+1,) or per point (B, n+1)) shaped
+    to broadcast over (B, nz, ny, nx): x bounds vary along the last axis
+    only, y along the third, z along the second."""
+
+    def axis(e, dim):
+        e = e if e.ndim == 2 else e[None]
+        shape = [e.shape[0], 1, 1, 1]
+        shape[dim] = e.shape[1] - 1
+        return e[:, :-1].reshape(shape), e[:, 1:].reshape(shape)
+
+    return (*axis(xe, 3), *axis(ye, 2), *axis(ze, 1))
+
+
+def _lattice_quad_rows(xe, ye, ze, x, y, z, problem, data_type, magv, intensity, nmc, ndc, order=3):
+    """order^3-point Gauss-quadrature rows for every lattice cell, for a
+    batch of points (B,): (B, nz, ny, nx, nmc, ndc); the edges as in
+    _lattice_closed_rows. order=2 is the blended operator's cheap base tier
+    (prism.FAR_QUAD2_RADIUS_*), order=3 its middle tier. The cell bounds
+    broadcast along their lattice axes: the values are those of flat
+    per-cell bounds, which the JAX package uses because the broadcast form
+    crashed its TPU worker above ~2M cells."""
+    bounds = _lattice_bounds(xe, ye, ze)
+    xs, ys, zs = (a[:, None, None, None] for a in (x, y, z))
+    if problem == "magn":
+        tq, uq, vq = prism.magnetic_tensor_quad(xs, ys, zs, *bounds, order=order)
+        return combine_mag_tensor(tq, uq, vq, magv, intensity, nmc, ndc)
+    if data_type == 1:
+        return prism.gravi_z_quad(xs, ys, zs, *bounds, order=order)[..., None, None]
+    if ndc == 1:
+        return prism.gradi_zz_quad(xs, ys, zs, *bounds, order=order)[..., None, None]
+    return torch.stack(prism.gradi_full_quad(xs, ys, zs, *bounds, order=order), dim=-1)[..., None, :]
+
+
+def tier2_radius(problem: str, data_type: int) -> float:
+    """Tier-2 window radius (in half-diagonals) of the tiered blend, shared
+    by the factory and parallel/mesh.py::shard_kernel so that meshed and
+    unmeshed operators use the same windows."""
+    return prism.FAR_QUAD2_RADIUS_GZ if (problem == "grav" and data_type == 1) else prism.FAR_QUAD2_RADIUS_TENSOR
+
+
+def lattice_near_window(xe, ye, ze, xd, yd, zd, radius=None):
+    """Host geometry of the blended lattice operator's near window.
+
+    Returns ((wz, wy, wx), wi0): the per-axis window sizes cover every cell
+    whose centre lies within radius x the largest half-diagonal of any
+    point, and wi0 (npoints, 3) holds each point's window start indices
+    (z, y, x). Every near cell of a point (centre distance <= radius x its
+    own half-diagonal) is inside that point's window: near implies
+    |c_ax - t_ax| <= D := radius x the largest half-diagonal per axis, the
+    window size is the most cell centres in any closed interval of length
+    2D, and the start is clamped to keep the window in range. A relative
+    margin of 1e-5 on D absorbs float32 rounding of the operator's own mask
+    at the boundary. Float64 numpy throughout, as in the JAX package, so
+    both pick the same windows."""
+    if radius is None:
+        radius = prism.FAR_QUAD_RADIUS
+    xe = np.asarray(xe, np.float64)
+    ye = np.asarray(ye, np.float64)
+    ze = np.asarray(ze, np.float64)
+    maxh2 = (
+        np.max(0.5 * np.diff(xe)) ** 2
+        + np.max(0.5 * np.diff(ye)) ** 2
+        + np.max(0.5 * np.diff(ze)) ** 2
+    )
+    D = radius * np.sqrt(maxh2) * (1.0 + 1.0e-5)
+
+    def axis(e, t):
+        c = 0.5 * (e[:-1] + e[1:])
+        n = len(c)
+        W = int(np.max(np.searchsorted(c, c + 2.0 * D, side="right") - np.arange(n)))
+        W = max(1, min(W, n))
+        lo = np.searchsorted(c, np.asarray(t, np.float64) - D, side="left")
+        i0 = np.clip(lo, 0, n - W)
+        return W, i0.astype(np.int32)
+
+    wx, ix = axis(xe, xd)
+    wy, iy = axis(ye, yd)
+    wz, iz = axis(ze, zd)
+    return (wz, wy, wx), np.stack([iz, iy, ix], axis=1)
+
+
+def lattice_rows_for_point(xe, ye, ze, x, y, z, problem, data_type, magv, intensity, nmc, ndc):
+    """Per-cell closed-form rows for a batch of points by the corner
+    lattice: (B, nz, ny, nx, nmc, ndc). The stored build's float64 rows and
+    the near ingredient of the blended operator, whose correction window
+    (LatticeMatrixFreeKernel._corr_window) evaluates them on a sub-lattice."""
+    return _lattice_closed_rows(xe, ye, ze, x, y, z, problem, data_type, magv, intensity, nmc, ndc)
+
+
+@dataclass
+class LatticeMatrixFreeKernel:
+    """Corner-lattice factorization of the matrix-free operator (gravity g_z
+    and FTG, and the magnetic family but for the borehole branch).
+
+    On a tensor-product grid the prism closed forms are alternating 2x2x2
+    corner sums of point antiderivatives, and each corner is shared by up
+    to 8 cells. Instead of 8 corners per cell (the reference's per-cell
+    loop, gravity_field.f90:131-195), f is evaluated once per lattice corner
+    and the corner field is differenced back to per-cell rows:
+
+        rows_obs   = -d3^T F_obs          (2x2x2 alternating stencil)
+        S @ x      = sum_cells rows_obs * (cw*x)
+        S^T u      = cw * sum_obs u_obs * rows_obs
+
+    ~8x fewer transcendentals per product than the per-cell operator, with
+    the same local cancellation (each cell value is a difference of its own
+    8 corner values). Moving the stencil onto the model vector and summing
+    F * (-d3(cw*x)) over corners is the same mathematics but numerically
+    fatal in float32: F is O(1e5-1e6) while the result is many orders
+    smaller, so the global sum cancels past float32's mantissa (the JAX
+    package measured a data misfit floor of 4e-3 instead of 1e-7 at 4M
+    cells).
+
+    In float32 (far_quad) the rows are the tiered blend: the 2^3 quadrature
+    everywhere plus, on each point's window (win, wi0 from
+    lattice_near_window at tier2_radius), where(near, closed, 3^3) - 2^3."""
+
+    xe: torch.Tensor  # (nx+1,)
+    ye: torch.Tensor  # (ny+1,)
+    ze: torch.Tensor  # (nz+1,)
+    xd: torch.Tensor  # (nrows_padded,)
+    yd: torch.Tensor
+    zd: torch.Tensor
+    cw: torch.Tensor  # (N,)
+    row_w: torch.Tensor  # (nrows_padded, ndc)
+    chunk: int
+    nrows: int
+    nx: int
+    ny: int
+    nz: int
+    problem: str = "grav"
+    magv: Tuple[float, float, float] = (0.0, 0.0, 1.0)
+    intensity: float = 0.0
+    nmc: int = 1
+    ndc: int = 1
+    data_type: int = 1  # gravity: 1 = g_z, 2 = gradiometry (FTG)
+    far_quad: bool = False
+    win: Tuple[int, int, int] = None  # (wz, wy, wx) when far_quad
+    wi0: torch.Tensor = None  # (nrows_padded, 3) int64 window starts when far_quad
+
+    @property
+    def N(self) -> int:
+        return self.nx * self.ny * self.nz
+
+    @property
+    def ncols(self) -> int:
+        return self.nmc * self.N
+
+    @property
+    def nbytes(self) -> int:
+        return _nbytes(self.xe, self.ye, self.ze, self.xd, self.yd, self.zd, self.cw, self.row_w, self.wi0)
+
+    def _physics(self):
+        return (self.problem, self.data_type, self.magv, self.intensity, self.nmc, self.ndc)
+
+    def _base_rows(self, xs, ys, zs):
+        """(B, nz, ny, nx, nmc, ndc): the 2^3 quadrature when far_quad (every
+        cell; accurate beyond the tier-2 window), else the closed forms."""
+        if self.far_quad:
+            return _lattice_quad_rows(self.xe, self.ye, self.ze, xs, ys, zs, *self._physics(), order=2)
+        return _lattice_closed_rows(self.xe, self.ye, self.ze, xs, ys, zs, *self._physics())
+
+    def _window_index(self, i0):
+        """Per-axis cell indices (iz (B, wz), iy (B, wy), ix (B, wx)) of each
+        point's window."""
+        dev = i0.device
+        return tuple(i0[:, a, None] + torch.arange(w, device=dev) for a, w in enumerate(self.win))
+
+    def _corr_window(self, xs, ys, zs, i0):
+        """(B, wz, wy, wx, nmc, ndc) tiered correction rows on each point's
+        window: where(near, closed, quad3) - quad2, so that the blended
+        operator evaluates the closed forms within FAR_QUAD_RADIUS, the
+        27-point rule from there to the window's edge, and the 8-point rule
+        beyond (every cell outside the window is at least the tier-2 radius
+        away along some axis). The closed forms are evaluated in float64
+        (_in_float64)."""
+        dev = i0.device
+        iz, iy, ix = (i0[:, a, None] + torch.arange(w + 1, device=dev) for a, w in enumerate(self.win))
+        xe_w, ye_w, ze_w = self.xe[ix], self.ye[iy], self.ze[iz]
+        args = (xs, ys, zs, *self._physics())
+        edges64, *pts64 = _in_float64((xe_w, ye_w, ze_w), xs, ys, zs)
+        closed = _lattice_closed_rows(*edges64, *pts64, *self._physics()).to(xs.dtype)
+        quad3 = _lattice_quad_rows(xe_w, ye_w, ze_w, *args, order=3)
+        quad2 = _lattice_quad_rows(xe_w, ye_w, ze_w, *args, order=2)
+        X1, X2, Y1, Y2, Z1, Z2 = _lattice_bounds(xe_w, ye_w, ze_w)
+        r2 = (
+            (0.5 * (X1 + X2) - xs[:, None, None, None]) ** 2
+            + (0.5 * (Y1 + Y2) - ys[:, None, None, None]) ** 2
+            + (0.5 * (Z1 + Z2) - zs[:, None, None, None]) ** 2
+        )
+        hx, hy, hz = 0.5 * (X2 - X1), 0.5 * (Y2 - Y1), 0.5 * (Z2 - Z1)
+        near = r2 <= (prism.FAR_QUAD_RADIUS * prism.FAR_QUAD_RADIUS) * (hx * hx + hy * hy + hz * hz)
+        return torch.where(near[..., None, None], closed, quad3) - quad2
+
+    def _chunks(self):
+        return [slice(s, s + self.chunk) for s in range(0, self.xd.shape[0], self.chunk)]
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        y = (self.cw[None, :] * x.reshape(self.nmc, self.N)).reshape(self.nmc, self.nz, self.ny, self.nx)
+        out = []
+        for sl in self._chunks():
+            xs, ys, zs = self.xd[sl], self.yd[sl], self.zd[sl]
+            d = torch.einsum("bzyxkd,kzyx->bd", self._base_rows(xs, ys, zs), y)
+            if self.far_quad:
+                i0 = self.wi0[sl]
+                iz, iy, ix = self._window_index(i0)
+                yw = y[:, iz[:, :, None, None], iy[:, None, :, None], ix[:, None, None, :]]  # (nmc, B, wz, wy, wx)
+                d = d + torch.einsum("bzyxkd,kbzyx->bd", self._corr_window(xs, ys, zs, i0), yw)
+            out.append(self.row_w[sl] * d)
+        return torch.cat(out)[: self.nrows].reshape(-1)
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        u_pad = torch.zeros((self.xd.shape[0], self.ndc), dtype=u.dtype, device=u.device)
+        u_pad[: self.nrows] = u.reshape(self.nrows, self.ndc)
+        u_pad = u_pad * self.row_w
+        g = torch.zeros((self.nmc, self.nz, self.ny, self.nx), dtype=u.dtype, device=u.device)
+        for sl in self._chunks():
+            xs, ys, zs, uc = self.xd[sl], self.yd[sl], self.zd[sl], u_pad[sl]
+            g = g + torch.einsum("bd,bzyxkd->kzyx", uc, self._base_rows(xs, ys, zs))
+            if self.far_quad:
+                i0 = self.wi0[sl]
+                iz, iy, ix = self._window_index(i0)
+                contrib = torch.einsum("bzyxkd,bd->kbzyx", self._corr_window(xs, ys, zs, i0), uc)
+                k = torch.arange(self.nmc, device=g.device)[:, None, None, None, None]
+                flat = ((k * self.nz + iz[None, :, :, None, None]) * self.ny
+                        + iy[None, :, None, :, None]) * self.nx + ix[None, :, None, None, :]
+                _index_add_in_order(g.view(-1), flat.reshape(-1), contrib.reshape(-1))
+        return (self.cw[None, :] * g.reshape(self.nmc, self.N)).reshape(-1)
+
+
+def _far_points(xe, ye, ze):
+    """A point far outside a lattice (or grid) whose closed forms are finite
+    for every cell: where padding observations are parked."""
+    return float(np.max(xe)) + 1.0e6, float(np.max(ye)) + 1.0e6, float(np.min(ze)) - 1.0e6
+
+
+@dataclass
+class ShardedLatticeMatrixFreeKernel:
+    """A LatticeMatrixFreeKernel cut over the observations: the observations
+    are padded to a multiple of chunk x n (padding parked far outside the
+    lattice, row weight 0) and slot s holds the block [s*P, (s+1)*P) with
+    the whole lattice and column weight. matvec concatenates the slots'
+    data on the home device; rmatvec adds their gradients there in slot
+    order. This is the reference's data-row split of the forward
+    (sensitivity_gravmag.F90:179-189) with its summed adjoint
+    (lsqr_solver2.F90:208-214)."""
+
+    parts: list
+    nrows: int
+    ndc: int
+    mesh: object  # parallel.mesh.Mesh
+
+    @classmethod
+    def shard(cls, k: LatticeMatrixFreeKernel, mesh) -> "ShardedLatticeMatrixFreeKernel":
+        slots = mesh.slots
+        n = len(slots)
+        nd_pad = -(-k.nrows // (k.chunk * n)) * (k.chunk * n)
+        per = nd_pad // n
+        xe, ye, ze = (a.cpu().double().numpy() for a in (k.xe, k.ye, k.ze))
+        far = _far_points(xe, ye, ze)
+
+        def repad(a, fill):
+            out = np.full(nd_pad, fill)
+            out[: k.nrows] = a[: k.nrows].cpu().double().numpy()
+            return out
+
+        xd, yd, zd = repad(k.xd, far[0]), repad(k.yd, far[1]), repad(k.zd, far[2])
+        rw = torch.zeros((nd_pad, k.ndc), dtype=k.row_w.dtype, device=k.row_w.device)
+        rw[: k.nrows] = k.row_w[: k.nrows]
+        win = wi0 = None
+        if k.far_quad:
+            # The windows of the re-padded observations at the tier-2 radius
+            # of the factory: the near radius here would collapse the
+            # middle tier on meshed runs (the JAX package's round-5 fault).
+            win, wi0 = lattice_near_window(xe, ye, ze, xd, yd, zd, radius=tier2_radius(k.problem, k.data_type))
+        dt = k.xd.dtype
+        parts = []
+        for s, dev in enumerate(slots):
+            sl = slice(s * per, (s + 1) * per)
+
+            def put(a):
+                return torch.as_tensor(a[sl], dtype=dt, device=dev)
+
+            parts.append(dataclasses.replace(
+                k, xe=k.xe.to(dev), ye=k.ye.to(dev), ze=k.ze.to(dev), xd=put(xd), yd=put(yd), zd=put(zd),
+                cw=k.cw.to(dev), row_w=rw[sl].to(dev), nrows=per, win=win,
+                wi0=None if wi0 is None else torch.as_tensor(wi0[sl], dtype=torch.int64, device=dev),
+            ))
+        return cls(parts, k.nrows, k.ndc, mesh)
+
+    @property
+    def ncols(self) -> int:
+        return self.parts[0].ncols
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        home = self.mesh.home
+        d = torch.cat([p.matvec(x.to(p.cw.device)).to(home) for p in self.parts])
+        return d[: self.nrows * self.ndc]
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        home = self.mesh.home
+        per = self.parts[0].nrows
+        u_pad = torch.zeros((per * len(self.parts), self.ndc), dtype=u.dtype, device=home)
+        u_pad[: self.nrows] = u.reshape(self.nrows, self.ndc)
+        g = None
+        for s, p in enumerate(self.parts):
+            part = p.rmatvec(u_pad[s * per : (s + 1) * per].reshape(-1).to(p.cw.device)).to(home)
+            g = part if g is None else g + part
+        return g
+
+    def slot_bytes(self) -> list:
+        return [p.nbytes for p in self.parts]
+
+
+# =============================================================================
+# The factory
+# =============================================================================
+
+
+def make_matrixfree_kernel(
+    par, grid, data, column_weight, problem_weight, data_weight, dtype=torch.float32,
+    chunk=None, pad_cells_to: int = 1, validate: bool = True,
+    force_generic: bool = False, force_no_fft: bool = False, device="cuda",
+):
+    """Build the operator from the problem description (no kernel storage)
+    on `device`.
+
+    The fastest operator that applies wins: the FFT/BTTB operator
+    (ops/bttb.py; a lattice grid with uniform x/y spacing and observations
+    on a commensurate lattice at one height), then the corner-lattice
+    operator on any tensor-product grid whose physics it covers, else the
+    per-cell MatrixFreeKernel. force_no_fft skips the FFT operator,
+    force_generic both fast ones (tests).
+
+    pad_cells_to > 1 zero-pads the per-cell operator's cell axis to that
+    multiple (dummy far prisms with cw = 0) so that it shards over a mesh of
+    that size for any N (parallel/mesh.py::shard_kernel).
+
+    validate=True runs one probe matvec at construction and aborts on
+    non-finite output, as the stored build does on a boundary-coincident
+    observation point (gravity_field.f90:99-107).
+
+    In float32 the lattice and per-cell operators blend in the far-field
+    quadrature (tpu.farFieldQuad, on by default) at every size: the JAX
+    package turns the per-cell blend off above 2M cells off the CPU
+    (GENERIC_BLEND_MAX_CELLS), for a TPU worker crash."""
+    from tomofastx_tpu_torch.config.parfile import MagParams
+    from tomofastx_tpu_torch.ops.sensitivity import observation_inside_grid
+
+    if par.compression_type > 0:
+        raise ValueError("matrix-free mode requires forward.matrixCompression.type = 0")
+    device = torch.device(device)
+
+    far_quad = bool(getattr(par, "far_field_quad", 1) and dtype == torch.float32)
+    if isinstance(par, MagParams):
+        phys = _Physics(
+            problem="magn", data_type=1, nmc=par.nmodel_components, ndc=par.ndata_components,
+            magv=prism.dircos(par.mi, par.md, par.theta), intensity=par.intensity,
+            handle_inside=observation_inside_grid(grid, data), far_quad=far_quad,
+        )
+    else:
+        phys = _Physics(
+            problem="grav", data_type=par.data_type, nmc=1, ndc=par.ndata_components,
+            magv=(0.0, 0.0, 1.0), intensity=0.0, handle_inside=False, far_quad=far_quad,
+        )
+
+    def probe(op):
+        if validate:
+            y = op.matvec(torch.ones((op.ncols,), dtype=dtype, device=device))
+            if not bool(torch.isfinite(y).all()):
+                raise ValueError(PROBE_ABORT)
+        return op
+
+    # The FFT/BTTB operator: exact physics (float64-built offset table) at
+    # O(nz P log P) per product; it shards over z-layers, no cell padding.
+    if not force_generic and not force_no_fft:
+        from tomofastx_tpu_torch.ops.bttb import detect_bttb, make_bttb_kernel
+
+        geom = detect_bttb(grid, data, nmc=phys.nmc, ndc=phys.ndc)
+        if geom is not None:
+            return make_bttb_kernel(phys, geom, grid, column_weight, problem_weight, data_weight, dtype,
+                                    device=device)
+
+    N = grid.nelements_total
+    nd = par.ndata
+    if chunk is None:
+        # The JAX package's rule, sized on a TPU v5e (its chunk sweep
+        # measured 128 fastest there); kept for parity.
+        chunk = max(8, min(128, (1 << 26) // max(N * phys.nmc * phys.ndc, 1)))
+    nd_pad = -(-nd // chunk) * chunk
+    # Padding rows must evaluate to finite numbers (a corner-touching point
+    # yields log(0), and 0 * nan = nan): park them far outside the volume.
+    far = (float(np.max(grid.X2)) + 1.0e6, float(np.max(grid.Y2)) + 1.0e6, float(np.min(grid.Z1)) - 1.0e6)
+
+    def pad(a, fill):
+        out = np.full(nd_pad, fill)
+        out[:nd] = a
+        return out
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    row_w = np.zeros((nd_pad, phys.ndc))
+    row_w[:nd] = problem_weight * np.asarray(data_weight).reshape(nd, phys.ndc)
+    xd_p, yd_p, zd_p = pad(data.X, far[0]), pad(data.Y, far[1]), pad(data.Z, far[2])
+
+    # The corner-lattice operator: g_z and FTG, and every magnetic
+    # combination but the borehole branch, which is per-cell. It needs no
+    # cell padding under a mesh: it shards over the observations.
+    lattice_ok = not force_generic and (
+        (phys.problem == "grav" and phys.nmc == 1) or (phys.problem == "magn" and not phys.handle_inside)
+    )
+    if lattice_ok:
+        lat = detect_lattice(grid)
+        if lat is not None:
+            xe, ye, ze = lat
+            win = wi0 = None
+            if phys.far_quad:
+                # The window reaches the tier-2 radius, where the cheap 2^3
+                # rule becomes accurate.
+                win, wi0 = lattice_near_window(
+                    xe, ye, ze, xd_p, yd_p, zd_p, radius=tier2_radius(phys.problem, phys.data_type)
+                )
+                wi0 = t(wi0, torch.int64)
+            return probe(LatticeMatrixFreeKernel(
+                xe=t(xe), ye=t(ye), ze=t(ze), xd=t(xd_p), yd=t(yd_p), zd=t(zd_p),
+                cw=t(column_weight), row_w=t(row_w), chunk=chunk, nrows=nd,
+                nx=grid.nx, ny=grid.ny, nz=grid.nz, problem=phys.problem, magv=phys.magv,
+                intensity=phys.intensity, nmc=phys.nmc, ndc=phys.ndc, data_type=phys.data_type,
+                far_quad=phys.far_quad, win=win, wi0=wi0,
+            ))
+
+    # Cell padding: dummy unit prisms far outside the model volume (finite
+    # closed forms for every real observation point) with cw = 0.
+    N_pad = -(-N // pad_cells_to) * pad_cells_to
+    ncpad = N_pad - N
+
+    def pad_cells(a, base):
+        out = np.empty(N_pad)
+        out[:N] = a
+        out[N:] = base + 10.0 * np.arange(ncpad)  # spread along x: no two coincide
+        return t(out)
+
+    fx = float(np.max(grid.X2)) + 2.0e6
+    fy = float(np.max(grid.Y2)) + 2.0e6
+    fz = float(np.max(grid.Z2)) + 2.0e6
+    grid6 = (
+        pad_cells(grid.X1, fx), pad_cells(grid.X2, fx + 1.0),
+        pad_cells(grid.Y1, fy), pad_cells(grid.Y2, fy + 1.0),
+        pad_cells(grid.Z1, fz), pad_cells(grid.Z2, fz + 1.0),
+    )
+    cw_pad = np.zeros(N_pad)
+    cw_pad[:N] = np.asarray(column_weight)
+    xd_t, yd_t, zd_t = t(xd_p), t(yd_p), t(zd_p)
+    near_idx = near_cell_indices(grid6, xd_t, yd_t, zd_t) if phys.far_quad else None
+    return probe(MatrixFreeKernel(
+        grid6=grid6, xd=xd_t, yd=yd_t, zd=zd_t, cw=t(cw_pad), row_w=t(row_w), phys=phys,
+        chunk=chunk, nrows=nd, N_true=N, near_idx=near_idx,
+    ))

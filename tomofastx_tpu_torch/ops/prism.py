@@ -425,6 +425,155 @@ def magprism_row(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, magv, intensity,
     return combine_mag_tensor(tx, ty, tz, magv, intensity, nmodel_components, ndata_components)
 
 
+# ---------------------------------------------------------------------------
+# Far-field Gauss-Legendre quadrature (the compensated-float32 blend).
+#
+# The closed-form prism kernels are 8-corner sign-alternating sums whose
+# cancellation amplifies rounding by ~(R/h)^3 (the alternating sum is a third
+# difference of the corner antiderivative): at R/h = 100 a float32 evaluation
+# has lost all significant bits. The reference computes them in double for
+# this reason (gravity_field.f90:41-126). The stable float32 form is to stop
+# differencing: for a far cell, integrate the smooth point-source integrand
+# with a fixed Gauss-Legendre rule. A 3x3x3 rule's truncation error on these
+# kernels is O((h/2R)^6): at the blend radius R = 4 half-diagonals both the
+# float32 closed form and the quadrature sit at ~1e-5 relative, and the
+# quadrature's error falls with distance while the closed form's grows.
+# ---------------------------------------------------------------------------
+
+# 3-point Gauss-Legendre nodes and weights on [-1, 1].
+_GL3 = (
+    (-math.sqrt(3.0 / 5.0), 5.0 / 9.0),
+    (0.0, 8.0 / 9.0),
+    (math.sqrt(3.0 / 5.0), 5.0 / 9.0),
+)
+
+# 2-point rule: the cheap far tier of the tiered lattice blend (8 rsqrt
+# passes per cell instead of 27). Truncation error ~C (h/2R)^4.
+_GL2 = (
+    (-1.0 / math.sqrt(3.0), 1.0),
+    (1.0 / math.sqrt(3.0), 1.0),
+)
+
+_RULES = {2: _GL2, 3: _GL3}
+
+# Blend radius in cell half-diagonals: cells whose centre lies farther than
+# FAR_QUAD_RADIUS * d use the quadrature, nearer cells the closed form.
+FAR_QUAD_RADIUS = 4.0
+
+# Tier-2 radius: beyond it the 2^3 rule replaces the 3^3 rule in the
+# corner-lattice blended operator. The JAX package calibrated them on a
+# 100x100x50 m prism against the float64 closed forms:
+#     r/halfdiag:      8        12       16       20
+#     g_z   GL2 err:   1.2e-5   2.4e-6   7.6e-7   3.1e-7
+#     Gzz   GL2 err:   6.6e-5   1.3e-5   4.1e-6   1.7e-6
+# At these radii the 2^3 rule's error matches the 3^3 rule's at the near
+# radius 4 and falls as r^-4 beyond; the 1/r^5 tensor kernels (FTG,
+# magnetics) need the larger radius.
+FAR_QUAD2_RADIUS_GZ = 12.0
+FAR_QUAD2_RADIUS_TENSOR = 16.0
+
+
+def _quad_accumulate(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, point_fn, n_out, order=3):
+    """sum_i w_i * point_fn(source_i - obs) * V/8 over an order^3 Gauss rule.
+
+    point_fn maps relative source coordinates (x, y, z) = (source - obs) to
+    a tuple of n_out integrand tensors; returns a tuple of per-cell
+    integrals. The order is 2 or 3; any other order raises ValueError (the
+    JAX package takes any order but 3 as 2)."""
+    if order not in _RULES:
+        raise ValueError(f"Gauss-Legendre quadrature of order {order}: only orders 2 and 3 exist here")
+    rule = _RULES[order]
+    cx, hx = 0.5 * (X1 + X2), 0.5 * (X2 - X1)
+    cy, hy = 0.5 * (Y1 + Y2), 0.5 * (Y2 - Y1)
+    cz, hz = 0.5 * (Z1 + Z2), 0.5 * (Z2 - Z1)
+    acc = [0.0] * n_out
+    for u, wu in rule:
+        for v, wv in rule:
+            for w, ww in rule:
+                x = cx + u * hx - xd
+                y = cy + v * hy - yd
+                z = cz + w * hz - zd
+                vals = point_fn(x, y, z)
+                wgt = wu * wv * ww
+                for i in range(n_out):
+                    acc[i] = acc[i] + wgt * vals[i]
+    vol8 = hx * hy * hz  # cell volume / 8 (the weights sum to 2 per axis)
+    return tuple(a * vol8 for a in acc)
+
+
+def _second_derivatives(x, y, z):
+    """(3 r_i r_j - r^2 d_ij) / r^5 in the order (xx, yy, zz, xy, yz, zx)."""
+    r2 = x * x + y * y + z * z
+    inv_r = torch.rsqrt(r2)
+    ir2 = inv_r * inv_r
+    inv_r5 = ir2 * ir2 * inv_r
+    return (
+        (3.0 * x * x - r2) * inv_r5,
+        (3.0 * y * y - r2) * inv_r5,
+        (3.0 * z * z - r2) * inv_r5,
+        3.0 * x * y * inv_r5,
+        3.0 * y * z * inv_r5,
+        3.0 * x * z * inv_r5,
+    )
+
+
+def gravi_z_quad(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, order=3):
+    """Far-field g_z by quadrature of the point-mass integrand
+    G (z_s - z_o) / r^3 (positive toward a source below in Z-down space, as
+    gravi_z)."""
+
+    def f(x, y, z):
+        ir = torch.rsqrt(x * x + y * y + z * z)
+        return (z * (ir * ir * ir),)
+
+    (gz,) = _quad_accumulate(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, f, 1, order=order)
+    return G_GRAV * gz
+
+
+def gradi_zz_quad(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, order=3):
+    """Far-field Gzz by quadrature of G (3 z^2 - r^2) / r^5 (signs as
+    gradi_zz)."""
+
+    def f(x, y, z):
+        r2 = x * x + y * y + z * z
+        inv_r = torch.rsqrt(r2)
+        ir2 = inv_r * inv_r
+        return ((3.0 * z * z - r2) * (ir2 * ir2 * inv_r),)
+
+    (gzz,) = _quad_accumulate(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, f, 1, order=order)
+    return G_GRAV * gzz
+
+
+def gradi_full_quad(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, order=3):
+    """Far-field FTG tensor (Gxx, Gyy, Gzz, Gxy, Gyz, Gzx) by quadrature of
+    the Newtonian second-derivative tensor; component signs as gradi_full."""
+    comps = _quad_accumulate(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, _second_derivatives, 6, order=order)
+    return tuple(G_GRAV * t for t in comps)
+
+
+def magnetic_tensor_quad(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, order=3):
+    """Far-field magnetic tensor rows by quadrature of the dipole kernel
+    (Sharma 1966's closed form is its prism integral), in sharmbox's layout
+    ((txx, txy, txz), (tyx, tyy, tyz), (tzx, tzy, tzz))."""
+    xx, yy, zz, xy, yz, zx = _quad_accumulate(
+        xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, _second_derivatives, 6, order=order
+    )
+    return (xx, xy, zx), (xy, yy, yz), (zx, yz, zz)
+
+
+def far_mask(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, radius=None):
+    """Per cell: centre distance > radius * half-diagonal (the blend's
+    decision)."""
+    if radius is None:
+        radius = FAR_QUAD_RADIUS
+    cx, hx = 0.5 * (X1 + X2), 0.5 * (X2 - X1)
+    cy, hy = 0.5 * (Y1 + Y2), 0.5 * (Y2 - Y1)
+    cz, hz = 0.5 * (Z1 + Z2), 0.5 * (Z2 - Z1)
+    r2 = (cx - xd) ** 2 + (cy - yd) ** 2 + (cz - zd) ** 2
+    d2 = hx * hx + hy * hy + hz * hz
+    return r2 > (radius * radius) * d2
+
+
 def validate_finite(name: str, arr):
     """Guard replacing the reference's in-loop aborts on boundary-touching
     observation points (gravity_field.f90:99-107). Takes a numpy array or

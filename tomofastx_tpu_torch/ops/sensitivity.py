@@ -212,26 +212,58 @@ class SensitKernel:
 
 
 def forward_rows(problem: str, data_type: int, nmc: int, ndc: int, magv, intensity,
-                 handle_inside: bool, grid_arrays, xd, yd, zd):
+                 handle_inside: bool, grid_arrays, xd, yd, zd, far_quad: bool = False):
     """Raw physics rows for a batch of observation points xd, yd, zd of
     shape (B,) -> (B, N, nmodel_components, ndata_components). The physics
-    dispatch of the per-cell build (reference:
-    sensitivity_gravmag.F90:193-219)."""
+    dispatch shared by the per-cell build and the matrix-free operators
+    (reference: sensitivity_gravmag.F90:193-219). The cell bounds are (N,),
+    or (B, K) for K cells of each point's own.
+
+    far_quad=True is the compensated-float32 blend: cells farther than
+    prism.FAR_QUAD_RADIUS half-diagonals take the 27-point Gauss-Legendre
+    quadrature of the smooth point-source integrand instead of the closed
+    form, whose 8-corner alternating sum turns float32 rounding into noise
+    in the far field. Meant for float32; the float64 closed forms carry
+    enough mantissa everywhere."""
     X1, X2, Y1, Y2, Z1, Z2 = grid_arrays
     xd, yd, zd = xd[:, None], yd[:, None], zd[:, None]
     if problem == "magn":
-        return prism.magprism_row(
+        rows = prism.magprism_row(
             xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2, magv, intensity,
             nmodel_components=nmc, ndata_components=ndc, handle_inside=handle_inside,
         )
-    if data_type == 1:
-        return prism.gravi_z(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)[:, :, None, None]
-    if ndc == 1:
-        return prism.gradi_zz(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)[:, :, None, None]
-    if ndc != 6:
+    elif data_type == 1:
+        rows = prism.gravi_z(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)[:, :, None, None]
+    elif ndc == 1:
+        rows = prism.gradi_zz(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)[:, :, None, None]
+    elif ndc != 6:
         # Reference: sensitivity_gravmag.F90:211.
         raise ValueError("Wrong number of gravity gradiometry data components! (use 1 or 6)")
-    comps = prism.gradi_full(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)
+    else:
+        comps = prism.gradi_full(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)
+        rows = torch.stack(comps, dim=-1)[:, :, None, :]
+    if far_quad:
+        quad = _forward_rows_quad(problem, data_type, nmc, ndc, magv, intensity, grid_arrays,
+                                  xd[:, 0], yd[:, 0], zd[:, 0])
+        mask = prism.far_mask(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)
+        rows = torch.where(mask[..., None, None], quad, rows)
+    return rows
+
+
+def _forward_rows_quad(problem: str, data_type: int, nmc: int, ndc: int, magv, intensity,
+                       grid_arrays, xd, yd, zd):
+    """Far-field quadrature counterpart of forward_rows (same shapes), by
+    the 27-point Gauss-Legendre rule."""
+    X1, X2, Y1, Y2, Z1, Z2 = grid_arrays
+    xd, yd, zd = xd[:, None], yd[:, None], zd[:, None]
+    if problem == "magn":
+        tx, ty, tz = prism.magnetic_tensor_quad(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)
+        return prism.combine_mag_tensor(tx, ty, tz, magv, intensity, nmc, ndc)
+    if data_type == 1:
+        return prism.gravi_z_quad(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)[:, :, None, None]
+    if ndc == 1:
+        return prism.gradi_zz_quad(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)[:, :, None, None]
+    comps = prism.gradi_full_quad(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2)
     return torch.stack(comps, dim=-1)[:, :, None, :]
 
 
@@ -365,10 +397,10 @@ def compute_sensitivity(
     distinct cards the caller passes the host as `device`
     (parallel.mesh.assembly_device), so that no card holds the whole
     kernel."""
-    if compute_dtype != torch.float64 and getattr(par, "far_field_quad", 1):
+    if compute_dtype != torch.float64:
         raise NotImplementedError(
-            "a float32 build blends in far-field quadrature (tpu.farFieldQuad), which is not ported "
-            "yet (ROADMAP queue 1 item 5)"
+            "a float32 kernel build (--build-precision single) is not ported yet (ROADMAP queue 1 "
+            "item 5); the port builds in float64"
         )
     if getattr(par, "f64_build_f32_compress", 0):
         raise NotImplementedError("tpu.f64BuildF32Compress is not ported yet (ROADMAP queue 1 item 5)")

@@ -1,4 +1,4 @@
-"""Device mesh and the cells-sharded placement of the stored operators.
+"""Device mesh and the sharded placement of the sensitivity operators.
 
 Counterpart of tomofastx_tpu/parallel/mesh.py. The reference parallelizes
 with MPI: data rows split over ranks for the build (sensitivity_gravmag.F90:
@@ -132,8 +132,8 @@ def obs_axis(mesh: Mesh):
 
 
 def shard_kernel(k, mesh: Mesh):
-    """Place a stored sensitivity operator with its cells axis sharded over
-    the mesh. The result takes and returns vectors on mesh.home.
+    """Place a sensitivity operator over the slots of the mesh. The result
+    takes and returns vectors on mesh.home.
 
     - DenseKernel: columns zero-padded to a multiple of the cells axis and
       cut into column blocks; on a 2-D mesh the rows are cut over the obs
@@ -143,11 +143,23 @@ def shard_kernel(k, mesh: Mesh):
       column axis and the light pack along its leading axis.
     - TileKernel: both packs cut along their tile axis, one part per slot;
       every product runs tile_matvec_sharded.
+    - MatrixFreeKernel: cells-sharded, its (padded) cells split over the
+      slots (build it with pad_cells_to = the slot count).
+    - BTTBKernel: the frequency table split by z-layers when the slots
+      divide nz, each slot's spectrum summed on the home device; else
+      replicated on every slot and run on the home slot's copy.
+    - LatticeMatrixFreeKernel: observation-sharded, re-padded to a multiple
+      of chunk x slots, with the windows recomputed at the tier-2 radius.
 
-    A kernel already sharded over this mesh comes back as it is. Other
-    operator types are refused: the matrix-free and lattice operators come
-    with their own slice (ROADMAP queue 1 item 7), the BTTB operator with
-    item 8."""
+    A kernel already sharded over this mesh comes back as it is; any other
+    type raises NotImplementedError."""
+    from tomofastx_tpu_torch.ops.bttb import BTTBKernel, ShardedBTTBKernel
+    from tomofastx_tpu_torch.ops.matrixfree import (
+        LatticeMatrixFreeKernel,
+        MatrixFreeKernel,
+        ShardedLatticeMatrixFreeKernel,
+        ShardedMatrixFreeKernel,
+    )
     from tomofastx_tpu_torch.ops.sparse_kernel import (
         DenseKernel,
         PackedKernel,
@@ -156,7 +168,9 @@ def shard_kernel(k, mesh: Mesh):
     )
     from tomofastx_tpu_torch.ops.tile_kernel import ShardedTileKernel, TileKernel
 
-    if isinstance(k, (ShardedDenseKernel, ShardedPackedKernel, ShardedTileKernel)):
+    sharded = (ShardedDenseKernel, ShardedPackedKernel, ShardedTileKernel, ShardedMatrixFreeKernel,
+               ShardedBTTBKernel, ShardedLatticeMatrixFreeKernel)
+    if isinstance(k, sharded):
         if k.mesh is not mesh:
             raise ValueError("the kernel is already sharded over another mesh")
         return k
@@ -167,11 +181,13 @@ def shard_kernel(k, mesh: Mesh):
         return ShardedPackedKernel.shard(k, mesh.slots, mesh)
     if isinstance(k, TileKernel):
         return ShardedTileKernel.shard(k, mesh.slots, mesh)
-    raise NotImplementedError(
-        f"shard_kernel: {type(k).__name__} is not a stored-kernel operator of this package; the "
-        "matrix-free and lattice operators are ported with ROADMAP queue 1 item 7, the BTTB "
-        "operator with item 8"
-    )
+    if isinstance(k, MatrixFreeKernel):
+        return ShardedMatrixFreeKernel.shard(k, mesh)
+    if isinstance(k, BTTBKernel):
+        return ShardedBTTBKernel.shard(k, mesh)
+    if isinstance(k, LatticeMatrixFreeKernel):
+        return ShardedLatticeMatrixFreeKernel.shard(k, mesh)
+    raise NotImplementedError(f"shard_kernel: {type(k).__name__} is not a sensitivity operator of this package")
 
 
 def shard_system_arrays(arrays: dict, mesh: Mesh) -> dict:
