@@ -5,10 +5,11 @@
 
 It needs one CUDA device, nvcc and nothing from the network. It
 
-1. builds the two hand-written kernels (tile_matvec, blocked_matvec) from
-   tomofastx_tpu_torch/csrc/, both compilers started together;
+1. builds the hand-written kernels (tile_matvec, blocked_matvec and the
+   bfloat16 GEMV pair of kernel B1) from tomofastx_tpu_torch/csrc/, one
+   compiler a source, all started together;
 2. holds each kernel against its plain PyTorch version on a random ragged
-   layout;
+   layout (B1: on bfloat16 matrices with and without 16-byte aligned rows);
 3. writes a full-width synthetic gravity problem (4096 observations x 262144
    cells on a 64x64x64 lattice, Haar compression at rate 0.15, damping,
    3-lithology ADMM, 3 majors x 20 LSQR iterations, float64 build stored
@@ -37,7 +38,12 @@ It needs one CUDA device, nvcc and nothing from the network. It
    blocked_matvec against its plain version on both, times it the same way,
    and drives it through the port's forward-data and LSQR entry points,
    counting its launches;
-7. times matvec and rmatvec of the three operators at full width;
+7. times matvec and rmatvec of the three operators at full width; then casts
+   the dense matrix to bfloat16 and holds kernel B1 (bf16_matvec,
+   bf16_rmatvec) against its plain version, timed beside its bytes bound,
+   the plain version, torch.mv on the bfloat16 matrix with a bfloat16
+   vector and torch.mv on the float32 matrix (yardsticks of other
+   functions: no PyTorch call computes this one);
 8. solves the problem again from the tiled run's cache through
    solve_problem_joint_gravmag with the same four-slot mesh, tiled (equal to
    the last bit to the unmeshed solve) and dense (four column partials,
@@ -108,7 +114,22 @@ It needs one CUDA device, nvcc and nothing from the network. It
    rmatvec beside the bytes it holds;
 23. seven small float64 matrix-free problems (BTTB g_z and FTG, lattice g_z
    and TMI, per-cell g_z and borehole TMI, lattice g_z over four slots of the
-   card) on the card against the CPU.
+   card) on the card against the CPU;
+24. tpu.kernelStoreDtype = bfloat16 through the command-line entry point: the
+   dense kernel built straight into bfloat16 (no cache written), every product
+   through kernel B1 (launches counted), --mesh 1 to the last bit, against
+   the float32 dense run of 3 (peak memory beside its);
+25. the tiled main path built three ways, --build-precision single,
+   --fast-build 64 and --f32-compress, each cache's Frobenius distance from
+   the float64-built cache of 3;
+26. tpu.refineForward = 1 on the tiled path, the forward in the solve's
+   precision and in float64 (tpu.refineForwardPrecision = double: the BTTB
+   operator on complex128 FFTs), the latter with --mesh 1 to the last bit;
+   the predicted data against a dense uncompressed forward of the final
+   model;
+27. five small float64 problems of these variants (bfloat16 dense, float32
+   build, mixed build, float32 compression, refineForward) on the card
+   against the CPU.
 
 Any failed phase ends the run with a non-zero exit code. Without a CUDA
 device it exits with code 2 and prints no result. The last line of a good run
@@ -150,6 +171,7 @@ RTOL_F32, RTOL_F64 = 1e-5, 1e-12
 TOP_BLOCKS = 256  # slots per row of the second row-block layout
 JOINT_HEIGHT = 80.0  # m: the joint survey is airborne
 DENSE_SAID = r"{p} kernel: dense \({rows}, " + str(NX * NY * NZ) + r"\) torch\.float32"
+DENSE_BF16_SAID = r"grav kernel: dense \(" + str(NDATA) + ", " + str(NX * NY * NZ) + r"\) torch\.bfloat16"
 # The three formats hold the same float32 matrix and differ in the order of
 # their float32 sums, which 3 majors x 20 float32 LSQR iterations amplify: an
 # H100 read 2.0e-4 of the model's range and 5.4e-2 of the (small) data cost
@@ -198,6 +220,11 @@ def time_cuda(fn, warm=3, reps=20):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def launched(launches, **want):
+    """Whether a run's launch counts are `want`, and 0 for every other kernel."""
+    return launches == {k: want.get(k, 0) for k in launches}
 
 
 def compare(what, got, want, rtol):
@@ -426,28 +453,31 @@ def read_costs(path):
 
 def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_written=True, mesh=None, kind="grav",
                   what=f"{NDATA} observations", depth=(N_MAJOR, N_MINOR), ncells=NX * NY * NZ,
-                  compression="Haar rate 0.15"):
+                  compression="Haar rate 0.15", args=()):
     """One run of the command-line entry point on the card (with --mesh
-    `mesh` when given), with every kernel's count set to 0 just before and
-    read just after; then the checks of its log and its outputs, for every
-    problem of `kind`. depth: the Parfile's (majors, minors). Returns what
-    the run left to report."""
+    `mesh` when given, and the further command-line `args`), with every
+    kernel's count set to 0 just before and read just after; then the checks
+    of its log and its outputs, for every problem of `kind`. depth: the
+    Parfile's (majors, minors). Returns what the run left to report."""
     n_major, n_minor = depth
     print(f"{name} main path: {what} x {ncells} cells, {compression}, "
-          f"{n_major} majors x {n_minor} minors, f32 solve on cuda" + (f", --mesh {mesh}" if mesh else ""))
+          f"{n_major} majors x {n_minor} minors, f32 solve on cuda" + (f", --mesh {mesh}" if mesh else "")
+          + (f", {' '.join(args)}" if args else ""))
     torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated() / 1e9
     tee = Tee(sys.stdout)
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
     with contextlib.redirect_stdout(tee):
-        rc = cli.main(["-p", parfile, "--device", "cuda"] + (["--mesh", mesh] if mesh else []))
+        rc = cli.main(["-p", parfile, "--device", "cuda"] + (["--mesh", mesh] if mesh else []) + list(args))
     torch.cuda.synchronize()
     run = {"main_path_s": time.time() - t0, "launches": {k: fn.launches for k, fn in counters.items()}}
     if rc != 0:
         raise SystemExit(f"FAILED {name} main path: cli.main returned {rc}")
     log = tee.kept.getvalue()
     run["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    run["held_before_GB"] = held_before
 
     run["lsqr_iterations"] = [int(v) for v in re.findall(r"lsqr iters = (\d+)", log)]
     run["major_s"] = [float(v) for v in re.findall(r"iter done in ([0-9.]+)s", log)]
@@ -464,7 +494,8 @@ def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_writte
         raise SystemExit(f"FAILED {name} main path: LSQR iterations {run['lsqr_iterations']}")
     said = [f"{k} = {run[k]}" for k in must_say if k in run] + [f"builds {run['builds_s']} s", f"packs {run['packs_s']} s"]
     print(f"  {name} main path took {run['main_path_s']:.1f} s: " + ", ".join(said)
-          + f", majors {run['major_s']} s; peak device memory {run['peak_device_GB']:.2f} GB; "
+          + f", majors {run['major_s']} s; peak device memory {run['peak_device_GB']:.2f} GB "
+          f"({held_before:.2f} GB held before the run); "
           f"launches {run['launches']}")
 
     run.update(check_outputs(name, out_dir, kind, ncells, sensit_written, n_major))
@@ -602,7 +633,7 @@ def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters, kind="g
 
 
 def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None, swap=None, mesh=None,
-                                   operator=None, **parfile_args):
+                                   operator=None, solve_kw=None, model_tol=1e-6, **parfile_args):
     """A small problem of `kind` on the card (float64 solve, so the float64
     variants of the kernels and products carry it) against the same problem
     on the CPU: every active problem's final model within 1e-6 of its range,
@@ -610,7 +641,9 @@ def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None,
     the files they name) after the inputs are written; swap maps an input
     to another of write_inputs' (e.g. {"data": "data_draped"}); mesh is the
     card run's (a Mesh of the card's slots); operator, the matrix-free class
-    both runs must log."""
+    both runs must log; solve_kw, further arguments of both solves (the
+    build's precision or its float64 near field); model_tol, the model's
+    tolerance (of its range) where it is not 1e-6."""
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
 
@@ -627,7 +660,7 @@ def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None,
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             res[dev] = solve_problem_joint_gravmag(read_parfile(pf), solve_dtype=torch.float64, device=dev,
-                                                   mesh=mesh if dev == "cuda" else None)
+                                                   mesh=mesh if dev == "cuda" else None, **(solve_kw or {}))
         if operator is not None and f"kernel: matrix-free ({operator}," not in log.getvalue():
             raise SystemExit(f"FAILED small problem ({what}): the {dev} run did not take {operator}")
     worst = 0.0
@@ -637,8 +670,8 @@ def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None,
         ca, cb = res["cpu"].cost_data[i], res["cuda"].cost_data[i]
         print(f"  small problem ({what}, {('grav', 'mag')[i]}; 16x16x8 cells, 64 observations, f64 solve), card "
               f"against CPU: final model {a.shape} differs by {rel:.3e} of its range, data cost {cb:.6e} against "
-              f"{ca:.6e} (tolerance 1e-6)")
-        if not rel <= 1e-6 or not abs(cb - ca) <= 1e-6 or not cb < 1.0:
+              f"{ca:.6e} (tolerance {model_tol:g} of the range for the model, 1e-6 for the cost)")
+        if not rel <= model_tol or not abs(cb - ca) <= 1e-6 or not cb < 1.0:
             raise SystemExit(f"FAILED small problem ({what}): card against CPU")
         worst = max(worst, rel)
     return worst
@@ -1137,10 +1170,10 @@ def phase_17(cli, counters, tmv, work):
 # ---------------------------------------------------------------------------
 
 # The matrix-free solves' depths, cut to fit the script's time: one product
-# takes ~0.3-0.5 s on the lattice operator and ~1.4 s on the per-cell one at
+# takes ~0.3-0.6 s on the lattice operator and ~1.4 s on the per-cell one at
 # 4096 x 262144 (PERF.md), against ~0.5 ms on the BTTB operator.
-LATTICE_DEPTH = (2, 2)
-GENERIC_DEPTH = (2, 1)
+LATTICE_DEPTH = (2, 1)
+GENERIC_DEPTH = (1, 1)
 # JAX's bounds for its blended float32 operators against float64: a whole
 # row (tests/test_matrixfree.py:1065) and a product (:570, :999).
 ROW_BLEND_RTOL, PRODUCT_BLEND_RTOL = 2e-5, 5e-5
@@ -1456,6 +1489,259 @@ def phase_23(work, mesh4):
                                                  compression=0, **kw) for name, what, kw in cases}
 
 
+# ---------------------------------------------------------------------------
+# Kernel B1 and phases 24-27: the build and storage variants, refineForward.
+# ---------------------------------------------------------------------------
+
+# A bfloat16 kernel holds 8 bits of each entry (2^-9 relative rounding),
+# which the 3 majors x 20 float32 LSQR iterations carry into the model: the
+# bfloat16 main path is held to the formats' tolerance against the float32
+# dense run where it meets it, and otherwise to BF16_MODEL_TOL of the range
+# (five times the formats', for entries 2^15 times coarser than float32's),
+# with the reading printed either way.
+BF16_MODEL_TOL = 1e-2
+# The kernels of the three builds against the float64-built cache: the
+# bound of tests/test_matrixfree.py:156-183 (Frobenius, of the norm).
+BUILD_FROBENIUS_RTOL = 1e-3
+FAST_BUILD_K = 64
+
+
+def frobenius(a, b=None, rows=256):
+    """||a - b||_F (or ||a||_F) of two float32 or bfloat16 matrices on the
+    card, summed in float64 a block of rows at a time."""
+    total = 0.0
+    for s in range(0, a.shape[0], rows):
+        blk = a[s : s + rows].double()
+        if b is not None:
+            blk -= b[s : s + rows].double()
+        total += float((blk * blk).sum())
+    return total ** 0.5
+
+
+def measure_bf16_gemv(S32):
+    """Kernel B1 (csrc/bf16_gemv.cu) on the full-width matrix cast to
+    bfloat16: each product against its plain version (f32 and f64 vectors),
+    two launches equal to the last bit, and its time beside the bytes bound,
+    the plain version and two torch.mv yardsticks that compute other
+    functions: torch.mv on the bfloat16 S with the vector cast to bfloat16
+    (the same bytes; a rounded vector and bfloat16 sums), and torch.mv on
+    the float32 matrix (twice the bytes). No PyTorch call computes this
+    function, so library_ms is null."""
+    from tomofastx_tpu_torch.ops import bf16_gemv as bg
+
+    S = S32.to(torch.bfloat16)
+    nrows, ncols = S.shape
+    print(f"kernel B1, the bfloat16 GEMV pair, on the dense matrix cast to bfloat16 {tuple(S.shape)} "
+          f"({S.numel() * 2:,} bytes):")
+    x64, u64 = seeded_vector(ncols, 10, "cuda")[:ncols], seeded_vector(nrows, 11, "cuda")[:nrows]
+    out = {}
+    for name, kernel, plain, v64, nout, yard_bf16, yard_f32 in (
+            ("bf16_matvec", bg.bf16_matvec, bg.bf16_matvec_plain, x64, nrows,
+             lambda v: torch.mv(S, v.bfloat16()), lambda v: torch.mv(S32, v)),
+            ("bf16_rmatvec", bg.bf16_rmatvec, bg.bf16_rmatvec_plain, u64, ncols,
+             lambda v: torch.mv(S.T, v.bfloat16()), lambda v: torch.mv(S32.T, v))):
+        v32 = v64.float()
+        y = kernel(S, v32)
+        err32 = compare(f"{name}, full width, f32 vector", y, plain(S, v32), RTOL_F32)
+        err64 = compare(f"{name}, full width, f64 vector", kernel(S, v64), plain(S, v64), RTOL_F64)
+        same = torch.equal(kernel(S, v32), y)
+        if not same:
+            raise SystemExit(f"FAILED {name}: two launches on the same vector differ")
+        ms = time_cuda(lambda: kernel(S, v32))
+        ms64 = time_cuda(lambda: kernel(S, v64), reps=10)
+        plain_ms = time_cuda(lambda: plain(S, v32), warm=1, reps=5)
+        bf16_ms = time_cuda(lambda: yard_bf16(v32))
+        f32_ms = time_cuda(lambda: yard_f32(v32))
+        scale = float(y.abs().max())
+        bf16_err = float((yard_bf16(v32).float() - y).abs().max()) / scale
+        f32_err = float((yard_f32(v32) - y).abs().max()) / scale
+        nbytes = S.numel() * 2 + v32.numel() * 4 + nout * 4
+        bound_ms, bound_by, by_bytes, by_ops = bound(nbytes, 2 * S.numel())
+        print(f"  {name}: kernel {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s of {nbytes:,} bytes; f64 vector "
+              f"{ms64:.3f} ms), bound {bound_ms:.3f} ms by {bound_by} (bytes {by_bytes:.3f} ms at "
+              f"{MEMORY_BYTES_PER_S / 1e12:.2f} TB/s, operations {by_ops:.3f} ms), plain {plain_ms:.3f} ms; "
+              f"yardsticks: torch.mv on the bfloat16 S with a bfloat16 vector {bf16_ms:.3f} ms (off the kernel by "
+              f"{bf16_err:.2e} of max|y|), torch.mv on the float32 matrix {f32_ms:.3f} ms (off by {f32_err:.2e}); "
+              "two launches equal to the last bit")
+        out[name] = {"ms": ms, "ms_f64_vector": ms64, "plain_ms": plain_ms, "library_ms": None,
+                     "torch_mv_bf16_ms": bf16_ms, "torch_mv_f32_ms": f32_ms,
+                     "torch_mv_bf16_off_by": bf16_err, "torch_mv_f32_off_by": f32_err,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                     "max_abs_err": err32, "max_abs_err_f64_vector": err64,
+                     "achieved_GB_per_s": nbytes / ms / 1e6, "shape": list(S.shape)}
+    del S
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_24(cli, counters, work, inputs, dense, dense_dir):
+    """tpu.kernelStoreDtype = bfloat16 at full width through the command
+    line: the dense kernel built straight into bfloat16, every product
+    through kernel B1; --mesh 1 to the last bit; against the float32 dense
+    run."""
+    print("bfloat16 kernel storage (tpu.kernelStoreDtype = bfloat16), dense:")
+    extra = ["tpu.kernelStoreDtype = bfloat16"]
+    out = {f: os.path.join(work, f"out_bf16_{f}") for f in ("run", "mesh1")}
+    said = {"build_s": r"kernel built in ([0-9.]+)s", "format": DENSE_BF16_SAID,
+            "no_cache": r"NOT writing the sensit cache: the kernel is stored bfloat16"}
+    runs = {"run": run_main_path(cli, counters, "bfloat16 dense", write_parfile(
+        work, "Parfile_bf16.txt", inputs, out["run"], N_MINOR, fmt=None, extra=extra), out["run"], said,
+        sensit_written=False)}
+    runs["mesh1"] = run_main_path(cli, counters, "bfloat16 dense --mesh 1", write_parfile(
+        work, "Parfile_bf16_mesh1.txt", inputs, out["mesh1"], N_MINOR, fmt=None, extra=extra), out["mesh1"],
+        {**said, "slot0_MB": r"slot 0 \(cuda:0\) ([0-9.]+) MB"}, sensit_written=False, mesh="1")
+    for name, run in runs.items():
+        iters = run["lsqr_iterations"]
+        # matvec: one per LSQR iteration and the 3 + N_MAJOR forward products;
+        # rmatvec: one per iteration and one before each solve.
+        want = {"bf16_matvec": sum(iters) + 3 + N_MAJOR, "bf16_rmatvec": sum(iters) + len(iters)}
+        print(f"  {name}: launches {run['launches']} (expected {want})")
+        if not launched(run["launches"], **want):
+            raise SystemExit(f"FAILED bfloat16 dense {name}: launch count")
+    held = hold_equal("bfloat16 dense --mesh 1", runs["mesh1"], out["mesh1"], runs["run"], out["run"])
+    if not held["equal_to_the_last_bit"]:
+        raise SystemExit("FAILED bfloat16 dense --mesh 1: not equal to the last bit to the unmeshed run")
+    r, ref = runs["run"], dense
+    dm = float(np.abs(r["model"] - ref["model"]).max() / (ref["model"].max() - ref["model"].min()))
+    dc = abs(r["data_cost"][-1] - ref["data_cost"][-1]) / ref["data_cost"][-1]
+    tol = FORMATS_MODEL_TOL if dm <= FORMATS_MODEL_TOL else BF16_MODEL_TOL
+    print(f"  bfloat16 against the float32 dense run: final model differs by {dm:.3e} of its range (tolerance "
+          f"{tol:g}{'' if tol == FORMATS_MODEL_TOL else ', the bfloat16 bound: the formats tolerance ' + str(FORMATS_MODEL_TOL) + ' is not met'}), "
+          f"final data cost {r['data_cost'][-1]:.9e} against {ref['data_cost'][-1]:.9e}, relative {dc:.3e} "
+          f"(tolerance {FORMATS_COST_RTOL:g}); peak device memory {r['peak_device_GB']:.2f} GB, "
+          f"{r['peak_device_GB'] - r['held_before_GB']:.2f} GB over what was held before the run, against "
+          f"{ref['peak_device_GB']:.2f} and {ref['peak_device_GB'] - ref['held_before_GB']:.2f} GB for float32")
+    if not dm <= tol or not dc <= FORMATS_COST_RTOL:
+        raise SystemExit("FAILED bfloat16 dense against float32 dense")
+    return {"runs": runs, "mesh1": held, "against_float32_dense": {
+        "model_of_range": dm, "data_cost_rel": dc, "model_tolerance": tol,
+        "peak_device_GB": r["peak_device_GB"], "float32_peak_device_GB": ref["peak_device_GB"],
+        "peak_over_held_GB": r["peak_device_GB"] - r["held_before_GB"],
+        "float32_peak_over_held_GB": ref["peak_device_GB"] - ref["held_before_GB"]}}
+
+
+def phase_25(cli, counters, work, inputs, ref_dir, par, grid, products):
+    """The tiled main path built three ways through the command line: the
+    compensated float32 build, the mixed build and the float32-compressed
+    float64 build; each stored kernel (its cache) against the float64-built
+    cache of phase 3."""
+    from tomofastx_tpu_torch.io.sensit_cache import try_read_kernel_cache
+
+    print("the tiled main path built three ways:")
+    out = {}
+    for name, args in (("single", ["--build-precision", "single"]), ("fast_build", ["--fast-build", str(FAST_BUILD_K)]),
+                       ("f32_compress", ["--f32-compress"])):
+        out_dir = os.path.join(work, f"out_tiled_{name}")
+        run = run_main_path(cli, counters, f"tiled, {' '.join(args)}", write_parfile(
+            work, f"Parfile_tiled_{name}.txt", inputs, out_dir, N_MINOR, fmt="tiled"), out_dir, {
+                "build_s": r"kernel built\+cached in ([0-9.]+)s", "pack_s": r"cache packed into tiles in ([0-9.]+)s",
+                "format": r"grav kernel: tiled"}, args=args)
+        if not launched(run["launches"], tile_matvec=products):
+            raise SystemExit(f"FAILED tiled {name}: launch count")
+        run["out_dir"], run["args"] = out_dir, args
+        out[name] = run
+    ref = try_read_kernel_cache(os.path.join(ref_dir, "SENSIT"), par, grid, "cuda").S
+    ref_norm = frobenius(ref)
+    for name, run in out.items():
+        S = try_read_kernel_cache(os.path.join(run["out_dir"], "SENSIT"), par, grid, "cuda").S
+        dist = run["frobenius_from_f64_build"] = frobenius(S, ref) / ref_norm
+        del S
+        print(f"  tiled {' '.join(run['args'])}: build_s {run['build_s']}, its cache's Frobenius distance from the "
+              f"float64-built cache {dist:.3e} of its norm (bound {BUILD_FROBENIUS_RTOL:g}, "
+              "tests/test_matrixfree.py:156-183)")
+        if not dist < BUILD_FROBENIUS_RTOL:
+            raise SystemExit(f"FAILED tiled {name}: the kernel is too far from the float64 build")
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_26(cli, counters, work, inputs, products):
+    """tpu.refineForward = 1 on the tiled path, the forward in the solve's
+    precision and in float64 (the BTTB operator on complex128 FFTs), the
+    latter with --mesh 1 to the last bit; the predicted data against a dense
+    uncompressed forward of the final model."""
+    import dataclasses
+
+    from tomofastx_tpu_torch.config.parfile import read_parfile
+    from tomofastx_tpu_torch.io import data_io, model_io
+    from tomofastx_tpu_torch.ops import sensitivity as sens
+
+    print("tpu.refineForward = 1 on the tiled path:")
+    cases = (("single", ["tpu.refineForward = 1"], None, "float32"),
+             ("double", ["tpu.refineForward = 1", "tpu.refineForwardPrecision = double"], None, "float64"),
+             ("double_mesh1", ["tpu.refineForward = 1", "tpu.refineForwardPrecision = double"], "1", "float64"))
+    runs, pf = {}, {}
+    for name, extra, mesh, dt in cases:
+        out_dir = os.path.join(work, f"out_refine_{name}")
+        pf[name] = write_parfile(work, f"Parfile_refine_{name}.txt", inputs, out_dir, N_MINOR, fmt="tiled", extra=extra)
+        said = {"build_s": r"kernel built\+cached in ([0-9.]+)s", "format": r"grav kernel: tiled",
+                "forward": r"grav refinement forward: BTTBKernel \(" + dt}
+        run = runs[name] = run_main_path(cli, counters, f"tiled, refineForward ({dt} forward)", pf[name], out_dir, said,
+                                         mesh=mesh)
+        run["out_dir"] = out_dir
+        # The stored kernel only under the solves; every forward product on the BTTB operator.
+        solve_products = products - (3 + N_MAJOR)
+        want = {"tile_matvec_sharded" if mesh else "tile_matvec": solve_products}
+        print(f"  launches {run['launches']} (expected {want}: the solves' products; the {3 + N_MAJOR} forward "
+              "products go through the BTTB operator)")
+        if not launched(run["launches"], **want):
+            raise SystemExit(f"FAILED refine {name}: launch count")
+    held = hold_equal("refine double --mesh 1", runs["double_mesh1"], runs["double_mesh1"]["out_dir"], runs["double"],
+                      runs["double"]["out_dir"])
+    if not held["equal_to_the_last_bit"]:
+        raise SystemExit("FAILED refine double --mesh 1: not equal to the last bit to the unmeshed run")
+    cfg = read_parfile(pf["double"])
+    grid = model_io.read_model_grid(inputs["grid"], NX, NY, NZ)
+    data = data_io.read_data_points(inputs["data"], NDATA, 1, grid_only=True)
+    t0 = time.time()
+    S = sens.compute_sensitivity(dataclasses.replace(cfg.grav, compression_type=0), grid, data, np.ones(NX * NY * NZ),
+                                 store_dtype=torch.float32, device="cuda").S
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    agree = {}
+    for name in ("single", "double"):
+        out_dir = runs[name]["out_dir"]
+        m = torch.as_tensor(runs[name]["model"].reshape(-1) * cfg.grav.model_units_mult, dtype=torch.float64,
+                            device="cuda")
+        want = torch.cat([S[s : s + 256].double() @ m for s in range(0, S.shape[0], 256)])
+        table = np.loadtxt(os.path.join(out_dir, "data", "grav_final.txt"), skiprows=1, ndmin=2)
+        got = torch.as_tensor(table[:, 3] * cfg.grav.data_units_mult, dtype=torch.float64, device="cuda")
+        agree[name] = float((got - want).abs().max() / want.abs().max())
+        print(f"  {name}: the final predicted data against the dense uncompressed forward (float64-built, "
+              f"float32-stored, built in {build_s:.2f} s) of the final model: max error {agree[name]:.3e} of max|d| "
+              f"(tolerance {RTOL_F32_FORWARD:g})")
+        if not agree[name] <= RTOL_F32_FORWARD:
+            raise SystemExit(f"FAILED refine {name}: predicted data against the dense forward")
+    del S
+    torch.cuda.empty_cache()
+    return {"runs": runs, "mesh1": held, "predicted_against_dense_forward": agree}
+
+
+# The float32 and mixed builds' closed forms in float32, on the card and on
+# the CPU: their logarithms and arctangents round differently, by an ulp,
+# and the closed forms' cancellation carries that into the kernel, so the
+# two solves part by more than float64 sums do (a card read 1.3e-5 of the
+# range). The bound is that of the float32 builds of the two packages,
+# tests/test_torch_build_variants.py (5e-5 of the range), times two.
+F32_PHYSICS_MODEL_TOL = 1e-4
+
+
+def phase_27(work):
+    """Small float64 problems of each variant, card against CPU."""
+    f32 = {"model_tol": F32_PHYSICS_MODEL_TOL}
+    cases = [
+        ("bf16_dense", "bfloat16 storage, dense", dict(fmt=None, extra=["tpu.kernelStoreDtype = bfloat16"])),
+        ("float32_build_tiled", "--build-precision single, tiled",
+         dict(fmt="tiled", solve_kw={"compute_dtype": torch.float32}, **f32)),
+        ("mixed_build_tiled", "--fast-build 16, tiled", dict(fmt="tiled", solve_kw={"near_field_f64": 16}, **f32)),
+        ("f32_compress_dense", "tpu.f64BuildF32Compress, dense", dict(fmt=None, extra=["tpu.f64BuildF32Compress = 1"])),
+        ("refine_tiled", "tpu.refineForward, tiled", dict(fmt="tiled", extra=["tpu.refineForward = 1"])),
+    ]
+    return {name: small_problem_card_against_cpu(work, f"small_variant_{name}", what, **kw)
+            for name, what, kw in cases}
+
+
 def main() -> int:
     t_all = time.time()
     if not torch.cuda.is_available():
@@ -1467,6 +1753,7 @@ def main() -> int:
     from tomofastx_tpu_torch.inversion import workflow
     from tomofastx_tpu_torch.io import model_io
     from tomofastx_tpu_torch.io.sensit_cache import read_kernel_cache_packed, try_read_kernel_cache
+    from tomofastx_tpu_torch.ops import bf16_gemv
     from tomofastx_tpu_torch.ops import blocked_matvec as bmv
     from tomofastx_tpu_torch.ops import sensitivity as sens
     from tomofastx_tpu_torch.ops import tile_matvec as tmv
@@ -1478,7 +1765,8 @@ def main() -> int:
     tile_matvec, tile_matvec_plain = tmv.tile_matvec, tmv.tile_matvec_plain
     blocked_matvec, blocked_matvec_plain = bmv.blocked_matvec, bmv.blocked_matvec_plain
     counters = {"tile_matvec": tile_matvec, "tile_matvec_sharded": tmv.tile_matvec_sharded,
-                "blocked_matvec": blocked_matvec}
+                "blocked_matvec": blocked_matvec, "bf16_matvec": bf16_gemv.bf16_matvec,
+                "bf16_rmatvec": bf16_gemv.bf16_rmatvec}
     device = torch.device("cuda")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     smi = nvidia_smi_line()
@@ -1486,14 +1774,14 @@ def main() -> int:
 
     # ---- 1. build, one compiler per source, started together ----
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(m.build_library) for m in (tmv, bmv)]
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(m.build_library) for m in (tmv, bmv, bf16_gemv)]
         for b in builds:
             lib_path, log = b.result()
             print(log.strip())
             print(f"built {os.path.relpath(lib_path, HERE)}")
     build_s = time.time() - t0
-    print(f"both kernels built in {build_s:.1f} s")
+    print(f"the three kernel sources built in {build_s:.1f} s")
 
     # ---- 2. kernels against plain versions, random ragged layouts ----
     print("kernels against plain versions:")
@@ -1518,8 +1806,22 @@ def main() -> int:
             blocked_matvec(bvals, bidx, x64.float()), blocked_matvec_plain(bvals, bidx, x64.float()), RTOL_F32)
     compare("blocked_matvec, random row blocks, f64 vector",
             blocked_matvec(bvals, bidx, x64), blocked_matvec_plain(bvals, bidx, x64), RTOL_F64)
+    # Kernel B1 on a bfloat16 matrix whose rows are 16-byte aligned (1000
+    # columns) and on one whose rows are not (1003: the 2-byte path).
+    for nrows, ncols in ((203, 1000), (77, 1003)):
+        g = torch.Generator(device="cpu").manual_seed(ncols)
+        S16 = torch.randn(nrows, ncols, generator=g).to(device, torch.bfloat16)
+        S16[S16.abs() < 0.3] = 0.0
+        for v64, kernel, plain in ((torch.randn(ncols, generator=g, dtype=torch.float64).to(device),
+                                    bf16_gemv.bf16_matvec, bf16_gemv.bf16_matvec_plain),
+                                   (torch.randn(nrows, generator=g, dtype=torch.float64).to(device),
+                                    bf16_gemv.bf16_rmatvec, bf16_gemv.bf16_rmatvec_plain)):
+            compare(f"{kernel.__name__}, bfloat16 {nrows} x {ncols}, f32 vector", kernel(S16, v64.float()),
+                    plain(S16, v64.float()), RTOL_F32)
+            compare(f"{kernel.__name__}, bfloat16 {nrows} x {ncols}, f64 vector", kernel(S16, v64), plain(S16, v64),
+                    RTOL_F64)
     torch.cuda.synchronize()
-    del uvals, ubidx, bvals, bidx, x64, parts
+    del uvals, ubidx, bvals, bidx, x64, parts, S16
 
     work = tempfile.mkdtemp(prefix="tomofastx_smoke_")
     try:
@@ -1539,7 +1841,7 @@ def main() -> int:
         products = sum(2 * it + 1 for it in tiled["lsqr_iterations"]) + 3 + N_MAJOR
         print(f"  tile_matvec.launches = {tiled['launches']['tile_matvec']} (expected {products} = sum of "
               f"2 x iterations + 1 per solve, + {3 + N_MAJOR} forward products)")
-        if tiled["launches"] != {"tile_matvec": products, "tile_matvec_sharded": 0, "blocked_matvec": 0}:
+        if not launched(tiled["launches"], tile_matvec=products, tile_matvec_sharded=0):
             raise SystemExit("FAILED tiled main path: launch count")
 
         # The same with --mesh 1: the row-sharded build, and every product
@@ -1553,7 +1855,7 @@ def main() -> int:
             "format": r"grav kernel: tiled", **mesh_said}, mesh="1")
         print(f"  tile_matvec_sharded.launches = {tiled_mesh['launches']['tile_matvec_sharded']} (expected "
               f"{products} x 1 slot)")
-        if tiled_mesh["launches"] != {"tile_matvec": 0, "tile_matvec_sharded": products, "blocked_matvec": 0}:
+        if not launched(tiled_mesh["launches"], tile_matvec=0, tile_matvec_sharded=products):
             raise SystemExit("FAILED tiled --mesh 1 main path: launch count")
 
         # The Parfile with no tpu.kernelFormat line, built from scratch: the
@@ -1713,7 +2015,9 @@ def main() -> int:
                   f"{o['matvec_ms'] + o['rmatvec_ms']:.3f} | {o['bytes'] / 1e9:.3f} |")
         print(f"  packed: rows {tuple(pk.row_vals.shape)}, heavy columns {tuple(pk.dense_block.shape)}, "
               f"light columns {tuple(pk.light_vals.shape)}")
-        del tk, S, dk, pk, op  # op: the loop above leaves it naming pk
+        del tk, dk, pk, op  # op: the loop above leaves it naming pk
+        gemv = measure_bf16_gemv(S)
+        del S
 
         # ---- 8. whole solves over the four-slot mesh, from the tiled run's cache ----
         print(f"solves from the tiled run's cache through solve_problem_joint_gravmag, over {mesh4}:")
@@ -1722,8 +2026,7 @@ def main() -> int:
         hold_equal("tiled solve from the cache", solves["tiled"], solves["tiled"]["out_dir"], tiled, out["tiled"],
                    against="the tiled main path")
         solves["tiled_4_slots"] = solve_from_cache(work, "tiled_4_slots", inputs, cache, "tiled", mesh4, counters)
-        if solves["tiled_4_slots"]["launches"] != {
-                "tile_matvec": 0, "tile_matvec_sharded": 4 * products, "blocked_matvec": 0}:
+        if not launched(solves["tiled_4_slots"]["launches"], tile_matvec=0, tile_matvec_sharded=4 * products):
             raise SystemExit(f"FAILED tiled 4-slot solve: launch count (expected {products} x 4 slots)")
         if not (np.array_equal(solves["tiled_4_slots"]["model"], solves["tiled"]["model"])
                 and same_bytes(*(os.path.join(solves[k]["out_dir"], "costs.txt") for k in ("tiled", "tiled_4_slots")))):
@@ -1775,7 +2078,7 @@ def main() -> int:
         try:
             solves["tiled_host_assembly"] = host = solve_from_cache(
                 work, "tiled_host_assembly", inputs, cache, "tiled", make_mesh(1, device="cuda"), counters)
-            if host["launches"] != {"tile_matvec": 0, "tile_matvec_sharded": products, "blocked_matvec": 0}:
+            if not launched(host["launches"], tile_matvec=0, tile_matvec_sharded=products):
                 raise SystemExit("FAILED tiled solve assembled on the host: launch count")
             if not (np.array_equal(host["model"], solves["tiled"]["model"])
                     and same_bytes(*(os.path.join(r["out_dir"], "costs.txt") for r in (host, solves["tiled"])))):
@@ -1819,7 +2122,7 @@ def main() -> int:
         joint_products = 2 * (sum(2 * it + 1 for it in joint["tiled"]["lsqr_iterations"]) + 3 + N_MAJOR)
         print(f"  tile_matvec.launches = {joint['tiled']['launches']['tile_matvec']} (expected {joint_products} = "
               f"2 problems x (sum of 2 x iterations + 1 per solve, + {3 + N_MAJOR} forward products))")
-        if joint["tiled"]["launches"] != {"tile_matvec": joint_products, "tile_matvec_sharded": 0, "blocked_matvec": 0}:
+        if not launched(joint["tiled"]["launches"], tile_matvec=joint_products, tile_matvec_sharded=0):
             raise SystemExit("FAILED joint tiled main path: launch count")
         joint["dense"] = run_main_path(cli, counters, "joint grav+mag dense (default)", write_parfile(
             joint_dir, "Parfile_joint_dense.txt", joint_inputs, joint_out["dense"], N_MINOR, fmt=None, kind="joint"),
@@ -1861,8 +2164,7 @@ def main() -> int:
                                                  None, counters, kind="joint")
         solves["joint_tiled_4_slots"] = solve_from_cache(joint_dir, "joint_4_slots", joint_inputs, joint_cache,
                                                          "tiled", mesh4, counters, kind="joint")
-        if solves["joint_tiled_4_slots"]["launches"] != {
-                "tile_matvec": 0, "tile_matvec_sharded": 4 * joint_products, "blocked_matvec": 0}:
+        if not launched(solves["joint_tiled_4_slots"]["launches"], tile_matvec=0, tile_matvec_sharded=4 * joint_products):
             raise SystemExit(f"FAILED joint 4-slot solve: launch count (expected {joint_products} x 4 slots)")
         a, b = solves["joint_tiled"], solves["joint_tiled_4_slots"]
         if not (all(np.array_equal(a["models"][i], b["models"][i]) for i in (0, 1))
@@ -1888,7 +2190,7 @@ def main() -> int:
                                               ub.shape[0] * 8, x64, dense_m)
             del dense_m
             torch.cuda.empty_cache()
-        del tkm
+        del tkm, uv, ub  # the loop's names hold the adjoint pack (4.3 GB) too
 
         # ---- 15. the coupled joint problem at full width: cross-gradient, damping gradient, clustering ----
         print("coupled joint grav+mag (cross-gradient, damping gradient, clustering) from the joint tiled run's cache:")
@@ -1910,8 +2212,7 @@ def main() -> int:
                 sensit_written=False, kind="joint")
         print(f"  tile_matvec.launches = {coupled['tiled']['launches']['tile_matvec']} (expected {joint_products}, "
               "as in the joint run: the constraint blocks do not touch S)")
-        if coupled["tiled"]["launches"] != {"tile_matvec": joint_products, "tile_matvec_sharded": 0,
-                                            "blocked_matvec": 0}:
+        if not launched(coupled["tiled"]["launches"], tile_matvec=joint_products, tile_matvec_sharded=0):
             raise SystemExit("FAILED coupled tiled main path: launch count")
         coupled["tiled"]["costs_9_20"] = check_coupled_outputs("coupled tiled", coupled_out["tiled"],
                                                                list(range(10, 21)))
@@ -1943,7 +2244,7 @@ def main() -> int:
             solves["coupled_tiled_4_slots"] = four = solve_from_cache(
                 joint_dir, "coupled_4_slots", joint_inputs, joint_cache, "tiled", mesh4, counters, kind="joint",
                 extra=coupling_lines(weights, files))
-        if four["launches"] != {"tile_matvec": 0, "tile_matvec_sharded": 4 * joint_products, "blocked_matvec": 0}:
+        if not launched(four["launches"], tile_matvec=0, tile_matvec_sharded=4 * joint_products):
             raise SystemExit(f"FAILED coupled 4-slot solve: launch count (expected {joint_products} x 4 slots)")
         equal_updates = len(captured4["deltas"]) == len(captured["deltas"]) == N_MAJOR and all(
             torch.equal(a, b) for da, db in zip(captured4["deltas"], captured["deltas"]) for a, b in zip(da, db))
@@ -1977,6 +2278,12 @@ def main() -> int:
         mf["generic"] = phase_21(cli, counters, work, inputs)
         mf["auto"] = phase_22(cli, counters, work)
         small_rel.update({f"matrixfree_{k}": v for k, v in phase_23(work, mesh4).items()})
+
+        # ---- 24-27. bfloat16 storage, the three builds, refineForward, small problems ----
+        variants = {"bf16": phase_24(cli, counters, work, inputs, dense, out["dense"])}
+        variants["builds"] = phase_25(cli, counters, work, inputs, out["tiled"], cfg.grav, grid, products)
+        variants["refine"] = phase_26(cli, counters, work, inputs, products)
+        small_rel.update({f"variant_{k}": v for k, v in phase_27(work).items()})
         for name, run in [(f"bttb {k}", v) for k, v in mf["bttb"]["runs"].items()] + [
                 (f"lattice {k}", v) for k, v in mf["lattice"]["runs"].items()] + [
                 ("per-cell", mf["generic"]["run"]), ("auto", mf["auto"]["run"])]:
@@ -2034,6 +2341,22 @@ def main() -> int:
             "shape_of_these_times": "every used block of each row, f32 vector",
             "every_used_block": used, f"top_{TOP_BLOCKS}_blocks": top,
         },
+    ] + [
+        {
+            "name": name, "route": "cuda",
+            "source": "tomofastx_tpu_torch/csrc/bf16_gemv.cu",
+            "wrapper": f"tomofastx_tpu_torch/ops/bf16_gemv.py: {name}",
+            "replaces": "tomofastx_tpu/ops/sparse_kernel.py:188 (no Pallas kernel: XLA's convert-fused GEMV on the "
+                        "bfloat16 kernel)" if name == "bf16_matvec" else
+                        "tomofastx_tpu/ops/sparse_kernel.py:197 (no Pallas kernel: XLA's convert-fused GEMV on the "
+                        "bfloat16 kernel)",
+            "launches": variants["bf16"]["runs"]["run"]["launches"][name],
+            "launches_mesh1": variants["bf16"]["runs"]["mesh1"]["launches"][name],
+            **{k: gemv[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape_of_these_times": "the gravity kernel cast to bfloat16, f32 vector",
+            "measured": gemv[name],
+        }
+        for name in ("bf16_matvec", "bf16_rmatvec")
     ]
     print(json.dumps({
         "main_paths": {"tiled": report(tiled), "tiled_mesh1": report(tiled_mesh), "dense": report(dense),
@@ -2046,7 +2369,7 @@ def main() -> int:
         "coupled_main_paths": {k: report(v) for k, v in coupled.items() if isinstance(v, dict) and "launches" in v},
         "coupled_dense_against_tiled": coupled_spread, "coupling_weights": weights, "coupling_scales": scales,
         "coupled_blocks_ms": coupled["blocks_ms"], "coupled_blocks_launches": coupled["blocks_launches"],
-        "resume_profile_debug_nans": late, "matrixfree": jsonable(mf),
+        "resume_profile_debug_nans": late, "matrixfree": jsonable(mf), "build_and_storage_variants": jsonable(variants),
         "operators": operators, "observations": NDATA, "cells": NX * NY * NZ,
         "kernel_build_s": build_s, "total_s": total_s,
         "memory_bytes_per_s_assumed": MEMORY_BYTES_PER_S, "fp32_flop_per_s_assumed": FP32_FLOP_PER_S,

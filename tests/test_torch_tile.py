@@ -359,19 +359,18 @@ def test_tile_kernel_from_cache_small_flush_and_missing(tmp_path, monkeypatch):
 
 
 def test_compute_sensitivity_refuses_unported_paths():
-    """Every forward family builds now (the magnetic build:
-    tests/test_torch_magnetics.py); what is refused is the float32 build
-    (--build-precision single; its far-field quadrature is ported, for the
-    matrix-free operators) and tpu.f64BuildF32Compress (ROADMAP queue 1
-    item 5)."""
+    """Every forward family builds, and every build variant: nothing is
+    refused any more. The float32 build (--build-precision single) and
+    tpu.f64BuildF32Compress return kernels of the build's shape (their
+    values: tests/test_torch_build_variants.py)."""
     g, (X, Y, Z), kw, cw = _problem(4, 4, 2, 3, 1, 0.2, 11)
     par, grid, data = TGravParams(**kw), TGrid(**g), TSurveyData(ndata=3, X=X, Y=Y, Z=Z)
     from tomofastx_tpu_torch.config.parfile import MagParams
 
-    with pytest.raises(NotImplementedError, match="float32 kernel build"):
-        tsens.compute_sensitivity(par, grid, data, cw, compute_dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="f64BuildF32Compress"):
-        tsens.compute_sensitivity(TGravParams(**kw, f64_build_f32_compress=1), grid, data, cw, device="cpu")
+    k32 = tsens.compute_sensitivity(par, grid, data, cw, compute_dtype=torch.float32, device="cpu")
+    assert k32.S.shape == (3, 32) and k32.S.dtype == torch.float32 and bool(torch.isfinite(k32.S).all())
+    kc = tsens.compute_sensitivity(TGravParams(**kw, f64_build_f32_compress=1), grid, data, cw, device="cpu")
+    assert kc.S.shape == (3, 32) and kc.S.dtype == torch.float32 and kc.nnz > 0
     assert tsens.compute_sensitivity(MagParams(**kw), grid, data, cw, row_sink=lambda c, s: None, device="cpu").S is None
     assert tsens.compute_sensitivity(MagParams(**kw), grid, data, cw, device="cpu").S.shape == (3, 32)
     # Without a row_sink a gravity kernel is accumulated densely (tests/test_torch_formats.py).

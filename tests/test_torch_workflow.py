@@ -303,24 +303,6 @@ def test_stop_file_ends_the_loop(tmp_path):
 
 @pytest.mark.parametrize(
     "extra",
-    ["tpu.f64BuildF32Compress = 1", "tpu.kernelStoreDtype = bfloat16", "tpu.refineForward = 1"],
-)
-def test_unported_parfile_features_are_refused(tmp_path, extra):
-    """What the port still refuses, before any work (the magnetic problem and
-    gradiometry run since they were ported: tests/test_torch_joint.py; the
-    constraints and sensit.readFromFiles = 2: the test below;
-    tpu.kernelFormat = matrixfree: tests/test_torch_matrixfree.py)."""
-    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
-    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag as tsolve
-
-    lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
-    with pytest.raises(NotImplementedError):
-        tsolve(tparse(lines(str(tmp_path / "a")) + [extra]), verbose=False, device="cpu")
-    assert not (tmp_path / "a").exists()  # refused before any work
-
-
-@pytest.mark.parametrize(
-    "extra",
     ["sensit.readFromFiles = 2", "inversion.dampingGradient.grav.weight = 1.e-9",
      "inversion.dampingGradient.magn.weight = 1.0", "inversion.crossGradient.weight = 1.0",
      "inversion.clustering.grav.weight = 1.0"],
@@ -408,8 +390,8 @@ def test_cli_runs_a_parfile_without_a_kernel_format_line(tmp_path):
 def test_cli_fails_cleanly(tmp_path):
     lines = _write_problem(str(tmp_path), 8, 8, 4, 16)
     par = tmp_path / "Parfile.txt"
-    par.write_text("\n".join(lines(str(tmp_path / "out")) + ["tpu.refineForward = 1"]))
-    p = _run(["-m", "tomofastx_tpu_torch", "-p", str(par), "--device", "cpu", "-q"], str(tmp_path))
+    par.write_text("\n".join(lines(str(tmp_path / "out"))))
+    p = _run(["-m", "tomofastx_tpu_torch", "-p", str(par), "--device", "cpu", "-q", "--fused", "2"], str(tmp_path))
     assert p.returncode == 1 and "not ported" in p.stderr
     p = _run(["-m", "tomofastx_tpu_torch", "-p", str(tmp_path / "nothing.txt"), "--device", "cpu"], str(tmp_path))
     assert p.returncode == 1 and "ERROR" in p.stderr
@@ -438,7 +420,8 @@ def test_port_sources_found():
     assert {"chip_smoke.py", "tomofastx_tpu_torch/ops/tile_matvec.py", "tomofastx_tpu_torch/csrc/tile_matvec.cu",
             "tomofastx_tpu_torch/inversion/workflow.py", "tomofastx_tpu_torch/cli.py",
             "tomofastx_tpu_torch/ops/blocked_matvec.py", "tomofastx_tpu_torch/csrc/blocked_matvec.cu",
-            "tomofastx_tpu_torch/ops/sparse_kernel.py", "tomofastx_tpu_torch/ops/_cuda_build.py"} <= names
+            "tomofastx_tpu_torch/ops/sparse_kernel.py", "tomofastx_tpu_torch/ops/_cuda_build.py",
+            "tomofastx_tpu_torch/ops/bf16_gemv.py", "tomofastx_tpu_torch/csrc/bf16_gemv.cu"} <= names
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, REPO) for p in _port_sources()])
@@ -455,7 +438,7 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package(path):
                                     "tomofastx_tpu_torch.io.sensit_cache", "tomofastx_tpu_torch.ops.prism",
                                     "tomofastx_tpu_torch.ops.matrixfree", "tomofastx_tpu_torch.ops.sensitivity",
                                     "tomofastx_tpu_torch.parallel.mesh", "tomofastx_tpu_torch.inversion.operators",
-                                    "tomofastx_tpu_torch.inversion.joint"])
+                                    "tomofastx_tpu_torch.inversion.joint", "tomofastx_tpu_torch.ops.bf16_gemv"])
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package(module):
     code = (
         f"import sys; import {module}; "

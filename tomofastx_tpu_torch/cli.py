@@ -56,6 +56,27 @@ def main(argv=None):
         "not, and show its traceback",
     )
     parser.add_argument(
+        "--fast-build", type=int, default=0, metavar="K",
+        help="mixed-precision kernel build: float32 rows with the K cells nearest "
+        "each observation recomputed in float64",
+    )
+    parser.add_argument(
+        "--build-precision", choices=["double", "single"], default="double",
+        help="kernel build physics precision (default double, the reference's "
+        "policy). 'single' is the compensated float32 build: float32 physics "
+        "with the far cells by Gauss quadrature (tpu.farFieldQuad)",
+    )
+    parser.add_argument(
+        "--f32-compress", action="store_true",
+        help="run the wavelet and threshold of a float64 kernel build in float32 "
+        "(tpu.f64BuildF32Compress = 1)",
+    )
+    parser.add_argument(
+        "--fused", type=int, default=0, metavar="M",
+        help="run the major loop on the device in chunks of M iterations "
+        "(not ported to this package yet: any M > 0 is refused)",
+    )
+    parser.add_argument(
         "--resume", action="store_true",
         help="resume from <output>/checkpoint.npz (written every "
         "writeModelEveryNiter iterations, by this package or the JAX one): "
@@ -113,6 +134,10 @@ def main(argv=None):
 
     precision = args.precision or ("double" if device.type == "cpu" else "single")
     solve_dtype = torch.float64 if precision == "double" else torch.float32
+    compute_dtype = torch.float64 if args.build_precision == "double" else torch.float32
+    if args.f32_compress:
+        cfg.grav.f64_build_f32_compress = 1
+        cfg.magn.f64_build_f32_compress = 1
 
     profiler = contextlib.nullcontext()
     if args.profile:
@@ -121,10 +146,14 @@ def main(argv=None):
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
     try:
+        if args.fused > 0:
+            raise NotImplementedError(
+                f"--fused {args.fused}: the on-device major loop is not ported to this package yet"
+            )
         with profiler:
             solve_problem_joint_gravmag(
-                cfg, base_dir=args.base_dir, solve_dtype=solve_dtype,
-                verbose=not args.quiet, device=device, mesh=mesh,
+                cfg, base_dir=args.base_dir, solve_dtype=solve_dtype, compute_dtype=compute_dtype,
+                verbose=not args.quiet, device=device, mesh=mesh, near_field_f64=args.fast_build,
                 resume=args.resume, debug_nans=args.debug_nans,
             )
     except (FileNotFoundError, ValueError, FloatingPointError, NotImplementedError) as e:

@@ -37,10 +37,19 @@ def tile_kernel_from_numpy(uvals, ubidx, uvalsT, ubidxT, nrows: int, ncols: int,
 def dense_kernel_from_numpy(S, ST=None, ncols_true=None, nrows_true=None,
                             dtype=torch.float64, device="cuda") -> DenseKernel:
     """A dense kernel's matrix (and its optional contiguous transpose) -> a
-    DenseKernel on `device`, in the dtype of the vectors it will meet."""
+    DenseKernel on `device`, in the dtype of the vectors it will meet. A
+    bfloat16 matrix (the JAX package's, an ml_dtypes.bfloat16 array) is
+    carried across bit for bit through its 16-bit pattern and stays
+    bfloat16, whatever `dtype` says."""
 
     def put(a):
-        return None if a is None else torch.tensor(np.asarray(a), dtype=dtype, device=device)
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+            return bits.view(torch.bfloat16).to(device)
+        return torch.tensor(a, dtype=dtype, device=device)
 
     return DenseKernel(put(S), put(ST), ncols_true, nrows_true)
 

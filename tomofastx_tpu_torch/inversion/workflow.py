@@ -22,12 +22,15 @@ corner-lattice or per-cell operators of ops/matrixfree.py) — with damping,
 damping gradient, ADMM, and the coupling of the two problems by
 cross-gradient and clustering, on one device or on a mesh of slots
 (``mesh=``: the build's rows and the operator's cells split over the slots,
-parallel/mesh.py); checkpoints and resume. A Parfile that asks for
-anything else is refused with NotImplementedError before any work is done.
+parallel/mesh.py); checkpoints and resume; the float32, mixed and
+float32-compressed builds, bfloat16 kernel storage (ops/bf16_gemv.py) and
+the refinement forward (``tpu.refineForward``: the data predicted by the
+exact physics, a matrix-free operator, while LSQR keeps the stored kernel).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
@@ -70,6 +73,8 @@ class ProblemContext:
     column_weight: np.ndarray = None
     kernel: object = None  # row-weighted dense SensitKernel (dense format only)
     operator: object = None  # row-weighted operator (Dense-, Packed-, TileKernel or matrix-free)
+    forward_op: object = None  # exact-physics operator of the predicted data (tpu.refineForward)
+    forward_dtype: torch.dtype = None  # the vectors forward_op takes
     residuals: np.ndarray = None
 
 
@@ -137,16 +142,22 @@ def _data_write(ctx: ProblemContext, out_dir, name, which):
 
 def _calculate_data(ctx: ProblemContext, cfg: Config, solve_dtype, device):
     """d_calc = S m through the stored row-weighted operator
-    (model.F90:220-307)."""
+    (model.F90:220-307), or, under tpu.refineForward, through the exact
+    physics of the forward operator in the model domain: the residuals then
+    carry the stored kernel's compression or bfloat16 error, and the major
+    loop corrects it (the stored kernel only preconditions the update)."""
     g = ctx.model.grid
+    op, ct, dtype = ctx.operator, ctx.par.compression_type, solve_dtype
+    if ctx.forward_op is not None:
+        op, ct, dtype = ctx.forward_op, 0, ctx.forward_dtype
     ctx.data.val_calc = sens.calculate_data(
-        ctx.operator,
+        op,
         ctx.model.val,
         ctx.column_weight,
         cfg.inversion.problem_weight[ctx.index],
         ctx.data.weight,
-        ctx.par.compression_type, g.nx, g.ny, g.nz,
-        solve_dtype=solve_dtype, device=device,
+        ct, g.nx, g.ny, g.nz,
+        solve_dtype=dtype, device=device,
     )
 
 
@@ -167,21 +178,6 @@ COSTS_HEADER = (
 )
 
 
-def _refuse_unported(cfg: Config):
-    """Fail before any work on a Parfile that asks for a path of the JAX
-    package that this package does not hold yet."""
-    wants = []
-    par = cfg.grav  # the tpu.* keys set both problems alike
-    if par.kernel_store != "float32":
-        wants.append("tpu.kernelStoreDtype = bfloat16")
-    if par.refine_forward:
-        wants.append("tpu.refineForward")
-    if par.f64_build_f32_compress:
-        wants.append("tpu.f64BuildF32Compress")
-    if wants:
-        raise NotImplementedError("not ported to this package yet: " + "; ".join(wants))
-
-
 def _device_memory_bytes(device) -> int:
     """Total memory of the device the kernel would live on: the card's own
     total (the JAX package reads its TPU's bytes_limit, 16 GB by default)."""
@@ -199,7 +195,53 @@ def _kernel_operator(ctx: ProblemContext, device):
     S = ctx.kernel.S
     # Contiguous transpose for fast adjoint products on the CPU; a CUDA
     # device reads S as it lies, and a second copy would double its memory.
-    return DenseKernel(S, S.T.contiguous() if device.type == "cpu" else None)
+    # A bfloat16 S never has one: its adjoint reads the row-major S.
+    cpu_transpose = device.type == "cpu" and S.dtype != torch.bfloat16
+    return DenseKernel(S, S.T.contiguous() if cpu_transpose else None)
+
+
+def _refinement_forward(ctxs, active, ipar, solve_dtype, mesh, device, log):
+    """tpu.refineForward: give each active problem an exact-physics forward
+    operator (matrix-free, row weights baked in) for the predicted data,
+    while LSQR keeps the stored kernel: iterative refinement over the
+    majors. Set for every active problem or ignored, with a warning; a
+    no-op where every solve operator is matrix-free already; a matrix-free
+    solve operator of a mixed-format joint run is its own forward. Under
+    tpu.refineForwardPrecision = double the forward is float64. The JAX
+    package forces the non-FFT operator for a float64 forward off the CPU,
+    for a TPU without complex128 FFTs; the card has them, so the BTTB
+    operator serves here too."""
+    from tomofastx_tpu_torch.ops.bttb import BTTBKernel
+    from tomofastx_tpu_torch.ops.matrixfree import LatticeMatrixFreeKernel, MatrixFreeKernel
+
+    requested = [i for i in active if getattr(ctxs[i].par, "refine_forward", 0)]
+    if not requested:
+        return
+    if len(requested) != len(active):
+        log("WARNING: tpu.refineForward ignored — it must be enabled for "
+            "ALL active problems (set for "
+            f"{[PROBLEM_PREFIX[i] for i in requested]} only).")
+        return
+    mf = (MatrixFreeKernel, LatticeMatrixFreeKernel, BTTBKernel)
+    exact = [i for i in active if ctxs[i].kernel is None and isinstance(ctxs[i].operator, mf)]
+    if len(exact) == len(active):
+        log("NOTE: tpu.refineForward is a no-op with kernelFormat = "
+            "matrixfree (the solve already uses exact physics).")
+        return
+    for i in active:
+        ctx = ctxs[i]
+        if i in exact:
+            ctx.forward_op, ctx.forward_dtype = ctx.operator, solve_dtype
+            continue
+        double = getattr(ctx.par, "refine_forward_precision", "") == "double"
+        ctx.forward_dtype = torch.float64 if double else solve_dtype
+        ctx.forward_op = make_matrixfree_kernel(
+            dataclasses.replace(ctx.par, compression_type=0), ctx.model.grid, ctx.data, ctx.column_weight,
+            ipar.problem_weight[i], ctx.data.weight, ctx.forward_dtype,
+            pad_cells_to=len(mesh.slots) if mesh is not None else 1, device=device,
+        )
+        log(f"  {PROBLEM_PREFIX[i]} refinement forward: {type(ctx.forward_op).__name__} "
+            f"({str(ctx.forward_dtype).replace('torch.', '')}, {ctx.forward_op.nbytes / 1e6:.1f} MB on {device})")
 
 
 def solve_problem_joint_gravmag(
@@ -212,6 +254,7 @@ def solve_problem_joint_gravmag(
     mesh=None,
     resume: bool = False,
     debug_nans: bool = False,
+    near_field_f64: int = 0,
 ) -> WorkflowResult:
     """Run the full inversion described by a Parfile configuration on
     `device` ("cuda" unless the caller asks for "cpu").
@@ -227,7 +270,10 @@ def solve_problem_joint_gravmag(
     solve_dtype defaults to float32 on a CUDA device and float64 on the CPU;
     compute_dtype (the kernel build) to float64 — the reference computes in
     double and stores single (global_typedefs.F90:37-45), and a float32
-    build suffers cancellation in the prism integrals.
+    build suffers cancellation in the prism integrals; float32 is the
+    compensated build (--build-precision single). near_field_f64 = K > 0
+    is the mixed build (--fast-build K): float32 rows with the K nearest
+    cells in float64 (ops/sensitivity.py::compute_sensitivity).
 
     resume=True restarts from <output>/checkpoint.npz if present (written
     every writeModelEveryNiter iterations together with the model
@@ -280,7 +326,6 @@ def solve_problem_joint_gravmag(
     active = [i for i in (GRAV, MAGN) if cfg.solve_problem(i)]
     if not active:
         raise ValueError("No active problems (both problem weights are zero).")
-    _refuse_unported(cfg)
 
     out_dir = _mkoutdir(cfg)
 
@@ -340,6 +385,8 @@ def solve_problem_joint_gravmag(
         add_time("depth_weight_s", t0)
 
         fmt = par.kernel_format
+        build_dtype = torch.float32 if near_field_f64 > 0 else compute_dtype
+        bf16 = par.kernel_store == "bfloat16"
         nrows_tot = par.ndata * par.ndata_components
         ncols_tot = ctx.model.grid.nelements_total * par.nmodel_components
         if fmt == "auto" and par.compression_type == 0:
@@ -404,8 +451,9 @@ def solve_problem_joint_gravmag(
                 try:
                     kmeta = sens.compute_sensitivity(
                         par, ctx.model.grid, ctx.data, ctx.column_weight,
-                        compute_dtype=compute_dtype, store_dtype=torch.float32,
+                        compute_dtype=build_dtype, store_dtype=torch.float32,
                         row_sink=writer.write_chunk, device=build_device, mesh=mesh,
+                        near_field_f64=near_field_f64,
                     )
                 finally:
                     writer.close()
@@ -467,10 +515,12 @@ def solve_problem_joint_gravmag(
                     rate = done / max(time.time() - t0, 1e-9)
                     log(f"  sensitivity rows: {10 * decile}% ({done}/{total}, {rate:.1f} rows/s)")
 
+            # bfloat16 storage is built straight into bfloat16: a float32
+            # kernel beside it would double the build's memory.
             kernel = sens.compute_sensitivity(
                 par, ctx.model.grid, ctx.data, ctx.column_weight,
-                compute_dtype=compute_dtype, store_dtype=torch.float32,
-                progress=ticker, device=build_device, mesh=mesh,
+                compute_dtype=build_dtype, store_dtype=torch.bfloat16 if bf16 else torch.float32,
+                progress=ticker, device=build_device, mesh=mesh, near_field_f64=near_field_f64,
             )
             build_s = add_time("build_s", t0)
             log(f"  kernel built in {build_s:.2f}s "
@@ -481,17 +531,25 @@ def solve_problem_joint_gravmag(
             # (sensitivity_gravmag.F90:141-153); opt out with
             # tpu.sensitWriteCache = 0 for one-shot runs.
             if par.sensit_write:
-                t0 = time.time()
-                write_kernel_cache(sensit_dir, par, kernel, ctx.column_weight)
-                log(f"  kernel cached in {add_time('cache_write_s', t0):.2f}s")
+                if kernel.S.dtype == torch.bfloat16:
+                    # The cache is a float32 format; bfloat16-rounded values
+                    # would pass for float32 ones in a later run.
+                    log("  NOT writing the sensit cache: the kernel is "
+                        "stored bfloat16 and the cache format is float32 "
+                        "(set tpu.kernelStoreDtype = float32 to persist).")
+                else:
+                    t0 = time.time()
+                    write_kernel_cache(sensit_dir, par, kernel, ctx.column_weight)
+                    log(f"  kernel cached in {add_time('cache_write_s', t0):.2f}s")
 
         # Bake in problem weight x data weights (sensitivity_gravmag.F90:836-843),
         # in place and in storage precision.
         t0 = time.time()
         ctx.kernel = sens.apply_row_weights(kernel, ipar.problem_weight[i], ctx.data.weight)
-        # Cast once to the solve dtype for the LSQR products (the same tensor
-        # comes back for a float32 solve).
-        ctx.kernel.S = ctx.kernel.S.to(solve_dtype)
+        # Cast once to the dtype of the LSQR products: the solve's, or
+        # bfloat16 (half the kernel's memory; its products sum in the solve's
+        # dtype). A kernel already in it comes back as the same tensor.
+        ctx.kernel.S = ctx.kernel.S.to(torch.bfloat16 if bf16 else solve_dtype)
         log(f"  row weights applied on {build_device} in {add_time('row_weights_s', t0):.2f}s")
         log(f"  {PROBLEM_PREFIX[i]} kernel: dense {tuple(ctx.kernel.S.shape)} {ctx.kernel.S.dtype}, "
             f"{ctx.kernel.S.numel() * ctx.kernel.S.element_size() / 1e6:.1f} MB")
@@ -499,13 +557,18 @@ def solve_problem_joint_gravmag(
     for ctx in ctxs.values():
         ctx.operator = _kernel_operator(ctx, device)
 
+    _refinement_forward(ctxs, active, ipar, solve_dtype, mesh, device, log)
+
     if mesh is not None:
-        # Shard each operator once; the unsharded one (and the dense
-        # kernel it was made from) is dropped.
+        # Shard each operator once, the refinement forward with them; the
+        # unsharded one (and the dense kernel it was made from) is dropped.
         t0 = time.time()
         for i, ctx in ctxs.items():
+            reuse = ctx.forward_op is ctx.operator
             ctx.operator = shard_kernel(ctx.operator, mesh)
             ctx.kernel = None
+            if ctx.forward_op is not None:
+                ctx.forward_op = ctx.operator if reuse else shard_kernel(ctx.forward_op, mesh)
         add_time("shard_s", t0)
         shape = "x".join(str(v) for v in mesh.devices.shape)
         for i, ctx in ctxs.items():

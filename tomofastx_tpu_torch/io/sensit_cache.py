@@ -206,7 +206,11 @@ def iter_cache_rows(cache_dir: str, meta: dict) -> Iterator[Tuple[int, int, int,
 def write_kernel_cache(cache_dir: str, par, kernel, column_weight: np.ndarray):
     """Write a dense SensitKernel through the stream writer, in row chunks
     that the writer compacts where the kernel lies: only the kept columns
-    and values cross to the host."""
+    and values cross to the host. The cache is a float32 format: a bfloat16
+    kernel is refused (its rounded values would pass for float32 ones in a
+    later run that reads the cache)."""
+    if kernel.S.dtype == torch.bfloat16:
+        raise ValueError("the sensitivity cache is a float32 format; a bfloat16 kernel is not written to it")
     nd, ndc, nmc = kernel.ndata, kernel.ndata_components, kernel.nmodel_components
     grid = SimpleNamespace(nx=kernel.nx, ny=kernel.ny, nz=kernel.nz, nelements_total=kernel.N)
     w = SensitStreamWriter(cache_dir, par, grid, column_weight, kernel.compression_type)

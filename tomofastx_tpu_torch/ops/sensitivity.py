@@ -294,6 +294,8 @@ def _compress_lines(lines, nx, ny, nz, compression_type, nel_compressed, store_d
 
     if nel_compressed >= N:
         threshold = torch.full(absw.shape[:-1], -1.0, dtype=absw.dtype, device=absw.device)
+    elif absw.dtype == torch.float32:
+        threshold = _kth_largest_bisect_f32(absw, nel_compressed + 1)
     else:
         # (nel_compressed + 1)-th largest |coefficient| per row
         # (= sorted_ascending[N - nel_compressed], sensitivity_gravmag.F90:248-249).
@@ -309,6 +311,36 @@ def _compress_lines(lines, nx, ny, nz, compression_type, nel_compressed, store_d
     inner = tuple(range(1, lines.ndim - 1))
     nnz = torch.sum(mask, dim=inner + (-1,))
     return compressed, nnz, torch.sum(err, dim=inner)
+
+
+# The mixed build (near_field_f64 > 0) with float32 (or bfloat16) storage
+# rounds the patched float64 rows to float32 right after the float64 depth
+# weighting and runs the wavelet and the threshold in float32: the float64
+# digits only have to survive until the storage rounding. False keeps the
+# float64 pipeline to the end. As in the JAX package, a module constant.
+MIXED_BUILD_F32_COMPRESS = True
+
+
+def _kth_largest_bisect_f32(absw, k: int):
+    """Exact k-th largest value along the last axis of a non-negative
+    float32 tensor, by binary search on the int32 bit pattern (non-negative
+    floats order as their bit patterns do): 32 halvings, each one masked
+    count. Equals torch.topk(absw, k)[0][..., -1], ties included: bisecting
+    on the count of strictly greater entries pins the k-th order statistic.
+    The JAX package selects its float32 thresholds this way, and the two
+    agree to the bit."""
+    bits = absw.contiguous().view(torch.int32)
+    # Invariant: count(> lo) >= k and count(> hi) < k, so the k-th largest
+    # pattern lies in (lo, hi]; lo = -1 (below +0.0's pattern 0) and hi =
+    # the row's largest pattern hold for any 1 <= k <= N.
+    lo = torch.full(absw.shape[:-1], -1, dtype=torch.int32, device=absw.device)
+    hi = absw.amax(dim=-1).contiguous().view(torch.int32)
+    for _ in range(32):
+        mid = lo + torch.div(hi - lo, 2, rounding_mode="floor")
+        above = torch.sum(bits > mid[..., None], dim=-1) >= k
+        lo = torch.where(above, mid, lo)
+        hi = torch.where(above, hi, mid)
+    return hi.view(torch.float32)
 
 
 def _chunk_plan(nd: int, batch: int):
@@ -337,7 +369,10 @@ def _chunk_plan(nd: int, batch: int):
 # that the corner lattice, the depth weight, the wavelet and the threshold make
 # of them. 2^32 is what 256 g_z rows at 64^3 cells took in every earlier
 # build; a row of the magnetic tensor, with its five corner channels, counts
-# twice.
+# twice. The float32 and mixed builds hold less a row element: the float32
+# closed forms and quadrature, then (mixed) the sort's 16 bytes and a
+# float64 copy of the rows beside the float32 one, as the JAX package's
+# memory cap counts them (12 bytes).
 BUILD_CHUNK_BYTES = 1 << 32
 
 
@@ -347,6 +382,26 @@ def _build_batch(batch_size: int, problem: str, nmc: int, ndc: int, N: int) -> i
     stream in order, so the files do not depend on the chunk."""
     per_row = 64 * N * nmc * ndc * (2 if problem == "magn" else 1)
     return max(1, min(batch_size, BUILD_CHUNK_BYTES // per_row))
+
+
+def _patch_near_field(rows, near, K, xd, yd, zd, problem, data_type, nmc, ndc, magv, intensity,
+                      handle_inside):
+    """The mixed build's patch: the rows in float64, with the K cells
+    nearest each point (by the float32 squared centre distance, ties to the
+    lower cell index) recomputed from float64 cell bounds at the float32
+    point widened to float64, as in the JAX package. rows: (B, N, nmc, ndc)."""
+    grid64, (xc, yc, zc) = near
+    d2 = (xc - xd[:, None]) ** 2 + (yc - yd[:, None]) ** 2 + (zc - zd[:, None]) ** 2
+    # A stable sort keeps equal distances in cell order: the set is the
+    # K lowest-indexed among ties, whatever the device.
+    idx = torch.sort(d2, dim=-1, stable=True)[1][:, :K].contiguous()
+    del d2
+    sub64 = tuple(a[idx] for a in grid64)
+    rows64 = forward_rows(problem, data_type, nmc, ndc, magv, intensity, handle_inside, sub64,
+                          xd.double(), yd.double(), zd.double())
+    rows = rows.double()
+    rows.scatter_(1, idx[:, :, None, None].expand(-1, -1, nmc, ndc), rows64)
+    return rows
 
 
 def compute_sensitivity(
@@ -361,9 +416,31 @@ def compute_sensitivity(
     row_sink=None,
     device="cuda",
     mesh=None,
+    near_field_f64: int = 0,
 ) -> SensitKernel:
     """Build the (optionally wavelet-compressed) sensitivity rows, into one
     dense tensor on `device` or streamed to `row_sink`.
+
+    compute_dtype is the physics' precision: float64 (the reference's
+    policy; the corner-lattice build on a tensor-product grid) or float32,
+    the compensated build (--build-precision single): per-cell float32
+    closed forms with the far cells by Gauss quadrature (tpu.farFieldQuad).
+
+    near_field_f64 = K > 0 is the mixed build (--fast-build K): float32
+    rows, with the K cells nearest each observation, where the closed forms
+    lose digits to cancellation, recomputed in float64 and patched in. The
+    K cells are the K smallest squared centre distances (float32), ties to
+    the lower cell index, as lax.top_k picks them in the JAX package. With
+    float32 or bfloat16 storage the patched rows are rounded to float32
+    after the float64 depth weighting (MIXED_BUILD_F32_COMPRESS).
+
+    par.f64_build_f32_compress (tpu.f64BuildF32Compress, --f32-compress):
+    a float64 build rounds its weighted rows to float32 before the wavelet
+    and the threshold; inert for float64 storage.
+
+    store_dtype: float32, float64, or bfloat16 (tpu.kernelStoreDtype),
+    which a dense build writes straight into a bfloat16 tensor, with no
+    float32 intermediate of the whole kernel.
 
     Mirrors calculate_and_write_sensit (sensitivity_gravmag.F90:82-410):
     physics row -> multiply by column weight -> (wavelet + threshold) ->
@@ -397,13 +474,6 @@ def compute_sensitivity(
     distinct cards the caller passes the host as `device`
     (parallel.mesh.assembly_device), so that no card holds the whole
     kernel."""
-    if compute_dtype != torch.float64:
-        raise NotImplementedError(
-            "a float32 kernel build (--build-precision single) is not ported yet (ROADMAP queue 1 "
-            "item 5); the port builds in float64"
-        )
-    if getattr(par, "f64_build_f32_compress", 0):
-        raise NotImplementedError("tpu.f64BuildF32Compress is not ported yet (ROADMAP queue 1 item 5)")
     N = grid.nelements_total
     nd, ndc, nmc = par.ndata, par.ndata_components, par.nmodel_components
 
@@ -417,8 +487,8 @@ def compute_sensitivity(
 
     device = torch.device(device)
 
-    def t(a, dev=device):
-        return torch.as_tensor(np.asarray(a, np.float64), dtype=compute_dtype, device=dev)
+    def t(a, dev=device, dtype=compute_dtype):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=dev)
 
     # Corner-lattice build on a tensor-product grid: evaluate the corner
     # antiderivatives once per lattice node per observation and difference
@@ -432,16 +502,27 @@ def compute_sensitivity(
     ):
         lattice_edges = detect_lattice(grid)
     slots = [device] if mesh is None else mesh.slots
+    # The compensated float32 physics: far cells by quadrature wherever the
+    # closed forms run in float32.
+    far_quad = bool(getattr(par, "far_field_quad", 1) and compute_dtype == torch.float32)
+    K = min(near_field_f64, N) if near_field_f64 > 0 else 0
+    narrow_store = torch.empty((), dtype=store_dtype).element_size() <= 4
+    f32_pipeline = bool(getattr(par, "f64_build_f32_compress", 0))
+    cells = (grid.X1, grid.X2, grid.Y1, grid.Y2, grid.Z1, grid.Z2)
 
     def operands(dev):
-        """The grid (lattice edges or cell bounds) and column weight on dev."""
+        """The grid (lattice edges or cell bounds), the column weight and,
+        for the mixed build, the float64 cell bounds and the cell centres
+        on dev. The column weight stays float64 in the mixed build, so that
+        the patched rows keep their digits."""
         lat = tuple(t(e, dev) for e in lattice_edges) if lattice_edges is not None else ()
-        grid_arrays = (
-            ()
-            if lat
-            else tuple(t(a, dev) for a in (grid.X1, grid.X2, grid.Y1, grid.Y2, grid.Z1, grid.Z2))
-        )
-        return lat, grid_arrays, t(column_weight, dev)
+        grid_arrays = () if lat else tuple(t(a, dev) for a in cells)
+        cw = t(column_weight, dev, torch.float64 if K else compute_dtype)
+        near = ()
+        if K:
+            near = (tuple(t(a, dev, torch.float64) for a in cells),
+                    tuple(t(0.5 * (lo + hi), dev) for lo, hi in zip(cells[::2], cells[1::2])))
+        return lat, grid_arrays, cw, near
 
     # Keyed by the device the tensors landed on ("cuda" lands on cuda:0).
     ops = {}
@@ -455,15 +536,27 @@ def compute_sensitivity(
         nel_compressed = N
 
     def build_chunk(xd, yd, zd):
-        lat, grid_arrays, cw = ops[xd.device]
+        lat, grid_arrays, cw, near = ops[xd.device]
         if lat:
             rows = _lattice_closed_rows(*lat, xd, yd, zd, problem, par.data_type, magv, intensity, nmc, ndc)
             rows = rows.reshape(-1, N, nmc, ndc)
         else:
             rows = forward_rows(
-                problem, par.data_type, nmc, ndc, magv, intensity, handle_inside, grid_arrays, xd, yd, zd
+                problem, par.data_type, nmc, ndc, magv, intensity, handle_inside, grid_arrays, xd, yd, zd,
+                far_quad=far_quad,
             )
-        rows = rows * cw[:, None, None]  # depth weighting
+        if K:
+            rows = _patch_near_field(rows, near, K, xd, yd, zd, problem, par.data_type, nmc, ndc, magv,
+                                     intensity, handle_inside)
+        rows = rows * cw[:, None, None]  # depth weighting (float64 in the mixed build)
+        # The float32 pipelines' rounding points, as in the JAX package: with
+        # a store of 32 bits or fewer, the mixed build's patched rows and a
+        # float64 build under tpu.f64BuildF32Compress go to float32 after
+        # the weighting.
+        if K and MIXED_BUILD_F32_COMPRESS and narrow_store:
+            rows = rows.to(compute_dtype)
+        elif not K and f32_pipeline and rows.dtype == torch.float64 and narrow_store:
+            rows = rows.to(torch.float32)
         rows = rows.permute(0, 3, 2, 1)  # (B, ndc, nmc, N): lines over N
         # Flagged before the threshold: its mask (|w| > t) is false for NaN
         # and would store a non-finite row as zeros. The JAX package checks
@@ -586,7 +679,8 @@ def calculate_data(
     if problem_weight == 0.0:
         raise ValueError("Zero problem weight in calculate_data!")
     if isinstance(operator, SensitKernel):
-        operator = DenseKernel(operator.S.to(solve_dtype))
+        S = operator.S
+        operator = DenseKernel(S if S.dtype == torch.bfloat16 else S.to(solve_dtype))
     cw = np.asarray(column_weight)
     dw = np.asarray(data_weight)
     m = np.asarray(model_val).reshape(-1, cw.shape[0])

@@ -18,7 +18,9 @@ instead of the reference's CSR (sparse_matrix.f90):
   by a second gather. Both adjoint paths write every output once.
 
 Both operators are plain tensor operations here, as they are outside any
-hand-written kernel in the JAX package (the dense pair is ``torch.mv``).
+hand-written kernel in the JAX package (the dense pair is ``torch.mv``),
+except the dense pair on a bfloat16 kernel (tpu.kernelStoreDtype =
+bfloat16), which goes through the hand-written kernels of ops/bf16_gemv.py.
 Their forms cut over the slots of a mesh (ShardedDenseKernel,
 ShardedPackedKernel) and the padding helpers serve parallel/mesh.py.
 """
@@ -30,6 +32,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from tomofastx_tpu_torch.ops.bf16_gemv import bf16_matvec, bf16_rmatvec
 
 
 @dataclass
@@ -147,10 +151,25 @@ def pack_dense(
     )
 
 
+def _mv(S, x):
+    """S x: torch.mv, or the bfloat16 kernel on a bfloat16 S (float32 or
+    float64 sums; the float32 matrix never exists)."""
+    return bf16_matvec(S, x) if S.dtype == torch.bfloat16 else torch.mv(S, x)
+
+
+def _rmv(S, ST, u):
+    """S^T u from S, or from its contiguous transpose ST where one is held
+    (never for a bfloat16 S: its kernel reads the row-major S)."""
+    if S.dtype == torch.bfloat16:
+        return bf16_rmatvec(S, u)
+    return torch.mv(ST if ST is not None else S.T, u)
+
+
 @dataclass
 class DenseKernel:
     """Dense counterpart with the same operator interface. S is held in the
-    type of the vectors it meets (the workflow casts it once).
+    type of the vectors it meets (the workflow casts it once), or in
+    bfloat16, whose products sum in the vectors' type (ops/bf16_gemv.py).
 
     ST: optional contiguous transpose. On the CPU the strided S.T @ u
     product is much slower than a contiguous one, so the workflow
@@ -173,7 +192,7 @@ class DenseKernel:
         npad = self.S.shape[1] - x.shape[0]
         if npad:
             x = torch.nn.functional.pad(x, (0, npad))
-        d = torch.mv(self.S, x)
+        d = _mv(self.S, x)
         if self.nrows_true is not None and d.shape[0] != self.nrows_true:
             d = d[: self.nrows_true]
         return d
@@ -182,7 +201,7 @@ class DenseKernel:
         npad = self.S.shape[0] - u.shape[0]
         if npad:
             u = torch.nn.functional.pad(u, (0, npad))
-        g = torch.mv(self.ST if self.ST is not None else self.S.T, u)
+        g = _rmv(self.S, self.ST, u)
         if self.ncols_true is not None and g.shape[0] != self.ncols_true:
             g = g[: self.ncols_true]
         return g
@@ -298,9 +317,10 @@ def _sum_in_order(parts):
 class ShardedDenseKernel:
     """A DenseKernel cut into a grid of blocks: rows over the obs axis (one
     row of blocks on a 1-D mesh), columns over the cells axis; block (i, j)
-    lies on grid[i, j]. matvec adds each row of blocks' torch.mv partials on
+    lies on grid[i, j], in the kernel's dtype (bfloat16 blocks take the
+    bfloat16 kernels). matvec adds each row of blocks' partial products on
     the home device in slot order and concatenates the rows; rmatvec does
-    the same with the transposed blocks."""
+    the same with the transposed products."""
 
     blocks: list  # blocks[i][j]: (rows_i, cols_j)
     blocksT: list  # None, or contiguous transposes blocksT[i][j]: (cols_j, rows_i)
@@ -333,7 +353,7 @@ class ShardedDenseKernel:
         x = pad_axis(x, 0, cb * len(self.blocks[0]))
         rows = [
             _sum_in_order([
-                torch.mv(S, x[j * cb : (j + 1) * cb].to(S.device)).to(home) for j, S in enumerate(row)
+                _mv(S, x[j * cb : (j + 1) * cb].to(S.device)).to(home) for j, S in enumerate(row)
             ])
             for row in self.blocks
         ]
@@ -350,7 +370,7 @@ class ShardedDenseKernel:
             for i in range(no):
                 S = self.blocks[i][j]
                 ui = u[i * rb : (i + 1) * rb].to(S.device)
-                parts.append(torch.mv(self.blocksT[i][j] if self.blocksT else S.T, ui).to(home))
+                parts.append(_rmv(S, self.blocksT[i][j] if self.blocksT else None, ui).to(home))
             cols.append(_sum_in_order(parts))
         return torch.cat(cols)[: self.ncols_true] if nc > 1 else cols[0][: self.ncols_true]
 
