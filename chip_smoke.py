@@ -122,14 +122,33 @@ It needs one CUDA device, nvcc and nothing from the network. It
 25. the tiled main path built three ways, --build-precision single,
    --fast-build 64 and --f32-compress, each cache's Frobenius distance from
    the float64-built cache of 3;
-26. tpu.refineForward = 1 on the tiled path, the forward in the solve's
-   precision and in float64 (tpu.refineForwardPrecision = double: the BTTB
+26. tpu.refineForward = 1 on the tiled path (read from the cache of 3), the
+   forward in the solve's precision and in float64 (tpu.refineForwardPrecision = double: the BTTB
    operator on complex128 FFTs), the latter with --mesh 1 to the last bit;
    the predicted data against a dense uncompressed forward of the final
    model;
 27. five small float64 problems of these variants (bfloat16 dense, float32
    build, mixed build, float32 compression, refineForward) on the card
-   against the CPU.
+   against the CPU;
+28. the fused major loop, --fused 3 through the command-line entry point
+   (one captured CUDA graph a major, replayed three times): tiled from the
+   tiled run's cache (tile_matvec replayed inside the graph), the same with
+   --mesh 1 (tile_matvec_sharded; equal to the last bit to the unmeshed
+   fused run), bfloat16 dense (kernel B1), the coupled joint problem tiled,
+   BTTB and refineForward with a float64 forward, each held to the
+   host-driven run of its Parfile at the formats' tolerance, and each
+   kernel's launches on the card read from its own run (those its wrapper
+   counted outside the capture, plus one replay's by torch.profiler, equal
+   to those counted inside the capture, times the replays the run's solver
+   made); a
+   5-major run written every 2 (chunks of 2, 2 and 1 majors, one capture)
+   and its resumption from the checkpoint of major 4, equal to the last
+   bit; through the library, the tiled run's graph replayed against the
+   same steps launched eagerly on the card (equal to the last bit, with
+   torch.profiler's count of tile_matvec in that chunk); and
+   four small float64 fused problems (tiled, coupled dense, BTTB, and the
+   lattice operator, whose majors run without a graph) on the card against
+   the CPU.
 
 Any failed phase ends the run with a non-zero exit code. Without a CUDA
 device it exits with code 2 and prints no result. The last line of a good run
@@ -481,6 +500,12 @@ def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_writte
 
     run["lsqr_iterations"] = [int(v) for v in re.findall(r"lsqr iters = (\d+)", log)]
     run["major_s"] = [float(v) for v in re.findall(r"iter done in ([0-9.]+)s", log)]
+    # --fused M: a line a chunk, and one a capture of the major's CUDA graph.
+    run["chunks"] = [(int(n), float(s)) for n, s, its in re.findall(
+        r"fused (\d+) iterations in ([0-9.]+)s, lsqr iters = \[([0-9, ]+)\]", log)]
+    run["lsqr_iterations"] += [int(v) for its in re.findall(r"fused \d+ iterations in [0-9.]+s, lsqr iters = "
+                                                           r"\[([0-9, ]+)\]", log) for v in its.split(",")]
+    run["captures_s"] = [float(v) for v in re.findall(r"fused major captured as a CUDA graph in ([0-9.]+)s", log)]
     run["builds_s"] = [float(v) for v in re.findall(r"kernel built(?:\+cached)? in ([0-9.]+)s", log)]
     run["packs_s"] = [float(v) for v in re.findall(r"cache packed into [a-z ]+ in ([0-9.]+)s", log)]
     run["row_weights_s"] = [float(v) for v in re.findall(r"row weights applied on \S+ in ([0-9.]+)s", log)]
@@ -494,6 +519,7 @@ def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_writte
         raise SystemExit(f"FAILED {name} main path: LSQR iterations {run['lsqr_iterations']}")
     said = [f"{k} = {run[k]}" for k in must_say if k in run] + [f"builds {run['builds_s']} s", f"packs {run['packs_s']} s"]
     print(f"  {name} main path took {run['main_path_s']:.1f} s: " + ", ".join(said)
+          + (f", chunks (majors, s) {run['chunks']}, captures {run['captures_s']} s" if run["chunks"] else "")
           + f", majors {run['major_s']} s; peak device memory {run['peak_device_GB']:.2f} GB "
           f"({held_before:.2f} GB held before the run); "
           f"launches {run['launches']}")
@@ -633,7 +659,7 @@ def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters, kind="g
 
 
 def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None, swap=None, mesh=None,
-                                   operator=None, solve_kw=None, model_tol=1e-6, **parfile_args):
+                                   operator=None, solve_kw=None, model_tol=1e-6, n_minor=10, **parfile_args):
     """A small problem of `kind` on the card (float64 solve, so the float64
     variants of the kernels and products carry it) against the same problem
     on the CPU: every active problem's final model within 1e-6 of its range,
@@ -655,7 +681,7 @@ def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None,
         parfile_args["extra"] = list(parfile_args.get("extra", ())) + coupling(small, inputs)
     res = {}
     for dev in ("cpu", "cuda"):
-        pf = write_parfile(small, f"Parfile_{dev}.txt", inputs, os.path.join(small, f"out_{dev}"), 10, kind=kind,
+        pf = write_parfile(small, f"Parfile_{dev}.txt", inputs, os.path.join(small, f"out_{dev}"), n_minor, kind=kind,
                            **parfile_args)
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
@@ -668,7 +694,8 @@ def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None,
         a, b = res["cpu"].models[i].val, res["cuda"].models[i].val
         rel = float(np.abs(a - b).max() / (a.max() - a.min()))
         ca, cb = res["cpu"].cost_data[i], res["cuda"].cost_data[i]
-        print(f"  small problem ({what}, {('grav', 'mag')[i]}; 16x16x8 cells, 64 observations, f64 solve), card "
+        print(f"  small problem ({what}, {('grav', 'mag')[i]}; 16x16x8 cells, 64 observations, "
+              f"{parfile_args.get('n_major', N_MAJOR)} x {n_minor}, f64 solve), card "
               f"against CPU: final model {a.shape} differs by {rel:.3e} of its range, data cost {cb:.6e} against "
               f"{ca:.6e} (tolerance {model_tol:g} of the range for the model, 1e-6 for the cost)")
         if not rel <= model_tol or not abs(cb - ca) <= 1e-6 or not cb < 1.0:
@@ -975,14 +1002,16 @@ def capturing_the_system(workflow):
 
 
 def cuda_kernel_events(fn):
-    """The kernels fn() launches on the card, by torch.profiler (memory
-    copies and sets left out)."""
+    """The names of the kernels fn() launches on the card, by torch.profiler
+    (memory copies and sets left out), read from its raw results: making
+    its FunctionEvents takes longer than the products of the lattice and
+    per-cell operators themselves."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))]
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.name().startswith(("Memcpy", "Memset"))]
 
 
 def time_blocks(spec, arrays):
@@ -1172,8 +1201,11 @@ def phase_17(cli, counters, tmv, work):
 # The matrix-free solves' depths, cut to fit the script's time: one product
 # takes ~0.3-0.6 s on the lattice operator and ~1.4 s on the per-cell one at
 # 4096 x 262144 (PERF.md), against ~0.5 ms on the BTTB operator.
-LATTICE_DEPTH = (2, 1)
+LATTICE_DEPTH = (1, 1)
 GENERIC_DEPTH = (1, 1)
+# The small lattice and per-cell problems' depth: their eager products
+# launch thousands of kernels even at 16 x 16 x 8 cells.
+SMALL_MF_DEPTH = dict(n_major=2, n_minor=5)
 # JAX's bounds for its blended float32 operators against float64: a whole
 # row (tests/test_matrixfree.py:1065) and a product (:570, :999).
 ROW_BLEND_RTOL, PRODUCT_BLEND_RTOL = 2e-5, 5e-5
@@ -1477,13 +1509,16 @@ def phase_23(work, mesh4):
     cases = [
         ("bttb_gz", "BTTB g_z", dict(operator="BTTBKernel")),
         ("bttb_ftg", "BTTB FTG full tensor", dict(operator="BTTBKernel", kind="ftg")),
-        ("lattice_gz", "lattice g_z, draped", dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"})),
+        ("lattice_gz", "lattice g_z, draped", dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"},
+                                                   **SMALL_MF_DEPTH)),
         ("lattice_tmi", "lattice TMI, draped", dict(operator="LatticeMatrixFreeKernel", kind="tmi",
-                                                    swap={"data": "data_draped"})),
-        ("generic_gz", "per-cell g_z, topography", dict(operator="MatrixFreeKernel", swap={"grid": "grid_topo"})),
-        ("generic_borehole_tmi", "per-cell TMI, borehole", dict(operator="MatrixFreeKernel", kind="borehole")),
+                                                    swap={"data": "data_draped"}, **SMALL_MF_DEPTH)),
+        ("generic_gz", "per-cell g_z, topography", dict(operator="MatrixFreeKernel", swap={"grid": "grid_topo"},
+                                                        **SMALL_MF_DEPTH)),
+        ("generic_borehole_tmi", "per-cell TMI, borehole", dict(operator="MatrixFreeKernel", kind="borehole",
+                                                                **SMALL_MF_DEPTH)),
         ("lattice_gz_4_slots", "lattice g_z, draped, four slots of the card",
-         dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"}, mesh=mesh4)),
+         dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"}, mesh=mesh4, **SMALL_MF_DEPTH)),
     ]
     return {name: small_problem_card_against_cpu(work, f"small_mf_{name}", f"matrix-free {what}", fmt="matrixfree",
                                                  compression=0, **kw) for name, what, kw in cases}
@@ -1656,11 +1691,12 @@ def phase_25(cli, counters, work, inputs, ref_dir, par, grid, products):
     return out
 
 
-def phase_26(cli, counters, work, inputs, products):
-    """tpu.refineForward = 1 on the tiled path, the forward in the solve's
-    precision and in float64 (the BTTB operator on complex128 FFTs), the
-    latter with --mesh 1 to the last bit; the predicted data against a dense
-    uncompressed forward of the final model."""
+def phase_26(cli, counters, work, inputs, products, cache_dir):
+    """tpu.refineForward = 1 on the tiled path, read from the tiled main
+    path's cache (cache_dir), the forward in the solve's precision and in
+    float64 (the BTTB operator on complex128 FFTs), the latter with --mesh 1
+    to the last bit; the predicted data against a dense uncompressed forward
+    of the final model."""
     import dataclasses
 
     from tomofastx_tpu_torch.config.parfile import read_parfile
@@ -1668,17 +1704,19 @@ def phase_26(cli, counters, work, inputs, products):
     from tomofastx_tpu_torch.ops import sensitivity as sens
 
     print("tpu.refineForward = 1 on the tiled path:")
+    cached = ["sensit.readFromFiles = 1", f"sensit.folderPath = {cache_dir}/"]
     cases = (("single", ["tpu.refineForward = 1"], None, "float32"),
              ("double", ["tpu.refineForward = 1", "tpu.refineForwardPrecision = double"], None, "float64"),
              ("double_mesh1", ["tpu.refineForward = 1", "tpu.refineForwardPrecision = double"], "1", "float64"))
     runs, pf = {}, {}
     for name, extra, mesh, dt in cases:
         out_dir = os.path.join(work, f"out_refine_{name}")
-        pf[name] = write_parfile(work, f"Parfile_refine_{name}.txt", inputs, out_dir, N_MINOR, fmt="tiled", extra=extra)
-        said = {"build_s": r"kernel built\+cached in ([0-9.]+)s", "format": r"grav kernel: tiled",
+        pf[name] = write_parfile(work, f"Parfile_refine_{name}.txt", inputs, out_dir, N_MINOR, fmt="tiled",
+                                 extra=extra + cached)
+        said = {"pack_s": r"cache packed into tiles in ([0-9.]+)s", "format": r"grav kernel: tiled",
                 "forward": r"grav refinement forward: BTTBKernel \(" + dt}
         run = runs[name] = run_main_path(cli, counters, f"tiled, refineForward ({dt} forward)", pf[name], out_dir, said,
-                                         mesh=mesh)
+                                         mesh=mesh, sensit_written=False)
         run["out_dir"] = out_dir
         # The stored kernel only under the solves; every forward product on the BTTB operator.
         solve_products = products - (3 + N_MAJOR)
@@ -1742,8 +1780,339 @@ def phase_27(work):
             for name, what, kw in cases}
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the fused major loop (--fused M), one captured CUDA graph a major.
+# ---------------------------------------------------------------------------
+
+FUSED_M = N_MAJOR  # --fused 3: a run's three majors in one chunk, three replays
+
+
+# The symbol torch.profiler names for each counter's kernel: A2 launches A1's
+# kernel once a part; one launch of the bf16 rmatvec pair ends in its reduce.
+KERNEL_SYMBOL = {"tile_matvec": "tile_matvec_kernel", "tile_matvec_sharded": "tile_matvec_kernel",
+                 "bf16_matvec": "bf16_matvec_kernel", "bf16_rmatvec": "bf16_rmatvec_reduce"}
+
+
+class KeptFusedSolver:
+    """A fused solver whose calls go through unchanged; `kept` holds the
+    solver, the tensors of its last call and, per kernel, the launches its
+    wrapper counted while the major's graph was captured."""
+
+    def __init__(self, solver, kept, counters):
+        self.solver, self.kept = solver, kept
+        capture = solver._capture_graph
+
+        def counted_capture(stream):
+            before = {k: fn.launches for k, fn in counters.items()}
+            out = capture(stream)
+            kept["captured"] = {k: fn.launches - before[k] for k, fn in counters.items()}
+            return out
+
+        solver._capture_graph = counted_capture
+
+    def __call__(self, arrays):
+        self.kept.update(solver=self.solver, arrays=arrays)
+        return self.solver(arrays)
+
+    def __getattr__(self, name):
+        return getattr(self.solver, name)
+
+
+@contextlib.contextmanager
+def keeping_the_fused_solver(workflow, counters):
+    kept = {}
+    orig = workflow.make_fused_solver
+    workflow.make_fused_solver = lambda spec, n_steps: KeptFusedSolver(orig(spec, n_steps), kept, counters)
+    try:
+        yield kept
+    finally:
+        workflow.make_fused_solver = orig
+
+
+def profiled_launches(fn, want):
+    """Each kernel of `want`'s launches in fn() by torch.profiler (the
+    events of its symbol), and all kernels; profiled once more only if a
+    count comes back short of `want` (a profile can come back short of its
+    kernels, time_operator), the larger counts kept."""
+    got, n_all = {k: 0 for k in want}, 0
+    for _ in range(2):
+        events = cuda_kernel_events(fn)
+        n_all = max(n_all, len(events))
+        for k in want:
+            got[k] = max(got[k], sum(1 for e in events if KERNEL_SYMBOL[k] in e))
+        if all(got[k] >= want[k] for k in want):
+            break
+    return got, n_all
+
+
+def launches_on_the_card(name, run, kept, kernels):
+    """What each kernel launched on the card in a --fused run, from that
+    run's own counts: its wrapper's launches (counted once at the capture)
+    less those counted inside the capture, plus the launches of one replay
+    of the run's graph (torch.profiler) times the replays the run's solver
+    made. Fails unless a replay launches what the capture counted."""
+    solver, captured = kept["solver"], kept["captured"]
+    a_replay, n_all = profiled_launches(solver._graph.replay, {k: captured[k] for k in kernels})
+    out = {k: {"counted": run["launches"][k], "captured": captured[k], "a_replay": a_replay[k],
+               "replays": solver.replays,
+               "on_the_card": run["launches"][k] - captured[k] + a_replay[k] * solver.replays} for k in kernels}
+    print(f"  fused {name}: " + "; ".join(
+        f"{k} counted {v['counted']} ({v['captured']} inside the capture), torch.profiler saw {v['a_replay']} in one "
+        f"replay of {n_all} kernels, {v['replays']} replays: {v['on_the_card']} launched on the card"
+        for k, v in out.items()))
+    if any(v["a_replay"] != v["captured"] or not v["captured"] for v in out.values()):
+        raise SystemExit(f"FAILED fused {name}: a replay does not launch what its capture counted")
+    return out
+
+
+def tree_equal(a, b):
+    """Whether two nested dicts/tuples of tensors are equal to the last bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(tree_equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def graph_replay_against_eager(solver, arrays, counter, a_replay):
+    """The fused solver's graph replayed over one chunk against the same
+    steps launched eagerly on the card: every output equal to the last bit.
+    The eager steps' launches of the counter's kernel a step, and
+    torch.profiler's count of them in the graph's chunk (the call whose
+    outputs are compared): its incoming forwards, counted, and a_replay a
+    replay."""
+    arr = {k: v for k, v in arrays.items() if k != "active_steps"}
+    n_active = int(arrays["active_steps"])
+    name = counter.__name__
+    counter.launches = 0
+    eager = solver._run_eager(arr, n_active, all_steps=False)
+    torch.cuda.synchronize()
+    # The eager chunk: each problem's incoming forward, then n_active steps.
+    problems = len(arrays["S"])
+    per_step = (counter.launches - problems) // n_active
+    captures, graph = solver.captures, {}
+
+    def chunk():
+        counter.launches = 0
+        graph["out"] = solver(arrays)
+
+    got, n_all = profiled_launches(chunk, {name: problems + a_replay * n_active})
+    if solver.captures != captures:
+        raise SystemExit("FAILED fused graph: the solver captured again on the same tensors")
+    out = {"equal_to_the_last_bit": tree_equal(graph["out"], eager), "per_step_eagerly": per_step,
+           "counted_in_the_graph_call": counter.launches, f"profiled_{name}_in_the_chunk": got[name],
+           "kernels_in_the_chunk": n_all, "replays": n_active}
+    print(f"  the graph replayed over a chunk of {n_active} majors against the same steps launched eagerly on the "
+          f"card: every output equal to the last bit: {out['equal_to_the_last_bit']}; {name}: {per_step} launches a "
+          f"step eagerly, {counter.launches} counted in the graph's call (the incoming forwards), torch.profiler "
+          f"saw {got[name]} in the chunk (expected {problems} + {a_replay} x {n_active}) of {n_all} kernels")
+    if not out["equal_to_the_last_bit"]:
+        raise SystemExit("FAILED fused graph: the replay differs from the eager steps")
+    if per_step != a_replay or counter.launches != problems or got[name] != problems + a_replay * n_active:
+        raise SystemExit(f"FAILED fused graph: {name} launches inside the graph")
+    return out
+
+
+def graph_of_one_lsqr_iteration(name, op, reps=2):
+    """The capture and the instantiation of one LSQR iteration's products
+    (matvec + rmatvec) of an operator as a CUDA graph, timed apart, its
+    kernel count, a replay's and the eager products' milliseconds (median of
+    `reps`), and one replay against the eager products."""
+    g = torch.Generator(device="cpu").manual_seed(29)
+    x = torch.randn(op.ncols, generator=g, dtype=torch.float64).to("cuda", torch.float32)
+    u = torch.randn(op.nrows * getattr(op, "ndc", 1), generator=g, dtype=torch.float64).to("cuda", torch.float32)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = (op.matvec(x), op.rmatvec(u))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        t0 = time.time()
+        graph.capture_begin()
+        got = (op.matvec(x), op.rmatvec(u))
+        t1 = time.time()
+        graph.capture_end()  # ends the capture and instantiates the graph
+        torch.cuda.synchronize()
+        t2 = time.time()
+    out = {"capture_s": t1 - t0, "end_and_instantiate_s": t2 - t1,
+           "replay_ms": time_cuda(graph.replay, warm=1, reps=reps),
+           "eager_ms": time_cuda(lambda: (op.matvec(x), op.rmatvec(u)), warm=0, reps=reps),
+           "kernels": len(cuda_kernel_events(graph.replay))}
+    graph.replay()
+    torch.cuda.synchronize()
+    out["replay_equals_eager"] = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"  {name}: one LSQR iteration's products (matvec + rmatvec) as a CUDA graph of {out['kernels']} kernels: "
+          f"captured in {out['capture_s']:.2f} s, ended and instantiated in {out['end_and_instantiate_s']:.2f} s; a "
+          f"replay {out['replay_ms']:.1f} ms against {out['eager_ms']:.1f} ms launched eagerly; the replay equals "
+          f"the eager products to the last bit: {out['replay_equals_eager']}")
+    del graph
+    return out
+
+
+def phase_28(cli, counters, workflow, work, inputs, refs):
+    """The fused major loop through the command line (--fused 3) at full
+    width, each run held to the host-driven run of its Parfile (refs):
+    tiled (kernel A1 replayed inside the graph), tiled --mesh 1 (A2, equal
+    to the unmeshed fused run to the last bit), bfloat16 dense (B1), the
+    coupled joint problem tiled, BTTB and refineForward with a float64
+    forward; a 5-major run written every 2 (chunks 2, 2, 1 of one graph)
+    resumed from its checkpoint to the last bit; through the library, the
+    tiled run's graph against the same steps launched eagerly; four small
+    float64 fused problems, card against CPU."""
+    print(f"the fused major loop (--fused {FUSED_M}): one CUDA graph a major, replayed:")
+    graph_said = {"unit": rf"fused major loop: chunks of up to {FUSED_M} majors, one CUDA graph a major, replayed",
+                  "capture": r"fused major captured as a CUDA graph in ([0-9.]+)s"}
+    args = ("--fused", str(FUSED_M))
+    tiled_cache = ["sensit.readFromFiles = 1", f"sensit.folderPath = {refs['tiled'][1]}/SENSIT/"]
+    runs, spread = {}, {}
+
+    t_phase = time.time()
+    seconds = {}
+
+    def fused(name, pf, out_dir, said, ref, kind="grav", mesh=None, kernels=None, **kw):
+        """A --fused run through the command line, held to its host-driven
+        run. kernels: {kernel: (its launches a step, its eager forwards)};
+        the step's launches are counted once inside the capture and once in
+        the warm-up step, the forwards (of the synthetic, prior, starting
+        and incoming models) outside the graph; each kernel's launches on
+        the card are read from the run. No other kernel may launch."""
+        kernels = kernels or {}
+        t0 = time.time()
+        with keeping_the_fused_solver(workflow, counters) as kept:
+            run = run_main_path(cli, counters, f"fused {name}", pf, out_dir, {**graph_said, **said}, kind=kind,
+                                mesh=mesh, args=args, **kw)
+        if len(run["captures_s"]) != 1 or [n for n, _ in run["chunks"]] != [N_MAJOR]:
+            raise SystemExit(f"FAILED fused {name}: chunks {run['chunks']}, captures {run['captures_s']}")
+        if kept["solver"].replays != N_MAJOR:
+            raise SystemExit(f"FAILED fused {name}: {kept['solver'].replays} replays, not {N_MAJOR}")
+        # The chunk's seconds less its capture (the warm-up step included).
+        run["per_lsqr_iteration_ms"] = (run["chunks"][0][1] - run["captures_s"][0]) / (N_MAJOR * N_MINOR) * 1e3
+        if ref is not None:
+            spread[name] = formats_apart(f"fused {name} against the host-driven run", run, ref)
+        if kernels:
+            run["launches_fused"] = launches_on_the_card(name, run, kept, kernels)
+            for k, v in run["launches_fused"].items():
+                per_step, forwards = kernels[k]
+                eager = forwards + per_step
+                if v["captured"] != per_step or v["counted"] - v["captured"] != eager:
+                    raise SystemExit(f"FAILED fused {name}: {k} counted {v['counted']}, {v['captured']} inside the "
+                                     f"capture (expected {eager} + {per_step})")
+        if not launched(run["launches"], **{k: run["launches"][k] for k in kernels}):
+            raise SystemExit(f"FAILED fused {name}: a kernel off its path was launched: {run['launches']}")
+        runs[name] = run
+        seconds[name] = time.time() - t0
+        return kept
+
+    # Tiled from the tiled main path's cache: A1 under every product, replayed.
+    out = {k: os.path.join(work, f"out_fused_{k}") for k in ("tiled", "tiled_mesh1", "bf16", "bttb", "refine64",
+                                                             "five", "resumed", "coupled")}
+    pf = write_parfile(work, "Parfile_fused_tiled.txt", inputs, out["tiled"], N_MINOR, fmt="tiled", extra=tiled_cache)
+    kept = fused("tiled", pf, out["tiled"], {"format": r"grav kernel: tiled"}, refs["tiled"][0],
+                 sensit_written=False, kernels={"tile_matvec": (2 * N_MINOR + 2, 4)})
+    t0 = time.time()
+    library = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["tile_matvec"],
+                                         runs["tiled"]["launches_fused"]["tile_matvec"]["a_replay"])
+    seconds["graph against eager"] = time.time() - t0
+    del kept
+    torch.cuda.empty_cache()
+
+    # --mesh 1: A2 (one launch a slot) replayed; equal to the unmeshed fused run.
+    pf = write_parfile(work, "Parfile_fused_tiled_mesh1.txt", inputs, out["tiled_mesh1"], N_MINOR, fmt="tiled",
+                       extra=tiled_cache)
+    fused("tiled --mesh 1", pf, out["tiled_mesh1"], {"format": r"grav kernel: tiled"}, None, mesh="1",
+          sensit_written=False, kernels={"tile_matvec_sharded": (2 * N_MINOR + 2, 4)})
+    mesh1 = hold_equal("fused tiled --mesh 1", runs["tiled --mesh 1"], out["tiled_mesh1"], runs["tiled"], out["tiled"],
+                       against="the unmeshed fused run")
+    if not mesh1["equal_to_the_last_bit"]:
+        raise SystemExit("FAILED fused tiled --mesh 1: not equal to the last bit to the unmeshed fused run")
+
+    # bfloat16 dense, built straight into bfloat16 (0.5 s): B1 replayed.
+    pf = write_parfile(work, "Parfile_fused_bf16.txt", inputs, out["bf16"], N_MINOR, fmt=None,
+                       extra=["tpu.kernelStoreDtype = bfloat16"])
+    fused("bfloat16 dense", pf, out["bf16"], {"format": DENSE_BF16_SAID}, refs["bf16"][0], sensit_written=False,
+          kernels={"bf16_matvec": (N_MINOR + 1, 4), "bf16_rmatvec": (N_MINOR + 1, 0)})
+
+    # The coupled joint problem, tiled from the joint cache: 2 problems' A1.
+    joint_dir, joint_inputs, coupled_extra = refs["coupled"][2:]
+    pf = write_parfile(joint_dir, "Parfile_fused_coupled.txt", joint_inputs, out["coupled"], N_MINOR, fmt="tiled",
+                       kind="joint", extra=coupled_extra)
+    fused("coupled joint tiled", pf, out["coupled"], {"wavelet_domain": r"WAVELET_DOMAIN = False"},
+          refs["coupled"][0], kind="joint", sensit_written=False, kernels={"tile_matvec": (4 * N_MINOR + 4, 8)})
+    check_coupled_outputs("fused coupled joint tiled", out["coupled"], list(range(10, 21)))
+
+    # BTTB (torch.fft inside the graph) and refineForward with a float64 BTTB forward.
+    pf = write_parfile(work, "Parfile_fused_bttb.txt", inputs, out["bttb"], N_MINOR, fmt="matrixfree", compression=0)
+    fused("BTTB", pf, out["bttb"], matrixfree_said("BTTBKernel"), refs["bttb"][0], sensit_written=False,
+          compression="uncompressed")
+    pf = write_parfile(work, "Parfile_fused_refine64.txt", inputs, out["refine64"], N_MINOR, fmt="tiled",
+                       extra=["tpu.refineForward = 1", "tpu.refineForwardPrecision = double"] + tiled_cache)
+    fused("tiled, refineForward float64", pf, out["refine64"], {
+        "forward": r"grav refinement forward: BTTBKernel \(float64"}, refs["refine64"][0], sensit_written=False,
+          kernels={"tile_matvec": (2 * N_MINOR + 1, 0)})
+
+    # 5 majors written every 2 with --fused 3: chunks 2, 2, 1 of one graph;
+    # then the run resumed from its checkpoint of major 4.
+    t0 = time.time()
+    five = write_parfile(work, "Parfile_fused_five.txt", inputs, out["five"], N_MINOR, fmt="tiled", n_major=5,
+                         extra=tiled_cache + ["inversion.writeModelEveryNiter = 2"])
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(["-p", five, "--device", "cuda", *args])
+    log = tee.kept.getvalue()
+    chunks = [int(v) for v in re.findall(r"fused (\d+) iterations in", log)]
+    captures = len(re.findall(r"fused major captured as a CUDA graph", log))
+    ck = load_npz(os.path.join(out["five"], "checkpoint.npz"))
+    print(f"  fused, 5 majors written every 2: chunks {chunks}, {captures} capture(s), checkpoint of major "
+          f"{int(ck['it'])}")
+    if rc != 0 or chunks != [2, 2, 1] or captures != 1 or int(ck["it"]) != 4:
+        raise SystemExit("FAILED fused 5 majors: chunks, captures or checkpoint")
+    os.makedirs(out["resumed"])
+    shutil.copy(os.path.join(out["five"], "checkpoint.npz"), out["resumed"])
+    resumed = write_parfile(work, "Parfile_fused_resumed.txt", inputs, out["resumed"], N_MINOR, fmt="tiled",
+                            n_major=5, extra=tiled_cache + ["inversion.writeModelEveryNiter = 2"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["-p", resumed, "--device", "cuda", "--resume", *args])
+    rows = {k: open(os.path.join(out[k], "costs.txt")).read().splitlines() for k in ("five", "resumed")}
+    equal = rc == 0 and same_bytes(*(os.path.join(out[k], "model/grav_final_model_full.txt")
+                                     for k in ("five", "resumed"))) and rows["resumed"] == rows["five"][-2:]
+    print(f"  resumed from the checkpoint of major 4 to 5: final model and the last two costs.txt rows equal to the "
+          f"uninterrupted run's to the last bit: {equal}")
+    if not equal:
+        raise SystemExit("FAILED fused resume: not equal to the uninterrupted fused run")
+    seconds["5 majors and the resume"] = time.time() - t0
+
+    # Small float64 fused problems, card against CPU; the lattice operator's
+    # majors run as the device-resident step without a graph.
+    t0 = time.time()
+    small = {
+        "tiled": small_problem_card_against_cpu(work, "small_fused_tiled", "tiled, --fused 3", fmt="tiled",
+                                                solve_kw={"fused_chunk": FUSED_M}),
+        "coupled_dense": small_problem_card_against_cpu(
+            work, "small_fused_coupled", "joint grav+mag, all three couplings, dense, --fused 3", kind="joint",
+            fmt=None, coupling=small_coupling("all_three"), solve_kw={"fused_chunk": FUSED_M}),
+        "bttb": small_problem_card_against_cpu(work, "small_fused_bttb", "matrix-free BTTB g_z, --fused 3",
+                                               fmt="matrixfree", compression=0, operator="BTTBKernel",
+                                               solve_kw={"fused_chunk": FUSED_M}),
+        "lattice_without_a_graph": small_problem_card_against_cpu(
+            work, "small_fused_lattice", "matrix-free lattice g_z, draped, --fused 3 (no graph)", fmt="matrixfree",
+            compression=0, operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"},
+            solve_kw={"fused_chunk": FUSED_M}, **SMALL_MF_DEPTH),
+    }
+    seconds["small problems"] = time.time() - t0
+    seconds["phase"] = time.time() - t_phase
+    print("  phase 28's seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return {"runs": runs, "against_host": spread, "mesh1": mesh1, "graph_against_eager": library,
+            "five_majors": {"chunks": chunks, "captures": captures, "resumed_equal": equal}, "small": small,
+            "seconds": seconds}
+
+
 def main() -> int:
     t_all = time.time()
+
+    def clock(phase):
+        """Where the script's time goes: its seconds so far at each phase."""
+        print(f"[t+{time.time() - t_all:.1f} s] phase {phase}", flush=True)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
@@ -1826,6 +2195,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="tomofastx_smoke_")
     try:
         # ---- 3. the main paths, through the command-line entry point ----
+        clock(3)
         t0 = time.time()
         inputs = write_inputs(work, NX, NY, NZ, SIDE, variants=("components", "draped", "topography"))
         print(f"inputs written in {time.time() - t0:.1f} s")
@@ -1884,6 +2254,7 @@ def main() -> int:
                 raise SystemExit("FAILED: a dense or packed run launched a kernel of another format")
 
         # ---- 4. --mesh 1 against unmeshed; the three formats against each other; small problems ----
+        clock(4)
         print("the --mesh 1 runs against the unmeshed runs:")
         mesh_against_unmeshed = {
             "tiled": hold_equal("tiled --mesh 1", tiled_mesh, out["tiled_mesh1"], tiled, out["tiled"]),
@@ -1908,6 +2279,7 @@ def main() -> int:
         }
 
         # ---- 5. the full-width tile packs ----
+        clock(5)
         print("full-width packs:")
         cfg = read_parfile(parfile)
         grid = model_io.read_model_grid(cfg.grav.model_grid_file, NX, NY, NZ)
@@ -1940,6 +2312,7 @@ def main() -> int:
         del tks
 
         # ---- 6. blocked_matvec on row-block layouts of the dense matrix ----
+        clock(6)
         print("full-width row-block layouts:")
         t0 = time.time()
         S = try_read_kernel_cache(os.path.join(out["dense"], "SENSIT"), cfg.grav, grid, device).S
@@ -1997,6 +2370,7 @@ def main() -> int:
         del bvals, bidx, rows
 
         # ---- 7. the three operators at full width ----
+        clock(7)
         print("operators at full width (ms by CUDA events, f32 vectors, median of 20):")
         pk, _ = read_kernel_cache_packed(os.path.join(out["dense"], "SENSIT"), cfg.grav, grid, device=device)
         xs, us = x64[: S.shape[1]].float(), seeded_vector(S.shape[0], 5, device)[: S.shape[0]].float()
@@ -2020,6 +2394,7 @@ def main() -> int:
         del S
 
         # ---- 8. whole solves over the four-slot mesh, from the tiled run's cache ----
+        clock(8)
         print(f"solves from the tiled run's cache through solve_problem_joint_gravmag, over {mesh4}:")
         cache = os.path.join(out["tiled"], "SENSIT")
         solves = {"tiled": solve_from_cache(work, "tiled_unmeshed", inputs, cache, "tiled", None, counters)}
@@ -2047,6 +2422,7 @@ def main() -> int:
             raise SystemExit("FAILED dense 4-slot solve: against the dense main path")
 
         # ---- 9. distinct cards, where the machine has them ----
+        clock(9)
         ncards = torch.cuda.device_count()
         if ncards >= 2:
             cards = make_mesh(ncards, device="cuda")
@@ -2088,12 +2464,13 @@ def main() -> int:
                   f"{host['peak_device_GB']:.2f} GB (packed on the card: {solves['tiled']['peak_device_GB']:.2f} GB); "
                   "final model and costs.txt equal to the last bit to the unmeshed solve -> ok")
             out["dense_host"] = os.path.join(work, "out_dense_host")
+            # No cache written: the writer ran in phase 3, and this run is about the host assembly.
             dense_host = run_main_path(cli, counters, "dense (default) --mesh 1, assembled on the host", write_parfile(
-                work, "Parfile_dense_host.txt", inputs, out["dense_host"], N_MINOR, fmt=None), out["dense_host"], {
+                work, "Parfile_dense_host.txt", inputs, out["dense_host"], N_MINOR, fmt=None,
+                extra=["tpu.sensitWriteCache = 0"]), out["dense_host"], {
                     "build_s": r"kernel built in ([0-9.]+)s",
-                    "cache_write_s": r"kernel cached in ([0-9.]+)s",
                     "row_weights_host_s": r"row weights applied on cpu in ([0-9.]+)s",
-                    "format": DENSE_SAID.format(p="grav", rows=NDATA), **mesh_said}, mesh="1")
+                    "format": DENSE_SAID.format(p="grav", rows=NDATA), **mesh_said}, mesh="1", sensit_written=False)
             if any(dense_host["launches"].values()):
                 raise SystemExit("FAILED dense main path assembled on the host: a kernel of another format was launched")
             dense_host["against_card_assembly"] = hold_equal(
@@ -2108,6 +2485,7 @@ def main() -> int:
             workflow.assembly_device = card_assembly
 
         # ---- 10. joint gravity + magnetic main paths, tiled and dense ----
+        clock(10)
         joint_dir = os.path.join(work, "joint")
         os.makedirs(joint_dir)
         joint_inputs = write_inputs(joint_dir, NX, NY, NZ, SIDE, height=JOINT_HEIGHT, variants=("mag",))
@@ -2133,6 +2511,7 @@ def main() -> int:
         joint_spread = formats_apart("joint dense against joint tiled", joint["dense"], joint["tiled"])
 
         # ---- 11. the full FTG tensor, dense, no cache written ----
+        clock(11)
         ftg_out = os.path.join(work, "out_ftg")
         ftg = run_main_path(cli, counters, "FTG full tensor dense (default)", write_parfile(
             work, "Parfile_ftg.txt", inputs, ftg_out, N_MINOR, fmt=None, kind="ftg", extra=["tpu.sensitWriteCache = 0"]),
@@ -2143,6 +2522,7 @@ def main() -> int:
             raise SystemExit("FAILED FTG main path: a kernel was launched, or a cache was written")
 
         # ---- 12. small problems of every kind, card against CPU ----
+        clock(12)
         small_rel.update({
             "tmi_tiled": small_problem_card_against_cpu(work, "small_tmi", "TMI on susceptibility, tiled",
                                                         kind="tmi", fmt="tiled"),
@@ -2158,6 +2538,7 @@ def main() -> int:
         })
 
         # ---- 13. the joint solve from the joint tiled run's cache, unmeshed and over four slots ----
+        clock(13)
         print(f"joint solves from the joint tiled run's cache, unmeshed and over {mesh4}:")
         joint_cache = os.path.join(joint_out["tiled"], "SENSIT")
         solves["joint_tiled"] = solve_from_cache(joint_dir, "joint_unmeshed", joint_inputs, joint_cache, "tiled",
@@ -2174,6 +2555,7 @@ def main() -> int:
               "equal to the last bit to the unmeshed joint solve -> ok")
 
         # ---- 14. tile_matvec on the magnetic problem's packs ----
+        clock(14)
         print("full-width magnetic packs:")
         cfgj = read_parfile(os.path.join(joint_dir, "Parfile_joint_tiled.txt"))
         t0 = time.time()
@@ -2193,6 +2575,7 @@ def main() -> int:
         del tkm, uv, ub  # the loop's names hold the adjoint pack (4.3 GB) too
 
         # ---- 15. the coupled joint problem at full width: cross-gradient, damping gradient, clustering ----
+        clock(15)
         print("coupled joint grav+mag (cross-gradient, damping gradient, clustering) from the joint tiled run's cache:")
         t0 = time.time()
         files = write_coupling_files(joint_dir, NX * NY * NZ)
@@ -2257,6 +2640,7 @@ def main() -> int:
 
 
         # ---- 16. small coupled problems, card against CPU ----
+        clock(16)
         small_rel.update({
             f"coupled_{variant}_{fmt or 'dense'}": small_problem_card_against_cpu(
                 work, f"small_coupled_{variant}", f"joint grav+mag, {variant.replace('_', ' ')}, {fmt or 'dense'}",
@@ -2269,21 +2653,40 @@ def main() -> int:
         })
 
         # ---- 17. resume, --profile and --debug-nans on the card ----
+        clock(17)
         late = phase_17(cli, counters, tmv, work)
 
         # ---- 18-23. the native table reader, the matrix-free operators, auto ----
+        clock(18)
         mf = {"reader": phase_18(work, inputs)}
+        clock(19)
         mf["bttb"] = phase_19(cli, counters, workflow, work, inputs, mesh4)
+        clock(20)
         mf["lattice"] = phase_20(cli, counters, workflow, work, inputs)
+        clock(21)
         mf["generic"] = phase_21(cli, counters, work, inputs)
+        clock(22)
         mf["auto"] = phase_22(cli, counters, work)
+        clock(23)
         small_rel.update({f"matrixfree_{k}": v for k, v in phase_23(work, mesh4).items()})
 
         # ---- 24-27. bfloat16 storage, the three builds, refineForward, small problems ----
+        clock(24)
         variants = {"bf16": phase_24(cli, counters, work, inputs, dense, out["dense"])}
+        clock(25)
         variants["builds"] = phase_25(cli, counters, work, inputs, out["tiled"], cfg.grav, grid, products)
-        variants["refine"] = phase_26(cli, counters, work, inputs, products)
+        clock(26)
+        variants["refine"] = phase_26(cli, counters, work, inputs, products, os.path.join(out["tiled"], "SENSIT"))
+        clock(27)
         small_rel.update({f"variant_{k}": v for k, v in phase_27(work).items()})
+
+        # ---- 28. the fused major loop: one CUDA graph a major ----
+        clock(28)
+        fused = phase_28(cli, counters, workflow, work, inputs, {
+            "tiled": (tiled, out["tiled"]), "bf16": (variants["bf16"]["runs"]["run"],),
+            "coupled": (coupled["tiled"], coupled_out["tiled"], joint_dir, joint_inputs, coupled_extra),
+            "bttb": (mf["bttb"]["runs"]["run"],), "refine64": (variants["refine"]["runs"]["double"],)})
+        small_rel.update({f"fused_{k}": v for k, v in fused["small"].items()})
         for name, run in [(f"bttb {k}", v) for k, v in mf["bttb"]["runs"].items()] + [
                 (f"lattice {k}", v) for k, v in mf["lattice"]["runs"].items()] + [
                 ("per-cell", mf["generic"]["run"]), ("auto", mf["auto"]["run"])]:
@@ -2313,6 +2716,8 @@ def main() -> int:
             "forward": report(fwd), "adjoint": report(adj),
             "launches_joint_tiled": joint["tiled"]["launches"]["tile_matvec"],
             "launches_coupled_tiled": coupled["tiled"]["launches"]["tile_matvec"],
+            "launches_fused_tiled": fused["runs"]["tiled"]["launches_fused"]["tile_matvec"],
+            "launches_fused_coupled_tiled": fused["runs"]["coupled joint tiled"]["launches_fused"]["tile_matvec"],
             "magnetic_forward": mag_packs["magnetic forward"], "magnetic_adjoint": mag_packs["magnetic adjoint"],
         },
         {
@@ -2329,6 +2734,7 @@ def main() -> int:
             "forward": fwd["sharded"], "adjoint": adj["sharded"],
             "launches_joint_4_slots": solves["joint_tiled_4_slots"]["launches"]["tile_matvec_sharded"],
             "launches_coupled_4_slots": solves["coupled_tiled_4_slots"]["launches"]["tile_matvec_sharded"],
+            "launches_fused_mesh1": fused["runs"]["tiled --mesh 1"]["launches_fused"]["tile_matvec_sharded"],
         },
         {
             "name": "blocked_matvec", "route": "cuda",
@@ -2352,6 +2758,7 @@ def main() -> int:
                         "bfloat16 kernel)",
             "launches": variants["bf16"]["runs"]["run"]["launches"][name],
             "launches_mesh1": variants["bf16"]["runs"]["mesh1"]["launches"][name],
+            "launches_fused": fused["runs"]["bfloat16 dense"]["launches_fused"][name],
             **{k: gemv[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape_of_these_times": "the gravity kernel cast to bfloat16, f32 vector",
             "measured": gemv[name],
@@ -2370,6 +2777,7 @@ def main() -> int:
         "coupled_dense_against_tiled": coupled_spread, "coupling_weights": weights, "coupling_scales": scales,
         "coupled_blocks_ms": coupled["blocks_ms"], "coupled_blocks_launches": coupled["blocks_launches"],
         "resume_profile_debug_nans": late, "matrixfree": jsonable(mf), "build_and_storage_variants": jsonable(variants),
+        "fused": jsonable(fused),
         "operators": operators, "observations": NDATA, "cells": NX * NY * NZ,
         "kernel_build_s": build_s, "total_s": total_s,
         "memory_bytes_per_s_assumed": MEMORY_BYTES_PER_S, "fp32_flop_per_s_assumed": FP32_FLOP_PER_S,

@@ -564,11 +564,11 @@ def test_variant_over_a_mesh_of_two_cpu_slots(tmp_path, variant):
     assert "shard_s" in b.timings
 
 
-def test_cli_takes_the_build_flags(tmp_path, capsys):
+def test_cli_takes_the_build_flags(tmp_path):
     """--build-precision single, --fast-build K and --f32-compress reach the
     build (a float32, a mixed and a float32-compressed kernel: the caches
-    differ from the float64 build's and from each other); --fused M > 0 is
-    refused cleanly."""
+    differ from the float64 build's and from each other); --fused M > 0
+    runs (costs.txt written, the data cost falling)."""
     lines = _write_problem(str(tmp_path), 8, 8, 4, 16, niter=6)
     caches = {}
     for name, flags in (("double", []), ("single", ["--build-precision", "single"]),
@@ -579,5 +579,8 @@ def test_cli_takes_the_build_flags(tmp_path, capsys):
         with open(tmp_path / name / "SENSIT" / "sensit_grav_1_0", "rb") as f:
             caches[name] = f.read()
     assert len(set(caches.values())) == 4
-    assert cli.main(["-p", str(tmp_path / "Parfile_double.txt"), "--device", "cpu", "-q", "--fused", "2"]) == 1
-    assert "not ported" in capsys.readouterr().err
+    par = tmp_path / "Parfile_fused.txt"
+    par.write_text("\n".join(lines(str(tmp_path / "fused"))))
+    assert cli.main(["-p", str(par), "--device", "cpu", "-q", "--fused", "2"]) == 0
+    rows = _costs(str(tmp_path / "fused" / "costs.txt"))
+    assert len(rows) == 4 and rows[1][1] < rows[0][1]

@@ -6,6 +6,10 @@ assembling CSR constraint rows each major iteration, the per-iteration solve
 operator's matvecs, wavelet conversions, and the final un-weighting of the
 model update — is one function of a dictionary of tensors.
 
+make_fused_solver runs several whole major iterations with no read of the
+device in between: on a CUDA device one major is one captured CUDA graph,
+replayed once a major.
+
 Row-block order of the stacked system (norms are order-independent; this
 fixes the layout): [data blocks per active problem] then per active problem
 [damping (ncomp*N rows), damping-gradient (3*ncomp*N rows)], then ADMM
@@ -15,6 +19,7 @@ problem).
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Tuple
 
@@ -58,6 +63,14 @@ class SystemSpec:
     rmin: float
     gamma: float
     target_misfit: float
+    # Dynamic ADMM weight adjustment (next_admm_weight).
+    admm_cost_threshold: float = 1.0e-4
+    admm_weight_multiplier: float = 1.0
+    admm_max_weight: float = 1.0e10
+    # Iterative refinement (tpu.refineForward): the fused loop's predicted
+    # data go through the exact-physics operators of arrays["S_fwd"] (model
+    # domain, weights baked) while LSQR keeps the stored kernel.
+    refine_forward: bool = False
 
     @property
     def N(self) -> int:
@@ -387,12 +400,14 @@ def _build_solve_fn(spec: SystemSpec):
         system = assemble_system(spec, arr)
 
         # ---------------- LSQR ----------------
+        # "niter_cap" is the fused loop's bound on the device (0 on a masked
+        # step): LSQR then runs without a read of the device, spec.niter
+        # iterations' worth of work. Without it, the host reads the exit
+        # tests and stops early.
         res = lsqr_solve(
-            system.matvec, system.rmatvec, system.b, ncols,
-            niter=spec.niter,
-            rmin=spec.rmin, gamma=spec.gamma,
-            target_misfit=spec.target_misfit,
-            misfit_fn=system.misfit_fn if spec.target_misfit > 0.0 else None,
+            system.matvec, system.rmatvec, system.b, ncols, arr.get("niter_cap", spec.niter),
+            rmin=spec.rmin, gamma=spec.gamma, target_misfit=spec.target_misfit,
+            misfit_fn=system.misfit_fn if spec.target_misfit > 0.0 else None, max_iter=spec.niter,
         )
 
         # ---------------- convert update to model space ----------------
@@ -422,3 +437,317 @@ def make_solver(spec: SystemSpec):
     costs, new ADMM state, LSQR stats and output fields (extras). Runs
     eagerly, without gradients."""
     return torch.no_grad()(_build_solve_fn(spec))
+
+
+def next_admm_weight(spec: SystemSpec, rho: torch.Tensor, post_cost_data) -> torch.Tensor:
+    """The dynamic ADMM weight after a major (problem_joint_gravmag.F90:
+    618-638): an ADMM problem's weight grows by admm_weight_multiplier while
+    its post-update data cost is under admm_cost_threshold and the weight
+    under admm_max_weight. rho is the (2,) weight tensor, post_cost_data the
+    active problems' data costs (0-dim tensors); both loops decide it here,
+    the host-driven one on float64 host tensors."""
+    if spec.admm_weight_multiplier == 1.0:
+        return rho
+    rho_list = [rho[0], rho[1]]
+    for a, i in enumerate(spec.active):
+        if spec.admm_enabled[i]:
+            grow = (post_cost_data[a] < spec.admm_cost_threshold) & (rho[i] < spec.admm_max_weight)
+            rho_list[i] = torch.where(grow, spec.admm_weight_multiplier * rho[i], rho[i])
+    return torch.stack(rho_list)
+
+
+# =============================================================================
+# The fused major loop: counterpart of the JAX package's make_fused_solver
+# (tomofastx_tpu/inversion/joint.py:421-595), whose lax.scan becomes one
+# CUDA graph a major, replayed.
+# =============================================================================
+
+# The entries of the solver's dictionary that a major advances: its carry.
+CARRY_KEYS = ("model", "admm_z", "admm_u", "rho_admm")
+
+
+def tree_map(fn, *trees):
+    """fn over the leaves of nested dicts, tuples and lists of one structure
+    (the first tree's), returning the same structure."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (tuple, list)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def _leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _copy_into(dst, src):
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+
+
+def _clone(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def capture_unit(arr) -> Tuple[str, str]:
+    """How the fused loop runs a major over arr's operators, and why:
+    ("graph", ...) one captured CUDA graph a major; ("step", ...) the same
+    device-resident step launched eagerly (over an operator whose class says
+    graph_capturable = False, as the lattice and per-cell matrix-free ones
+    do, or whose mesh spans several devices); ("cpu", ...) eager steps on
+    the CPU."""
+    if arr["cw"][0].device.type != "cuda":
+        return "cpu", "eager steps on the CPU"
+    for op in [op for key in ("S", "S_fwd") for op in arr.get(key, ()) if op is not None]:
+        if not getattr(op, "graph_capturable", True):
+            return "step", (f"the device-resident step without a graph ({type(op).__name__}: tens of "
+                            "thousands of launches a product)")
+        mesh = getattr(op, "mesh", None)
+        if mesh is not None and mesh.n_devices > 1:
+            return "step", f"the device-resident step without a graph ({type(op).__name__} over {mesh.n_devices} devices)"
+    return "graph", "one CUDA graph a major, replayed"
+
+
+class FusedSolver:
+    """n_steps full major iterations with no read of the device: residuals,
+    the solve, the model update, the forward data of the new model, the
+    per-major costs and the dynamic ADMM weight
+    (problem_joint_gravmag.F90:473-547). Built by make_fused_solver.
+
+    solver(arrays) takes the per-major solve's dictionary of tensors plus,
+    per active problem, "val_meas" and "data_weight" ((nd, ndc) observed
+    data and 1/sigma weights); "S_fwd" under spec.refine_forward; and
+    optionally "active_steps", an int k <= n_steps: steps from k on are
+    masked and advance no state. It returns the final "model", "admm_z",
+    "admm_u", "rho_admm", "extras", "final_d_calc", "final_cost_data" and
+    "final_cost_model", and "per_iteration": one row a step of
+    "pre_cost_data", "pre_cost_model", "post_cost_data", "costs", "rho" and
+    "lsqr_iters" (n_steps rows; a masked step's row holds its frozen state's
+    costs and 0 iterations on the CPU, zeros on a CUDA device, which runs no
+    masked step).
+
+    On the CPU every step runs eagerly, with the JAX package's masking. On
+    a CUDA device the carry (models, ADMM z and u, rho, the forward data,
+    the coupling fields) and every input tensor live in buffers of the
+    solver. The first call runs one eager step on a side stream, on scratch
+    copies of the carry (it loads the kernels' libraries, makes the cuBLAS
+    handles and cuFFT plans and fills the allocator's pool: nothing of that
+    may happen inside a capture), then captures one whole major as a
+    torch.cuda.CUDAGraph, which each call replays active_steps times, the
+    step's row copied into an (n_steps, ...) tensor after each replay. A
+    later call copies its tensors into the same buffers and replays the same
+    graph; it is captured again only when a tensor's shape, type or device,
+    or an operator, changes. A failed capture raises: nothing runs the
+    major eagerly in its place. Over the lattice and per-cell matrix-free
+    operators, and over operators spread across devices, the same step runs
+    eagerly on the device (capture_unit). The kernels' launch counters count
+    a captured launch once, at the capture.
+    """
+
+    def __init__(self, spec: SystemSpec, n_steps: int):
+        self.spec, self.n_steps = spec, int(n_steps)
+        self._solve_once = _build_solve_fn(spec)
+        self._key = self._graph = self._static = self._carry = self._row = None
+        self.captures = 0  # graphs captured
+        self.replays = 0  # majors run as a replay of the graph
+        self.capture_s = 0.0  # wall seconds of the warm-up steps and captures
+
+    # ---- the step (tomofastx_tpu/inversion/joint.py:445-577, line for line) ----
+
+    def _forward(self, arr, model):
+        """d_calc per problem (model.F90:220-307). Under refine_forward the
+        product goes through the exact-physics operator (model domain, no
+        wavelet), in its own precision."""
+        spec = self.spec
+        ds = []
+        for a, i in enumerate(spec.active):
+            cw = arr["cw"][a][None, :]
+            x = torch.where(cw != 0.0, model[a] / torch.where(cw != 0.0, cw, 1.0), 0.0)
+            xw = x.reshape(-1)
+            if spec.refine_forward:
+                d = arr["S_fwd"][a].matvec(xw)
+            else:
+                if spec.compression_type > 0:
+                    xw = _to_solver(spec, xw)
+                d = arr["S"][a].matvec(xw)
+            d = d.reshape(arr["val_meas"][a].shape)
+            ds.append(d / spec.problem_weight[i] / arr["data_weight"][a])
+        return tuple(ds)
+
+    def _data_cost(self, arr, d_calc):
+        """Relative data cost per problem (data_gravmag.f90:123-129)."""
+        out = []
+        for a in range(len(self.spec.active)):
+            meas = arr["val_meas"][a]
+            denom = torch.sqrt(torch.sum(meas**2))
+            out.append(torch.where(
+                denom != 0.0,
+                torch.sqrt(torch.sum((d_calc[a] - meas) ** 2)) / torch.where(denom != 0.0, denom, 1.0),
+                0.0,
+            ))
+        return tuple(out)
+
+    def _model_cost(self, arr, model):
+        """Lp model-prior cost per problem (costs.f90:74-113)."""
+        out = []
+        for a in range(len(self.spec.active)):
+            cw = arr["cw"][a]
+            diff = torch.where(cw != 0.0, (model[a][0] - arr["prior"][a][0]) / torch.where(cw != 0.0, cw, 1.0), 0.0)
+            out.append(torch.sum(torch.abs(diff) ** self.spec.norm_power))
+        return tuple(out)
+
+    def _init_carry(self, arr):
+        spec = self.spec
+        dt, dev = arr["cw"][0].dtype, arr["cw"][0].device
+        extras = {}
+        if spec.cross_grad:
+            extras["cross_grad_magnitude"] = torch.zeros((spec.N,), dtype=dt, device=dev)
+        if spec.clustering:
+            extras["clustering_probabilities"] = torch.zeros((spec.N,), dtype=dt, device=dev)
+        # d_calc of the incoming model rides the carry: step k's post-update
+        # forward is step k+1's pre-update one, one product a major.
+        return {"model": tuple(arr["model"]), "admm_z": tuple(arr["admm_z"]), "admm_u": tuple(arr["admm_u"]),
+                "rho_admm": arr["rho_admm"], "extras": extras, "d_calc": self._forward(arr, arr["model"])}
+
+    def _step(self, arr, carry, s, n_active):
+        """One major: (the new carry, this major's row). s and n_active are
+        0-dim tensors; a step with s >= n_active returns the carry as it
+        was."""
+        spec = self.spec
+        active = s < n_active
+        model, rho, d_calc = carry["model"], carry["rho_admm"], carry["d_calc"]
+        # Pre-update costs: the "previous iteration" entries of the costs.txt
+        # row (problem_joint_gravmag.F90:519-528).
+        pre_cost_data = self._data_cost(arr, d_calc)
+        pre_cost_model = self._model_cost(arr, model)
+        # Cast to the solve dtype at the LSQR boundary: a float64 refinement
+        # forward keeps a float64 residual up to here.
+        residuals = tuple(
+            (arr["data_weight"][a] * (arr["val_meas"][a] - d_calc[a])).reshape(-1).to(model[a].dtype)
+            for a in range(len(spec.active))
+        )
+        arr2 = dict(arr)
+        arr2.update(model=model, admm_z=carry["admm_z"], admm_u=carry["admm_u"], rho_admm=rho,
+                    residuals=residuals, niter_cap=torch.where(active, spec.niter, 0))
+        out = self._solve_once(arr2)
+        model_new = tuple(m + d for m, d in zip(model, out["delta"]))
+
+        # The post-update data cost drives the dynamic ADMM weight; rho
+        # stays on the device.
+        d_calc_new = self._forward(arr, model_new)
+        post_cost_data = self._data_cost(arr, d_calc_new)
+        rho_new = next_admm_weight(spec, rho, post_cost_data)
+
+        row = {
+            "pre_cost_data": torch.stack(pre_cost_data),
+            "pre_cost_model": torch.stack(pre_cost_model),
+            "post_cost_data": torch.stack(post_cost_data),
+            "costs": out["costs"],
+            "rho": rho.clone(),  # the weight the reference logs for this row (the carry's buffer moves on)
+            "lsqr_iters": out["lsqr_iters"],
+        }
+        new = {"model": model_new, "admm_z": out["admm_z"], "admm_u": out["admm_u"], "rho_admm": rho_new,
+               "extras": out["extras"] or carry["extras"], "d_calc": d_calc_new}
+        # A masked step advances no state: the ADMM dual update and the rho
+        # adjustment above ran all the same.
+        return tree_map(lambda nw, old: torch.where(active, nw, old), new, carry), row
+
+    def _result(self, arr, carry, per):
+        return {
+            "model": carry["model"], "admm_z": carry["admm_z"], "admm_u": carry["admm_u"],
+            "rho_admm": carry["rho_admm"], "extras": carry["extras"], "per_iteration": per,
+            "final_d_calc": carry["d_calc"],
+            "final_cost_data": torch.stack(self._data_cost(arr, carry["d_calc"])),
+            "final_cost_model": torch.stack(self._model_cost(arr, carry["model"])),
+        }
+
+    # ---- the three ways to run it ----
+
+    def __call__(self, arrays: Dict) -> Dict:
+        arr = dict(arrays)
+        n_active = int(arr.pop("active_steps", self.n_steps))
+        if not 0 <= n_active <= self.n_steps:
+            raise ValueError(f"active_steps = {n_active} outside 0..{self.n_steps}")
+        with torch.no_grad():
+            unit, _ = capture_unit(arr)
+            if unit == "graph":
+                return self._run_graph(arr, n_active)
+            return self._run_eager(arr, n_active, all_steps=unit == "cpu")
+
+    def _run_eager(self, arr, n_active, all_steps):
+        """Step after step, launched from the host. all_steps runs the masked
+        steps too (the JAX package's scan), else only the first n_active."""
+        carry = self._init_carry(arr)
+        dev = carry["rho_admm"].device
+        n_act = torch.tensor(n_active, device=dev)
+        rows = []
+        for s in range(self.n_steps if all_steps else max(n_active, 1)):
+            carry, row = self._step(arr, carry, torch.tensor(s, device=dev), n_act)
+            rows.append(row)
+        rows += [tree_map(torch.zeros_like, rows[0])] * (self.n_steps - len(rows))
+        per = tree_map(lambda *xs: torch.stack(xs), *rows)
+        return self._result(arr, carry, per)
+
+    def _key_of(self, static, carry0):
+        def sig(x):
+            return (tuple(x.shape), x.dtype, x.device) if isinstance(x, torch.Tensor) else id(x)
+
+        return tuple(static), tuple(sig(x) for x in _leaves(static)), tuple(sig(x) for x in _leaves(carry0))
+
+    def _capture(self, static, carry0, key):
+        """Buffers for every input tensor and the carry, one eager warm-up
+        step on scratch copies of the carry, then the capture of one major."""
+        t0 = time.time()
+        self._key = self._graph = self._row = None  # the old graph's pool goes first
+        self._static = tree_map(_clone, static)
+        self._carry = tree_map(torch.clone, self._init_carry({**self._static, **carry0}))
+        dev = self._carry["rho_admm"].device
+        self._s = torch.zeros((), dtype=torch.int64, device=dev)
+        self._n_active = torch.full((), self.n_steps, dtype=torch.int64, device=dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._step(self._static, tree_map(torch.clone, self._carry), self._s.clone(), self._n_active)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self._graph, self._row = self._capture_graph(stream)
+        torch.cuda.synchronize(dev)
+        self._key = key
+        self.captures += 1
+        self.capture_s += time.time() - t0
+
+    def _capture_graph(self, stream):
+        """One major, captured on `stream`: the step on the buffers, its new
+        carry copied into them and the step index advanced."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            new, row = self._step(self._static, self._carry, self._s, self._n_active)
+            tree_map(_copy_into, self._carry, new)
+            self._s.add_(1)
+        return graph, row
+
+    def _run_graph(self, arr, n_active):
+        static = {k: v for k, v in arr.items() if k not in CARRY_KEYS}
+        carry0 = {k: arr[k] for k in CARRY_KEYS}
+        key = self._key_of(static, carry0)
+        if key != self._key:
+            self._capture(static, carry0, key)
+        else:
+            tree_map(_copy_into, self._static, static)
+            tree_map(_copy_into, self._carry, self._init_carry({**self._static, **carry0}))
+        self._s.zero_()
+        self._n_active.fill_(n_active)
+        per = tree_map(lambda t: t.new_zeros((self.n_steps,) + tuple(t.shape)), self._row)
+        for k in range(n_active):
+            self._graph.replay()
+            self.replays += 1
+            tree_map(lambda dst, src: dst[k].copy_(src), per, self._row)
+        return self._result(self._static, tree_map(torch.clone, self._carry), per)
+
+
+def make_fused_solver(spec: SystemSpec, n_steps: int) -> FusedSolver:
+    """The fused major loop of n_steps majors (FusedSolver): the JAX
+    package's make_fused_solver, on the port's devices."""
+    return FusedSolver(spec, n_steps)

@@ -40,7 +40,15 @@ import numpy as np
 import torch
 
 from tomofastx_tpu_torch.config.parfile import Config, GRAV, MAGN
-from tomofastx_tpu_torch.inversion.joint import SystemSpec, decide_wavelet_domain, make_solver
+from tomofastx_tpu_torch.inversion.joint import (
+    SystemSpec,
+    capture_unit,
+    decide_wavelet_domain,
+    make_fused_solver,
+    make_solver,
+    next_admm_weight,
+    tree_map,
+)
 from tomofastx_tpu_torch.inversion.operators import gaussian_mixture
 from tomofastx_tpu_torch.io import data_io, model_io, vtk
 from tomofastx_tpu_torch.io.sensit_cache import (
@@ -255,6 +263,7 @@ def solve_problem_joint_gravmag(
     resume: bool = False,
     debug_nans: bool = False,
     near_field_f64: int = 0,
+    fused_chunk: int = 0,
 ) -> WorkflowResult:
     """Run the full inversion described by a Parfile configuration on
     `device` ("cuda" unless the caller asks for "cpu").
@@ -282,7 +291,15 @@ def solve_problem_joint_gravmag(
 
     debug_nans=True checks, at the end of each major's solve, that its
     costs, the LSQR residual and each problem's model update are finite, and
-    raises FloatingPointError naming the first that is not."""
+    raises FloatingPointError naming the first that is not (with
+    fused_chunk: at each chunk's end, its majors' costs and the models).
+
+    fused_chunk = M > 0 runs the majors in chunks of up to M with no read of
+    the device inside a chunk (inversion/joint.py::FusedSolver: on a CUDA
+    device one captured CUDA graph a major, replayed), cut at
+    writeModelEveryNiter and at the last major; the stop file, the model
+    snapshots and the checkpoint are handled at the chunk ends. 0 (the
+    default) is the host-driven loop."""
     device = torch.device(device)
     if mesh is not None:
         if mesh.home.type != device.type:
@@ -678,6 +695,10 @@ def solve_problem_joint_gravmag(
         rmin=ipar.rmin,
         gamma=ipar.gamma,
         target_misfit=ipar.target_misfit,
+        admm_cost_threshold=ipar.data_cost_threshold_ADMM,
+        admm_weight_multiplier=ipar.weight_multiplier_ADMM,
+        admm_max_weight=ipar.max_weight_ADMM,
+        refine_forward=all(ctxs[i].forward_op is not None for i in active),
     )
     if (spec.cross_grad or spec.clustering) and len(active) < 2:
         raise ValueError(
@@ -736,6 +757,7 @@ def solve_problem_joint_gravmag(
     admm_u = [torch.zeros_like(z) for z in admm_z]
     timings["solve_s"] = []
     timings["lsqr_iters"] = []
+    fused = None  # the fused loop's solver, made at its first chunk
 
     for m in range(1, number_prior_models + 1):
         if m > 1:
@@ -803,8 +825,102 @@ def solve_problem_joint_gravmag(
             if it_start == 1:
                 costs_f.write(COSTS_HEADER + "\n")
 
+            def end_major(it, pre_data, pre_model, costs, rho_row, post_data, post_model):
+                """A major's records, in both loops: its costs.txt row from
+                the pre-update costs (problem_joint_gravmag.F90:519-528),
+                its history entry from the post-update ones."""
+                costs_f.write(_costs_row(it - 1, pre_data, pre_model, costs, rho_row) + "\n")
+                costs_f.flush()
+                result.costs_history.append(
+                    {"iteration": it, "cost_data": list(post_data), "cost_model": list(post_model)})
+
+            def snapshot(it, admm_z, admm_u, rho_admm):
+                """The models and the checkpoint after major `it`, every
+                writeModelEveryNiter majors. The checkpoint follows the rho
+                adjustment: it belongs to the completed major, so a resumed
+                run starts it+1 with the adjusted weight."""
+                if ipar.write_model_niter > 0 and it % ipar.write_model_niter == 0:
+                    for i, ctx in ctxs.items():
+                        _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_inter_{it}_")
+                    save_checkpoint(ckpt_path, active, ctxs, admm_z, admm_u, rho_admm, m, it)
+
+            # ---- major inversion loop (fused: no read of the device inside a chunk) ----
+            if fused_chunk > 0:
+                static_arrays["val_meas"] = tuple(on_device(ctxs[i].data.val_meas) for i in active)
+                static_arrays["data_weight"] = tuple(on_device(ctxs[i].data.weight) for i in active)
+                if spec.refine_forward:
+                    static_arrays["S_fwd"] = tuple(ctxs[i].forward_op for i in active)
+                if fused is None:
+                    # One solver a run: its length is fixed at prog_steps, and
+                    # a shorter chunk (writeModelEveryNiter, the last majors,
+                    # a resume) masks its tail with active_steps, so one
+                    # captured graph serves every chunk.
+                    prog_steps = min(fused_chunk, ipar.ninversions)
+                    fused = make_fused_solver(spec, prog_steps)
+                    log(f"fused major loop: chunks of up to {prog_steps} majors, {capture_unit(static_arrays)[1]}")
+                it = it_start
+                while it <= ipar.ninversions:
+                    if os.path.exists("stop") or os.path.exists(os.path.join(out_dir, "stop")):
+                        log("Stop file found! Exiting the loop.")
+                        break
+                    steps = min(prog_steps, ipar.ninversions - it + 1)
+                    if ipar.write_model_niter > 0:
+                        wmn = ipar.write_model_niter
+                        steps = min(steps, ((it + wmn - 1) // wmn) * wmn - it + 1)
+                    sync()
+                    t_it, captures = time.time(), (fused.captures, fused.capture_s)
+                    arrays = dict(static_arrays)
+                    arrays.update(
+                        model=tuple(on_device(ctxs[i].model.val) for i in active),
+                        prior=tuple(on_device(ctxs[i].model.val_prior) for i in active),
+                        admm_z=tuple(admm_z),
+                        admm_u=tuple(admm_u),
+                        rho_admm=on_device(rho_admm),
+                        active_steps=steps,
+                    )
+                    out_dev = fused(arrays)
+                    out = _to_host(out_dev)  # the chunk's one wait for the device
+                    timings["solve_s"].append(time.time() - t_it)
+                    if fused.captures != captures[0]:
+                        timings["capture_s"] = fused.capture_s
+                        log(f"  fused major captured as a CUDA graph in {fused.capture_s - captures[1]:.2f}s "
+                            "(warm-up step included)")
+                    if m == 1 and it == it_start:
+                        # Memory checkpoint 3/4: after the first LSQR solve
+                        # (lsqr_solver2.F90:293-299).
+                        log(memory_report("(first solve) ", device))
+                    per = out["per_iteration"]
+                    iters = [int(v) for v in per["lsqr_iters"][:steps]]
+                    timings["lsqr_iters"] += iters
+                    if debug_nans:
+                        _require_finite_chunk(out, active, it, steps)
+
+                    for a, i in enumerate(active):
+                        ctxs[i].model.val = out["model"][a].double().numpy()
+                        ctxs[i].data.val_calc = out["final_d_calc"][a].double().numpy().reshape(
+                            ctxs[i].data.val_meas.shape)
+                        cost_data[i] = float(out["final_cost_data"][a])
+                        cost_model[i] = float(out["final_cost_model"][a])
+                    admm_z, admm_u = list(out_dev["admm_z"]), list(out_dev["admm_u"])
+                    rho_admm = out["rho_admm"].tolist()
+                    # The history's model costs are the chunk's last, as the
+                    # JAX package's are.
+                    for s in range(steps):
+                        by_problem = {k: [0.0, 0.0] for k in ("pre_cost_data", "pre_cost_model", "post_cost_data")}
+                        for k, v in by_problem.items():
+                            for a, i in enumerate(active):
+                                v[i] = float(per[k][s, a])
+                        costs_s = {k: v[s].numpy() if v[s].ndim else float(v[s]) for k, v in per["costs"].items()}
+                        end_major(it + s, by_problem["pre_cost_data"], by_problem["pre_cost_model"], costs_s,
+                                  per["rho"][s].tolist(), by_problem["post_cost_data"], cost_model)
+                    extras_np = {k: v.numpy() for k, v in out["extras"].items()}
+                    log(f"  fused {steps} iterations in {time.time() - t_it:.2f}s, lsqr iters = {iters}, "
+                        + ", ".join(f"{PROBLEM_PREFIX[i]} cost = {cost_data[i]:.6e}" for i in active))
+                    it += steps
+                    snapshot(it - 1, admm_z, admm_u, rho_admm)
+
             # ---- major inversion loop (host-driven) ----
-            for it in range(it_start, ipar.ninversions + 1):
+            for it in ([] if fused_chunk > 0 else range(it_start, ipar.ninversions + 1)):
                 # The reference polls ./stop in the cwd
                 # (problem_joint_gravmag.F90:688); the output dir is also
                 # accepted because base_dir/input trees may be read-only.
@@ -851,19 +967,12 @@ def solve_problem_joint_gravmag(
                     ctxs[i].model.update(out["delta"][a].cpu().numpy())
                     _calculate_data(ctxs[i], cfg, solve_dtype, device)
 
-                if ipar.write_model_niter > 0 and it % ipar.write_model_niter == 0:
-                    for i, ctx in ctxs.items():
-                        _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_inter_{it}_")
-
-                # costs.txt row for the previous iteration
-                # (problem_joint_gravmag.F90:519-528).
-                costs_f.write(_costs_row(it - 1, cost_data, cost_model, last_costs, rho_admm) + "\n")
-                costs_f.flush()
-
                 # New costs.
+                pre_data, pre_model = list(cost_data), list(cost_model)
                 for i, ctx in ctxs.items():
                     cost_model[i] = _calculate_model_cost(ctx, ipar.norm_power)
                     cost_data[i] = ctx.data.get_cost()
+                end_major(it, pre_data, pre_model, last_costs, rho_admm, cost_data, cost_model)
 
                 log(
                     f"  iter done in {time.time() - t_it:.2f}s, lsqr iters = {int(out['lsqr_iters'])}, "
@@ -871,25 +980,16 @@ def solve_problem_joint_gravmag(
                         f"{PROBLEM_PREFIX[i]} cost = {cost_data[i]:.6e}" for i in active
                     )
                 )
-                result.costs_history.append(
-                    {"iteration": it, "cost_data": list(cost_data), "cost_model": list(cost_model)}
-                )
 
-                # Dynamic ADMM weight adjustment (problem_joint_gravmag.F90:618-638).
-                if ipar.admm_type > 0 and ipar.weight_multiplier_ADMM != 1.0:
-                    for i in active:
-                        if (
-                            cost_data[i] < ipar.data_cost_threshold_ADMM
-                            and rho_admm[i] < ipar.max_weight_ADMM
-                        ):
-                            rho_admm[i] = ipar.weight_multiplier_ADMM * rho_admm[i]
-                            log(f"Increased the ADMM weight to: {rho_admm[i]}")
-
-                # Checkpoint after the rho adjustment: the adjustment belongs
-                # to the completed iteration, so a resumed run must start
-                # it+1 with the adjusted weight.
-                if ipar.write_model_niter > 0 and it % ipar.write_model_niter == 0:
-                    save_checkpoint(ckpt_path, active, ctxs, admm_z, admm_u, rho_admm, m, it)
+                # Dynamic ADMM weight adjustment, decided where the fused
+                # loop's is (joint.next_admm_weight), on float64 host tensors.
+                rho_new = next_admm_weight(spec, torch.tensor(rho_admm, dtype=torch.float64),
+                                           [torch.tensor(cost_data[i], dtype=torch.float64) for i in active]).tolist()
+                for i in active:
+                    if rho_new[i] != rho_admm[i]:
+                        log(f"Increased the ADMM weight to: {rho_new[i]}")
+                rho_admm = rho_new
+                snapshot(it, admm_z, admm_u, rho_admm)
 
             # Final costs row (problem_joint_gravmag.F90:550).
             costs_f.write(
@@ -965,6 +1065,41 @@ def _require_finite(out, active, it):
     for name, t in named:
         if not bool(torch.isfinite(t).all()):
             raise FloatingPointError(f"non-finite values in the {name} of major iteration {it}")
+
+
+def _require_finite_chunk(out, active, it, steps):
+    """_require_finite for a fused chunk (host copies): each major's costs,
+    in order, then the models at the chunk's end."""
+    per = out["per_iteration"]
+    for s in range(steps):
+        named = [(f"cost {k}", v[s]) for k, v in per["costs"].items()]
+        named += [("data costs", per["post_cost_data"][s]), ("model costs", per["pre_cost_model"][s])]
+        for name, t in named:
+            if not bool(torch.isfinite(t).all()):
+                raise FloatingPointError(f"non-finite values in the {name} of major iteration {it + s}")
+    for i, mdl in zip(active, out["model"]):
+        if not bool(torch.isfinite(mdl).all()):
+            raise FloatingPointError(
+                f"non-finite values in the {PROBLEM_PREFIX[i]} model after major iteration {it + steps - 1}")
+
+
+def _to_host(tree):
+    """Every tensor of a nested dict/tuple copied to the host behind one wait
+    for the device (a non-blocking copy from a CUDA device lands in pinned
+    memory)."""
+    cards = set()
+
+    def copy(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if t.device.type == "cuda":
+            cards.add(t.device)
+        return t.to("cpu", non_blocking=True)
+
+    host = tree_map(copy, tree)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    return host
 
 
 def save_checkpoint(path, active, ctxs, admm_z, admm_u, rho_admm, m, it):

@@ -9,8 +9,10 @@ Counterpart of the reference's column-parallel solver
   recurrence stay 0-dim tensors on the vectors' device; the early-exit
   criteria (relative residual <= rmin, |rhobar| < 1e-30, rho == 0, optional
   target-misfit RMSE check) are tested in the order of the JAX package's
-  loop, mirroring lsqr_solver2.F90:163, 185-188, 251-254, 286-289, and are
-  read on the host once per iteration (twice with the misfit check).
+  loop, mirroring lsqr_solver2.F90:163, 185-188, 251-254, 286-289. With an
+  int bound they are read on the host once per iteration (twice with the
+  misfit check); with a tensor bound nothing reads the device, so that a
+  major iteration can be captured as one CUDA graph.
 
 All vectors here live in the *scaled/solver* domain; wavelet-domain
 conversions are the operator's business (see inversion/joint.py).
@@ -25,7 +27,7 @@ import torch
 
 class LSQRResult(NamedTuple):
     x: torch.Tensor
-    iters: int
+    iters: object  # int, or a 0-dim int64 tensor under a tensor bound
     r: torch.Tensor  # relative residual phibar / b1
     misfit: torch.Tensor  # last computed data RMSE (inf if never computed)
 
@@ -41,11 +43,12 @@ def lsqr_solve(
     rmatvec: Callable,
     b: torch.Tensor,
     ncols: int,
-    niter: int,
+    niter,
     rmin: float,
     gamma: float = 0.0,
     target_misfit: float = 0.0,
     misfit_fn: Optional[Callable] = None,
+    max_iter: Optional[int] = None,
 ) -> LSQRResult:
     """Solve min ||A x - b|| with LSQR.
 
@@ -53,7 +56,24 @@ def lsqr_solve(
     If target_misfit > 0 and misfit_fn is given, misfit_fn(x) is evaluated at
     the top of every iteration and the loop exits once it reaches
     target_misfit (reference: lsqr_solver2.F90:168-189).
-    """
+
+    With niter an int, the exit tests are read on the host each iteration
+    and the loop stops at the first that holds; `iters` is an int. With
+    niter a 0-dim integer tensor on b's device (at most max_iter, which is
+    then required), nothing reads the device: the counterpart of the JAX
+    package's lax.while_loop (tomofastx_tpu/ops/lsqr.py:107-161), which the
+    fused major loop caps to 0 on a masked step. The loop then runs max_iter
+    iterations' worth of tensor operations; each tests the loop's condition
+    on the device (it <= niter, r > rmin, not stopped) and, with the misfit
+    check, the target at its top, and an iteration that fails it leaves the
+    carry as it was, by torch.where. A frozen iteration still computes both
+    products on the frozen vectors, whose quotients may be inf or NaN: where
+    selects, so none of that reaches x (a 0/1 mask would carry inf*0 = NaN
+    in). x and the iteration count equal the host-exit form's to the last
+    bit; `iters` is a 0-dim int64 tensor."""
+    resident = isinstance(niter, torch.Tensor)
+    if resident and max_iter is None:
+        raise ValueError("lsqr_solve needs max_iter when niter is a tensor")
     dtype, device = b.dtype, b.device
     calc_misfit = (target_misfit > 0.0) and (misfit_fn is not None)
     one = torch.ones((), dtype=dtype, device=device)
@@ -74,50 +94,78 @@ def lsqr_solve(
     phibar = beta
     r = one
     misfit = torch.full((), float("inf"), dtype=dtype, device=device)
-    it = 1
+    if resident:
+        it = torch.ones((), dtype=torch.int64, device=device)
+        stop = torch.zeros((), dtype=torch.bool, device=device)
+    else:
+        it = 1
     # Loop condition of the reference: it <= niter, r > rmin, not stopped.
-    # r starts at 1, so the first test needs no device read.
-    go = niter >= 1 and 1.0 > rmin
+    # r starts at 1, so the host form's first test needs no device read.
+    n_loop = max_iter if resident else (niter if 1.0 > rmin else 0)
 
-    while go:
+    for _ in range(n_loop):
+        if resident:
+            go = (it <= niter) & (r > rmin) & ~stop
         # Optional data-misfit early exit.
         if calc_misfit:
-            misfit = misfit_fn(x)
-            if bool(misfit <= target_misfit):
-                break
+            m = misfit_fn(x)
+            if not resident:
+                misfit = m
+                if bool(m <= target_misfit):
+                    break
+            else:
+                misfit = torch.where(go, m, misfit)
+                reached = go & (m <= target_misfit)
+                stop = stop | reached
+                go = go & ~reached
 
         # u = -alpha*u + A v ;  beta = ||u|| ; u /= beta
-        u, beta = normalize(-alpha * u + matvec(v))
+        u_n, beta_n = normalize(-alpha * u + matvec(v))
         # v = -beta*v + A^T u ; alpha = ||v|| ; v /= alpha
-        v, alpha = normalize(-beta * v + rmatvec(u))
+        v_n, alpha_n = normalize(-beta_n * v + rmatvec(u_n))
 
-        rho = torch.sqrt(rhobar * rhobar + beta * beta)
+        rho = torch.sqrt(rhobar * rhobar + beta_n * beta_n)
         rho_ok = rho != 0.0
         rho_inv = 1.0 / torch.where(rho_ok, rho, one)
         cc = rhobar * rho_inv
-        ss = beta * rho_inv
-        theta = ss * alpha
-        rhobar = -cc * alpha
+        ss = beta_n * rho_inv
+        theta = ss * alpha_n
+        rhobar_n = -cc * alpha_n
         phi = cc * phibar
-        phibar = ss * phibar
+        phibar_n = ss * phibar
         t1 = phi * rho_inv
         t2 = -theta * rho_inv
 
-        x_new = t1 * w + x
-        w_new = t2 * w + v
+        x_n = t1 * w + x
+        w_n = t2 * w + v_n
         if gamma != 0.0:
-            x_new = _soft_threshold(x_new, gamma)
-        r_new = phibar / b1
+            x_n = _soft_threshold(x_n, gamma)
+        r_n = phibar_n / b1
+        stop_n = ~rho_ok | (torch.abs(rhobar_n) < 1.0e-30)
 
-        stop = (~rho_ok) | (torch.abs(rhobar) < 1.0e-30)
-        # One read of the device per iteration: (rho != 0, stop, r > rmin).
-        rho_ok_h, stop_h, above_h = torch.stack([rho_ok, stop, r_new > rmin]).tolist()
-        if not rho_ok_h:
-            # When rho == 0 the reference exits before updating x.
-            break
-        x, w, r = x_new, w_new, r_new
-        it += 1
-        go = it <= niter and above_h and not stop_h
+        # When rho == 0 the reference exits before updating x.
+        if not resident:
+            # One read of the device per iteration: (rho != 0, stop, r > rmin).
+            rho_ok_h, stop_h, above_h = torch.stack([rho_ok, stop_n, r_n > rmin]).tolist()
+            if not rho_ok_h:
+                break
+            x, w, r, it = x_n, w_n, r_n, it + 1
+            u, v, alpha, beta, rhobar, phibar = u_n, v_n, alpha_n, beta_n, rhobar_n, phibar_n
+            if not above_h or stop_h:
+                break
+        else:
+            upd = go & rho_ok
+            x = torch.where(upd, x_n, x)
+            w = torch.where(upd, w_n, w)
+            r = torch.where(upd, r_n, r)
+            it = torch.where(upd, it + 1, it)
+            u = torch.where(go, u_n, u)
+            v = torch.where(go, v_n, v)
+            alpha = torch.where(go, alpha_n, alpha)
+            beta = torch.where(go, beta_n, beta)
+            rhobar = torch.where(go, rhobar_n, rhobar)
+            phibar = torch.where(go, phibar_n, phibar)
+            stop = stop | (go & stop_n)
 
     # Guard for ||b|| == 0: the model is exact, return zeros
     # (reference: lsqr_solver2.F90:123-126).

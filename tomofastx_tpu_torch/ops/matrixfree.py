@@ -198,6 +198,10 @@ class MatrixFreeKernel:
     near_idx: torch.Tensor = None
     cell_lo: int = 0
 
+    # Not captured into the fused loop's graph (inversion/joint.py::
+    # capture_unit): tens of thousands of kernel launches a product.
+    graph_capturable = False
+
     @property
     def N(self) -> int:
         return self.grid6[0].shape[0]
@@ -290,6 +294,10 @@ class ShardedMatrixFreeKernel:
     whole: MatrixFreeKernel
     parts: list
     mesh: object  # parallel.mesh.Mesh
+
+    # Not captured into the fused loop's graph (inversion/joint.py::
+    # capture_unit): tens of thousands of kernel launches a product.
+    graph_capturable = False
 
     @classmethod
     def shard(cls, k: MatrixFreeKernel, mesh) -> "ShardedMatrixFreeKernel":
@@ -571,6 +579,10 @@ class LatticeMatrixFreeKernel:
     win: Tuple[int, int, int] = None  # (wz, wy, wx) when far_quad
     wi0: torch.Tensor = None  # (nrows_padded, 3) int64 window starts when far_quad
 
+    # Not captured into the fused loop's graph (inversion/joint.py::
+    # capture_unit): tens of thousands of kernel launches a product.
+    graph_capturable = False
+
     @property
     def N(self) -> int:
         return self.nx * self.ny * self.nz
@@ -682,6 +694,10 @@ class ShardedLatticeMatrixFreeKernel:
     nrows: int
     ndc: int
     mesh: object  # parallel.mesh.Mesh
+
+    # Not captured into the fused loop's graph (inversion/joint.py::
+    # capture_unit): tens of thousands of kernel launches a product.
+    graph_capturable = False
 
     @classmethod
     def shard(cls, k: LatticeMatrixFreeKernel, mesh) -> "ShardedLatticeMatrixFreeKernel":

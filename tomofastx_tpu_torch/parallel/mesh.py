@@ -55,6 +55,11 @@ class Mesh:
         return list(self.devices.flat)
 
     @property
+    def n_devices(self) -> int:
+        """How many distinct devices the slots name."""
+        return len(set(self.slots))
+
+    @property
     def home(self) -> torch.device:
         """Slot 0: where the vectors live and the partial results meet."""
         return self.devices.flat[0]
