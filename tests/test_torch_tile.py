@@ -157,6 +157,85 @@ def test_kernel_source_is_shipped_with_the_package():
     assert 'extern "C" int tile_matvec_f32' in src and 'extern "C" int tile_matvec_f64' in src
 
 
+def _sum_orders(bu, ntiles):
+    """Each tile's sum order under the launch's plan: for every block of
+    the tile (by rank among the tile's blocks) and every warp that adds its
+    slots, that warp's slots in order; and how often each (tile, slot) is
+    added."""
+    cluster, rows, nblocks = tmv.launch_table([ntiles], bu)
+    assert rows == [(0, 0, ntiles)]
+    blocks, tiles = tmv.work_plan(bu)
+    added, orders = {}, {}
+    for lb in range(nblocks):
+        for w, (tile, slots) in enumerate(tmv.block_slots(bu, ntiles, lb)):
+            for b in slots:
+                added[tile, b] = added.get((tile, b), 0) + 1
+            if slots:
+                # A short tile is one warp's: which warp does not change its order.
+                key = (lb % blocks, w) if bu > tmv.SHORT else (0, 0)
+                orders.setdefault(tile, {})[key] = slots
+    return added, orders, cluster
+
+
+@pytest.mark.parametrize("bu", [1, 31, 32, 37, 255, 256, 257, 1932, 1955])
+def test_the_work_plan_adds_every_slot_once_in_an_order_set_by_bu(bu):
+    """The kernel's work plan (tmv.work_plan, block_slots, launch_table):
+    every slot of every tile is added exactly once, and each tile's sum
+    order (which block, which warp, in which order) depends on BU alone:
+    equal for every tile, for any number of tiles, and that of the kernel
+    of one block a tile before it (8 chains of every 8th slot)."""
+    want_order = None
+    for ntiles in (1, 5, 13):
+        added, orders, cluster = _sum_orders(bu, ntiles)
+        assert added == {(t, b): 1 for t in range(ntiles) for b in range(bu)}
+        for tile in range(ntiles):
+            want_order = want_order or orders[0]
+            assert orders[tile] == want_order
+        blocks, tiles = tmv.work_plan(bu)
+        assert (blocks, tiles) == ((1, tmv.WARPS) if bu <= tmv.SHORT else (tmv.CHAINS, 1))
+        assert cluster == int(bu > tmv.SHORT)
+        # The mode follows BU, whatever the tiles a block (one, say).
+        assert tmv.launch_table([ntiles], bu, warps=1)[0] == cluster
+    # Either way the order of the one-block-a-tile kernel: chain c adds slots
+    # c, c + 8, ..., and the chains follow one another.
+    assert [b for key in sorted(want_order) for b in want_order[key]] == tmv.chain_order(bu)
+    assert tmv.chain_order(bu) == [b for c in range(8) for b in range(c, bu, 8)]
+
+
+@pytest.mark.parametrize("bu", [31, 257])
+def test_the_group_table_of_one_launch_over_parts(bu):
+    """Kernel 2's one launch over parts of (7, 0, 20, 18) tiles: each part's
+    outputs start where the one before ends, its blocks follow the one
+    before's, and its blocks add each of its slots once."""
+    part_tiles = [7, 0, 20, 18]
+    cluster, rows, nblocks = tmv.launch_table(part_tiles, bu)
+    blocks, tiles = tmv.work_plan(bu)
+    assert [r[0] for r in rows] == [0, 7, 7, 27] and [r[2] for r in rows] == part_tiles
+    per_part = [-(-n // tiles) * blocks for n in part_tiles]
+    assert [r[1] for r in rows] == [0, per_part[0], per_part[0], per_part[0] + per_part[2]]
+    assert nblocks == sum(per_part)
+    for (tile0, block0, n), nb in zip(rows, per_part):
+        added, _, _ = _sum_orders(bu, n) if n else ({}, None, None)
+        assert sum(added.values()) == n * bu and len(added) == n * bu
+        # A cluster's blocks never straddle two parts.
+        assert block0 % blocks == 0 and nb % blocks == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cuts", [(26,), (9, 9, 8), (7, 1, 12, 6)])
+def test_sharded_product_over_cpu_slots_equals_one_product(cuts, dtype):
+    """tile_matvec_sharded over 1, 3 and 4 CPU slots, ragged parts
+    included, equals one tile_matvec on the whole pack to the last bit."""
+    rng = np.random.default_rng(len(cuts))
+    uv = torch.from_numpy(rng.normal(size=(26, 37, 8, 128)).astype(np.float32))
+    ub = torch.from_numpy(rng.integers(0, 50, size=(26, 37)).astype(np.int32))
+    x = torch.from_numpy(rng.normal(size=50 * 128)).to(dtype)
+    starts = np.cumsum((0,) + cuts)
+    parts = [(uv[a:b].clone(), ub[a:b].clone()) for a, b in zip(starts[:-1], starts[1:])]
+    got = tmv.tile_matvec_sharded(parts, x, "cpu")
+    assert got.dtype == dtype and torch.equal(got, tmv.tile_matvec(uv, ub, x))
+
+
 # ----------------------------------------------------------------- packer
 
 
