@@ -5,14 +5,19 @@
 
 It needs one CUDA device, nvcc and nothing from the network. It
 
-1. builds the hand-written kernels (tile_matvec, blocked_matvec and the
-   bfloat16 GEMV pair of kernel B1) from tomofastx_tpu_torch/csrc/, one
-   compiler a source, all started together;
+1. builds the hand-written kernels (tile_matvec, blocked_matvec, the
+   bfloat16 GEMV pair of kernel B1 and the per-cell matrix-free pair of
+   kernel B2) from tomofastx_tpu_torch/csrc/, one compiler a source, all
+   started together;
 2. holds each kernel against its plain PyTorch version on a random ragged
    layout (B1: on bfloat16 matrices with and without 16-byte aligned rows),
    tile_matvec also on either side of each edge of its work plan, and
    tile_matvec_sharded's one launch over parts of their own against one
-   tile_matvec launch (equal to the last bit);
+   tile_matvec launch (equal to the last bit); B2 on small per-cell problems
+   of every family (g_z, Gzz, FTG-6, TMI, three-component, magnetization
+   vector, the borehole branch) in float64 and float32, with padding rows
+   and cells, over 7 slots of the card, and on a boundary-coincident
+   observation (the construction aborts);
 3. writes a full-width synthetic gravity problem (4096 observations x 262144
    cells on a 64x64x64 lattice, Haar compression at rate 0.15, damping,
    3-lithology ADMM, 3 majors x 20 LSQR iterations, float64 build stored
@@ -107,17 +112,21 @@ It needs one CUDA device, nvcc and nothing from the network. It
    LatticeMatrixFreeKernel with its float32 tiered blend), LATTICE_DEPTH
    deep: against a dense uncompressed run, --mesh 1 to the last bit, and
    256 float32 rows against the float64 closed forms;
-21. a grid whose top layer follows a topography (MatrixFreeKernel with its
-   near patch): its products against the dense uncompressed matrix, then a
-   GENERIC_DEPTH solve through the command-line entry point;
+21. a grid whose top layer follows a topography (MatrixFreeKernel, its
+   products by kernel B2): B2 against its plain loop at full width for g_z
+   in float32 (the blend) and float64, and for FTG-6 and TMI on 512 rows,
+   each timed beside the plain loop and its bound; the products against the
+   dense uncompressed matrix (torch.mv on it timed as a yardstick); then a
+   GENERIC_DEPTH solve through the command-line entry point, B2's launches
+   counted;
 22. kernelFormat = auto on 128 x 128 x 64 cells and 16384 observations
    (uncompressed; a dense kernel of 68.7 GB): the log says matrix-free and
    names BTTBKernel, the data cost falls, 64 rows of the forward data against
    closed-form rows in float64; phases 19-22 time each operator's matvec and
    rmatvec beside the bytes it holds;
 23. seven small float64 matrix-free problems (BTTB g_z and FTG, lattice g_z
-   and TMI, per-cell g_z and borehole TMI, lattice g_z over four slots of the
-   card) on the card against the CPU;
+   and TMI, per-cell g_z and borehole TMI through kernel B2, lattice g_z over
+   four slots of the card) on the card against the CPU;
 24. tpu.kernelStoreDtype = bfloat16 through the command-line entry point: the
    dense kernel built straight into bfloat16 (no cache written), every product
    through kernel B1 (launches counted), --mesh 1 to the last bit, against
@@ -138,7 +147,8 @@ It needs one CUDA device, nvcc and nothing from the network. It
    tiled run's cache (tile_matvec replayed inside the graph), the same with
    --mesh 1 (tile_matvec_sharded; equal to the last bit to the unmeshed
    fused run), bfloat16 dense (kernel B1), the coupled joint problem tiled,
-   BTTB and refineForward with a float64 forward, each held to the
+   BTTB, refineForward with a float64 forward and the per-cell operator on
+   the topography survey of 21 (kernel B2), each held to the
    host-driven run of its Parfile at the formats' tolerance, and each
    kernel's launches on the card read from its own run (those its wrapper
    counted outside the capture, plus one replay's by torch.profiler, equal
@@ -146,9 +156,9 @@ It needs one CUDA device, nvcc and nothing from the network. It
    made); a
    5-major run written every 2 (chunks of 2, 2 and 1 majors, one capture)
    and its resumption from the checkpoint of major 4, equal to the last
-   bit; through the library, the tiled run's graph replayed against the
-   same steps launched eagerly on the card (equal to the last bit, with
-   torch.profiler's count of tile_matvec in that chunk); and
+   bit; through the library, the tiled and per-cell runs' graphs replayed
+   against the same steps launched eagerly on the card (equal to the last
+   bit, with torch.profiler's count of tile_matvec or B2 in that chunk); and
    four small float64 fused problems (tiled, coupled dense, BTTB, and the
    lattice operator, whose majors run without a graph) on the card against
    the CPU; and a fused run whose LSQR stops early (inversion.minResidual)
@@ -703,7 +713,8 @@ def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters, kind="g
 
 
 def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None, swap=None, mesh=None,
-                                   operator=None, solve_kw=None, model_tol=1e-6, n_minor=10, **parfile_args):
+                                   operator=None, solve_kw=None, model_tol=1e-6, n_minor=10, counted=None,
+                                   **parfile_args):
     """A small problem of `kind` on the card (float64 solve, so the float64
     variants of the kernels and products carry it) against the same problem
     on the CPU: every active problem's final model within 1e-6 of its range,
@@ -713,7 +724,8 @@ def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None,
     card run's (a Mesh of the card's slots); operator, the matrix-free class
     both runs must log; solve_kw, further arguments of both solves (the
     build's precision or its float64 near field); model_tol, the model's
-    tolerance (of its range) where it is not 1e-6."""
+    tolerance (of its range) where it is not 1e-6; counted, the kernels
+    (name: wrapper) that the card run must launch, counted in that run."""
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
 
@@ -728,9 +740,16 @@ def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None,
         pf = write_parfile(small, f"Parfile_{dev}.txt", inputs, os.path.join(small, f"out_{dev}"), n_minor, kind=kind,
                            **parfile_args)
         log = io.StringIO()
+        for fn in (counted or {}).values():
+            fn.launches = 0
         with contextlib.redirect_stdout(log):
             res[dev] = solve_problem_joint_gravmag(read_parfile(pf), solve_dtype=torch.float64, device=dev,
                                                    mesh=mesh if dev == "cuda" else None, **(solve_kw or {}))
+        if counted and dev == "cuda":
+            launches = {k: fn.launches for k, fn in counted.items()}
+            print(f"  small problem ({what}): launches on the card {launches}")
+            if not all(launches.values()):
+                raise SystemExit(f"FAILED small problem ({what}): a kernel of its path was not launched")
         if operator is not None and f"kernel: matrix-free ({operator}," not in log.getvalue():
             raise SystemExit(f"FAILED small problem ({what}): the {dev} run did not take {operator}")
     worst = 0.0
@@ -1243,13 +1262,16 @@ def phase_17(cli, counters, tmv, work):
 # Phases 18-23: the native table reader and the matrix-free operators.
 # ---------------------------------------------------------------------------
 
-# The matrix-free solves' depths, cut to fit the script's time: one product
-# takes ~0.3-0.6 s on the lattice operator and ~1.4 s on the per-cell one at
-# 4096 x 262144 (PERF.md), against ~0.5 ms on the BTTB operator.
+# The lattice solve's depth, cut to fit the script's time: one product takes
+# ~0.3-0.6 s on the lattice operator at 4096 x 262144 (PERF.md), against
+# ~0.5 ms on the BTTB operator.
 LATTICE_DEPTH = (1, 1)
-GENERIC_DEPTH = (1, 1)
-# The small lattice and per-cell problems' depth: their eager products
-# launch thousands of kernels even at 16 x 16 x 8 cells.
+# The per-cell solve at the stored formats' depth: its products are kernel B2's.
+GENERIC_DEPTH = (N_MAJOR, N_MINOR)
+# Observations of phase 21's FTG-6 and TMI operators at full width in cells.
+B2_ROW_CUT = 512
+# The small lattice problems' depth: their eager products launch thousands
+# of kernels even at 16 x 16 x 8 cells.
 SMALL_MF_DEPTH = dict(n_major=2, n_minor=5)
 # JAX's bounds for its blended float32 operators against float64: a whole
 # row (tests/test_matrixfree.py:1065) and a product (:570, :999).
@@ -1275,8 +1297,9 @@ def time_operator(name, op, reps=20, warm=3):
            "rmatvec_ms": time_cuda(lambda: op.rmatvec(u), warm=warm, reps=reps),
            "bytes": op.nbytes}
     # A profiled short product can come back short of its kernels (a run
-    # counted 0 for a BTTB matvec that launches 10): the larger count of two.
-    tries = 2 if out["matvec_ms"] < 10.0 else 1
+    # counted 0 for a BTTB matvec that launches 10, and for an 11.7 ms
+    # per-cell one): the larger count of two.
+    tries = 2 if out["matvec_ms"] < 100.0 else 1
     for f, v in (("matvec", x), ("rmatvec", u)):
         out[f"launches_{f}"] = max(len(cuda_kernel_events(lambda: getattr(op, f)(v))) for _ in range(tries))
     same = torch.equal(op.rmatvec(u), op.rmatvec(u))
@@ -1455,8 +1478,12 @@ def phase_20(cli, counters, workflow, work, inputs):
 
 def phase_21(cli, counters, work, inputs):
     """The per-cell operator with its near patch on a grid that is no
-    lattice: products against the dense uncompressed matrix of the same
-    grid, then a short solve through the command line."""
+    lattice, its products by kernel B2: g_z at full width in float32 (the
+    blend) and in float64, and FTG-6 and TMI on the first B2_ROW_CUT
+    observations, each against its plain loop and timed beside it and its
+    bound; the float32 products against the dense uncompressed matrix of the
+    same grid (torch.mv on it timed as a yardstick); then a GENERIC_DEPTH
+    solve through the command line, B2's launches counted."""
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.io import data_io, model_io
     from tomofastx_tpu_torch.ops import sensitivity as sens
@@ -1481,7 +1508,8 @@ def phase_21(cli, counters, work, inputs):
         raise SystemExit(f"FAILED per-cell: {type(op).__name__} built, or no blend")
     print(f"  operator built in {build_s:.2f} s (near candidates per point K = {op.near_idx.shape[1]}, the probe "
           "matvec included)")
-    times = time_operator("per-cell at 4096 x 262144", op, reps=1, warm=0)  # the probe matvec warmed it
+    times = time_operator("per-cell at 4096 x 262144", op)
+    b2 = {"g_z float32": measure_b2("g_z float32 (the blend), 4096 x 262144", op, RTOL_F32)}
     S = sens.compute_sensitivity(par, grid, data, ones, store_dtype=torch.float32, device="cuda").S
     g = torch.Generator(device="cpu").manual_seed(23)
     x = torch.randn(S.shape[1], generator=g, dtype=torch.float64).to("cuda", torch.float32)
@@ -1493,11 +1521,41 @@ def phase_21(cli, counters, work, inputs):
               f"{errs[what]:.3e} (bound {PRODUCT_BLEND_RTOL:g}, the JAX package's for its blended operators)")
         if not errs[what] <= PRODUCT_BLEND_RTOL:
             raise SystemExit(f"FAILED per-cell: {what} against the dense matrix")
+    yardstick = {"torch_mv_f32_ms": time_cuda(lambda: torch.mv(S, x), calls=BACK_TO_BACK),
+                 "torch_mv_f32_T_ms": time_cuda(lambda: torch.mv(S.T, u), calls=BACK_TO_BACK)}
+    print(f"  yardstick (another function: the stored matrix the operator exists to avoid): torch.mv on the dense "
+          f"float32 matrix {yardstick['torch_mv_f32_ms']:.3f} ms, on its transpose {yardstick['torch_mv_f32_T_ms']:.3f} ms")
     del S, op
+    torch.cuda.empty_cache()
+    op64 = make_matrixfree_kernel(par, grid, data, ones, 1.0, np.ones((NDATA, 1)), torch.float64, device="cuda")
+    b2["g_z float64"] = measure_b2("g_z float64, 4096 x 262144", op64, RTOL_F64_FULL, reps=3)
+    del op64
+    for case in ("FTG-6", "TMI"):
+        cut = slice(0, B2_ROW_CUT)
+        opc = b2_operator(case, grid, data.X[cut], data.Y[cut], data.Z[cut], torch.float32)
+        b2[f"{case} float32"] = measure_b2(f"{case} float32 (the blend), {B2_ROW_CUT} x 262144", opc, RTOL_F32,
+                                           reps=3)
+        del opc
     torch.cuda.empty_cache()
     run = run_main_path(cli, counters, "per-cell", pf, out, matrixfree_said("MatrixFreeKernel"), sensit_written=False,
                         compression="uncompressed", depth=GENERIC_DEPTH)
-    return {"operator": times, "build_s": build_s, "against_dense": errs, "run": run}
+    want = b2_launches(run["lsqr_iterations"])
+    print(f"  kernel B2's launches: {run['launches']['prism_matvec']} matvec, {run['launches']['prism_rmatvec']} "
+          f"rmatvec (expected {want['prism_matvec']} = the probe, {3 + GENERIC_DEPTH[0]} forward products and one a "
+          f"LSQR iteration; {want['prism_rmatvec']} = one a LSQR iteration and one a solve)")
+    if not launched(run["launches"], **want):
+        raise SystemExit(f"FAILED per-cell main path: launches {run['launches']}")
+    return {"operator": times, "build_s": build_s, "against_dense": errs, "run": run, "b2": b2,
+            "yardstick": yardstick}
+
+
+def b2_launches(lsqr_iterations):
+    """Kernel B2's launches in a host-driven per-cell run: the construction's
+    probe matvec, the forward products (synthetic, prior and starting
+    models, and one after each major), and each solve's LSQR (a matvec an
+    iteration; an rmatvec an iteration and one before the loop)."""
+    return {"prism_matvec": 1 + 3 + len(lsqr_iterations) + sum(lsqr_iterations),
+            "prism_rmatvec": sum(it + 1 for it in lsqr_iterations)}
 
 
 def phase_22(cli, counters, work):
@@ -1549,8 +1607,10 @@ def phase_22(cli, counters, work):
     return {"run": run, "operator": times, "forward_rows_max_err": err}
 
 
-def phase_23(work, mesh4):
-    """Small float64 matrix-free problems, card against CPU."""
+def phase_23(work, mesh4, counters):
+    """Small float64 matrix-free problems, card against CPU; the per-cell
+    ones through kernel B2, counted."""
+    b2 = {k: counters[k] for k in ("prism_matvec", "prism_rmatvec")}
     cases = [
         ("bttb_gz", "BTTB g_z", dict(operator="BTTBKernel")),
         ("bttb_ftg", "BTTB FTG full tensor", dict(operator="BTTBKernel", kind="ftg")),
@@ -1559,14 +1619,253 @@ def phase_23(work, mesh4):
         ("lattice_tmi", "lattice TMI, draped", dict(operator="LatticeMatrixFreeKernel", kind="tmi",
                                                     swap={"data": "data_draped"}, **SMALL_MF_DEPTH)),
         ("generic_gz", "per-cell g_z, topography", dict(operator="MatrixFreeKernel", swap={"grid": "grid_topo"},
-                                                        **SMALL_MF_DEPTH)),
+                                                        counted=b2)),
         ("generic_borehole_tmi", "per-cell TMI, borehole", dict(operator="MatrixFreeKernel", kind="borehole",
-                                                                **SMALL_MF_DEPTH)),
+                                                                counted=b2)),
         ("lattice_gz_4_slots", "lattice g_z, draped, four slots of the card",
          dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"}, mesh=mesh4, **SMALL_MF_DEPTH)),
     ]
     return {name: small_problem_card_against_cpu(work, f"small_mf_{name}", f"matrix-free {what}", fmt="matrixfree",
                                                  compression=0, **kw) for name, what, kw in cases}
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2: the per-cell matrix-free operator's products (csrc/prism_matvec.cu).
+# ---------------------------------------------------------------------------
+
+# The per-cell operator's families: gravity (data type, data components) or
+# magnetics (model components, data components); "inside" puts the
+# observations inside the grid (the borehole branch).
+B2_FAMILIES = {
+    "g_z": ("grav", 1, 1), "Gzz": ("grav", 2, 1), "FTG-6": ("grav", 2, 6),
+    "TMI": ("magn", 1, 1), "3-component": ("magn", 1, 3), "MVI": ("magn", 3, 1),
+    "MVI 3-component": ("magn", 3, 3), "borehole TMI": ("magn", 1, 1, "inside"),
+}
+# A float32 operator with tpu.farFieldQuad = 0 evaluates the closed forms in
+# float32, whose 8-corner cancellation is the rounding noise the blend exists
+# to avoid (ops/prism.py): two evaluation orders of it differ by up to ~1e-5 of
+# max|y| on the small problems, so they are held at ten times that.
+RTOL_F32_CLOSED = 1e-4
+# The float64 closed forms at full width: a far cell's 8-corner cancellation
+# grows as (distance / cell size)^3, and 262144 cells are summed; the JAX
+# package holds its float64 operators to the port's at 1e-10
+# (tests/test_torch_matrixfree.py::test_operator_matches_jax_f64).
+RTOL_F64_FULL = 1e-10
+# Kernel B2's bound is by operations, from this run's pairs (csrc/prism_matvec.cu):
+# a far pair of the float32 blend is 27 reciprocal square roots on the special
+# function unit (16 a clock an SM: 132 x 16 x 1.98 GHz on an H100 SXM) and
+# B2_QUAD_FLOPS float32 operations (an FMA counted as 2: the 27 points, the
+# node offsets, the far mask and the scaling); a pair of the closed forms
+# B2_CLOSED_FLOPS float64 operations, each square root, arc tangent and log
+# counted as one (a lower bound: the card computes each with tens of
+# instructions) at NVIDIA's data-sheet 34 TFLOP/s of float64.
+MUFU_PER_S = 132 * 16 * 1.98e9
+FP64_FLOP_PER_S = 34e12
+B2_QUAD_FLOPS = {"grav1": 309, "grav2": 417, "grav6": 1155, "magn": 1170}
+B2_CLOSED_FLOPS = {"grav1": 240, "grav2": 104, "grav6": 480, "magn": 230}
+
+
+def b2_family_key(phys):
+    return "magn" if phys.problem == "magn" else f"grav{1 if phys.data_type == 1 else 2 if phys.ndc == 1 else 6}"
+
+
+def b2_params(case, grid, n, far_field_quad=1):
+    """The port's parameters of a B2 family for n observations on `grid`."""
+    from tomofastx_tpu_torch.config.parfile import GravParams, MagParams
+
+    problem, a, b = B2_FAMILIES[case][:3]
+    size = dict(nx=grid.nx, ny=grid.ny, nz=grid.nz, ndata=n, far_field_quad=far_field_quad)
+    if problem == "grav":
+        return GravParams(data_type=a, ndata_components=b, **size)
+    return MagParams(nmodel_components=a, ndata_components=b, mi=60.0, md=10.0, theta=0.0, intensity=50000.0, **size)
+
+
+def topo_grid(nx, ny, nz, h=(100.0, 80.0, 50.0)):
+    """A port Grid of nx x ny x nz cells whose top layer's upper faces follow
+    a surface per column (write_inputs' "topography"): no lattice."""
+    from tomofastx_tpu_torch.models.grid import Grid
+
+    k, j, i = (a.reshape(-1) for a in np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij"))
+    Z1 = k * h[2] + np.where(k == 0, 0.2 * h[2] * (1.5 + np.sin(0.7 * i + 1.3 * j)), 0.0)
+    return Grid(nx=nx, ny=ny, nz=nz, X1=i * h[0], X2=(i + 1) * h[0], Y1=j * h[1], Y2=(j + 1) * h[1], Z1=Z1,
+                Z2=(k + 1) * h[2])
+
+
+def b2_operator(case, grid, X, Y, Z, dtype, far_field_quad=1, chunk=None, pad_cells_to=1, validate=False):
+    """A per-cell MatrixFreeKernel of family `case` on the card (column
+    weights 1 to 2, problem weight 1.7, data weights 1 to 2)."""
+    from tomofastx_tpu_torch.models.data import SurveyData
+    from tomofastx_tpu_torch.ops.matrixfree import make_matrixfree_kernel
+
+    par = b2_params(case, grid, len(X), far_field_quad)
+    data = SurveyData(ndata=len(X), ncomponents=par.ndata_components)
+    data.X, data.Y, data.Z = (np.asarray(a, np.float64) for a in (X, Y, Z))
+    rng = np.random.default_rng(0)
+    return make_matrixfree_kernel(par, grid, data, 1.0 + rng.random(grid.nelements_total), 1.7,
+                                  1.0 + rng.random((len(X), par.ndata_components)), dtype, chunk=chunk,
+                                  pad_cells_to=pad_cells_to, validate=validate, force_generic=True, device="cuda")
+
+
+def plain_products(op, x, u):
+    """The per-cell operator's products through its plain loop (the
+    wrappers' plain versions), weighted as MatrixFreeKernel weights them."""
+    y = (op.row_w * op._partial_matvec(op.cw[None, :] * op._padded_model(x)))[: op.nrows].reshape(-1)
+    g = op.cw[None, :] * op._partial_rmatvec(op._padded_residual(u))
+    return y, g[:, : op.ncols // op.phys.nmc].reshape(-1)
+
+
+def b2_small_problems():
+    """Phase 2's hold of kernel B2 against its plain loop on the card, on
+    small per-cell problems of every family (8 x 6 x 4 cells with a
+    topography, padded to a multiple of 7; 9 observations in chunks of 4,
+    so 3 padding rows): float64 to RTOL_F64, the float32 blend to RTOL_F32
+    (and both it and its plain version within PRODUCT_BLEND_RTOL of the
+    float64 product), float32 closed forms to RTOL_F32_CLOSED; two launches
+    equal to the last bit; the cells-sharded operator over 7 slots of the
+    card (each slot's cells from its own cell_lo); and a boundary-coincident
+    observation, whose non-finite probe product through the kernel aborts
+    the construction with PROBE_ABORT."""
+    from tomofastx_tpu_torch.ops import prism_matvec as pm
+    from tomofastx_tpu_torch.ops.matrixfree import PROBE_ABORT
+    from tomofastx_tpu_torch.parallel.mesh import Mesh, shard_kernel
+
+    grid = topo_grid(8, 6, 4)
+    rng = np.random.default_rng(41)
+    n = 9
+    above = (rng.uniform(0.0, 800.0, n), rng.uniform(0.0, 480.0, n), -rng.uniform(1.0, 30.0, n))
+    inside = (rng.uniform(20.0, 780.0, n), rng.uniform(20.0, 460.0, n), rng.uniform(55.0, 180.0, n))
+    print("kernel B2 (csrc/prism_matvec.cu) against its plain loop, small per-cell problems (8 x 6 x 4 cells with a "
+          f"topography padded to {-(-192 // 7) * 7}, {n} observations in chunks of 4):")
+    out = {}
+    for case, fam in B2_FAMILIES.items():
+        pts = inside if "inside" in fam else above
+        ops = {"float64": b2_operator(case, grid, *pts, torch.float64, chunk=4, pad_cells_to=7),
+               "float32 blend": b2_operator(case, grid, *pts, torch.float32, chunk=4, pad_cells_to=7)}
+        if case in ("g_z", "TMI"):
+            ops["float32 closed"] = b2_operator(case, grid, *pts, torch.float32, far_field_quad=0, chunk=4,
+                                                pad_cells_to=7)
+        if "inside" in fam and not ops["float64"].phys.handle_inside:
+            raise SystemExit(f"FAILED kernel B2, {case}: the observations are not inside the grid")
+        g = torch.Generator(device="cpu").manual_seed(len(out))
+        op64 = ops["float64"]
+        x64 = torch.randn(op64.ncols, generator=g, dtype=torch.float64).cuda()
+        u64 = torch.randn(op64.nrows * op64.phys.ndc, generator=g, dtype=torch.float64).cuda()
+        ref = (op64.matvec(x64), op64.rmatvec(u64))
+        for what, op in ops.items():
+            rtol = {"float64": RTOL_F64, "float32 blend": RTOL_F32, "float32 closed": RTOL_F32_CLOSED}[what]
+            dt = op.xd.dtype
+            x, u = x64.to(dt), u64.to(dt)
+            before = (pm.prism_matvec.launches, pm.prism_rmatvec.launches)
+            got = (op.matvec(x), op.rmatvec(u))
+            if (pm.prism_matvec.launches - before[0], pm.prism_rmatvec.launches - before[1]) != (1, 1):
+                raise SystemExit(f"FAILED kernel B2, {case} {what}: the products did not launch it once each")
+            want = plain_products(op, x, u)
+            errs = [compare(f"B2 {case}, {what}, {f}", a, b, rtol) for f, a, b in zip(("matvec", "rmatvec"), got, want)]
+            if not (torch.equal(op.matvec(x), got[0]) and torch.equal(op.rmatvec(u), got[1])):
+                raise SystemExit(f"FAILED kernel B2, {case} {what}: two launches differ")
+            row = {"max_abs_err": max(errs), "rtol": rtol}
+            if what == "float32 blend":
+                for who, prods in (("kernel", got), ("plain", want)):
+                    rel = max(float((p.double() - r).norm() / r.norm()) for p, r in zip(prods, ref))
+                    row[f"{who}_against_float64"] = rel
+                    if not rel <= PRODUCT_BLEND_RTOL:
+                        raise SystemExit(f"FAILED kernel B2, {case}: the float32 blend's {who} products are "
+                                         f"{rel:.3e} off the float64 ones (bound {PRODUCT_BLEND_RTOL:g})")
+                print(f"  B2 {case}, float32 blend against the float64 products: kernel {row['kernel_against_float64']:.3e}"
+                      f", plain {row['plain_against_float64']:.3e} (bound {PRODUCT_BLEND_RTOL:g})")
+            out[f"{case}, {what}"] = row
+    # The cells-sharded operator: each of 7 slots of the card evaluates its own
+    # cells, and each cell's adjoint sum runs over the same observations in the
+    # same order as unsharded.
+    op = b2_operator("g_z", grid, *above, torch.float32, chunk=4, pad_cells_to=7)
+    mesh7 = Mesh(np.array([torch.device("cuda")] * 7, dtype=object), ("cells",))
+    ks = shard_kernel(op, mesh7)
+    x = torch.randn(op.ncols, generator=torch.Generator(device="cpu").manual_seed(99), dtype=torch.float64).cuda().float()
+    u = torch.randn(op.nrows, generator=torch.Generator(device="cpu").manual_seed(98), dtype=torch.float64).cuda().float()
+    compare("B2 g_z float32 over 7 slots of the card (cell_lo " + ", ".join(str(p.cell_lo) for p in ks.parts)
+            + "), matvec against unsharded", ks.matvec(x), op.matvec(x), RTOL_F32)
+    if not torch.equal(ks.rmatvec(u), op.rmatvec(u)):
+        raise SystemExit("FAILED kernel B2: the 7-slot rmatvec differs from the unsharded one")
+    print("  B2 g_z float32 over 7 slots of the card: rmatvec equal to the last bit to the unsharded one -> ok")
+    # A boundary-coincident observation: the grid's top layer flattened to z = 0
+    # and a point on a corner of it.
+    flat = topo_grid(4, 3, 2)
+    flat.Z1 = np.where(flat.Z1 < 50.0, 0.0, flat.Z1)
+    for dt in (torch.float64, torch.float32):
+        before = pm.prism_matvec.launches
+        try:
+            b2_operator("g_z", flat, [100.0, 150.0], [80.0, 90.0], [0.0, -10.0], dt, validate=True)
+        except ValueError as e:
+            if str(e) != PROBE_ABORT:
+                raise
+        else:
+            raise SystemExit(f"FAILED kernel B2: a boundary-coincident observation did not abort ({dt})")
+        if pm.prism_matvec.launches != before + 1:
+            raise SystemExit("FAILED kernel B2: the construction probe did not go through the kernel")
+        print(f"  B2 probe matvec on a boundary-coincident observation ({dt}): PROBE_ABORT raised -> ok")
+    torch.cuda.synchronize()
+    return out
+
+
+def b2_pairs(op):
+    """(near, far) pairs of a full-width operator: for the float32 blend by
+    its far mask over this run's observations and cells, else all closed."""
+    from tomofastx_tpu_torch.ops import prism
+
+    total = op.xd.shape[0] * op.N
+    if not op.phys.far_quad:
+        return total, 0
+    near = 0
+    for s in range(0, op.xd.shape[0], 128):
+        sl = slice(s, s + 128)
+        near += int((~prism.far_mask(op.xd[sl, None], op.yd[sl, None], op.zd[sl, None], *op.grid6)).sum())
+    return near, total - near
+
+
+def b2_bound(op, nout, nin):
+    """Kernel B2's least milliseconds for one product of `op` (module
+    comment above B2_QUAD_FLOPS): (the largest, which, and each time)."""
+    near, far = b2_pairs(op)
+    key, elt = b2_family_key(op.phys), op.xd.element_size()
+    times = {
+        "bytes": (6 * op.N + 3 * op.xd.shape[0] + nin + nout) * elt / MEMORY_BYTES_PER_S * 1e3,
+        "special functions": 27 * far / MUFU_PER_S * 1e3,
+        "float32 operations": B2_QUAD_FLOPS[key] * far / FP32_FLOP_PER_S * 1e3,
+        "float64 operations": B2_CLOSED_FLOPS[key] * near / FP64_FLOP_PER_S * 1e3,
+    }
+    which = max(times, key=times.get)
+    return times[which], "bytes" if which == "bytes" else "operations", which, times, near, far
+
+
+def measure_b2(name, op, rtol, reps=10, plain_reps=1):
+    """Kernel B2 on a full-width operator against its plain loop (the
+    wrappers' plain versions, on the card): each product held to rtol of
+    max|y|, two launches equal to the last bit, the kernel timed by CUDA
+    events (median of `reps`), the plain loop (`plain_reps`), and the
+    bound of this run's pairs."""
+    from tomofastx_tpu_torch.ops import prism_matvec as pm
+
+    g = torch.Generator(device="cpu").manual_seed(37)
+    dt, nmc, ndc, nrows = op.xd.dtype, op.phys.nmc, op.phys.ndc, op.xd.shape[0]
+    xw = op.cw[None, :] * torch.randn((nmc, op.N), generator=g, dtype=torch.float64).to("cuda", dt)
+    u = op.row_w * torch.randn((nrows, ndc), generator=g, dtype=torch.float64).to("cuda", dt)
+    out = {"shape": [nrows, op.N, nmc, ndc], "dtype": str(dt)}
+    for f, kernel, plain, v, nout in (("matvec", pm.prism_matvec, op._partial_matvec, xw, nrows * ndc),
+                                      ("rmatvec", pm.prism_rmatvec, op._partial_rmatvec, u, nmc * op.N)):
+        got = kernel(op, v)
+        err = compare(f"B2 {name}, {f} against its plain loop", got, plain(v), rtol)
+        if not torch.equal(kernel(op, v), got):
+            raise SystemExit(f"FAILED B2 {name}: two {f} launches differ")
+        ms = time_cuda(lambda: kernel(op, v), warm=1, reps=reps)
+        plain_ms = time_cuda(lambda: plain(v), warm=0, reps=plain_reps)
+        bound_ms, bound_by, which, times, near, far = b2_bound(op, nout, v.numel())
+        out[f] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bound_unit": which,
+                  "bound_times_ms": times, "near_pairs": near, "far_pairs": far, "max_abs_err": err,
+                  "library_ms": None}
+        print(f"  B2 {name} {f}: kernel {ms:.3f} ms (median of {reps}), plain loop {plain_ms:.1f} ms, bound "
+              f"{bound_ms:.3f} ms by {which} (" + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
+              + f" ms; {near:,} near pairs, {far:,} far)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1833,9 +2132,11 @@ FUSED_M = N_MAJOR  # --fused 3: a run's three majors in one chunk, three replays
 
 
 # The symbol torch.profiler names for each counter's kernel: A2 launches A1's
-# kernel once a part; one launch of the bf16 rmatvec pair ends in its reduce.
+# kernel once a part; one launch of the bf16 rmatvec pair, and of B2's matvec
+# pair, ends in its reduce.
 KERNEL_SYMBOL = {"tile_matvec": "tile_matvec_kernel", "tile_matvec_sharded": "tile_matvec_kernel",
-                 "bf16_matvec": "bf16_matvec_kernel", "bf16_rmatvec": "bf16_rmatvec_reduce"}
+                 "bf16_matvec": "bf16_matvec_kernel", "bf16_rmatvec": "bf16_rmatvec_reduce",
+                 "prism_matvec": "prism_matvec_reduce", "prism_rmatvec": "prism_rmatvec_kernel"}
 
 
 class KeptFusedSolver:
@@ -2085,10 +2386,11 @@ def phase_28(cli, counters, workflow, work, inputs, refs):
     width, each run held to the host-driven run of its Parfile (refs):
     tiled (kernel A1 replayed inside the graph), tiled --mesh 1 (A2, equal
     to the unmeshed fused run to the last bit), bfloat16 dense (B1), the
-    coupled joint problem tiled, BTTB and refineForward with a float64
-    forward; a 5-major run written every 2 (chunks 2, 2, 1 of one graph)
-    resumed from its checkpoint to the last bit; through the library, the
-    tiled run's graph against the same steps launched eagerly, and a fused
+    coupled joint problem tiled, BTTB, refineForward with a float64
+    forward and the per-cell operator (B2); a 5-major run written every 2
+    (chunks 2, 2, 1 of one graph) resumed from its checkpoint to the last
+    bit; through the library, the tiled and per-cell runs' graphs against
+    the same steps launched eagerly, and a fused
     run whose LSQR exits early beside its host-driven run (early_exit_pair);
     four small float64 fused problems, card against CPU. The runs from the
     tiled cache share one packing of it (packing_once)."""
@@ -2147,7 +2449,7 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
 
     # Tiled from the tiled main path's cache: A1 under every product, replayed.
     out = {k: os.path.join(work, f"out_fused_{k}") for k in ("tiled", "tiled_mesh1", "bf16", "bttb", "refine64",
-                                                             "five", "resumed", "coupled")}
+                                                             "five", "resumed", "coupled", "per_cell")}
     pf = write_parfile(work, "Parfile_fused_tiled.txt", inputs, out["tiled"], N_MINOR, fmt="tiled", extra=tiled_cache)
     kept = fused("tiled", pf, out["tiled"], {"format": r"grav kernel: tiled"}, refs["tiled"][0],
                  sensit_written=False, kernels={"tile_matvec": (2 * N_MINOR + 2, 4)})
@@ -2196,6 +2498,22 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
     fused("tiled, refineForward float64", pf, out["refine64"], {
         "forward": r"grav refinement forward: BTTBKernel \(float64"}, refs["refine64"][0], sensit_written=False,
           kernels={"tile_matvec": (2 * N_MINOR + 1, 0)})
+
+    # The per-cell operator (kernel B2 replayed inside the graph) on phase 21's
+    # topography survey, held to its host-driven run; then the graph against the
+    # same steps launched eagerly. Outside the graph the matvec runs the
+    # construction's probe and the 4 forwards.
+    t0 = time.time()
+    pf = write_parfile(work, "Parfile_fused_per_cell.txt", dict(inputs, grid=inputs["grid_topo"]), out["per_cell"],
+                       N_MINOR, fmt="matrixfree", compression=0)
+    kept = fused("per-cell", pf, out["per_cell"], matrixfree_said("MatrixFreeKernel"), refs["per_cell"][0],
+                 sensit_written=False, compression="uncompressed",
+                 kernels={"prism_matvec": (N_MINOR + 1, 5), "prism_rmatvec": (N_MINOR + 1, 0)})
+    per_cell_graph = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["prism_matvec"],
+                                                runs["per-cell"]["launches_fused"]["prism_matvec"]["a_replay"])
+    del kept
+    torch.cuda.empty_cache()
+    seconds["per-cell"] = time.time() - t0
 
     # 5 majors written every 2 with --fused 3: chunks 2, 2, 1 of one graph;
     # then the run resumed from its checkpoint of major 4.
@@ -2249,7 +2567,7 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
     seconds["phase"] = time.time() - t_phase
     print("  phase 28's seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     return {"runs": runs, "against_host": spread, "mesh1": mesh1, "graph_against_eager": library,
-            "early_exit": early,
+            "per_cell_graph_against_eager": per_cell_graph, "early_exit": early,
             "five_majors": {"chunks": chunks, "captures": captures, "resumed_equal": equal}, "small": small,
             "seconds": seconds}
 
@@ -2271,6 +2589,7 @@ def main() -> int:
     from tomofastx_tpu_torch.io.sensit_cache import read_kernel_cache_packed, try_read_kernel_cache
     from tomofastx_tpu_torch.ops import bf16_gemv
     from tomofastx_tpu_torch.ops import blocked_matvec as bmv
+    from tomofastx_tpu_torch.ops import prism_matvec as pmv
     from tomofastx_tpu_torch.ops import sensitivity as sens
     from tomofastx_tpu_torch.ops import tile_matvec as tmv
     from tomofastx_tpu_torch.ops.lsqr import lsqr_solve
@@ -2282,7 +2601,8 @@ def main() -> int:
     blocked_matvec, blocked_matvec_plain = bmv.blocked_matvec, bmv.blocked_matvec_plain
     counters = {"tile_matvec": tile_matvec, "tile_matvec_sharded": tmv.tile_matvec_sharded,
                 "blocked_matvec": blocked_matvec, "bf16_matvec": bf16_gemv.bf16_matvec,
-                "bf16_rmatvec": bf16_gemv.bf16_rmatvec}
+                "bf16_rmatvec": bf16_gemv.bf16_rmatvec, "prism_matvec": pmv.prism_matvec,
+                "prism_rmatvec": pmv.prism_rmatvec}
     device = torch.device("cuda")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     smi = nvidia_smi_line()
@@ -2290,14 +2610,14 @@ def main() -> int:
 
     # ---- 1. build, one compiler per source, started together ----
     t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(m.build_library) for m in (tmv, bmv, bf16_gemv)]
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(m.build_library) for m in (tmv, bmv, bf16_gemv, pmv)]
         for b in builds:
             lib_path, log = b.result()
             print(log.strip())
             print(f"built {os.path.relpath(lib_path, HERE)}")
     build_s = time.time() - t0
-    print(f"the three kernel sources built in {build_s:.1f} s")
+    print(f"the four kernel sources built in {build_s:.1f} s")
 
     # ---- 2. kernels against plain versions, random ragged layouts ----
     print("kernels against plain versions:")
@@ -2337,6 +2657,7 @@ def main() -> int:
                     plain(S16, v64.float()), RTOL_F32)
             compare(f"{kernel.__name__}, bfloat16 {nrows} x {ncols}, f64 vector", kernel(S16, v64), plain(S16, v64),
                     RTOL_F64)
+    b2_small = b2_small_problems()
     torch.cuda.synchronize()
     del uvals, ubidx, bvals, bidx, x64, parts, S16
 
@@ -2817,7 +3138,7 @@ def main() -> int:
         clock(22)
         mf["auto"] = phase_22(cli, counters, work)
         clock(23)
-        small_rel.update({f"matrixfree_{k}": v for k, v in phase_23(work, mesh4).items()})
+        small_rel.update({f"matrixfree_{k}": v for k, v in phase_23(work, mesh4, counters).items()})
 
         # ---- 24-27. bfloat16 storage, the three builds, refineForward, small problems ----
         clock(24)
@@ -2834,13 +3155,13 @@ def main() -> int:
         fused = phase_28(cli, counters, workflow, work, inputs, {
             "tiled": (tiled, out["tiled"]), "bf16": (variants["bf16"]["runs"]["run"],),
             "coupled": (coupled["tiled"], coupled_out["tiled"], joint_dir, joint_inputs, coupled_extra),
-            "bttb": (mf["bttb"]["runs"]["run"],), "refine64": (variants["refine"]["runs"]["double"],)})
+            "bttb": (mf["bttb"]["runs"]["run"],), "refine64": (variants["refine"]["runs"]["double"],),
+            "per_cell": (mf["generic"]["run"],)})
         small_rel.update({f"fused_{k}": v for k, v in fused["small"].items()})
         for name, run in [(f"bttb {k}", v) for k, v in mf["bttb"]["runs"].items()] + [
-                (f"lattice {k}", v) for k, v in mf["lattice"]["runs"].items()] + [
-                ("per-cell", mf["generic"]["run"]), ("auto", mf["auto"]["run"])]:
+                (f"lattice {k}", v) for k, v in mf["lattice"]["runs"].items()] + [("auto", mf["auto"]["run"])]:
             if any(run["launches"].values()):
-                raise SystemExit(f"FAILED {name}: a stored-kernel format's kernel was launched")
+                raise SystemExit(f"FAILED {name}: a kernel of another format was launched")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2852,6 +3173,7 @@ def main() -> int:
     def report(run):
         return {k: v for k, v in run.items() if k not in ("model", "models", "sharded", "out_dir")}
 
+    b2_main = mf["generic"]["b2"]["g_z float32"]
     kernels = [
         {
             "name": "tile_matvec", "route": "cuda",
@@ -2913,6 +3235,24 @@ def main() -> int:
             "measured": gemv[name],
         }
         for name in ("bf16_matvec", "bf16_rmatvec")
+    ] + [
+        {
+            "name": name, "route": "cuda",
+            "source": "tomofastx_tpu_torch/csrc/prism_matvec.cu",
+            "wrapper": f"tomofastx_tpu_torch/ops/prism_matvec.py: {name}",
+            "replaces": f"tomofastx_tpu/ops/matrixfree.py:{line} (no Pallas kernel: XLA's fusion of the per-cell rows "
+                        "and their product, rows tomofastx_tpu/ops/matrixfree.py:59, :84, quadrature "
+                        "tomofastx_tpu/ops/prism.py:529)",
+            "launches": mf["generic"]["run"]["launches"][name],
+            "launches_fused": fused["runs"]["per-cell"]["launches_fused"][name],
+            **{k: b2_main[f][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "yardstick_torch_mv_f32_ms": mf["generic"]["yardstick"][yard],
+            "shape_of_these_times": "g_z float32 blend, 4096 x 262144: the per-cell main path's operator",
+            "measured": {k: v[f] for k, v in mf["generic"]["b2"].items()},
+            "small_problems": b2_small,
+        }
+        for name, f, line, yard in (("prism_matvec", "matvec", 244, "torch_mv_f32_ms"),
+                                    ("prism_rmatvec", "rmatvec", 283, "torch_mv_f32_T_ms"))
     ]
     print(json.dumps({
         "main_paths": {"tiled": report(tiled), "tiled_mesh1": report(tiled_mesh), "dense": report(dense),

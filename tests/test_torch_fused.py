@@ -221,11 +221,12 @@ def test_fused_solver_with_a_refinement_forward_matches_jax():
 
 def test_capture_unit_by_operator_and_device():
     """The CPU runs eager steps; a CUDA run captures a major unless an
-    operator (of the solve or of the refinement forward) is a lattice or
-    per-cell matrix-free one (sharded or not), or spreads over several
-    devices. Decided from the tensors' device and what the operators say of
-    themselves (graph_capturable, mesh) alone (stand-ins here: no card is
-    needed to decide)."""
+    operator (of the solve or of the refinement forward) is a lattice
+    matrix-free one (sharded or not), a per-cell one whose tensors are not
+    on the card (on the card its products are kernel B2's), or spreads over
+    several devices. Decided from the tensors' device and what the
+    operators say of themselves (graph_capturable, mesh) alone (stand-ins
+    here: no card is needed to decide)."""
     from types import SimpleNamespace
 
     from tomofastx_tpu_torch.ops import matrixfree as tmf
@@ -237,12 +238,25 @@ def test_capture_unit_by_operator_and_device():
     one_card = SimpleNamespace(mesh=tmesh.Mesh(np.array([torch.device("cuda:0")] * 4, dtype=object), ("cells",)))
     two_cards = SimpleNamespace(mesh=tmesh.Mesh(np.array([torch.device("cuda:0"), torch.device("cuda:1")],
                                                          dtype=object), ("cells",)))
+
+    def per_cell(device):
+        op = object.__new__(tmf.MatrixFreeKernel)
+        op.cw = SimpleNamespace(device=torch.device(device))
+        return op
+
+    def sharded_per_cell(*devices):
+        op = object.__new__(tmf.ShardedMatrixFreeKernel)
+        op.parts, op.mesh = [per_cell(d) for d in devices], one_card.mesh
+        return op
+
     for ops, unit, said in (
         ({"S": (tarr["S"][0], one_card)}, "graph", "one CUDA graph a major"),
         ({"S": (object.__new__(tmf.LatticeMatrixFreeKernel),)}, "step", "LatticeMatrixFreeKernel"),
-        ({"S": (tarr["S"][0],), "S_fwd": (object.__new__(tmf.MatrixFreeKernel),)}, "step", "MatrixFreeKernel"),
+        ({"S": (tarr["S"][0],), "S_fwd": (per_cell("cuda:0"),)}, "graph", "one CUDA graph a major"),
+        ({"S": (tarr["S"][0],), "S_fwd": (per_cell("cpu"),)}, "step", "MatrixFreeKernel"),
         ({"S": (object.__new__(tmf.ShardedLatticeMatrixFreeKernel),)}, "step", "ShardedLatticeMatrixFreeKernel"),
-        ({"S": (object.__new__(tmf.ShardedMatrixFreeKernel),)}, "step", "ShardedMatrixFreeKernel"),
+        ({"S": (sharded_per_cell("cuda:0", "cuda:0", "cuda:0", "cuda:0"),)}, "graph", "one CUDA graph a major"),
+        ({"S": (sharded_per_cell("cuda:0", "cuda:1"),)}, "step", "ShardedMatrixFreeKernel"),
         ({"S": (two_cards,)}, "step", "over 2 devices"),
     ):
         got = tjoint.capture_unit({**on_card, **ops})

@@ -424,7 +424,8 @@ def test_port_sources_found():
             "tomofastx_tpu_torch/inversion/workflow.py", "tomofastx_tpu_torch/cli.py",
             "tomofastx_tpu_torch/ops/blocked_matvec.py", "tomofastx_tpu_torch/csrc/blocked_matvec.cu",
             "tomofastx_tpu_torch/ops/sparse_kernel.py", "tomofastx_tpu_torch/ops/_cuda_build.py",
-            "tomofastx_tpu_torch/ops/bf16_gemv.py", "tomofastx_tpu_torch/csrc/bf16_gemv.cu"} <= names
+            "tomofastx_tpu_torch/ops/bf16_gemv.py", "tomofastx_tpu_torch/csrc/bf16_gemv.cu",
+            "tomofastx_tpu_torch/ops/prism_matvec.py", "tomofastx_tpu_torch/csrc/prism_matvec.cu"} <= names
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, REPO) for p in _port_sources()])
@@ -441,7 +442,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package(path):
                                     "tomofastx_tpu_torch.io.sensit_cache", "tomofastx_tpu_torch.ops.prism",
                                     "tomofastx_tpu_torch.ops.matrixfree", "tomofastx_tpu_torch.ops.sensitivity",
                                     "tomofastx_tpu_torch.parallel.mesh", "tomofastx_tpu_torch.inversion.operators",
-                                    "tomofastx_tpu_torch.inversion.joint", "tomofastx_tpu_torch.ops.bf16_gemv"])
+                                    "tomofastx_tpu_torch.inversion.joint", "tomofastx_tpu_torch.ops.bf16_gemv",
+                                    "tomofastx_tpu_torch.ops.prism_matvec"])
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package(module):
     code = (
         f"import sys; import {module}; "

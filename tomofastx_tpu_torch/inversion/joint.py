@@ -495,19 +495,20 @@ def _clone(x):
 def capture_unit(arr) -> Tuple[str, str]:
     """How the fused loop runs a major over arr's operators, and why:
     ("graph", ...) one captured CUDA graph a major; ("step", ...) the same
-    device-resident step launched eagerly (over an operator whose class says
-    graph_capturable = False, as the lattice and per-cell matrix-free ones
-    do, or whose mesh spans several devices); ("cpu", ...) eager steps on
-    the CPU."""
+    device-resident step launched eagerly (over an operator that says
+    graph_capturable is false, as the lattice matrix-free ones do, or whose
+    mesh spans several devices); ("cpu", ...) eager steps on the CPU. The
+    per-cell matrix-free operator says so per instance: capturable on the
+    card, where its products are kernel B2's launches."""
     if arr["cw"][0].device.type != "cuda":
         return "cpu", "eager steps on the CPU"
     for op in [op for key in ("S", "S_fwd") for op in arr.get(key, ()) if op is not None]:
-        if not getattr(op, "graph_capturable", True):
-            return "step", (f"the device-resident step without a graph ({type(op).__name__}: tens of "
-                            "thousands of launches a product)")
         mesh = getattr(op, "mesh", None)
         if mesh is not None and mesh.n_devices > 1:
             return "step", f"the device-resident step without a graph ({type(op).__name__} over {mesh.n_devices} devices)"
+        if not getattr(op, "graph_capturable", True):
+            return "step", (f"the device-resident step without a graph ({type(op).__name__}: tens of "
+                            "thousands of launches a product)")
     return "graph", "one CUDA graph a major, replayed"
 
 

@@ -26,11 +26,15 @@ magnetization vector); depth weighting (the column weight) and the
 problem x data row weights are applied on the fly
 (sensitivity_gravmag.F90:228, 836-843).
 
-The JAX package corrects each observation's near cells with a sequential
-per-point scan, a workaround for a TPU worker crash. Here a chunk's
-corrections are gathered and scattered in one batch; the adjoint's scatter
-sums every cell's terms in one fixed order (_index_add_in_order), so two
-runs agree to the last bit.
+On a CUDA device the per-cell operator's products are kernel B2
+(ops/prism_matvec.py, csrc/prism_matvec.cu): every (observation, cell)
+pair evaluated in registers, no row stored. On the CPU they are the plain
+chunk loop below. The JAX package corrects each observation's near cells
+with a sequential per-point scan, a workaround for a TPU worker crash. Here
+a chunk's corrections are gathered and scattered in one batch; the
+adjoint's scatter sums every cell's terms in one fixed order
+(_index_add_in_order), so two runs agree to the last bit, as two runs of
+kernel B2 do.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from tomofastx_tpu_torch.ops.prism import (
     gz_corner_potential,
     mag_corner_potentials,
 )
+from tomofastx_tpu_torch.ops.prism_matvec import prism_matvec, prism_rmatvec
 
 PROBE_ABORT = (
     "Data coordinate coincides with model grid boundary. Adjust the model grid! (non-finite "
@@ -181,7 +186,10 @@ class MatrixFreeKernel:
     cw = 0, so their rows contribute nothing; matvec pads x and rmatvec
     slices the gradient back. cell_lo is the first cell of this operator's
     cells when it is one slot's part of a cells-sharded operator
-    (ShardedMatrixFreeKernel); near_idx keeps the whole grid's numbering."""
+    (ShardedMatrixFreeKernel); near_idx keeps the whole grid's numbering.
+    The products run kernel B2 (prism_matvec, prism_rmatvec) on the card
+    and the chunk loop (_partial_matvec, _partial_rmatvec) on the CPU; only
+    the loop reads near_idx, the kernel finds the near cells itself."""
 
     grid6: tuple  # (X1, X2, Y1, Y2, Z1, Z2), each (N,)
     xd: torch.Tensor  # (nrows_padded,)
@@ -198,9 +206,19 @@ class MatrixFreeKernel:
     near_idx: torch.Tensor = None
     cell_lo: int = 0
 
-    # Not captured into the fused loop's graph (inversion/joint.py::
-    # capture_unit): tens of thousands of kernel launches a product.
-    graph_capturable = False
+    @property
+    def graph_capturable(self) -> bool:
+        """Whether the fused loop captures a major over this operator as a
+        CUDA graph (inversion/joint.py::capture_unit): on the card, where
+        its products are kernel B2's few launches, and not on the CPU."""
+        return self.cw.device.type == "cuda"
+
+    @property
+    def products_by(self) -> str:
+        """What computes the products, for the log."""
+        if self.cw.device.type == "cuda":
+            return "kernel B2, csrc/prism_matvec.cu"
+        return "the plain chunk loop on the CPU"
 
     @property
     def N(self) -> int:
@@ -236,7 +254,8 @@ class MatrixFreeKernel:
 
     def _partial_matvec(self, xw):
         """(nrows_padded, ndc) sum over this operator's cells of
-        rows x (cw x), before the row weights."""
+        rows x (cw x), before the row weights: the plain version of kernel
+        B2's matvec (ops/prism_matvec.py::prism_matvec)."""
         out = []
         for sl in self._chunks():
             xs, ys, zs = self.xd[sl], self.yd[sl], self.zd[sl]
@@ -250,7 +269,8 @@ class MatrixFreeKernel:
         return torch.cat(out)
 
     def _partial_rmatvec(self, u_pad):
-        """(nmc, N) sum over the observations of rows^T u, before cw."""
+        """(nmc, N) sum over the observations of rows^T u, before cw: the
+        plain version of kernel B2's rmatvec (prism_rmatvec)."""
         nmc = self.phys.nmc
         g = torch.zeros((nmc, self.N), dtype=u_pad.dtype, device=u_pad.device)
         for sl in self._chunks():
@@ -271,11 +291,11 @@ class MatrixFreeKernel:
         return u_pad * self.row_w
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        d = self._partial_matvec(self.cw[None, :] * self._padded_model(x))
+        d = prism_matvec(self, self.cw[None, :] * self._padded_model(x))
         return (self.row_w * d)[: self.nrows].reshape(-1)
 
     def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
-        g = self.cw[None, :] * self._partial_rmatvec(self._padded_residual(u))
+        g = self.cw[None, :] * prism_rmatvec(self, self._padded_residual(u))
         if self.N_true is not None and self.N_true != self.N:
             g = g[:, : self.N_true]
         return g.reshape(-1)
@@ -295,9 +315,11 @@ class ShardedMatrixFreeKernel:
     parts: list
     mesh: object  # parallel.mesh.Mesh
 
-    # Not captured into the fused loop's graph (inversion/joint.py::
-    # capture_unit): tens of thousands of kernel launches a product.
-    graph_capturable = False
+    @property
+    def graph_capturable(self) -> bool:
+        """Captured where every part sits on one card (capture_unit
+        refuses a mesh of several cards on its own)."""
+        return len({p.cw.device for p in self.parts}) == 1 and all(p.graph_capturable for p in self.parts)
 
     @classmethod
     def shard(cls, k: MatrixFreeKernel, mesh) -> "ShardedMatrixFreeKernel":
@@ -332,13 +354,13 @@ class ShardedMatrixFreeKernel:
         d = None
         for p in self.parts:
             xs = x2[:, p.cell_lo : p.cell_lo + p.N].to(p.cw.device)
-            part = p._partial_matvec(p.cw[None, :] * xs).to(home)
+            part = prism_matvec(p, p.cw[None, :] * xs).to(home)
             d = part if d is None else d + part
         return (self.whole.row_w * d)[: self.nrows].reshape(-1)
 
     def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
         home, u_pad = self.mesh.home, self.whole._padded_residual(u)
-        g = torch.cat([(p.cw[None, :] * p._partial_rmatvec(u_pad.to(p.cw.device))).to(home) for p in self.parts],
+        g = torch.cat([(p.cw[None, :] * prism_rmatvec(p, u_pad.to(p.cw.device))).to(home) for p in self.parts],
                       dim=1)
         return g[:, : self.ncols // self.whole.phys.nmc].reshape(-1)
 
