@@ -6,9 +6,9 @@
 It needs one CUDA device, nvcc and nothing from the network. It
 
 1. builds the hand-written kernels (tile_matvec, blocked_matvec, the
-   bfloat16 GEMV pair of kernel B1 and the per-cell matrix-free pair of
-   kernel B2) from tomofastx_tpu_torch/csrc/, one compiler a source, all
-   started together;
+   bfloat16 GEMV pair of kernel B1, the per-cell matrix-free pair of kernel
+   B2 and the corner-lattice pair of kernel B3) from
+   tomofastx_tpu_torch/csrc/, one compiler a source, all started together;
 2. holds each kernel against its plain PyTorch version on a random ragged
    layout (B1: on bfloat16 matrices with and without 16-byte aligned rows),
    tile_matvec also on either side of each edge of its work plan, and
@@ -17,7 +17,10 @@ It needs one CUDA device, nvcc and nothing from the network. It
    of every family (g_z, Gzz, FTG-6, TMI, three-component, magnetization
    vector, the borehole branch) in float64 and float32, with padding rows
    and cells, over 7 slots of the card, and on a boundary-coincident
-   observation (the construction aborts);
+   observation (the construction aborts); B3 on small lattice problems of
+   every family but the borehole branch (float64, the float32 blend, float32
+   closed forms), with partial tiles and observations on lattice planes
+   (against the CPU too), and over 3 slots of the card;
 3. writes a full-width synthetic gravity problem (4096 observations x 262144
    cells on a 64x64x64 lattice, Haar compression at rate 0.15, damping,
    3-lithology ADMM, 3 majors x 20 LSQR iterations, float64 build stored
@@ -109,9 +112,16 @@ It needs one CUDA device, nvcc and nothing from the network. It
    run of the same Parfile at the formats' tolerance, --mesh 1 to the last
    bit, and over the four slots of 8 with the layers split;
 20. the same on a draped survey (heights varying from point to point:
-   LatticeMatrixFreeKernel with its float32 tiered blend), LATTICE_DEPTH
-   deep: against a dense uncompressed run, --mesh 1 to the last bit, and
-   256 float32 rows against the float64 closed forms;
+   LatticeMatrixFreeKernel with its float32 tiered blend, its products by
+   kernel B3), LATTICE_DEPTH deep, B3's launches counted: B3 against its
+   plain loop at full width for g_z in float32 (the blend) and float64 (the
+   closed forms), and for FTG-6 and TMI on 512 rows, each timed beside the
+   plain loop and its bound; the products against the dense uncompressed
+   matrix (torch.mv on it timed as a yardstick); 256 float32 rows through
+   the kernel against the float64 closed forms; the construction's probe
+   aborting through B3; --mesh 1 to the last bit; a dense uncompressed run
+   (the float32 pair's spread read), and both again with float64 solves held
+   to each other at the formats' tolerance;
 21. a grid whose top layer follows a topography (MatrixFreeKernel, its
    products by kernel B2): B2 against its plain loop at full width for g_z
    in float32 (the blend) and float64, and for FTG-6 and TMI on 512 rows,
@@ -125,8 +135,8 @@ It needs one CUDA device, nvcc and nothing from the network. It
    closed-form rows in float64; phases 19-22 time each operator's matvec and
    rmatvec beside the bytes it holds;
 23. seven small float64 matrix-free problems (BTTB g_z and FTG, lattice g_z
-   and TMI, per-cell g_z and borehole TMI through kernel B2, lattice g_z over
-   four slots of the card) on the card against the CPU;
+   and TMI through kernel B3, per-cell g_z and borehole TMI through kernel
+   B2, lattice g_z over four slots of the card) on the card against the CPU;
 24. tpu.kernelStoreDtype = bfloat16 through the command-line entry point: the
    dense kernel built straight into bfloat16 (no cache written), every product
    through kernel B1 (launches counted), --mesh 1 to the last bit, against
@@ -147,8 +157,9 @@ It needs one CUDA device, nvcc and nothing from the network. It
    tiled run's cache (tile_matvec replayed inside the graph), the same with
    --mesh 1 (tile_matvec_sharded; equal to the last bit to the unmeshed
    fused run), bfloat16 dense (kernel B1), the coupled joint problem tiled,
-   BTTB, refineForward with a float64 forward and the per-cell operator on
-   the topography survey of 21 (kernel B2), each held to the
+   BTTB, refineForward with a float64 forward, the per-cell operator on
+   the topography survey of 21 (kernel B2) and the lattice operator on the
+   draped survey of 20 (kernel B3), each held to the
    host-driven run of its Parfile at the formats' tolerance, and each
    kernel's launches on the card read from its own run (those its wrapper
    counted outside the capture, plus one replay's by torch.profiler, equal
@@ -156,12 +167,12 @@ It needs one CUDA device, nvcc and nothing from the network. It
    made); a
    5-major run written every 2 (chunks of 2, 2 and 1 majors, one capture)
    and its resumption from the checkpoint of major 4, equal to the last
-   bit; through the library, the tiled and per-cell runs' graphs replayed
-   against the same steps launched eagerly on the card (equal to the last
-   bit, with torch.profiler's count of tile_matvec or B2 in that chunk); and
-   four small float64 fused problems (tiled, coupled dense, BTTB, and the
-   lattice operator, whose majors run without a graph) on the card against
-   the CPU; and a fused run whose LSQR stops early (inversion.minResidual)
+   bit; through the library, the tiled, per-cell and lattice runs' graphs
+   replayed against the same steps launched eagerly on the card (equal to
+   the last bit, with torch.profiler's count of tile_matvec, B2 or B3 in that
+   chunk); and four small float64 fused problems (tiled, coupled dense, BTTB
+   and the lattice operator) on the card against the CPU; and a fused run
+   whose LSQR stops early (inversion.minResidual)
    beside its host-driven run, LSQR iterations and seconds a major of each.
    The runs of this phase that read the tiled cache share one packing of it.
 
@@ -620,9 +631,10 @@ def check_outputs(name, out_dir, kind, ncells, sensit_written=True, n_major=N_MA
     return out
 
 
-def formats_apart(name, run, ref):
+def formats_apart(name, run, ref, hold=True):
     """Two runs of one kind in two formats, problem by problem: final model
-    and final data cost held to the formats' tolerance. Returns the spread."""
+    and final data cost held to the formats' tolerance (hold=False: read
+    only). Returns the spread."""
     out = {}
     for p, r in ref["models"].items():
         m = run["models"][p]
@@ -630,9 +642,11 @@ def formats_apart(name, run, ref):
         c, cr = run["data_costs"][p][-1], ref["data_costs"][p][-1]
         dc = abs(c - cr) / cr
         out[p] = {"model_of_range": dm, "data_cost_rel": dc}
-        print(f"  {name}, {p}: final model differs by {dm:.3e} of its range (tolerance {FORMATS_MODEL_TOL:g}), final "
-              f"data cost {c:.9e} against {cr:.9e}, relative {dc:.3e} (tolerance {FORMATS_COST_RTOL:g})")
-        if not dm <= FORMATS_MODEL_TOL or not dc <= FORMATS_COST_RTOL:
+        print(f"  {name}, {p}: final model differs by {dm:.3e} of its range ("
+              + (f"tolerance {FORMATS_MODEL_TOL:g}" if hold else "a reading, not held") + f"), final "
+              f"data cost {c:.9e} against {cr:.9e}, relative {dc:.3e}"
+              + (f" (tolerance {FORMATS_COST_RTOL:g})" if hold else ""))
+        if hold and (not dm <= FORMATS_MODEL_TOL or not dc <= FORMATS_COST_RTOL):
             raise SystemExit(f"FAILED {name} ({p})")
     return out
 
@@ -1065,15 +1079,26 @@ def capturing_the_system(workflow):
         workflow.make_solver = orig
 
 
+# The idle seconds cuda_kernel_events leaves before and after fn() inside the
+# profiler's window.
+PROFILE_MARGIN_S = 0.1
+
+
 def cuda_kernel_events(fn):
     """The names of the kernels fn() launches on the card, by torch.profiler
     (memory copies and sets left out), read from its raw results: making
     its FunctionEvents takes longer than the products of the lattice and
     per-cell operators themselves."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
+        # The profiler drops the device events it places outside its
+        # window, and a window that opened as fn() began to launch came back
+        # short of fn's first kernels: idle margins on both sides of fn().
+        time.sleep(PROFILE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     return [e.name() for e in prof.profiler.kineto_results.events()
             if e.device_type() == torch.autograd.DeviceType.CUDA and not e.name().startswith(("Memcpy", "Memset"))]
 
@@ -1262,17 +1287,12 @@ def phase_17(cli, counters, tmv, work):
 # Phases 18-23: the native table reader and the matrix-free operators.
 # ---------------------------------------------------------------------------
 
-# The lattice solve's depth, cut to fit the script's time: one product takes
-# ~0.3-0.6 s on the lattice operator at 4096 x 262144 (PERF.md), against
-# ~0.5 ms on the BTTB operator.
-LATTICE_DEPTH = (1, 1)
-# The per-cell solve at the stored formats' depth: its products are kernel B2's.
+# The lattice and per-cell solves at the stored formats' depth: their products
+# are kernels B3 and B2.
+LATTICE_DEPTH = (N_MAJOR, N_MINOR)
 GENERIC_DEPTH = (N_MAJOR, N_MINOR)
 # Observations of phase 21's FTG-6 and TMI operators at full width in cells.
 B2_ROW_CUT = 512
-# The small lattice problems' depth: their eager products launch thousands
-# of kernels even at 16 x 16 x 8 cells.
-SMALL_MF_DEPTH = dict(n_major=2, n_minor=5)
 # JAX's bounds for its blended float32 operators against float64: a whole
 # row (tests/test_matrixfree.py:1065) and a product (:570, :999).
 ROW_BLEND_RTOL, PRODUCT_BLEND_RTOL = 2e-5, 5e-5
@@ -1360,19 +1380,6 @@ def phase_18(work, inputs):
     return out
 
 
-def lattice_rows(op, s, e):
-    """The float32 rows of observations [s, e) of a blended lattice
-    operator, as its products apply them: the 2^3 rule on every cell plus
-    each point's window correction (one scatter per row; no cell repeats
-    within a window)."""
-    xs, ys, zs, i0 = op.xd[s:e], op.yd[s:e], op.zd[s:e], op.wi0[s:e]
-    rows = op._base_rows(xs, ys, zs).reshape(e - s, -1).clone()
-    iz, iy, ix = op._window_index(i0)
-    flat = (iz[:, :, None, None] * op.ny + iy[:, None, :, None]) * op.nx + ix[:, None, None, :]
-    rows.scatter_add_(1, flat.reshape(e - s, -1), op._corr_window(xs, ys, zs, i0).reshape(e - s, -1))
-    return rows
-
-
 def closed_rows_f64(grid_path, data_path, points, size):
     """Closed-form g_z rows (float64, the corner lattice) of the given data
     rows: (len(points), N)."""
@@ -1431,49 +1438,138 @@ def phase_19(cli, counters, workflow, work, inputs, mesh4):
 
 
 def phase_20(cli, counters, workflow, work, inputs):
-    """The corner-lattice operator's float32 tiered blend at full width on a
-    draped survey: against a dense uncompressed run of the same survey,
-    --mesh 1 to the last bit, and 256 of its rows against the float64
-    closed forms."""
+    """The corner-lattice operator on a draped survey at full width, its
+    products by kernel B3: a LATTICE_DEPTH solve through the command line
+    (B3's launches counted); B3 against its plain loop for g_z in float32
+    (the blend) and float64 (the closed forms), and for FTG-6 and TMI on the
+    first B2_ROW_CUT observations, each timed beside the plain loop and its
+    bound; the float32 products against the dense uncompressed matrix of the
+    same survey (torch.mv on it timed as a yardstick); 256 of the operator's
+    float32 rows, through the kernel, against the float64 closed forms; the
+    construction's probe aborting through B3; then --mesh 1 to the last bit,
+    a dense uncompressed run (the float32 pair's spread read), the lattice's
+    float32 solve through its plain loop on the card held to B3's, and both
+    Parfiles solved in float64 (the lattice through B3's closed forms, its
+    launches counted) held to each other, these two at the formats'
+    tolerance."""
+    from tomofastx_tpu_torch.config.parfile import read_parfile
+    from tomofastx_tpu_torch.io import data_io, model_io
+    from tomofastx_tpu_torch.ops import sensitivity as sens
+    from tomofastx_tpu_torch.ops.matrixfree import make_matrixfree_kernel
+
     print(f"lattice matrix-free (the same grid, a draped survey), {LATTICE_DEPTH[0]} majors x {LATTICE_DEPTH[1]} "
           "minors:")
     draped = dict(inputs, data=inputs["data_draped"])
-    out = {f: os.path.join(work, f"out_lattice_{f}") for f in ("run", "mesh1", "dense")}
+    out = {f: os.path.join(work, f"out_lattice_{f}")
+           for f in ("run", "mesh1", "dense", "plain", "run_f64", "dense_f64")}
     pf = {f: write_parfile(work, f"Parfile_lattice_{f}.txt", draped, out[f], LATTICE_DEPTH[1], fmt="matrixfree",
-                           compression=0, n_major=LATTICE_DEPTH[0]) for f in ("run", "mesh1")}
-    pf["dense"] = write_parfile(work, "Parfile_lattice_dense.txt", draped, out["dense"], LATTICE_DEPTH[1], fmt=None,
-                                compression=0, extra=["tpu.sensitWriteCache = 0"], n_major=LATTICE_DEPTH[0])
+                           compression=0, n_major=LATTICE_DEPTH[0]) for f in ("run", "mesh1", "plain", "run_f64")}
+    for f in ("dense", "dense_f64"):
+        pf[f] = write_parfile(work, f"Parfile_lattice_{f}.txt", draped, out[f], LATTICE_DEPTH[1], fmt=None,
+                              compression=0, extra=["tpu.sensitWriteCache = 0"], n_major=LATTICE_DEPTH[0])
     said = matrixfree_said("LatticeMatrixFreeKernel")
+    said["products_by"] = r"products by kernel B3, csrc/lattice_matvec\.cu\)"
     kw = dict(sensit_written=False, compression="uncompressed", depth=LATTICE_DEPTH, what=f"{NDATA} draped observations")
     runs = {}
     with capturing_the_system(workflow) as cap:
         runs["run"] = run_main_path(cli, counters, "lattice", pf["run"], out["run"], said, **kw)
     op = cap["arrays"]["S"][0]
     del cap["arrays"]
+    want = b2_launches(runs["run"]["lsqr_iterations"], "lattice")
+    print(f"  kernel B3's launches: {runs['run']['launches']['lattice_matvec']} matvec, "
+          f"{runs['run']['launches']['lattice_rmatvec']} rmatvec (expected {want['lattice_matvec']} = the probe, "
+          f"{3 + LATTICE_DEPTH[0]} forward products and one a LSQR iteration; {want['lattice_rmatvec']} = one a LSQR "
+          "iteration and one a solve)")
+    if not launched(runs["run"]["launches"], **want):
+        raise SystemExit(f"FAILED lattice main path: launches {runs['run']['launches']}")
     if not op.far_quad:
         raise SystemExit("FAILED lattice: the float32 operator does not blend")
-    times = time_operator(f"lattice at 4096 x 262144, windows {op.win}", op, reps=2, warm=1)
+    times = time_operator(f"lattice at 4096 x 262144, windows {op.win}", op)
+    b3 = {"g_z float32": measure_b3("g_z float32 (the blend), 4096 x 262144", op, RTOL_F32)}
+    par = read_parfile(pf["run"]).grav
+    grid = model_io.read_model_grid(draped["grid"], NX, NY, NZ)
+    data = data_io.read_data_points(draped["data"], NDATA, 1, grid_only=True)
+    ones = np.ones(NX * NY * NZ)
+    unweighted = make_matrixfree_kernel(par, grid, data, ones, 1.0, np.ones((NDATA, 1)), torch.float32, device="cuda")
+    S = sens.compute_sensitivity(par, grid, data, ones, store_dtype=torch.float32, device="cuda").S
+    g = torch.Generator(device="cpu").manual_seed(23)
+    x = torch.randn(S.shape[1], generator=g, dtype=torch.float64).to("cuda", torch.float32)
+    u = torch.randn(S.shape[0], generator=g, dtype=torch.float64).to("cuda", torch.float32)
+    errs = {}
+    for what, got, ref in (("matvec", unweighted.matvec(x), torch.mv(S, x)),
+                           ("rmatvec", unweighted.rmatvec(u), torch.mv(S.T, u))):
+        errs[what] = float((got.double() - ref.double()).norm() / ref.double().norm())
+        print(f"  {what} against the dense uncompressed (f64-built, f32-stored) matrix: relative error "
+              f"{errs[what]:.3e} (bound {PRODUCT_BLEND_RTOL:g}, the JAX package's for its blended operators)")
+        if not errs[what] <= PRODUCT_BLEND_RTOL:
+            raise SystemExit(f"FAILED lattice: {what} against the dense matrix")
+    yardstick = {"torch_mv_f32_ms": time_cuda(lambda: torch.mv(S, x), calls=BACK_TO_BACK),
+                 "torch_mv_f32_T_ms": time_cuda(lambda: torch.mv(S.T, u), calls=BACK_TO_BACK)}
+    print(f"  yardstick (another function: the stored matrix the operator exists to avoid): torch.mv on the dense "
+          f"float32 matrix {yardstick['torch_mv_f32_ms']:.3f} ms, on its transpose {yardstick['torch_mv_f32_T_ms']:.3f} ms")
+    del S
     worst, nrows = 0.0, min(256, NDATA)
     for s in range(0, nrows, 128):
         e = min(s + 128, nrows)
-        rows = lattice_rows(op, s, e).double()
+        rows = kernel_rows(unweighted, s, e).double()
         ref = closed_rows_f64(inputs["grid"], inputs["data_draped"], np.arange(s, e), (NX, NY, NZ))
         rel = ((rows - ref).norm(dim=1) / ref.norm(dim=1)).max().item()
         worst = max(worst, rel)
         del rows, ref
-    print(f"  {nrows} float32 rows against the float64 closed forms: worst relative error {worst:.3e} (bound "
-          f"{ROW_BLEND_RTOL:g}, the JAX package's at tests/test_matrixfree.py:1065)")
+    print(f"  {nrows} float32 rows through kernel B3 against the float64 closed forms: worst relative error "
+          f"{worst:.3e} (bound {ROW_BLEND_RTOL:g}, the JAX package's at tests/test_matrixfree.py:1065)")
     if not worst < ROW_BLEND_RTOL:
         raise SystemExit("FAILED lattice: float32 rows off the float64 closed forms")
-    del op
+    del op, unweighted
+    torch.cuda.empty_cache()
+    op64 = make_matrixfree_kernel(par, grid, data, ones, 1.0, np.ones((NDATA, 1)), torch.float64, device="cuda")
+    b3["g_z float64"] = measure_b3("g_z float64 (the closed forms), 4096 x 262144", op64, RTOL_F64_FULL, reps=3)
+    del op64
+    for case in ("FTG-6", "TMI"):
+        cut = slice(0, B2_ROW_CUT)
+        opc = b3_operator(case, grid, data.X[cut], data.Y[cut], data.Z[cut], torch.float32)
+        b3[f"{case} float32"] = measure_b3(f"{case} float32 (the blend), {B2_ROW_CUT} x 262144", opc, RTOL_F32,
+                                           reps=3)
+        del opc
+    torch.cuda.empty_cache()
+    b3_probe()
     runs["mesh1"] = run_main_path(cli, counters, "lattice --mesh 1", pf["mesh1"], out["mesh1"], said, mesh="1", **kw)
+    if not launched(runs["mesh1"]["launches"], **want):
+        raise SystemExit(f"FAILED lattice --mesh 1: launches {runs['mesh1']['launches']}")
     held = hold_equal("lattice --mesh 1", runs["mesh1"], out["mesh1"], runs["run"], out["run"])
     if not held["equal_to_the_last_bit"]:
         raise SystemExit("FAILED lattice --mesh 1: not equal to the last bit to the unmeshed run")
     runs["dense"] = run_main_path(cli, counters, "dense uncompressed (same survey)", pf["dense"], out["dense"],
                                   {"format": DENSE_SAID.format(p="grav", rows=NDATA)}, **kw)
-    spread = formats_apart("lattice against dense uncompressed", runs["run"], runs["dense"])
-    return {"runs": runs, "operator": times, "rows_worst_relative": worst, "mesh1": held, "against_dense": spread}
+    # At 3 x 20 float32 LSQR carries the rounding of each operator's rows
+    # (the blend's ~3e-7, the stored matrix's ~6e-8) into final models ~1e-2
+    # of the range from the float64 solve's, kernel B3's and its plain loop's
+    # alike, and two float32 solves of different rows part by 1e-3 to 3e-3
+    # (scripts/probe_torch_lattice_solves.py, PERF.md). So the float32 pair
+    # of the lattice and the dense matrix is read here. Kernel B3's float32
+    # solve is held to the same solve through its plain chunk loop on the card
+    # (the same rows, rounded and summed in another order), and the operator
+    # to the dense matrix by float64 solves of the same Parfiles (the
+    # lattice's through B3's closed forms), both at the formats' tolerance.
+    spread32 = formats_apart("lattice against dense uncompressed, float32 solves", runs["run"], runs["dense"],
+                             hold=False)
+    with lattice_products_by_the_plain_loop():
+        runs["plain"] = run_main_path(cli, counters, "lattice, its plain chunk loop on the card", pf["plain"],
+                                      out["plain"], said, **kw)
+    if not launched(runs["plain"]["launches"]):
+        raise SystemExit(f"FAILED lattice, plain loop: kernel launches {runs['plain']['launches']}")
+    held32 = formats_apart("lattice through kernel B3 against its plain loop, float32 solves", runs["run"],
+                           runs["plain"])
+    f64 = ("--precision", "double")
+    runs["run_f64"] = run_main_path(cli, counters, "lattice, float64 solve", pf["run_f64"], out["run_f64"], said,
+                                    args=f64, **kw)
+    if not launched(runs["run_f64"]["launches"], **want):
+        raise SystemExit(f"FAILED lattice, float64 solve: launches {runs['run_f64']['launches']}")
+    runs["dense_f64"] = run_main_path(cli, counters, "dense uncompressed, float64 solve", pf["dense_f64"],
+                                      out["dense_f64"], {}, args=f64, **kw)
+    spread = formats_apart("lattice against dense uncompressed, float64 solves", runs["run_f64"], runs["dense_f64"])
+    return {"runs": runs, "operator": times, "rows_worst_relative": worst, "mesh1": held, "against_dense": spread,
+            "against_dense_float32_read": spread32, "against_the_plain_loop_float32": held32, "products_against_dense": errs, "b3": b3, "yardstick": yardstick}
 
 
 def phase_21(cli, counters, work, inputs):
@@ -1549,13 +1645,14 @@ def phase_21(cli, counters, work, inputs):
             "yardstick": yardstick}
 
 
-def b2_launches(lsqr_iterations):
-    """Kernel B2's launches in a host-driven per-cell run: the construction's
-    probe matvec, the forward products (synthetic, prior and starting
-    models, and one after each major), and each solve's LSQR (a matvec an
-    iteration; an rmatvec an iteration and one before the loop)."""
-    return {"prism_matvec": 1 + 3 + len(lsqr_iterations) + sum(lsqr_iterations),
-            "prism_rmatvec": sum(it + 1 for it in lsqr_iterations)}
+def b2_launches(lsqr_iterations, kernel="prism"):
+    """Kernel B2's (or, kernel = "lattice", B3's) launches in a host-driven
+    matrix-free run: the construction's probe matvec, the forward products
+    (synthetic, prior and starting models, and one after each major), and
+    each solve's LSQR (a matvec an iteration; an rmatvec an iteration and one
+    before the loop)."""
+    return {f"{kernel}_matvec": 1 + 3 + len(lsqr_iterations) + sum(lsqr_iterations),
+            f"{kernel}_rmatvec": sum(it + 1 for it in lsqr_iterations)}
 
 
 def phase_22(cli, counters, work):
@@ -1609,21 +1706,22 @@ def phase_22(cli, counters, work):
 
 def phase_23(work, mesh4, counters):
     """Small float64 matrix-free problems, card against CPU; the per-cell
-    ones through kernel B2, counted."""
+    ones through kernel B2, the lattice ones through B3, counted."""
     b2 = {k: counters[k] for k in ("prism_matvec", "prism_rmatvec")}
+    b3 = {k: counters[k] for k in ("lattice_matvec", "lattice_rmatvec")}
     cases = [
         ("bttb_gz", "BTTB g_z", dict(operator="BTTBKernel")),
         ("bttb_ftg", "BTTB FTG full tensor", dict(operator="BTTBKernel", kind="ftg")),
         ("lattice_gz", "lattice g_z, draped", dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"},
-                                                   **SMALL_MF_DEPTH)),
+                                                   counted=b3)),
         ("lattice_tmi", "lattice TMI, draped", dict(operator="LatticeMatrixFreeKernel", kind="tmi",
-                                                    swap={"data": "data_draped"}, **SMALL_MF_DEPTH)),
+                                                    swap={"data": "data_draped"}, counted=b3)),
         ("generic_gz", "per-cell g_z, topography", dict(operator="MatrixFreeKernel", swap={"grid": "grid_topo"},
                                                         counted=b2)),
         ("generic_borehole_tmi", "per-cell TMI, borehole", dict(operator="MatrixFreeKernel", kind="borehole",
                                                                 counted=b2)),
         ("lattice_gz_4_slots", "lattice g_z, draped, four slots of the card",
-         dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"}, mesh=mesh4, **SMALL_MF_DEPTH)),
+         dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"}, mesh=mesh4, counted=b3)),
     ]
     return {name: small_problem_card_against_cpu(work, f"small_mf_{name}", f"matrix-free {what}", fmt="matrixfree",
                                                  compression=0, **kw) for name, what, kw in cases}
@@ -1865,6 +1963,277 @@ def measure_b2(name, op, rtol, reps=10, plain_reps=1):
         print(f"  B2 {name} {f}: kernel {ms:.3f} ms (median of {reps}), plain loop {plain_ms:.1f} ms, bound "
               f"{bound_ms:.3f} ms by {which} (" + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
               + f" ms; {near:,} near pairs, {far:,} far)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3: the corner-lattice matrix-free operator's products (csrc/lattice_matvec.cu).
+# ---------------------------------------------------------------------------
+
+# The lattice families: B2_FAMILIES but the borehole branch (the per-cell
+# operator's).
+B3_FAMILIES = [k for k, fam in B2_FAMILIES.items() if "inside" not in fam]
+# Kernel B3's bound is by operations, from this run's pairs and corners
+# (csrc/lattice_matvec.cu): a pair of the blend outside its observation's
+# window is 8 reciprocal square roots, in it 27 (MUFU_PER_S), with
+# B2_QUAD_FLOPS / 27 float32 operations a point; a near pair's closed forms 8
+# corners of B3_CORNER_FLOPS float64 operations; the closed forms
+# (1 + nx)(1 + ny)(1 + nz) corners an observation, each evaluated once, and
+# 8 operations a cell value to difference and sum them, in float64. Each
+# square root, arc tangent and log counts as one operation: a loose lower
+# bound, as for B2.
+B3_CORNER_FLOPS = {"grav1": 19, "grav2": 9, "grav6": 45, "magn": 35}
+
+
+@contextlib.contextmanager
+def lattice_products_by_the_plain_loop():
+    """The lattice operator's products through its plain chunk loop on any
+    device (kernel B3's wrappers set aside, their counts untouched)."""
+    from tomofastx_tpu_torch.ops import matrixfree as mf
+
+    kept = mf.lattice_matvec, mf.lattice_rmatvec
+    mf.lattice_matvec = lambda op, xw: op._partial_matvec(xw)
+    mf.lattice_rmatvec = lambda op, u: op._partial_rmatvec(u)
+    try:
+        yield
+    finally:
+        mf.lattice_matvec, mf.lattice_rmatvec = kept
+
+
+def lattice_grid(nx, ny, nz, h=(100.0, 80.0, 50.0)):
+    """A port Grid of nx x ny x nz cells on a lattice whose top is z = 0."""
+    from tomofastx_tpu_torch.models.grid import Grid
+
+    k, j, i = (a.reshape(-1) for a in np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij"))
+    return Grid(nx=nx, ny=ny, nz=nz, X1=i * h[0], X2=(i + 1) * h[0], Y1=j * h[1], Y2=(j + 1) * h[1], Z1=k * h[2],
+                Z2=(k + 1) * h[2])
+
+
+def b3_operator(case, grid, X, Y, Z, dtype, far_field_quad=1, chunk=None, validate=False, device="cuda"):
+    """A LatticeMatrixFreeKernel of family `case` on `device` (column
+    weights 1 to 2, problem weight 1.7, data weights 1 to 2)."""
+    from tomofastx_tpu_torch.models.data import SurveyData
+    from tomofastx_tpu_torch.ops.matrixfree import LatticeMatrixFreeKernel, make_matrixfree_kernel
+
+    par = b2_params(case, grid, len(X), far_field_quad)
+    data = SurveyData(ndata=len(X), ncomponents=par.ndata_components)
+    data.X, data.Y, data.Z = (np.asarray(a, np.float64) for a in (X, Y, Z))
+    rng = np.random.default_rng(0)
+    op = make_matrixfree_kernel(par, grid, data, 1.0 + rng.random(grid.nelements_total), 1.7,
+                                1.0 + rng.random((len(X), par.ndata_components)), dtype, chunk=chunk,
+                                validate=validate, force_no_fft=True, device=device)
+    if not isinstance(op, LatticeMatrixFreeKernel):
+        raise SystemExit(f"FAILED kernel B3, {case}: {type(op).__name__} built")
+    return op
+
+
+def lattice_plain_products(op, x, u):
+    """The lattice operator's products through its plain loop (the
+    wrappers' plain versions), weighted as LatticeMatrixFreeKernel weights
+    them."""
+    y = (op.row_w * op._partial_matvec(op.cw[None, :] * x.reshape(op.nmc, op.N)))[: op.nrows].reshape(-1)
+    return y, (op.cw[None, :] * op._partial_rmatvec(op._padded_residual(u))).reshape(-1)
+
+
+def kernel_rows(op, s, e):
+    """Rows [s, e) of a lattice operator (before the weights) through kernel
+    B3's rmatvec, one launch a row: (e - s, nmc * N)."""
+    from tomofastx_tpu_torch.ops.lattice_matvec import lattice_rmatvec
+
+    rows = []
+    for b in range(s, e):
+        u = torch.zeros((op.xd.shape[0], op.ndc), dtype=op.xd.dtype, device="cuda")
+        u[b, 0] = 1.0
+        rows.append(lattice_rmatvec(op, u).reshape(-1))
+    return torch.stack(rows)
+
+
+def b3_small_problems():
+    """Phase 2's hold of kernel B3 against its plain loop on the card, on
+    small lattice problems of every family (12 x 10 x 9 cells: a partial
+    tile on every axis; 11 observations in chunks of 4, so one padding row,
+    three on lattice planes, one of them above a lattice node): float64 to
+    RTOL_F64, the float32 blend to RTOL_F32 (and both it and its plain
+    version within PRODUCT_BLEND_RTOL of the float64 product), float32
+    closed forms no further from the float64 products than 1.5 x the plain
+    loop (their corner differences carry float32 rounding far from a cell,
+    in either); two launches equal to the last bit; the float64 products of
+    the lattice-plane observations against the same operator's plain loop
+    on the CPU (the magnetic and FTG sign conventions, RTOL_F64_FULL); and
+    the operator sharded over 3 slots of the card (its matvec equal to the
+    last bit to the unsharded one)."""
+    from tomofastx_tpu_torch.ops import lattice_matvec as lm
+    from tomofastx_tpu_torch.parallel.mesh import Mesh, shard_kernel
+
+    grid = lattice_grid(12, 10, 9)
+    rng = np.random.default_rng(43)
+    n = 11
+    X, Y, Z = rng.uniform(0.0, 1200.0, n), rng.uniform(0.0, 800.0, n), -rng.uniform(1.0, 30.0, n)
+    X[:3], Y[:3] = (300.0, 555.5, 700.0), (123.4, 240.0, 560.0)  # on an x plane, a y plane, above a node
+    print("kernel B3 (csrc/lattice_matvec.cu) against its plain loop, small lattice problems (12 x 10 x 9 cells, "
+          f"{n} observations in chunks of 4, three on lattice planes):")
+    out = {}
+    for case in B3_FAMILIES:
+        ops = {"float64": b3_operator(case, grid, X, Y, Z, torch.float64, chunk=4),
+               "float32 blend": b3_operator(case, grid, X, Y, Z, torch.float32, chunk=4)}
+        if case in ("g_z", "TMI"):
+            ops["float32 closed"] = b3_operator(case, grid, X, Y, Z, torch.float32, far_field_quad=0, chunk=4)
+        g = torch.Generator(device="cpu").manual_seed(len(out))
+        op64 = ops["float64"]
+        x64 = torch.randn(op64.ncols, generator=g, dtype=torch.float64).cuda()
+        u64 = torch.randn(op64.nrows * op64.ndc, generator=g, dtype=torch.float64).cuda()
+        ref = (op64.matvec(x64), op64.rmatvec(u64))
+        for what, op in ops.items():
+            dt = op.xd.dtype
+            x, u = x64.to(dt), u64.to(dt)
+            before = (lm.lattice_matvec.launches, lm.lattice_rmatvec.launches)
+            got = (op.matvec(x), op.rmatvec(u))
+            if (lm.lattice_matvec.launches - before[0], lm.lattice_rmatvec.launches - before[1]) != (1, 1):
+                raise SystemExit(f"FAILED kernel B3, {case} {what}: the products did not launch it once each")
+            want = lattice_plain_products(op, x, u)
+            if not (torch.equal(op.matvec(x), got[0]) and torch.equal(op.rmatvec(u), got[1])):
+                raise SystemExit(f"FAILED kernel B3, {case} {what}: two launches differ")
+            if what == "float32 closed":
+                row = {}
+                for who, prods in (("kernel", got), ("plain", want)):
+                    row[f"{who}_against_float64"] = max(float((p.double() - r).abs().max() / r.abs().max())
+                                                        for p, r in zip(prods, ref))
+                ok = row["kernel_against_float64"] <= 1.5 * row["plain_against_float64"]
+                print(f"  B3 {case}, float32 closed forms against the float64 products: kernel "
+                      f"{row['kernel_against_float64']:.3e}, plain {row['plain_against_float64']:.3e} of max|y| "
+                      f"(the kernel within 1.5 x the plain loop) -> {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    raise SystemExit(f"FAILED kernel B3, {case}: float32 closed forms")
+                out[f"{case}, {what}"] = row
+                continue
+            rtol = RTOL_F64 if what == "float64" else RTOL_F32
+            errs = [compare(f"B3 {case}, {what}, {f}", a, b, rtol) for f, a, b in zip(("matvec", "rmatvec"), got, want)]
+            row = {"max_abs_err": max(errs), "rtol": rtol}
+            if what == "float32 blend":
+                for who, prods in (("kernel", got), ("plain", want)):
+                    rel = max(float((p.double() - r).norm() / r.norm()) for p, r in zip(prods, ref))
+                    row[f"{who}_against_float64"] = rel
+                    if not rel <= PRODUCT_BLEND_RTOL:
+                        raise SystemExit(f"FAILED kernel B3, {case}: the float32 blend's {who} products are "
+                                         f"{rel:.3e} off the float64 ones (bound {PRODUCT_BLEND_RTOL:g})")
+                print(f"  B3 {case}, float32 blend against the float64 products: kernel {row['kernel_against_float64']:.3e}"
+                      f", plain {row['plain_against_float64']:.3e} (bound {PRODUCT_BLEND_RTOL:g})")
+            out[f"{case}, {what}"] = row
+        if case in ("FTG-6", "TMI", "MVI 3-component"):
+            cpu = b3_operator(case, grid, X, Y, Z, torch.float64, chunk=4, device="cpu")
+            for f, a, v in (("matvec", ref[0], x64), ("rmatvec", ref[1], u64)):
+                compare(f"B3 {case}, float64 on the card against the CPU's plain loop, lattice-plane observations, {f}",
+                        a.cpu(), getattr(cpu, f)(v.cpu()), RTOL_F64_FULL)
+    # Sharded over the observations on 3 slots of the card: each observation's
+    # matvec row is summed as unsharded.
+    op = b3_operator("g_z", grid, X, Y, Z, torch.float32, chunk=4)
+    mesh3 = Mesh(np.array([torch.device("cuda")] * 3, dtype=object), ("cells",))
+    ks = shard_kernel(op, mesh3)
+    x = torch.randn(op.ncols, generator=torch.Generator(device="cpu").manual_seed(99), dtype=torch.float64).cuda().float()
+    u = torch.randn(op.nrows, generator=torch.Generator(device="cpu").manual_seed(98), dtype=torch.float64).cuda().float()
+    if not torch.equal(ks.matvec(x), op.matvec(x)):
+        raise SystemExit("FAILED kernel B3: the 3-slot matvec differs from the unsharded one")
+    compare("B3 g_z float32 over 3 slots of the card, rmatvec against unsharded", ks.rmatvec(u), op.rmatvec(u),
+            RTOL_F32)
+    print("  B3 g_z float32 over 3 slots of the card: matvec equal to the last bit to the unsharded one -> ok")
+    torch.cuda.synchronize()
+    return out
+
+
+def b3_probe():
+    """The construction's probe on a boundary-coincident observation (on a
+    corner of the lattice's top face): its non-finite product through kernel
+    B3 aborts the construction with PROBE_ABORT, float64 and float32."""
+    from tomofastx_tpu_torch.ops import lattice_matvec as lm
+    from tomofastx_tpu_torch.ops.matrixfree import PROBE_ABORT
+
+    grid = lattice_grid(4, 3, 2)
+    for dt in (torch.float64, torch.float32):
+        before = lm.lattice_matvec.launches
+        try:
+            b3_operator("g_z", grid, [100.0, 150.0], [80.0, 90.0], [0.0, -10.0], dt, validate=True)
+        except ValueError as e:
+            if str(e) != PROBE_ABORT:
+                raise
+        else:
+            raise SystemExit(f"FAILED kernel B3: a boundary-coincident observation did not abort ({dt})")
+        if lm.lattice_matvec.launches != before + 1:
+            raise SystemExit("FAILED kernel B3: the construction probe did not go through the kernel")
+        print(f"  B3 probe matvec on a boundary-coincident observation ({dt}): PROBE_ABORT raised -> ok")
+
+
+def b3_pairs(op):
+    """(near, window, far) pairs of a full-width blended lattice operator
+    over this run's observations (near: the window's cells within the near
+    radius, by the plain version's mask; window: the others of the window;
+    far: the cells outside it); of a closed-form one (0, 0, all)."""
+    from tomofastx_tpu_torch.ops import prism
+    from tomofastx_tpu_torch.ops.matrixfree import _lattice_bounds
+
+    nrows = op.xd.shape[0]
+    if not op.far_quad:
+        return 0, 0, nrows * op.N
+    wz, wy, wx = op.win
+    near = 0
+    for s in range(0, nrows, 128):
+        sl = slice(s, s + 128)
+        iz, iy, ix = (op.wi0[sl, a, None].long() + torch.arange(w + 1, device="cuda") for a, w in enumerate(op.win))
+        bounds = _lattice_bounds(op.xe[ix], op.ye[iy], op.ze[iz])
+        xs, ys, zs = (a[sl][:, None, None, None] for a in (op.xd, op.yd, op.zd))
+        near += int((~prism.far_mask(xs, ys, zs, *bounds)).sum())
+    return near, nrows * wz * wy * wx - near, nrows * (op.N - wz * wy * wx)
+
+
+def b3_bound(op, nout, nin):
+    """Kernel B3's least milliseconds for one product of `op` (module
+    comment above B3_CORNER_FLOPS): (the largest, which, and each time)."""
+    near, window, far = b3_pairs(op)
+    key = "magn" if op.problem == "magn" else f"grav{1 if op.data_type == 1 else 2 if op.ndc == 1 else 6}"
+    elt, nrows = op.xd.element_size(), op.xd.shape[0]
+    nbytes = (op.nx + op.ny + op.nz + 3 + 3 * nrows + nin + nout) * elt + (nrows * 3 * 4 if op.far_quad else 0)
+    times = {"bytes": nbytes / MEMORY_BYTES_PER_S * 1e3}
+    if op.far_quad:
+        points = 8 * far + 27 * window
+        times["special functions"] = points / MUFU_PER_S * 1e3
+        times["float32 operations"] = B2_QUAD_FLOPS[key] / 27 * points / FP32_FLOP_PER_S * 1e3
+        times["float64 operations"] = B3_CORNER_FLOPS[key] * 8 * near / FP64_FLOP_PER_S * 1e3
+    else:
+        flops = B3_CORNER_FLOPS[key] * nrows * (op.nx + 1) * (op.ny + 1) * (op.nz + 1) + 8 * op.nmc * op.ndc * far
+        if elt == 8:
+            times["float64 operations"] = flops / FP64_FLOP_PER_S * 1e3
+        else:
+            times["float32 operations"] = flops / FP32_FLOP_PER_S * 1e3
+    which = max(times, key=times.get)
+    return times[which], "bytes" if which == "bytes" else "operations", which, times, (near, window, far)
+
+
+def measure_b3(name, op, rtol, reps=10, plain_reps=1):
+    """Kernel B3 on a full-width lattice operator against its plain loop
+    (the wrappers' plain versions, on the card): each product held to rtol
+    of max|y|, two launches equal to the last bit, the kernel timed by CUDA
+    events (median of `reps`), the plain loop (`plain_reps`), and the bound
+    of this run's pairs and corners."""
+    from tomofastx_tpu_torch.ops import lattice_matvec as lm
+
+    g = torch.Generator(device="cpu").manual_seed(37)
+    dt, nmc, ndc, nrows = op.xd.dtype, op.nmc, op.ndc, op.xd.shape[0]
+    xw = op.cw[None, :] * torch.randn((nmc, op.N), generator=g, dtype=torch.float64).to("cuda", dt)
+    u = op.row_w * torch.randn((nrows, ndc), generator=g, dtype=torch.float64).to("cuda", dt)
+    out = {"shape": [nrows, op.N, nmc, ndc], "dtype": str(dt), "mode": "blend" if op.far_quad else "closed"}
+    for f, kernel, plain, v, nout in (("matvec", lm.lattice_matvec, op._partial_matvec, xw, nrows * ndc),
+                                      ("rmatvec", lm.lattice_rmatvec, op._partial_rmatvec, u, nmc * op.N)):
+        got = kernel(op, v)
+        err = compare(f"B3 {name}, {f} against its plain loop", got, plain(v), rtol)
+        if not torch.equal(kernel(op, v), got):
+            raise SystemExit(f"FAILED B3 {name}: two {f} launches differ")
+        ms = time_cuda(lambda: kernel(op, v), warm=1, reps=reps)
+        plain_ms = time_cuda(lambda: plain(v), warm=0, reps=plain_reps)
+        bound_ms, bound_by, which, times, pairs = b3_bound(op, nout, v.numel())
+        out[f] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bound_unit": which,
+                  "bound_times_ms": times, "near_window_far_pairs": pairs, "max_abs_err": err, "library_ms": None}
+        print(f"  B3 {name} {f}: kernel {ms:.3f} ms (median of {reps}), plain loop {plain_ms:.1f} ms, bound "
+              f"{bound_ms:.3f} ms by {which} (" + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
+              + f" ms; pairs near {pairs[0]:,}, window {pairs[1]:,}, outside {pairs[2]:,})")
     return out
 
 
@@ -2132,11 +2501,12 @@ FUSED_M = N_MAJOR  # --fused 3: a run's three majors in one chunk, three replays
 
 
 # The symbol torch.profiler names for each counter's kernel: A2 launches A1's
-# kernel once a part; one launch of the bf16 rmatvec pair, and of B2's matvec
-# pair, ends in its reduce.
+# kernel once a part; one launch of the bf16 rmatvec pair, of B2's matvec pair
+# and of each of B3's pairs ends in its reduce.
 KERNEL_SYMBOL = {"tile_matvec": "tile_matvec_kernel", "tile_matvec_sharded": "tile_matvec_kernel",
                  "bf16_matvec": "bf16_matvec_kernel", "bf16_rmatvec": "bf16_rmatvec_reduce",
-                 "prism_matvec": "prism_matvec_reduce", "prism_rmatvec": "prism_rmatvec_kernel"}
+                 "prism_matvec": "prism_matvec_reduce", "prism_rmatvec": "prism_rmatvec_kernel",
+                 "lattice_matvec": "lattice_matvec_reduce", "lattice_rmatvec": "lattice_rmatvec_reduce"}
 
 
 class KeptFusedSolver:
@@ -2220,13 +2590,29 @@ def tree_equal(a, b):
     return torch.equal(a, b)
 
 
+class ProfiledReplays:
+    """Stands in for a fused solver's graph for one call: each replay of the
+    graph profiled in a window of its own (torch.profiler), the kernels of
+    `symbol` and all kernels counted a replay."""
+
+    def __init__(self, graph, symbol):
+        self.graph, self.symbol, self.counts, self.kernels = graph, symbol, [], []
+
+    def replay(self):
+        events = cuda_kernel_events(self.graph.replay)
+        self.counts.append(sum(1 for e in events if self.symbol in e))
+        self.kernels.append(len(events))
+
+
 def graph_replay_against_eager(solver, arrays, counter, a_replay):
     """The fused solver's graph replayed over one chunk against the same
     steps launched eagerly on the card: every output equal to the last bit.
-    The eager steps' launches of the counter's kernel a step, and
-    torch.profiler's count of them in the graph's chunk (the call whose
-    outputs are compared): its incoming forwards, counted, and a_replay a
-    replay."""
+    The eager steps' launches of the counter's kernel a step, and in the
+    graph's chunk (the call whose outputs are compared) its incoming
+    forwards, counted by the wrapper (every launch outside a graph is one),
+    and a_replay in each replay by torch.profiler, each replay of the chunk
+    profiled in a window of its own: a window around the whole chunk came
+    back ~10 kernels short of its ~5000 in some runs (PERF.md)."""
     arr = {k: v for k, v in arrays.items() if k != "active_steps"}
     n_active = int(arrays["active_steps"])
     name = counter.__name__
@@ -2236,25 +2622,28 @@ def graph_replay_against_eager(solver, arrays, counter, a_replay):
     # The eager chunk: each problem's incoming forward, then n_active steps.
     problems = len(arrays["S"])
     per_step = (counter.launches - problems) // n_active
-    captures, graph = solver.captures, {}
-
-    def chunk():
-        counter.launches = 0
-        graph["out"] = solver(arrays)
-
-    got, n_all = profiled_launches(chunk, {name: problems + a_replay * n_active})
+    captures, graph = solver.captures, solver._graph
+    profiled = ProfiledReplays(graph, KERNEL_SYMBOL[name])
+    counter.launches = 0
+    solver._graph = profiled
+    try:
+        got = solver(arrays)
+    finally:
+        solver._graph = graph
+    torch.cuda.synchronize()
     if solver.captures != captures:
         raise SystemExit("FAILED fused graph: the solver captured again on the same tensors")
-    out = {"equal_to_the_last_bit": tree_equal(graph["out"], eager), "per_step_eagerly": per_step,
-           "counted_in_the_graph_call": counter.launches, f"profiled_{name}_in_the_chunk": got[name],
-           "kernels_in_the_chunk": n_all, "replays": n_active}
+    out = {"equal_to_the_last_bit": tree_equal(got, eager), "per_step_eagerly": per_step,
+           "counted_in_the_graph_call": counter.launches, f"profiled_{name}_a_replay": profiled.counts,
+           "kernels_a_replay": profiled.kernels, "replays": n_active}
     print(f"  the graph replayed over a chunk of {n_active} majors against the same steps launched eagerly on the "
           f"card: every output equal to the last bit: {out['equal_to_the_last_bit']}; {name}: {per_step} launches a "
-          f"step eagerly, {counter.launches} counted in the graph's call (the incoming forwards), torch.profiler "
-          f"saw {got[name]} in the chunk (expected {problems} + {a_replay} x {n_active}) of {n_all} kernels")
+          f"step eagerly, {counter.launches} counted in the graph's call (the incoming forwards, expected "
+          f"{problems}), torch.profiler saw {profiled.counts} in its replays (expected {a_replay} in each of "
+          f"{n_active}) of {profiled.kernels} kernels")
     if not out["equal_to_the_last_bit"]:
         raise SystemExit("FAILED fused graph: the replay differs from the eager steps")
-    if per_step != a_replay or counter.launches != problems or got[name] != problems + a_replay * n_active:
+    if per_step != a_replay or counter.launches != problems or profiled.counts != [a_replay] * n_active:
         raise SystemExit(f"FAILED fused graph: {name} launches inside the graph")
     return out
 
@@ -2387,10 +2776,11 @@ def phase_28(cli, counters, workflow, work, inputs, refs):
     tiled (kernel A1 replayed inside the graph), tiled --mesh 1 (A2, equal
     to the unmeshed fused run to the last bit), bfloat16 dense (B1), the
     coupled joint problem tiled, BTTB, refineForward with a float64
-    forward and the per-cell operator (B2); a 5-major run written every 2
+    forward, the per-cell operator (B2) and the lattice operator (B3); a
+    5-major run written every 2
     (chunks 2, 2, 1 of one graph) resumed from its checkpoint to the last
-    bit; through the library, the tiled and per-cell runs' graphs against
-    the same steps launched eagerly, and a fused
+    bit; through the library, the tiled, per-cell and lattice runs' graphs
+    against the same steps launched eagerly, and a fused
     run whose LSQR exits early beside its host-driven run (early_exit_pair);
     four small float64 fused problems, card against CPU. The runs from the
     tiled cache share one packing of it (packing_once)."""
@@ -2449,7 +2839,7 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
 
     # Tiled from the tiled main path's cache: A1 under every product, replayed.
     out = {k: os.path.join(work, f"out_fused_{k}") for k in ("tiled", "tiled_mesh1", "bf16", "bttb", "refine64",
-                                                             "five", "resumed", "coupled", "per_cell")}
+                                                             "five", "resumed", "coupled", "per_cell", "lattice")}
     pf = write_parfile(work, "Parfile_fused_tiled.txt", inputs, out["tiled"], N_MINOR, fmt="tiled", extra=tiled_cache)
     kept = fused("tiled", pf, out["tiled"], {"format": r"grav kernel: tiled"}, refs["tiled"][0],
                  sensit_written=False, kernels={"tile_matvec": (2 * N_MINOR + 2, 4)})
@@ -2515,6 +2905,21 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
     torch.cuda.empty_cache()
     seconds["per-cell"] = time.time() - t0
 
+    # The lattice operator (kernel B3 replayed inside the graph) on phase 20's
+    # draped survey, held to its host-driven run; then the graph against the
+    # same steps launched eagerly.
+    t0 = time.time()
+    pf = write_parfile(work, "Parfile_fused_lattice.txt", dict(inputs, data=inputs["data_draped"]), out["lattice"],
+                       N_MINOR, fmt="matrixfree", compression=0)
+    kept = fused("lattice", pf, out["lattice"], matrixfree_said("LatticeMatrixFreeKernel"), refs["lattice"][0],
+                 sensit_written=False, compression="uncompressed", what=f"{NDATA} draped observations",
+                 kernels={"lattice_matvec": (N_MINOR + 1, 5), "lattice_rmatvec": (N_MINOR + 1, 0)})
+    lattice_graph = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["lattice_matvec"],
+                                               runs["lattice"]["launches_fused"]["lattice_matvec"]["a_replay"])
+    del kept
+    torch.cuda.empty_cache()
+    seconds["lattice"] = time.time() - t0
+
     # 5 majors written every 2 with --fused 3: chunks 2, 2, 1 of one graph;
     # then the run resumed from its checkpoint of major 4.
     t0 = time.time()
@@ -2546,8 +2951,7 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
         raise SystemExit("FAILED fused resume: not equal to the uninterrupted fused run")
     seconds["5 majors and the resume"] = time.time() - t0
 
-    # Small float64 fused problems, card against CPU; the lattice operator's
-    # majors run as the device-resident step without a graph.
+    # Small float64 fused problems, card against CPU.
     t0 = time.time()
     small = {
         "tiled": small_problem_card_against_cpu(work, "small_fused_tiled", "tiled, --fused 3", fmt="tiled",
@@ -2558,16 +2962,18 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
         "bttb": small_problem_card_against_cpu(work, "small_fused_bttb", "matrix-free BTTB g_z, --fused 3",
                                                fmt="matrixfree", compression=0, operator="BTTBKernel",
                                                solve_kw={"fused_chunk": FUSED_M}),
-        "lattice_without_a_graph": small_problem_card_against_cpu(
-            work, "small_fused_lattice", "matrix-free lattice g_z, draped, --fused 3 (no graph)", fmt="matrixfree",
+        "lattice": small_problem_card_against_cpu(
+            work, "small_fused_lattice", "matrix-free lattice g_z, draped, --fused 3", fmt="matrixfree",
             compression=0, operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"},
-            solve_kw={"fused_chunk": FUSED_M}, **SMALL_MF_DEPTH),
+            solve_kw={"fused_chunk": FUSED_M},
+            counted={k: counters[k] for k in ("lattice_matvec", "lattice_rmatvec")}),
     }
     seconds["small problems"] = time.time() - t0
     seconds["phase"] = time.time() - t_phase
     print("  phase 28's seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     return {"runs": runs, "against_host": spread, "mesh1": mesh1, "graph_against_eager": library,
-            "per_cell_graph_against_eager": per_cell_graph, "early_exit": early,
+            "per_cell_graph_against_eager": per_cell_graph, "lattice_graph_against_eager": lattice_graph,
+            "early_exit": early,
             "five_majors": {"chunks": chunks, "captures": captures, "resumed_equal": equal}, "small": small,
             "seconds": seconds}
 
@@ -2589,6 +2995,7 @@ def main() -> int:
     from tomofastx_tpu_torch.io.sensit_cache import read_kernel_cache_packed, try_read_kernel_cache
     from tomofastx_tpu_torch.ops import bf16_gemv
     from tomofastx_tpu_torch.ops import blocked_matvec as bmv
+    from tomofastx_tpu_torch.ops import lattice_matvec as lmv
     from tomofastx_tpu_torch.ops import prism_matvec as pmv
     from tomofastx_tpu_torch.ops import sensitivity as sens
     from tomofastx_tpu_torch.ops import tile_matvec as tmv
@@ -2602,7 +3009,8 @@ def main() -> int:
     counters = {"tile_matvec": tile_matvec, "tile_matvec_sharded": tmv.tile_matvec_sharded,
                 "blocked_matvec": blocked_matvec, "bf16_matvec": bf16_gemv.bf16_matvec,
                 "bf16_rmatvec": bf16_gemv.bf16_rmatvec, "prism_matvec": pmv.prism_matvec,
-                "prism_rmatvec": pmv.prism_rmatvec}
+                "prism_rmatvec": pmv.prism_rmatvec, "lattice_matvec": lmv.lattice_matvec,
+                "lattice_rmatvec": lmv.lattice_rmatvec}
     device = torch.device("cuda")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     smi = nvidia_smi_line()
@@ -2610,14 +3018,14 @@ def main() -> int:
 
     # ---- 1. build, one compiler per source, started together ----
     t0 = time.time()
-    with ThreadPoolExecutor(4) as pool:
-        builds = [pool.submit(m.build_library) for m in (tmv, bmv, bf16_gemv, pmv)]
+    with ThreadPoolExecutor(5) as pool:
+        builds = [pool.submit(m.build_library) for m in (tmv, bmv, bf16_gemv, pmv, lmv)]
         for b in builds:
             lib_path, log = b.result()
             print(log.strip())
             print(f"built {os.path.relpath(lib_path, HERE)}")
     build_s = time.time() - t0
-    print(f"the four kernel sources built in {build_s:.1f} s")
+    print(f"the five kernel sources built in {build_s:.1f} s")
 
     # ---- 2. kernels against plain versions, random ragged layouts ----
     print("kernels against plain versions:")
@@ -2658,6 +3066,7 @@ def main() -> int:
             compare(f"{kernel.__name__}, bfloat16 {nrows} x {ncols}, f64 vector", kernel(S16, v64), plain(S16, v64),
                     RTOL_F64)
     b2_small = b2_small_problems()
+    b3_small = b3_small_problems()
     torch.cuda.synchronize()
     del uvals, ubidx, bvals, bidx, x64, parts, S16
 
@@ -3156,10 +3565,11 @@ def main() -> int:
             "tiled": (tiled, out["tiled"]), "bf16": (variants["bf16"]["runs"]["run"],),
             "coupled": (coupled["tiled"], coupled_out["tiled"], joint_dir, joint_inputs, coupled_extra),
             "bttb": (mf["bttb"]["runs"]["run"],), "refine64": (variants["refine"]["runs"]["double"],),
-            "per_cell": (mf["generic"]["run"],)})
+            "per_cell": (mf["generic"]["run"],), "lattice": (mf["lattice"]["runs"]["run"],)})
         small_rel.update({f"fused_{k}": v for k, v in fused["small"].items()})
         for name, run in [(f"bttb {k}", v) for k, v in mf["bttb"]["runs"].items()] + [
-                (f"lattice {k}", v) for k, v in mf["lattice"]["runs"].items()] + [("auto", mf["auto"]["run"])]:
+                ("lattice dense", mf["lattice"]["runs"]["dense"]), ("lattice dense f64", mf["lattice"]["runs"]["dense_f64"]),
+                ("auto", mf["auto"]["run"])]:
             if any(run["launches"].values()):
                 raise SystemExit(f"FAILED {name}: a kernel of another format was launched")
     finally:
@@ -3174,6 +3584,7 @@ def main() -> int:
         return {k: v for k, v in run.items() if k not in ("model", "models", "sharded", "out_dir")}
 
     b2_main = mf["generic"]["b2"]["g_z float32"]
+    b3_main = mf["lattice"]["b3"]["g_z float32"]
     kernels = [
         {
             "name": "tile_matvec", "route": "cuda",
@@ -3253,6 +3664,24 @@ def main() -> int:
         }
         for name, f, line, yard in (("prism_matvec", "matvec", 244, "torch_mv_f32_ms"),
                                     ("prism_rmatvec", "rmatvec", 283, "torch_mv_f32_T_ms"))
+    ] + [
+        {
+            "name": name, "route": "cuda",
+            "source": "tomofastx_tpu_torch/csrc/lattice_matvec.cu",
+            "wrapper": f"tomofastx_tpu_torch/ops/lattice_matvec.py: {name}",
+            "replaces": f"tomofastx_tpu/ops/matrixfree.py:{line} (no Pallas kernel: XLA's fusion of the corner-lattice "
+                        "rows and their product, rows tomofastx_tpu/ops/matrixfree.py:394, tiered blend :646)",
+            "launches": mf["lattice"]["runs"]["run"]["launches"][name],
+            "launches_mesh1": mf["lattice"]["runs"]["mesh1"]["launches"][name],
+            "launches_fused": fused["runs"]["lattice"]["launches_fused"][name],
+            **{k: b3_main[f][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "yardstick_torch_mv_f32_ms": mf["lattice"]["yardstick"][yard],
+            "shape_of_these_times": "g_z float32 blend, 4096 x 262144: the lattice main path's operator",
+            "measured": {k: v[f] for k, v in mf["lattice"]["b3"].items()},
+            "small_problems": b3_small,
+        }
+        for name, f, line, yard in (("lattice_matvec", "matvec", 724, "torch_mv_f32_ms"),
+                                    ("lattice_rmatvec", "rmatvec", 762, "torch_mv_f32_T_ms"))
     ]
     print(json.dumps({
         "main_paths": {"tiled": report(tiled), "tiled_mesh1": report(tiled_mesh), "dense": report(dense),

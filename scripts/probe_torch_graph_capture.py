@@ -8,9 +8,10 @@ eagerly, and whether the replay equals them to the last bit.
 
     python3 scripts/probe_torch_graph_capture.py
 
-Needs one CUDA device. The fused major loop (inversion/joint.py) runs these
-two operators' majors without a graph; this is the measurement behind that
-choice (PERF.md)."""
+Needs one CUDA device. This measurement kept both operators' majors out of
+the fused loop's graph while their products were eager loops of tens of
+thousands of launches; since their products are kernels B2 and B3, the fused
+loop (inversion/joint.py) captures them (PERF.md)."""
 
 from __future__ import annotations
 

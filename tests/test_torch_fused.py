@@ -221,9 +221,9 @@ def test_fused_solver_with_a_refinement_forward_matches_jax():
 
 def test_capture_unit_by_operator_and_device():
     """The CPU runs eager steps; a CUDA run captures a major unless an
-    operator (of the solve or of the refinement forward) is a lattice
-    matrix-free one (sharded or not), a per-cell one whose tensors are not
-    on the card (on the card its products are kernel B2's), or spreads over
+    operator (of the solve or of the refinement forward) is a per-cell or
+    lattice matrix-free one (sharded or not) whose tensors are not on the
+    card (on the card their products are kernels B2 and B3), or spreads over
     several devices. Decided from the tensors' device and what the
     operators say of themselves (graph_capturable, mesh) alone (stand-ins
     here: no card is needed to decide)."""
@@ -239,24 +239,36 @@ def test_capture_unit_by_operator_and_device():
     two_cards = SimpleNamespace(mesh=tmesh.Mesh(np.array([torch.device("cuda:0"), torch.device("cuda:1")],
                                                          dtype=object), ("cells",)))
 
-    def per_cell(device):
-        op = object.__new__(tmf.MatrixFreeKernel)
+    def on(cls, device):
+        op = object.__new__(cls)
         op.cw = SimpleNamespace(device=torch.device(device))
         return op
 
-    def sharded_per_cell(*devices):
-        op = object.__new__(tmf.ShardedMatrixFreeKernel)
-        op.parts, op.mesh = [per_cell(d) for d in devices], one_card.mesh
+    def per_cell(device):
+        return on(tmf.MatrixFreeKernel, device)
+
+    def lattice(device):
+        return on(tmf.LatticeMatrixFreeKernel, device)
+
+    def sharded(cls, part, *devices):
+        op = object.__new__(cls)
+        op.parts, op.mesh = [part(d) for d in devices], one_card.mesh
         return op
 
     for ops, unit, said in (
         ({"S": (tarr["S"][0], one_card)}, "graph", "one CUDA graph a major"),
-        ({"S": (object.__new__(tmf.LatticeMatrixFreeKernel),)}, "step", "LatticeMatrixFreeKernel"),
+        ({"S": (lattice("cuda:0"),)}, "graph", "one CUDA graph a major"),
+        ({"S": (lattice("cpu"),)}, "step", "LatticeMatrixFreeKernel"),
         ({"S": (tarr["S"][0],), "S_fwd": (per_cell("cuda:0"),)}, "graph", "one CUDA graph a major"),
         ({"S": (tarr["S"][0],), "S_fwd": (per_cell("cpu"),)}, "step", "MatrixFreeKernel"),
-        ({"S": (object.__new__(tmf.ShardedLatticeMatrixFreeKernel),)}, "step", "ShardedLatticeMatrixFreeKernel"),
-        ({"S": (sharded_per_cell("cuda:0", "cuda:0", "cuda:0", "cuda:0"),)}, "graph", "one CUDA graph a major"),
-        ({"S": (sharded_per_cell("cuda:0", "cuda:1"),)}, "step", "ShardedMatrixFreeKernel"),
+        ({"S": (sharded(tmf.ShardedLatticeMatrixFreeKernel, lattice, "cuda:0", "cuda:0"),)}, "graph",
+         "one CUDA graph a major"),
+        ({"S": (sharded(tmf.ShardedLatticeMatrixFreeKernel, lattice, "cuda:0", "cuda:1"),)}, "step",
+         "ShardedLatticeMatrixFreeKernel"),
+        ({"S": (sharded(tmf.ShardedMatrixFreeKernel, per_cell, "cuda:0", "cuda:0", "cuda:0", "cuda:0"),)}, "graph",
+         "one CUDA graph a major"),
+        ({"S": (sharded(tmf.ShardedMatrixFreeKernel, per_cell, "cuda:0", "cuda:1"),)}, "step",
+         "ShardedMatrixFreeKernel"),
         ({"S": (two_cards,)}, "step", "over 2 devices"),
     ):
         got = tjoint.capture_unit({**on_card, **ops})

@@ -63,30 +63,11 @@
 
 #include <cuda_runtime.h>
 
+#include "prism_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;  // threads of every block; cells or observations staged at a time
-
-// Physics families and modes (ops/prism_matvec.py GZ .. MAG, CLOSED, BLEND).
-enum Family { GZ = 0, GZZ = 1, FTG = 2, MAG = 3 };
-enum Mode { CLOSED = 0, BLEND = 1 };
-
-constexpr double G_GRAV = 6.674e-11;
-constexpr double TWO_PI = 6.283185307179586;      // 2 * math.pi
-constexpr double GL3_NODE = 0.7745966692414834;   // math.sqrt(3.0 / 5.0)
-constexpr double GL3_W_OUT = 5.0 / 9.0;
-constexpr double GL3_W_MID = 8.0 / 9.0;
-
-struct Field {
-    double m0, m1, m2;  // direction cosines of the field (magv)
-    double s4pi;        // scale / (4 pi): the intensity, or mu0 * 1e9 for a magnetization vector
-    int handle_inside;  // the 6-subprism borehole branch
-};
-
-template <typename U>
-struct Tensor3 {  // sharmbox's rows: t[0] = (txx, txy, txz), t[1] = (tyx, tyy, tyz), t[2] = (tzx, tzy, tzz)
-    U t[3][3];
-};
 
 template <typename U>
 struct Six {
@@ -94,35 +75,6 @@ struct Six {
 };
 
 // ---------------------------------------------------------------- helpers
-
-template <typename U>
-__device__ __forceinline__ U wrap_atan2(U y, U x) {
-    const U a = atan2(y, x);
-    return a < U(0) ? a + U(TWO_PI) : a;
-}
-
-template <typename U>
-__device__ __forceinline__ U wrap_neg_atan2(U y, U x) {
-    const U v = -atan2(y, x);
-    return v < U(0) ? v + U(TWO_PI) : v;
-}
-
-// log(Rs + t): the literal form in double, the cancellation-armored one in
-// float (ops/prism.py _log_R_plus).
-__device__ __forceinline__ double log_R_plus(double Rs, double t, double) { return log(Rs + t); }
-__device__ __forceinline__ float log_R_plus(float Rs, float t, float o2) {
-    return logf(t < 0.0f ? o2 / (Rs - t) : Rs + t);
-}
-
-// 0.5 * log((Rs - t) / (Rs + t)) (ops/prism.py _half_log_ratio).
-__device__ __forceinline__ double half_log_ratio(double Rs, double t, double) {
-    return 0.5 * log((Rs - t) / (Rs + t));
-}
-__device__ __forceinline__ float half_log_ratio(float Rs, float t, float o2) {
-    const float big = t < 0.0f ? Rs - t : Rs + t;
-    const float ratio = t < 0.0f ? big * big / o2 : o2 / (big * big);
-    return 0.5f * logf(ratio);
-}
 
 // log((t_num + a_num) / (t_den + a_den)) (ops/prism.py _log_ratio_pp).
 __device__ __forceinline__ double log_ratio_pp(double tn, double an, double td, double ad, double, double) {
@@ -287,39 +239,6 @@ __device__ __noinline__ Tensor3<U> magnetic_tensor(U xd, U yd, U zd, U X1, U X2,
     return sharmbox(xd, yd, zd, X1, X2, Y1, Y2, Z1, Z2);
 }
 
-// combine_mag_tensor: the susceptibility or magnetization-vector x TMI or
-// three-component rows of a tensor (magnetic_field.f90:118-297).
-template <typename U, int NMC, int NDC>
-__device__ __forceinline__ void combine(const Tensor3<U>& T3, const Field& f, U row[NMC][NDC]) {
-    const U m0 = U(f.m0), m1 = U(f.m1), m2 = U(f.m2), s = U(f.s4pi);
-    const U(&tx)[3] = T3.t[0];
-    const U(&ty)[3] = T3.t[1];
-    const U(&tz)[3] = T3.t[2];
-    if constexpr (NMC == 1) {
-        const U mx = tx[0] * m0 + tx[1] * m1 + tx[2] * m2;
-        const U my = ty[0] * m0 + ty[1] * m1 + ty[2] * m2;
-        const U mz = tz[0] * m0 + tz[1] * m1 + tz[2] * m2;
-        if constexpr (NDC == 1) {
-            row[0][0] = (mx * m0 + my * m1 + mz * m2) * s;
-        } else {
-            row[0][0] = mx * s;
-            row[0][1] = my * s;
-            row[0][2] = mz * s;
-        }
-    } else {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-            if constexpr (NDC == 1) {
-                row[k][0] = (tx[k] * m0 + ty[k] * m1 + tz[k] * m2) * s;
-            } else {
-                row[k][0] = tx[k] * s;
-                row[k][1] = ty[k] * s;
-                row[k][2] = tz[k] * s;
-            }
-        }
-    }
-}
-
 // The closed-form row of one pair in U (forward_rows without the blend).
 template <typename U, int FAM, int NMC, int NDC>
 __device__ __forceinline__ void closed_row(U xd, U yd, U zd, U X1, U X2, U Y1, U Y2, U Z1, U Z2, const Field& f,
@@ -376,8 +295,7 @@ __device__ __forceinline__ bool is_far(const Cell<float>& c, float xo, float yo,
     return r2 > c.thr;
 }
 
-// _quad_accumulate with the family's point function, in float: the row of a
-// far pair.
+// The 27-point rule at a far pair (prism_common.cuh quad_points).
 template <int FAM, int NMC, int NDC>
 __device__ __forceinline__ void quad_row(const Cell<float>& c, float xo, float yo, float zo, const Field& f,
                                          float row[NMC][NDC]) {
@@ -390,50 +308,9 @@ __device__ __forceinline__ void quad_row(const Cell<float>& c, float xo, float y
         py[i] = c.cy + node[i] * c.hy - yo;
         pz[i] = c.cz + node[i] * c.hz - zo;
     }
-    constexpr int NOUT = FAM == GZ || FAM == GZZ ? 1 : 6;
-    float acc[NOUT];
-#pragma unroll
-    for (int o = 0; o < NOUT; ++o) acc[o] = 0.0f;
-#pragma unroll
-    for (int iu = 0; iu < 3; ++iu)
-#pragma unroll
-        for (int iv = 0; iv < 3; ++iv)
-#pragma unroll
-            for (int iw = 0; iw < 3; ++iw) {
-                const float x = px[iu], y = py[iv], z = pz[iw];
-                const float wgt = float(wgt1[iu] * wgt1[iv] * wgt1[iw]);
-                const float r2 = x * x + y * y + z * z;
-                const float ir = rsqrtf(r2);
-                if constexpr (FAM == GZ) {
-                    acc[0] = acc[0] + wgt * (z * (ir * ir * ir));
-                } else {
-                    const float ir2 = ir * ir;
-                    const float ir5 = ir2 * ir2 * ir;
-                    if constexpr (FAM == GZZ) {
-                        acc[0] = acc[0] + wgt * ((3.0f * z * z - r2) * ir5);
-                    } else {
-                        acc[0] = acc[0] + wgt * ((3.0f * x * x - r2) * ir5);
-                        acc[1] = acc[1] + wgt * ((3.0f * y * y - r2) * ir5);
-                        acc[2] = acc[2] + wgt * ((3.0f * z * z - r2) * ir5);
-                        acc[3] = acc[3] + wgt * (3.0f * x * y * ir5);
-                        acc[4] = acc[4] + wgt * (3.0f * y * z * ir5);
-                        acc[5] = acc[5] + wgt * (3.0f * x * z * ir5);
-                    }
-                }
-            }
-    const float vol8 = c.hx * c.hy * c.hz;
-    if constexpr (FAM == GZ || FAM == GZZ) {
-        row[0][0] = float(G_GRAV) * (acc[0] * vol8);
-    } else if constexpr (FAM == FTG) {
-#pragma unroll
-        for (int o = 0; o < 6; ++o) row[0][o] = float(G_GRAV) * (acc[o] * vol8);
-    } else {
-        // (xx, yy, zz, xy, yz, zx) -> ((xx, xy, zx), (xy, yy, yz), (zx, yz, zz))
-        const float xx = acc[0] * vol8, yy = acc[1] * vol8, zz = acc[2] * vol8;
-        const float xy = acc[3] * vol8, yz = acc[4] * vol8, zx = acc[5] * vol8;
-        const Tensor3<float> T3 = {{{xx, xy, zx}, {xy, yy, yz}, {zx, yz, zz}}};
-        combine<float, NMC, NDC>(T3, f, row);
-    }
+    float xy[3][3];
+    square_sums<3>(px, py, xy);
+    quad_points<FAM, NMC, NDC, 3>(px, py, pz, xy, wgt1, c.hx * c.hy * c.hz, f, row);
 }
 
 // The row of one pair as the plain version evaluates it.
@@ -461,11 +338,6 @@ struct Geometry {
     const void *X1, *X2, *Y1, *Y2, *Z1, *Z2;  // (N,) cell bounds
     const void *xd, *yd, *zd;                 // (nrows,) observations
 };
-
-template <typename T>
-__device__ __forceinline__ T at(const void* p, int i) {
-    return __ldg(static_cast<const T*>(p) + i);
-}
 
 // matvec, pass 1: partial[s, b, j] = sum over split s's cells n of R[b, n, :, j] . xw[:, n].
 template <typename T, int FAM, int NMC, int NDC, int MODE>

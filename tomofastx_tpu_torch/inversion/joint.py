@@ -496,10 +496,11 @@ def capture_unit(arr) -> Tuple[str, str]:
     """How the fused loop runs a major over arr's operators, and why:
     ("graph", ...) one captured CUDA graph a major; ("step", ...) the same
     device-resident step launched eagerly (over an operator that says
-    graph_capturable is false, as the lattice matrix-free ones do, or whose
-    mesh spans several devices); ("cpu", ...) eager steps on the CPU. The
-    per-cell matrix-free operator says so per instance: capturable on the
-    card, where its products are kernel B2's launches."""
+    graph_capturable is false, or whose mesh spans several devices);
+    ("cpu", ...) eager steps on the CPU. The per-cell and lattice
+    matrix-free operators say so per instance: capturable on the card, where
+    their products are the few launches of kernels B2 and B3, and not where
+    their tensors lie on the CPU (their plain chunk loops)."""
     if arr["cw"][0].device.type != "cuda":
         return "cpu", "eager steps on the CPU"
     for op in [op for key in ("S", "S_fwd") for op in arr.get(key, ()) if op is not None]:
@@ -507,8 +508,7 @@ def capture_unit(arr) -> Tuple[str, str]:
         if mesh is not None and mesh.n_devices > 1:
             return "step", f"the device-resident step without a graph ({type(op).__name__} over {mesh.n_devices} devices)"
         if not getattr(op, "graph_capturable", True):
-            return "step", (f"the device-resident step without a graph ({type(op).__name__}: tens of "
-                            "thousands of launches a product)")
+            return "step", f"the device-resident step without a graph ({type(op).__name__}: not capturable)"
     return "graph", "one CUDA graph a major, replayed"
 
 
@@ -542,9 +542,9 @@ class FusedSolver:
     later call copies its tensors into the same buffers and replays the same
     graph; it is captured again only when a tensor's shape, type or device,
     or an operator, changes. A failed capture raises: nothing runs the
-    major eagerly in its place. Over the lattice and per-cell matrix-free
-    operators, and over operators spread across devices, the same step runs
-    eagerly on the device (capture_unit). The kernels' launch counters count
+    major eagerly in its place. Over an operator that cannot be captured,
+    and over operators spread across devices, the same step runs eagerly on
+    the device (capture_unit). The kernels' launch counters count
     a captured launch once, at the capture.
     """
 

@@ -427,8 +427,9 @@ def solve_problem_joint_gravmag(
                 par, ctx.model.grid, ctx.data, ctx.column_weight, ipar.problem_weight[i], ctx.data.weight,
                 solve_dtype, pad_cells_to=len(mesh.slots) if mesh is not None else 1, device=device,
             )
-            # The per-cell operator names what computes its products: kernel
-            # B2 on the card, the plain chunk loop on the CPU.
+            # The per-cell and lattice operators name what computes their
+            # products: kernel B2 or B3 on the card, the plain chunk loop on
+            # the CPU.
             route = getattr(ctx.operator, "products_by", None)
             log(f"  {PROBLEM_PREFIX[i]} kernel: matrix-free ({type(ctx.operator).__name__}, no row storage; "
                 f"{ctx.operator.nbytes / 1e6:.1f} MB on {device}" + (f"; products by {route})" if route else ")"))

@@ -4,7 +4,8 @@ Each kernel is one source under csrc/ with plain C entry points. nvcc
 compiles it for sm_90a into a shared library in ``build/`` beside the
 package, the first time a CUDA tensor reaches the kernel's wrapper (never at
 import), and ctypes loads it. The library's name carries a hash of the
-source, so an edited source is compiled again and an unchanged one is not.
+source and of the headers under csrc/ that it includes, so an edited source
+or header is compiled again and an unchanged one is not.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -23,6 +25,33 @@ BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build")
 def source_path(name: str) -> str:
     """Path of csrc/<name>.cu."""
     return os.path.join(_PACKAGE_DIR, "csrc", f"{name}.cu")
+
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list:
+    """csrc/<name>.cu and every csrc/ header it includes with #include
+    "...", directly or through another header, in the order first met."""
+    files, todo = [], [source_path(name)]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            todo += [os.path.join(os.path.dirname(path), h.decode()) for h in _LOCAL_INCLUDE.findall(f.read())]
+    return files
+
+
+def source_tag(name: str) -> str:
+    """The hash that names the library of csrc/<name>.cu: of its source and
+    of the headers it includes (source_files)."""
+    h = hashlib.sha256()
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
 
 
 def find_nvcc() -> str:
@@ -37,12 +66,10 @@ def find_nvcc() -> str:
 
 def build_library(name: str) -> tuple[str, str]:
     """Compile csrc/<name>.cu for sm_90a into build/ unless a library of
-    this very source is there already. Returns (path of the library, what
-    the compiler printed, empty if nothing was compiled)."""
+    this very source and its headers is there already. Returns (path of the
+    library, what the compiler printed, empty if nothing was compiled)."""
     source = source_path(name)
-    with open(source, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    path = os.path.join(BUILD_DIR, f"lib{name}_{source_tag(name)}.so")
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -27,14 +27,15 @@ problem x data row weights are applied on the fly
 (sensitivity_gravmag.F90:228, 836-843).
 
 On a CUDA device the per-cell operator's products are kernel B2
-(ops/prism_matvec.py, csrc/prism_matvec.cu): every (observation, cell)
-pair evaluated in registers, no row stored. On the CPU they are the plain
-chunk loop below. The JAX package corrects each observation's near cells
-with a sequential per-point scan, a workaround for a TPU worker crash. Here
-a chunk's corrections are gathered and scattered in one batch; the
-adjoint's scatter sums every cell's terms in one fixed order
+(ops/prism_matvec.py, csrc/prism_matvec.cu) and the lattice operator's
+kernel B3 (ops/lattice_matvec.py, csrc/lattice_matvec.cu): every
+(observation, cell) pair evaluated on the fly, no row stored. On the CPU
+they are the plain chunk loops below. The JAX package corrects each
+observation's near cells with a sequential per-point scan, a workaround for
+a TPU worker crash. Here a chunk's corrections are gathered and scattered in
+one batch; the adjoint's scatter sums every cell's terms in one fixed order
 (_index_add_in_order), so two runs agree to the last bit, as two runs of
-kernel B2 do.
+kernels B2 and B3 do.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from tomofastx_tpu_torch.ops.prism import (
     gz_corner_potential,
     mag_corner_potentials,
 )
+from tomofastx_tpu_torch.ops.lattice_matvec import lattice_matvec, lattice_rmatvec
 from tomofastx_tpu_torch.ops.prism_matvec import prism_matvec, prism_rmatvec
 
 PROBE_ABORT = (
@@ -576,7 +578,11 @@ class LatticeMatrixFreeKernel:
 
     In float32 (far_quad) the rows are the tiered blend: the 2^3 quadrature
     everywhere plus, on each point's window (win, wi0 from
-    lattice_near_window at tier2_radius), where(near, closed, 3^3) - 2^3."""
+    lattice_near_window at tier2_radius), where(near, closed, 3^3) - 2^3.
+
+    The products run kernel B3 (lattice_matvec, lattice_rmatvec) on the card
+    and the chunk loop (_partial_matvec, _partial_rmatvec) on the CPU, both
+    between the column weight and the row weights."""
 
     xe: torch.Tensor  # (nx+1,)
     ye: torch.Tensor  # (ny+1,)
@@ -599,11 +605,23 @@ class LatticeMatrixFreeKernel:
     data_type: int = 1  # gravity: 1 = g_z, 2 = gradiometry (FTG)
     far_quad: bool = False
     win: Tuple[int, int, int] = None  # (wz, wy, wx) when far_quad
-    wi0: torch.Tensor = None  # (nrows_padded, 3) int64 window starts when far_quad
+    # (nrows_padded, 3) int32 window starts (z, y, x) when far_quad: kernel
+    # B3 reads them as they are, so they are made int32 at construction.
+    wi0: torch.Tensor = None
 
-    # Not captured into the fused loop's graph (inversion/joint.py::
-    # capture_unit): tens of thousands of kernel launches a product.
-    graph_capturable = False
+    @property
+    def graph_capturable(self) -> bool:
+        """Whether the fused loop captures a major over this operator as a
+        CUDA graph (inversion/joint.py::capture_unit): on the card, where
+        its products are kernel B3's few launches, and not on the CPU."""
+        return self.cw.device.type == "cuda"
+
+    @property
+    def products_by(self) -> str:
+        """What computes the products, for the log."""
+        if self.cw.device.type == "cuda":
+            return "kernel B3, csrc/lattice_matvec.cu"
+        return "the plain chunk loop on the CPU"
 
     @property
     def N(self) -> int:
@@ -662,8 +680,11 @@ class LatticeMatrixFreeKernel:
     def _chunks(self):
         return [slice(s, s + self.chunk) for s in range(0, self.xd.shape[0], self.chunk)]
 
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        y = (self.cw[None, :] * x.reshape(self.nmc, self.N)).reshape(self.nmc, self.nz, self.ny, self.nx)
+    def _partial_matvec(self, xw):
+        """(nrows_padded, ndc) sum over the cells of rows x (cw x), before
+        the row weights: the plain version of kernel B3's matvec
+        (ops/lattice_matvec.py::lattice_matvec)."""
+        y = xw.reshape(self.nmc, self.nz, self.ny, self.nx)
         out = []
         for sl in self._chunks():
             xs, ys, zs = self.xd[sl], self.yd[sl], self.zd[sl]
@@ -673,14 +694,13 @@ class LatticeMatrixFreeKernel:
                 iz, iy, ix = self._window_index(i0)
                 yw = y[:, iz[:, :, None, None], iy[:, None, :, None], ix[:, None, None, :]]  # (nmc, B, wz, wy, wx)
                 d = d + torch.einsum("bzyxkd,kbzyx->bd", self._corr_window(xs, ys, zs, i0), yw)
-            out.append(self.row_w[sl] * d)
-        return torch.cat(out)[: self.nrows].reshape(-1)
+            out.append(d)
+        return torch.cat(out)
 
-    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
-        u_pad = torch.zeros((self.xd.shape[0], self.ndc), dtype=u.dtype, device=u.device)
-        u_pad[: self.nrows] = u.reshape(self.nrows, self.ndc)
-        u_pad = u_pad * self.row_w
-        g = torch.zeros((self.nmc, self.nz, self.ny, self.nx), dtype=u.dtype, device=u.device)
+    def _partial_rmatvec(self, u_pad):
+        """(nmc, N) sum over the observations of rows^T u, before cw: the
+        plain version of kernel B3's rmatvec (lattice_rmatvec)."""
+        g = torch.zeros((self.nmc, self.nz, self.ny, self.nx), dtype=u_pad.dtype, device=u_pad.device)
         for sl in self._chunks():
             xs, ys, zs, uc = self.xd[sl], self.yd[sl], self.zd[sl], u_pad[sl]
             g = g + torch.einsum("bd,bzyxkd->kzyx", uc, self._base_rows(xs, ys, zs))
@@ -692,7 +712,19 @@ class LatticeMatrixFreeKernel:
                 flat = ((k * self.nz + iz[None, :, :, None, None]) * self.ny
                         + iy[None, :, None, :, None]) * self.nx + ix[None, :, None, None, :]
                 _index_add_in_order(g.view(-1), flat.reshape(-1), contrib.reshape(-1))
-        return (self.cw[None, :] * g.reshape(self.nmc, self.N)).reshape(-1)
+        return g.reshape(self.nmc, self.N)
+
+    def _padded_residual(self, u):
+        u_pad = torch.zeros((self.xd.shape[0], self.ndc), dtype=u.dtype, device=u.device)
+        u_pad[: self.nrows] = u.reshape(self.nrows, self.ndc)
+        return u_pad * self.row_w
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        d = lattice_matvec(self, self.cw[None, :] * x.reshape(self.nmc, self.N))
+        return (self.row_w * d)[: self.nrows].reshape(-1)
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        return (self.cw[None, :] * lattice_rmatvec(self, self._padded_residual(u))).reshape(-1)
 
 
 def _far_points(xe, ye, ze):
@@ -717,9 +749,11 @@ class ShardedLatticeMatrixFreeKernel:
     ndc: int
     mesh: object  # parallel.mesh.Mesh
 
-    # Not captured into the fused loop's graph (inversion/joint.py::
-    # capture_unit): tens of thousands of kernel launches a product.
-    graph_capturable = False
+    @property
+    def graph_capturable(self) -> bool:
+        """Captured where every part sits on one card (capture_unit
+        refuses a mesh of several cards on its own)."""
+        return len({p.cw.device for p in self.parts}) == 1 and all(p.graph_capturable for p in self.parts)
 
     @classmethod
     def shard(cls, k: LatticeMatrixFreeKernel, mesh) -> "ShardedLatticeMatrixFreeKernel":
@@ -755,7 +789,7 @@ class ShardedLatticeMatrixFreeKernel:
             parts.append(dataclasses.replace(
                 k, xe=k.xe.to(dev), ye=k.ye.to(dev), ze=k.ze.to(dev), xd=put(xd), yd=put(yd), zd=put(zd),
                 cw=k.cw.to(dev), row_w=rw[sl].to(dev), nrows=per, win=win,
-                wi0=None if wi0 is None else torch.as_tensor(wi0[sl], dtype=torch.int64, device=dev),
+                wi0=None if wi0 is None else torch.as_tensor(wi0[sl], dtype=torch.int32, device=dev),
             ))
         return cls(parts, k.nrows, k.ndc, mesh)
 
@@ -892,7 +926,7 @@ def make_matrixfree_kernel(
                 win, wi0 = lattice_near_window(
                     xe, ye, ze, xd_p, yd_p, zd_p, radius=tier2_radius(phys.problem, phys.data_type)
                 )
-                wi0 = t(wi0, torch.int64)
+                wi0 = t(wi0, torch.int32)
             return probe(LatticeMatrixFreeKernel(
                 xe=t(xe), ye=t(ye), ze=t(ze), xd=t(xd_p), yd=t(yd_p), zd=t(zd_p),
                 cw=t(column_weight), row_w=t(row_w), chunk=chunk, nrows=nd,
