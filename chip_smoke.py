@@ -7,8 +7,10 @@ It needs one CUDA device, nvcc and nothing from the network. It
 
 1. builds the hand-written kernels (tile_matvec, blocked_matvec, the
    bfloat16 GEMV pair of kernel B1, the per-cell matrix-free pair of kernel
-   B2 and the corner-lattice pair of kernel B3) from
-   tomofastx_tpu_torch/csrc/, one compiler a source, all started together;
+   B2 from its float32 and its float64 source, and the corner-lattice pair of
+   kernel B3, each blend with its near pass) from tomofastx_tpu_torch/csrc/,
+   one compiler a source, all started together, and keeps what ptxas says
+   of each kernel's registers;
 2. holds each kernel against its plain PyTorch version on a random ragged
    layout (B1: on bfloat16 matrices with and without 16-byte aligned rows),
    tile_matvec also on either side of each edge of its work plan, and
@@ -20,7 +22,9 @@ It needs one CUDA device, nvcc and nothing from the network. It
    observation (the construction aborts); B3 on small lattice problems of
    every family but the borehole branch (float64, the float32 blend, float32
    closed forms), with partial tiles and observations on lattice planes
-   (against the CPU too), and over 3 slots of the card;
+   (against the CPU too), and over 3 slots of the card; each float32 blend's
+   products also against the plain version of its split (main loop and near
+   pass, float64 sums), and B2's and B3's near passes alone against theirs;
 3. writes a full-width synthetic gravity problem (4096 observations x 262144
    cells on a 64x64x64 lattice, Haar compression at rate 0.15, damping,
    3-lithology ADMM, 3 majors x 20 LSQR iterations, float64 build stored
@@ -113,10 +117,12 @@ It needs one CUDA device, nvcc and nothing from the network. It
    bit, and over the four slots of 8 with the layers split;
 20. the same on a draped survey (heights varying from point to point:
    LatticeMatrixFreeKernel with its float32 tiered blend, its products by
-   kernel B3), LATTICE_DEPTH deep, B3's launches counted: B3 against its
-   plain loop at full width for g_z in float32 (the blend) and float64 (the
-   closed forms), and for FTG-6 and TMI on 512 rows, each timed beside the
-   plain loop and its bound; the products against the dense uncompressed
+   kernel B3), LATTICE_DEPTH deep, B3's launches counted (its near pass's
+   too): B3 against its plain loop at full width for g_z in float32 (the
+   blend) and float64 (the closed forms), and for FTG-6 and TMI on 512 rows,
+   each timed beside the plain loop and its bound with the registers of its
+   kernels, and each blend's near pass alone timed beside its plain version
+   and bound; the products against the dense uncompressed
    matrix (torch.mv on it timed as a yardstick); 256 float32 rows through
    the kernel against the float64 closed forms; the construction's probe
    aborting through B3; --mesh 1 to the last bit; a dense uncompressed run
@@ -125,7 +131,8 @@ It needs one CUDA device, nvcc and nothing from the network. It
 21. a grid whose top layer follows a topography (MatrixFreeKernel, its
    products by kernel B2): B2 against its plain loop at full width for g_z
    in float32 (the blend) and float64, and for FTG-6 and TMI on 512 rows,
-   each timed beside the plain loop and its bound; the products against the
+   each timed beside the plain loop and its bound with the registers of its
+   kernels, and each blend's near pass alone as for B3; the products against the
    dense uncompressed matrix (torch.mv on it timed as a yardstick); then a
    GENERIC_DEPTH solve through the command-line entry point, B2's launches
    counted;
@@ -170,7 +177,7 @@ It needs one CUDA device, nvcc and nothing from the network. It
    bit; through the library, the tiled, per-cell and lattice runs' graphs
    replayed against the same steps launched eagerly on the card (equal to
    the last bit, with torch.profiler's count of tile_matvec, B2 or B3 in that
-   chunk); and four small float64 fused problems (tiled, coupled dense, BTTB
+   chunk; the per-cell and lattice runs count their near passes too); and four small float64 fused problems (tiled, coupled dense, BTTB
    and the lattice operator) on the card against the CPU; and a fused run
    whose LSQR stops early (inversion.minResidual)
    beside its host-driven run, LSQR iterations and seconds a major of each.
@@ -215,6 +222,10 @@ SIDE = 64  # observations above the cell centres of a SIDE x SIDE sub-lattice
 NDATA = SIDE * SIDE
 N_MAJOR, N_MINOR = 3, 20
 RTOL_F32, RTOL_F64 = 1e-5, 1e-12
+# A float32 blend kernel against the plain version of its split: the same
+# float32 rows, summed in float64 in another order and rounded once, so a
+# few float32 roundings of max|y| apart (an H100 read at most 5e-8).
+RTOL_SPLIT = 1e-6
 TOP_BLOCKS = 256  # slots per row of the second row-block layout
 JOINT_HEIGHT = 80.0  # m: the joint survey is airborne
 DENSE_SAID = r"{p} kernel: dense \({rows}, " + str(NX * NY * NZ) + r"\) torch\.float32"
@@ -1479,7 +1490,8 @@ def phase_20(cli, counters, workflow, work, inputs):
     print(f"  kernel B3's launches: {runs['run']['launches']['lattice_matvec']} matvec, "
           f"{runs['run']['launches']['lattice_rmatvec']} rmatvec (expected {want['lattice_matvec']} = the probe, "
           f"{3 + LATTICE_DEPTH[0]} forward products and one a LSQR iteration; {want['lattice_rmatvec']} = one a LSQR "
-          "iteration and one a solve)")
+          f"iteration and one a solve), near passes {runs['run']['launches']['lattice_near_matvec']} and "
+          f"{runs['run']['launches']['lattice_near_rmatvec']} (one a product)")
     if not launched(runs["run"]["launches"], **want):
         raise SystemExit(f"FAILED lattice main path: launches {runs['run']['launches']}")
     if not op.far_quad:
@@ -1563,7 +1575,8 @@ def phase_20(cli, counters, workflow, work, inputs):
     f64 = ("--precision", "double")
     runs["run_f64"] = run_main_path(cli, counters, "lattice, float64 solve", pf["run_f64"], out["run_f64"], said,
                                     args=f64, **kw)
-    if not launched(runs["run_f64"]["launches"], **want):
+    if not launched(runs["run_f64"]["launches"], **b2_launches(runs["run_f64"]["lsqr_iterations"], "lattice",
+                                                               near=False)):
         raise SystemExit(f"FAILED lattice, float64 solve: launches {runs['run_f64']['launches']}")
     runs["dense_f64"] = run_main_path(cli, counters, "dense uncompressed, float64 solve", pf["dense_f64"],
                                       out["dense_f64"], {}, args=f64, **kw)
@@ -1638,21 +1651,26 @@ def phase_21(cli, counters, work, inputs):
     want = b2_launches(run["lsqr_iterations"])
     print(f"  kernel B2's launches: {run['launches']['prism_matvec']} matvec, {run['launches']['prism_rmatvec']} "
           f"rmatvec (expected {want['prism_matvec']} = the probe, {3 + GENERIC_DEPTH[0]} forward products and one a "
-          f"LSQR iteration; {want['prism_rmatvec']} = one a LSQR iteration and one a solve)")
+          f"LSQR iteration; {want['prism_rmatvec']} = one a LSQR iteration and one a solve), near passes "
+          f"{run['launches']['prism_near_matvec']} and {run['launches']['prism_near_rmatvec']} (one a product)")
     if not launched(run["launches"], **want):
         raise SystemExit(f"FAILED per-cell main path: launches {run['launches']}")
     return {"operator": times, "build_s": build_s, "against_dense": errs, "run": run, "b2": b2,
             "yardstick": yardstick}
 
 
-def b2_launches(lsqr_iterations, kernel="prism"):
+def b2_launches(lsqr_iterations, kernel="prism", near=True):
     """Kernel B2's (or, kernel = "lattice", B3's) launches in a host-driven
     matrix-free run: the construction's probe matvec, the forward products
     (synthetic, prior and starting models, and one after each major), and
     each solve's LSQR (a matvec an iteration; an rmatvec an iteration and one
-    before the loop)."""
-    return {f"{kernel}_matvec": 1 + 3 + len(lsqr_iterations) + sum(lsqr_iterations),
+    before the loop); near: a float32 blend's, whose every product launches
+    its near pass too."""
+    want = {f"{kernel}_matvec": 1 + 3 + len(lsqr_iterations) + sum(lsqr_iterations),
             f"{kernel}_rmatvec": sum(it + 1 for it in lsqr_iterations)}
+    if near:
+        want.update({f"{kernel}_near_{f}": want[f"{kernel}_{f}"] for f in ("matvec", "rmatvec")})
+    return want
 
 
 def phase_22(cli, counters, work):
@@ -1728,7 +1746,7 @@ def phase_23(work, mesh4, counters):
 
 
 # ---------------------------------------------------------------------------
-# Kernel B2: the per-cell matrix-free operator's products (csrc/prism_matvec.cu).
+# Kernel B2: the per-cell matrix-free operator's products (csrc/prism_matvec.cuh, built as prism_matvec_f32.cu and _f64.cu).
 # ---------------------------------------------------------------------------
 
 # The per-cell operator's families: gravity (data type, data components) or
@@ -1749,7 +1767,7 @@ RTOL_F32_CLOSED = 1e-4
 # package holds its float64 operators to the port's at 1e-10
 # (tests/test_torch_matrixfree.py::test_operator_matches_jax_f64).
 RTOL_F64_FULL = 1e-10
-# Kernel B2's bound is by operations, from this run's pairs (csrc/prism_matvec.cu):
+# Kernel B2's bound is by operations, from this run's pairs (csrc/prism_matvec.cuh):
 # a far pair of the float32 blend is 27 reciprocal square roots on the special
 # function unit (16 a clock an SM: 132 x 16 x 1.98 GHz on an H100 SXM) and
 # B2_QUAD_FLOPS float32 operations (an FMA counted as 2: the 27 points, the
@@ -1759,6 +1777,83 @@ RTOL_F64_FULL = 1e-10
 # instructions) at NVIDIA's data-sheet 34 TFLOP/s of float64.
 MUFU_PER_S = 132 * 16 * 1.98e9
 FP64_FLOP_PER_S = 34e12
+# What ptxas said of each kernel in this run's builds: {mangled name: registers}.
+REGISTERS = {}
+# The template arguments of the families whose registers are reported: the
+# float32 blend's kernels (type, family, nmc, ndc, mode) and the near passes'
+# (family, nmc, ndc), as mangled.
+REGISTER_FAMILIES = {"g_z": "Li0ELi1ELi1E", "FTG-6": "Li2ELi1ELi6E", "TMI": "Li3ELi1ELi1E"}
+
+
+def ptxas_registers(log):
+    """{kernel's mangled name: registers} from nvcc -Xptxas -v's log."""
+    return {name: int(regs) for name, regs in re.findall(
+        r"Compiling entry function '(\S+)' for 'sm_90a'\n(?:.*\n)*?ptxas info\s*: Used (\d+) registers", log)}
+
+
+def kernel_registers(kernels, registers=None):
+    """Registers of each family of REGISTER_FAMILIES for each (kernel name,
+    blend?) of `kernels`, from `registers` ({mangled name: registers}; this
+    run's REGISTERS by default): {kernel: {family: registers}}."""
+    registers = REGISTERS if registers is None else registers
+    out = {}
+    for kernel, blend in kernels:
+        for fam, targs in REGISTER_FAMILIES.items():
+            key = f"{kernel}I" + (f"f{targs}Li1EE" if blend else f"{targs}E")
+            out.setdefault(kernel, {})[fam] = next((r for name, r in registers.items() if key in name), None)
+    return out
+
+
+def near_pass(tag, name, op, kernels, v_pairs, rtol, reps=0):
+    """A blend's near passes alone: each kernel against the operator's plain
+    near pass on the same tensors (to rtol of max|y|), launched once a call,
+    two launches equal to the last bit; with reps, the kernel timed (median
+    of reps) and the plain version once. Returns {f: {...}}."""
+    out = {}
+    for (f, kernel), (plain, v) in zip(kernels.items(), v_pairs):
+        before = kernel.launches
+        got = kernel(op, v)
+        if kernel.launches != before + 1:
+            raise SystemExit(f"FAILED {tag} {name}: the near pass {f} did not launch once")
+        row = {"max_abs_err": compare(f"{tag} {name}, near pass {f} against its plain version", got, plain(v), rtol)}
+        if not torch.equal(kernel(op, v), got):
+            raise SystemExit(f"FAILED {tag} {name}: two near {f} launches differ")
+        if reps:
+            row["ms"] = time_cuda(lambda: kernel(op, v), warm=1, reps=reps)
+            row["plain_ms"] = time_cuda(lambda: plain(v), warm=0, reps=1)
+        out[f] = row
+    return out
+
+
+def near_bound(op, near, corner_flops, f):
+    """A near pass's least milliseconds for one call on `op` (f "matvec" or
+    "rmatvec"): its near pairs' closed forms in float64 (corner_flops a
+    pair, each square root, arc tangent and log one operation), or the
+    bytes it must move, each once: its lists, the geometry and input of the
+    cells and observations its candidates name (each distinct one once;
+    the lattice's edges whole), and its float64 output (the matvec's rows,
+    the rmatvec's every cell)."""
+    elt = op.xd.element_size()
+    nmc, ndc = (op.phys.nmc, op.phys.ndc) if hasattr(op, "phys") else (op.nmc, op.ndc)
+    if hasattr(op, "grid6"):  # the per-cell operator: 6 bounds a cell, its candidates in near_idx
+        idx = op.near_idx.long() - op.cell_lo
+        cells, cell_geometry, edges = idx[(idx >= 0) & (idx < op.N)], 6, 0
+        matvec_lists = op.near_idx.numel()
+    else:  # the lattice: a cell's bounds are its edges
+        cells, cell_geometry, edges = op.near_cells.long(), 0, op.xe.numel() + op.ye.numel() + op.ze.numel()
+        matvec_lists = op.near_ptr.numel() + op.near_cells.numel()
+    ncells, nobs = int(torch.unique(cells).numel()), int(torch.unique(op.near_obs).numel())
+    if f == "matvec":
+        entries, values, out = matvec_lists, ncells * (cell_geometry + nmc) + nobs * 3, op.xd.shape[0] * ndc
+    else:
+        entries, values, out = op.near_tptr.numel() + op.near_obs.numel(), ncells * cell_geometry + nobs * (3 + ndc), \
+            nmc * op.N
+    times = {"bytes": (4 * entries + (values + edges) * elt + 8 * out) / MEMORY_BYTES_PER_S * 1e3,
+             "float64 operations": corner_flops * near / FP64_FLOP_PER_S * 1e3}
+    which = max(times, key=times.get)
+    return times[which], "bytes" if which == "bytes" else "operations", which, times
+
+
 B2_QUAD_FLOPS = {"grav1": 309, "grav2": 417, "grav6": 1155, "magn": 1170}
 B2_CLOSED_FLOPS = {"grav1": 240, "grav2": 104, "grav6": 480, "magn": 230}
 
@@ -1804,11 +1899,13 @@ def b2_operator(case, grid, X, Y, Z, dtype, far_field_quad=1, chunk=None, pad_ce
                                   pad_cells_to=pad_cells_to, validate=validate, force_generic=True, device="cuda")
 
 
-def plain_products(op, x, u):
+def plain_products(op, x, u, split=False):
     """The per-cell operator's products through its plain loop (the
-    wrappers' plain versions), weighted as MatrixFreeKernel weights them."""
-    y = (op.row_w * op._partial_matvec(op.cw[None, :] * op._padded_model(x)))[: op.nrows].reshape(-1)
-    g = op.cw[None, :] * op._partial_rmatvec(op._padded_residual(u))
+    wrappers' plain versions; split: the plain version of the blend's split,
+    main loop and near pass), weighted as MatrixFreeKernel weights them."""
+    mv, rmv = (op._split_matvec, op._split_rmatvec) if split else (op._partial_matvec, op._partial_rmatvec)
+    y = (op.row_w * mv(op.cw[None, :] * op._padded_model(x)))[: op.nrows].reshape(-1)
+    g = op.cw[None, :] * rmv(op._padded_residual(u))
     return y, g[:, : op.ncols // op.phys.nmc].reshape(-1)
 
 
@@ -1818,7 +1915,9 @@ def b2_small_problems():
     topography, padded to a multiple of 7; 9 observations in chunks of 4,
     so 3 padding rows): float64 to RTOL_F64, the float32 blend to RTOL_F32
     (and both it and its plain version within PRODUCT_BLEND_RTOL of the
-    float64 product), float32 closed forms to RTOL_F32_CLOSED; two launches
+    float64 product, and the kernel within RTOL_SPLIT of the plain version
+    of its split; its near pass alone within RTOL_F64 of the plain one, on the
+    product's own vectors), float32 closed forms to RTOL_F32_CLOSED; two launches
     equal to the last bit; the cells-sharded operator over 7 slots of the
     card (each slot's cells from its own cell_lo); and a boundary-coincident
     observation, whose non-finite probe product through the kernel aborts
@@ -1832,7 +1931,7 @@ def b2_small_problems():
     n = 9
     above = (rng.uniform(0.0, 800.0, n), rng.uniform(0.0, 480.0, n), -rng.uniform(1.0, 30.0, n))
     inside = (rng.uniform(20.0, 780.0, n), rng.uniform(20.0, 460.0, n), rng.uniform(55.0, 180.0, n))
-    print("kernel B2 (csrc/prism_matvec.cu) against its plain loop, small per-cell problems (8 x 6 x 4 cells with a "
+    print("kernel B2 (csrc/prism_matvec.cuh) against its plain loop, small per-cell problems (8 x 6 x 4 cells with a "
           f"topography padded to {-(-192 // 7) * 7}, {n} observations in chunks of 4):")
     out = {}
     for case, fam in B2_FAMILIES.items():
@@ -1853,10 +1952,13 @@ def b2_small_problems():
             rtol = {"float64": RTOL_F64, "float32 blend": RTOL_F32, "float32 closed": RTOL_F32_CLOSED}[what]
             dt = op.xd.dtype
             x, u = x64.to(dt), u64.to(dt)
-            before = (pm.prism_matvec.launches, pm.prism_rmatvec.launches)
+            pair = (pm.prism_matvec, pm.prism_rmatvec, pm.prism_near_matvec, pm.prism_near_rmatvec)
+            before = [k.launches for k in pair]
             got = (op.matvec(x), op.rmatvec(u))
-            if (pm.prism_matvec.launches - before[0], pm.prism_rmatvec.launches - before[1]) != (1, 1):
-                raise SystemExit(f"FAILED kernel B2, {case} {what}: the products did not launch it once each")
+            blend = int(what == "float32 blend")
+            if [k.launches - b for k, b in zip(pair, before)] != [1, 1, blend, blend]:
+                raise SystemExit(f"FAILED kernel B2, {case} {what}: the products did not launch it (and the blend's "
+                                 "near pass) once each")
             want = plain_products(op, x, u)
             errs = [compare(f"B2 {case}, {what}, {f}", a, b, rtol) for f, a, b in zip(("matvec", "rmatvec"), got, want)]
             if not (torch.equal(op.matvec(x), got[0]) and torch.equal(op.rmatvec(u), got[1])):
@@ -1871,6 +1973,14 @@ def b2_small_problems():
                                          f"{rel:.3e} off the float64 ones (bound {PRODUCT_BLEND_RTOL:g})")
                 print(f"  B2 {case}, float32 blend against the float64 products: kernel {row['kernel_against_float64']:.3e}"
                       f", plain {row['plain_against_float64']:.3e} (bound {PRODUCT_BLEND_RTOL:g})")
+                errs = [compare(f"B2 {case}, float32 blend, {f} against the plain version of its split", a, b,
+                                RTOL_SPLIT)
+                        for f, a, b in zip(("matvec", "rmatvec"), got, plain_products(op, x, u, split=True))]
+                row["against_the_split"] = max(errs)
+                row["near_pass"] = near_pass("B2", case, op, {"matvec": pm.prism_near_matvec,
+                                                              "rmatvec": pm.prism_near_rmatvec},
+                                             ((op._near_matvec, op.cw[None, :] * op._padded_model(x)),
+                                              (op._near_rmatvec, op._padded_residual(u))), RTOL_F64)
             out[f"{case}, {what}"] = row
     # The cells-sharded operator: each of 7 slots of the card evaluates its own
     # cells, and each cell's adjoint sum runs over the same observations in the
@@ -1963,6 +2073,22 @@ def measure_b2(name, op, rtol, reps=10, plain_reps=1):
         print(f"  B2 {name} {f}: kernel {ms:.3f} ms (median of {reps}), plain loop {plain_ms:.1f} ms, bound "
               f"{bound_ms:.3f} ms by {which} (" + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
               + f" ms; {near:,} near pairs, {far:,} far)")
+    if op.phys.far_quad:
+        out["registers"] = kernel_registers([("prism_matvec_partials", True), ("prism_rmatvec_kernel", True),
+                                             ("prism_near_matvec_kernel", False),
+                                             ("prism_near_rmatvec_kernel", False)])
+        print("  B2 registers (ptxas): " + "; ".join(f"{k} " + ", ".join(f"{fam} {r}" for fam, r in v.items())
+                                                   for k, v in out["registers"].items()))
+        near = out["matvec"]["near_pairs"]
+        out["near"] = near_pass("B2", name, op, {"matvec": pm.prism_near_matvec, "rmatvec": pm.prism_near_rmatvec},
+                                ((op._near_matvec, xw), (op._near_rmatvec, u)), RTOL_F64, reps=reps)
+        for f in ("matvec", "rmatvec"):
+            bound_ms, bound_by, which, times = near_bound(op, near, B2_CLOSED_FLOPS[b2_family_key(op.phys)], f)
+            row = out["near"][f]
+            row.update(bound_ms=bound_ms, bound_by=bound_by, bound_unit=which, bound_times_ms=times, near_pairs=near,
+                       library_ms=None)
+            print(f"  B2 {name} near pass {f}: kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
+                  f"{bound_ms:.4f} ms by {which} ({near:,} near pairs)")
     return out
 
 
@@ -2027,12 +2153,14 @@ def b3_operator(case, grid, X, Y, Z, dtype, far_field_quad=1, chunk=None, valida
     return op
 
 
-def lattice_plain_products(op, x, u):
+def lattice_plain_products(op, x, u, split=False):
     """The lattice operator's products through its plain loop (the
-    wrappers' plain versions), weighted as LatticeMatrixFreeKernel weights
+    wrappers' plain versions; split: the plain version of the blend's split,
+    main loop and near pass), weighted as LatticeMatrixFreeKernel weights
     them."""
-    y = (op.row_w * op._partial_matvec(op.cw[None, :] * x.reshape(op.nmc, op.N)))[: op.nrows].reshape(-1)
-    return y, (op.cw[None, :] * op._partial_rmatvec(op._padded_residual(u))).reshape(-1)
+    mv, rmv = (op._split_matvec, op._split_rmatvec) if split else (op._partial_matvec, op._partial_rmatvec)
+    y = (op.row_w * mv(op.cw[None, :] * x.reshape(op.nmc, op.N)))[: op.nrows].reshape(-1)
+    return y, (op.cw[None, :] * rmv(op._padded_residual(u))).reshape(-1)
 
 
 def kernel_rows(op, s, e):
@@ -2054,7 +2182,9 @@ def b3_small_problems():
     tile on every axis; 11 observations in chunks of 4, so one padding row,
     three on lattice planes, one of them above a lattice node): float64 to
     RTOL_F64, the float32 blend to RTOL_F32 (and both it and its plain
-    version within PRODUCT_BLEND_RTOL of the float64 product), float32
+    version within PRODUCT_BLEND_RTOL of the float64 product, the kernel
+    within RTOL_SPLIT of the plain version of its split, and its near pass
+    alone within RTOL_F64 of the plain one), float32
     closed forms no further from the float64 products than 1.5 x the plain
     loop (their corner differences carry float32 rounding far from a cell,
     in either); two launches equal to the last bit; the float64 products of
@@ -2086,10 +2216,13 @@ def b3_small_problems():
         for what, op in ops.items():
             dt = op.xd.dtype
             x, u = x64.to(dt), u64.to(dt)
-            before = (lm.lattice_matvec.launches, lm.lattice_rmatvec.launches)
+            pair = (lm.lattice_matvec, lm.lattice_rmatvec, lm.lattice_near_matvec, lm.lattice_near_rmatvec)
+            before = [k.launches for k in pair]
             got = (op.matvec(x), op.rmatvec(u))
-            if (lm.lattice_matvec.launches - before[0], lm.lattice_rmatvec.launches - before[1]) != (1, 1):
-                raise SystemExit(f"FAILED kernel B3, {case} {what}: the products did not launch it once each")
+            blend = int(what == "float32 blend")
+            if [k.launches - b for k, b in zip(pair, before)] != [1, 1, blend, blend]:
+                raise SystemExit(f"FAILED kernel B3, {case} {what}: the products did not launch it (and the blend's "
+                                 "near pass) once each")
             want = lattice_plain_products(op, x, u)
             if not (torch.equal(op.matvec(x), got[0]) and torch.equal(op.rmatvec(u), got[1])):
                 raise SystemExit(f"FAILED kernel B3, {case} {what}: two launches differ")
@@ -2118,6 +2251,14 @@ def b3_small_problems():
                                          f"{rel:.3e} off the float64 ones (bound {PRODUCT_BLEND_RTOL:g})")
                 print(f"  B3 {case}, float32 blend against the float64 products: kernel {row['kernel_against_float64']:.3e}"
                       f", plain {row['plain_against_float64']:.3e} (bound {PRODUCT_BLEND_RTOL:g})")
+                errs = [compare(f"B3 {case}, float32 blend, {f} against the plain version of its split", a, b,
+                                RTOL_SPLIT)
+                        for f, a, b in zip(("matvec", "rmatvec"), got, lattice_plain_products(op, x, u, split=True))]
+                row["against_the_split"] = max(errs)
+                row["near_pass"] = near_pass("B3", case, op, {"matvec": lm.lattice_near_matvec,
+                                                              "rmatvec": lm.lattice_near_rmatvec},
+                                             ((op._near_matvec, op.cw[None, :] * x.reshape(op.nmc, op.N)),
+                                              (op._near_rmatvec, op._padded_residual(u))), RTOL_F64)
             out[f"{case}, {what}"] = row
         if case in ("FTG-6", "TMI", "MVI 3-component"):
             cpu = b3_operator(case, grid, X, Y, Z, torch.float64, chunk=4, device="cpu")
@@ -2234,6 +2375,24 @@ def measure_b3(name, op, rtol, reps=10, plain_reps=1):
         print(f"  B3 {name} {f}: kernel {ms:.3f} ms (median of {reps}), plain loop {plain_ms:.1f} ms, bound "
               f"{bound_ms:.3f} ms by {which} (" + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
               + f" ms; pairs near {pairs[0]:,}, window {pairs[1]:,}, outside {pairs[2]:,})")
+    if op.far_quad:
+        out["registers"] = kernel_registers([("lattice_matvec_partials", True), ("lattice_rmatvec_partials", True),
+                                             ("lattice_near_matvec_kernel", False),
+                                             ("lattice_near_rmatvec_kernel", False)])
+        print("  B3 registers (ptxas): " + "; ".join(f"{k} " + ", ".join(f"{fam} {r}" for fam, r in v.items())
+                                                   for k, v in out["registers"].items()))
+        near = out["matvec"]["near_window_far_pairs"][0]
+        key = "magn" if op.problem == "magn" else f"grav{1 if op.data_type == 1 else 2 if op.ndc == 1 else 6}"
+        out["near"] = near_pass("B3", name, op, {"matvec": lm.lattice_near_matvec,
+                                                 "rmatvec": lm.lattice_near_rmatvec},
+                                ((op._near_matvec, xw), (op._near_rmatvec, u)), RTOL_F64, reps=reps)
+        for f in ("matvec", "rmatvec"):
+            bound_ms, bound_by, which, times = near_bound(op, near, 8 * B3_CORNER_FLOPS[key], f)
+            row = out["near"][f]
+            row.update(bound_ms=bound_ms, bound_by=bound_by, bound_unit=which, bound_times_ms=times, near_pairs=near,
+                       candidates=op.near_cells.numel(), library_ms=None)
+            print(f"  B3 {name} near pass {f}: kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
+                  f"{bound_ms:.4f} ms by {which} ({near:,} near pairs of {op.near_cells.numel():,} candidates)")
     return out
 
 
@@ -2502,11 +2661,15 @@ FUSED_M = N_MAJOR  # --fused 3: a run's three majors in one chunk, three replays
 
 # The symbol torch.profiler names for each counter's kernel: A2 launches A1's
 # kernel once a part; one launch of the bf16 rmatvec pair, of B2's matvec pair
-# and of each of B3's pairs ends in its reduce.
+# and of each of B3's pairs ends in its reduce; each near pass is one kernel.
+# No symbol holds another.
 KERNEL_SYMBOL = {"tile_matvec": "tile_matvec_kernel", "tile_matvec_sharded": "tile_matvec_kernel",
                  "bf16_matvec": "bf16_matvec_kernel", "bf16_rmatvec": "bf16_rmatvec_reduce",
                  "prism_matvec": "prism_matvec_reduce", "prism_rmatvec": "prism_rmatvec_kernel",
-                 "lattice_matvec": "lattice_matvec_reduce", "lattice_rmatvec": "lattice_rmatvec_reduce"}
+                 "lattice_matvec": "lattice_matvec_reduce", "lattice_rmatvec": "lattice_rmatvec_reduce",
+                 "prism_near_matvec": "prism_near_matvec_kernel", "prism_near_rmatvec": "prism_near_rmatvec_kernel",
+                 "lattice_near_matvec": "lattice_near_matvec_kernel",
+                 "lattice_near_rmatvec": "lattice_near_rmatvec_kernel"}
 
 
 class KeptFusedSolver:
@@ -2898,7 +3061,8 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
                        N_MINOR, fmt="matrixfree", compression=0)
     kept = fused("per-cell", pf, out["per_cell"], matrixfree_said("MatrixFreeKernel"), refs["per_cell"][0],
                  sensit_written=False, compression="uncompressed",
-                 kernels={"prism_matvec": (N_MINOR + 1, 5), "prism_rmatvec": (N_MINOR + 1, 0)})
+                 kernels={"prism_matvec": (N_MINOR + 1, 5), "prism_rmatvec": (N_MINOR + 1, 0),
+                          "prism_near_matvec": (N_MINOR + 1, 5), "prism_near_rmatvec": (N_MINOR + 1, 0)})
     per_cell_graph = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["prism_matvec"],
                                                 runs["per-cell"]["launches_fused"]["prism_matvec"]["a_replay"])
     del kept
@@ -2913,7 +3077,8 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
                        N_MINOR, fmt="matrixfree", compression=0)
     kept = fused("lattice", pf, out["lattice"], matrixfree_said("LatticeMatrixFreeKernel"), refs["lattice"][0],
                  sensit_written=False, compression="uncompressed", what=f"{NDATA} draped observations",
-                 kernels={"lattice_matvec": (N_MINOR + 1, 5), "lattice_rmatvec": (N_MINOR + 1, 0)})
+                 kernels={"lattice_matvec": (N_MINOR + 1, 5), "lattice_rmatvec": (N_MINOR + 1, 0),
+                          "lattice_near_matvec": (N_MINOR + 1, 5), "lattice_near_rmatvec": (N_MINOR + 1, 0)})
     lattice_graph = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["lattice_matvec"],
                                                runs["lattice"]["launches_fused"]["lattice_matvec"]["a_replay"])
     del kept
@@ -3010,7 +3175,9 @@ def main() -> int:
                 "blocked_matvec": blocked_matvec, "bf16_matvec": bf16_gemv.bf16_matvec,
                 "bf16_rmatvec": bf16_gemv.bf16_rmatvec, "prism_matvec": pmv.prism_matvec,
                 "prism_rmatvec": pmv.prism_rmatvec, "lattice_matvec": lmv.lattice_matvec,
-                "lattice_rmatvec": lmv.lattice_rmatvec}
+                "lattice_rmatvec": lmv.lattice_rmatvec, "prism_near_matvec": pmv.prism_near_matvec,
+                "prism_near_rmatvec": pmv.prism_near_rmatvec, "lattice_near_matvec": lmv.lattice_near_matvec,
+                "lattice_near_rmatvec": lmv.lattice_near_rmatvec}
     device = torch.device("cuda")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     smi = nvidia_smi_line()
@@ -3018,14 +3185,16 @@ def main() -> int:
 
     # ---- 1. build, one compiler per source, started together ----
     t0 = time.time()
-    with ThreadPoolExecutor(5) as pool:
-        builds = [pool.submit(m.build_library) for m in (tmv, bmv, bf16_gemv, pmv, lmv)]
+    jobs = [(m.build_library, ()) for m in (tmv, bmv, bf16_gemv, lmv)] + [(pmv.build_library, (n,)) for n in pmv.SOURCES]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        builds = [pool.submit(fn, *a) for fn, a in jobs]
         for b in builds:
             lib_path, log = b.result()
             print(log.strip())
             print(f"built {os.path.relpath(lib_path, HERE)}")
+            REGISTERS.update(ptxas_registers(log))
     build_s = time.time() - t0
-    print(f"the five kernel sources built in {build_s:.1f} s")
+    print(f"the {len(jobs)} kernel sources built in {build_s:.1f} s")
 
     # ---- 2. kernels against plain versions, random ragged layouts ----
     print("kernels against plain versions:")
@@ -3649,7 +3818,7 @@ def main() -> int:
     ] + [
         {
             "name": name, "route": "cuda",
-            "source": "tomofastx_tpu_torch/csrc/prism_matvec.cu",
+            "source": "tomofastx_tpu_torch/csrc/prism_matvec_f32.cu (+ prism_matvec.cuh; float64: prism_matvec_f64.cu)",
             "wrapper": f"tomofastx_tpu_torch/ops/prism_matvec.py: {name}",
             "replaces": f"tomofastx_tpu/ops/matrixfree.py:{line} (no Pallas kernel: XLA's fusion of the per-cell rows "
                         "and their product, rows tomofastx_tpu/ops/matrixfree.py:59, :84, quadrature "
@@ -3661,9 +3830,32 @@ def main() -> int:
             "shape_of_these_times": "g_z float32 blend, 4096 x 262144: the per-cell main path's operator",
             "measured": {k: v[f] for k, v in mf["generic"]["b2"].items()},
             "small_problems": b2_small,
+            "registers": b2_main["registers"],
         }
         for name, f, line, yard in (("prism_matvec", "matvec", 244, "torch_mv_f32_ms"),
                                     ("prism_rmatvec", "rmatvec", 283, "torch_mv_f32_T_ms"))
+    ] + [
+        {
+            "name": f"{kind}_near_{f}", "route": "cuda", "source": source,
+            "wrapper": f"tomofastx_tpu_torch/ops/{kind}_matvec.py: {kind}_near_{f}",
+            "replaces": replaces,
+            "launches": launches[f"{kind}_near_{f}"],
+            "launches_fused": fused["runs"][run]["launches_fused"][f"{kind}_near_{f}"],
+            **{k: main["near"][f][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape_of_these_times": f"g_z float32 blend, 4096 x 262144: the {run} main path's operator, "
+                                    f"{main['near'][f]['near_pairs']:,} near pairs",
+            "measured": {k: v["near"][f] for k, v in measured.items() if "near" in v},
+        }
+        for kind, source, replaces, launches, run, main, measured in (
+            ("prism", "tomofastx_tpu_torch/csrc/prism_matvec_f32.cu (+ prism_matvec.cuh)",
+             "tomofastx_tpu/ops/matrixfree.py:84 _corr_rows_for_point (no Pallas kernel: the near cells' correction "
+             "on the candidates of :110 near_cell_indices, inside XLA's fusion of the per-cell products)",
+             mf["generic"]["run"]["launches"], "per-cell", b2_main, mf["generic"]["b2"]),
+            ("lattice", "tomofastx_tpu_torch/csrc/lattice_matvec.cu",
+             "tomofastx_tpu/ops/matrixfree.py:662 _corr_window (no Pallas kernel: the near cells' closed forms on "
+             "each observation's window, inside XLA's fusion of the lattice products)",
+             mf["lattice"]["runs"]["run"]["launches"], "lattice", b3_main, mf["lattice"]["b3"]))
+        for f in ("matvec", "rmatvec")
     ] + [
         {
             "name": name, "route": "cuda",
@@ -3679,6 +3871,7 @@ def main() -> int:
             "shape_of_these_times": "g_z float32 blend, 4096 x 262144: the lattice main path's operator",
             "measured": {k: v[f] for k, v in mf["lattice"]["b3"].items()},
             "small_problems": b3_small,
+            "registers": b3_main["registers"],
         }
         for name, f, line, yard in (("lattice_matvec", "matvec", 724, "torch_mv_f32_ms"),
                                     ("lattice_rmatvec", "rmatvec", 762, "torch_mv_f32_T_ms"))

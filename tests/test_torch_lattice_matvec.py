@@ -292,22 +292,32 @@ def test_sharded_parts_against_jax(jax_family):
 
 
 def test_build_tag_covers_the_included_header(tmp_path, monkeypatch):
-    """The library's name hashes the .cu source and the csrc/ header it
-    includes: an edit of the header renames kernel B3's (and B2's) library,
-    an edit of another source does not."""
+    """The library's name hashes the .cu source and the csrc/ headers it
+    includes, directly or through another header: an edit of the shared
+    header renames kernel B3's library and both of B2's (its float32 and
+    float64 sources include it through prism_matvec.cuh), an edit of B2's
+    own header renames B2's two and not B3's, and an edit of another source
+    renames only its own."""
     pkg = tmp_path / "pkg"
     shutil.copytree(os.path.join(os.path.dirname(_cuda_build.source_path("lattice_matvec"))), pkg / "csrc")
     monkeypatch.setattr(_cuda_build, "_PACKAGE_DIR", str(pkg))
     files = [os.path.basename(f) for f in _cuda_build.source_files("lattice_matvec")]
     assert files == ["lattice_matvec.cu", "prism_common.cuh"]
-    assert [os.path.basename(f) for f in _cuda_build.source_files("prism_matvec")] == ["prism_matvec.cu",
-                                                                                       "prism_common.cuh"]
-    before = {n: _cuda_build.source_tag(n) for n in ("lattice_matvec", "prism_matvec", "tile_matvec")}
+    for name in ("prism_matvec_f32", "prism_matvec_f64"):
+        assert [os.path.basename(f) for f in _cuda_build.source_files(name)] == [f"{name}.cu", "prism_matvec.cuh",
+                                                                                 "prism_common.cuh"]
+    names = ("lattice_matvec", "prism_matvec_f32", "prism_matvec_f64", "tile_matvec")
+    before = {n: _cuda_build.source_tag(n) for n in names}
     with open(pkg / "csrc" / "prism_common.cuh", "a") as f:
         f.write("// edited\n")
-    after = {n: _cuda_build.source_tag(n) for n in before}
-    assert after["lattice_matvec"] != before["lattice_matvec"] and after["prism_matvec"] != before["prism_matvec"]
+    after = {n: _cuda_build.source_tag(n) for n in names}
+    assert all(after[n] != before[n] for n in names[:3])
     assert after["tile_matvec"] == before["tile_matvec"]
+    with open(pkg / "csrc" / "prism_matvec.cuh", "a") as f:
+        f.write("// edited\n")
+    again = {n: _cuda_build.source_tag(n) for n in names}
+    assert again["prism_matvec_f32"] != after["prism_matvec_f32"] and again["prism_matvec_f64"] != after["prism_matvec_f64"]
+    assert again["lattice_matvec"] == after["lattice_matvec"]
     with open(pkg / "csrc" / "tile_matvec.cu", "a") as f:
         f.write("// edited\n")
     assert _cuda_build.source_tag("lattice_matvec") == after["lattice_matvec"]

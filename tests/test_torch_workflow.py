@@ -414,7 +414,7 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|tomofastx_tpu)\b(?!_)", re.M)
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for d, _, files in os.walk(PORT):
-        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu"))]
+        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu", ".cuh"))]
     return sorted(out)
 
 
@@ -425,7 +425,8 @@ def test_port_sources_found():
             "tomofastx_tpu_torch/ops/blocked_matvec.py", "tomofastx_tpu_torch/csrc/blocked_matvec.cu",
             "tomofastx_tpu_torch/ops/sparse_kernel.py", "tomofastx_tpu_torch/ops/_cuda_build.py",
             "tomofastx_tpu_torch/ops/bf16_gemv.py", "tomofastx_tpu_torch/csrc/bf16_gemv.cu",
-            "tomofastx_tpu_torch/ops/prism_matvec.py", "tomofastx_tpu_torch/csrc/prism_matvec.cu"} <= names
+            "tomofastx_tpu_torch/ops/prism_matvec.py", "tomofastx_tpu_torch/csrc/prism_matvec_f32.cu",
+            "tomofastx_tpu_torch/csrc/prism_matvec_f64.cu", "tomofastx_tpu_torch/csrc/prism_matvec.cuh"} <= names
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, REPO) for p in _port_sources()])

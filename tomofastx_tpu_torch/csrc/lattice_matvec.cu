@@ -5,10 +5,12 @@
 // Replaces the XLA fusion of the JAX package's lattice operator:
 // tomofastx_tpu/ops/matrixfree.py:570 LatticeMatrixFreeKernel, :724 matvec and
 // :762 rmatvec, built on the rows of :394 _lattice_closed_rows and the tiered
-// blend of :646-700. Its plain version is the port's chunk loop
+// blend of :646-700. Its plain versions are the port's chunk loop
 // (tomofastx_tpu_torch/ops/matrixfree.py, LatticeMatrixFreeKernel.
-// _partial_matvec and _partial_rmatvec), which materialises (chunk, nz, ny, nx,
-// nmc, ndc) rows a chunk of observations.
+// _partial_matvec and _partial_rmatvec), which materialises (chunk, nz, ny,
+// nx, nmc, ndc) rows a chunk of observations, and, for the blend, the same
+// split as the kernels' (_split_matvec, _split_rmatvec, _near_matvec,
+// _near_rmatvec).
 //
 //   matvec:  d[b, j] = sum_n sum_k R[b, n, k, j] * xw[k, n]     (nrows, ndc)
 //   rmatvec: g[k, n] = sum_b sum_j R[b, n, k, j] * u[b, j]      (nmc, N)
@@ -34,9 +36,8 @@
 //     FAR_QUAD_RADIUS = 4 half-diagonals, evaluated in float in the plain
 //     version's order with rounded operations the compiler may not contract,
 //     so that both pick the same cells), the closed forms in double, rounded to
-//     float. The plain version adds where(near, closed, quad3) - quad2 to quad2
-//     on the window; the kernel picks the rule directly (the same sum, one
-//     rounding fewer).
+//     float. The plain loop adds where(near, closed, quad3) - quad2 to quad2
+//     on the window; the kernels pick the rule directly.
 //
 // What bounds it: operations. A product reads a few megabytes and evaluates
 // nrows x N pairs, 1.07e9 at 4096 x 262144. A pair of the blend costs 8 (or, in
@@ -54,17 +55,29 @@
 //     take 8), then each thread differences its cells' 8 corners;
 //   BLEND: each thread evaluates its cells' rules, the x and y offsets of the
 //     nodes and their square sums once for its column; a warp sees one
-//     observation, so it splits between the rules only where the window's or
-//     the near region's boundary crosses its box.
+//     observation, so it splits between the rules only where the window's
+//     boundary crosses its box. A near cell contributes zero to this main
+//     loop, by a select (its 27-point value may be non-finite), so that the
+//     loop holds no float64 code and no registers for it (0.04 % of the pairs
+//     at the smoke shape). The near cells are a pass of their own, over near
+//     lists the operator builds once (ops/matrixfree.py lattice_near_lists):
+//     each observation's candidate cells (the window's cells within 1.001
+//     times the near radius) and, transposed, each cell's observations. The
+//     pass re-tests every candidate with the main loop's own near test
+//     (is_near) and evaluates the near ones' 8 corners in double (near_cell),
+//     a warp an observation (matvec) or a cell (rmatvec).
 // matvec: each thread holds its cells' xw; an observation's terms are summed in
 // double over the thread's cells, then the warp (shuffles in a fixed tree),
 // then the block's 4 warps in order, into a (tiles, nrows, ndc) buffer that a
-// second kernel sums over the tiles in order. rmatvec: each thread sums its
-// cells' terms in double over its split's observations in order, into a
-// (splits, nmc, N) buffer that a second kernel sums over the splits in order.
-// The tiles and splits are functions of the shape (ops/lattice_matvec.py), no
-// atomics anywhere: two launches agree to the last bit. The corner potentials
-// are device functions kept out of line (__noinline__), compiled once a type.
+// second kernel sums over the tiles in order; the blend's near pass writes one
+// more slot of that buffer, (tiles + 1, nrows, ndc), the last one summed.
+// rmatvec: each thread sums its cells' terms in double over its split's
+// observations in order, into a (splits, nmc, N) buffer that a second kernel
+// sums over the splits in order; the near pass writes one more split, the
+// last one summed. The tiles and splits are functions of the shape
+// (ops/lattice_matvec.py), no atomics anywhere: two launches agree to the last
+// bit. The corner potentials are device functions kept out of line
+// (__noinline__), compiled once a type.
 //
 // Built without --use_fast_math: an observation on a lattice corner gives a
 // log(0) and so a non-finite product, which the operator's construction probe
@@ -194,8 +207,9 @@ __device__ __forceinline__ void closed_cell(const T* F, int lz, int ly, int lx, 
     }
 }
 
-// A near cell of the blend: its own 8 corners in double, differenced in the
-// same order, rounded to float. (x, y, z)[M] = observation - edge.
+// A near cell of the blend (the near pass alone evaluates it): its own 8
+// corners in double, differenced in the same order, rounded to float.
+// (x, y, z)[M] = observation - edge.
 template <int FAM, int NMC, int NDC>
 __device__ __forceinline__ void near_cell(const double (&x)[2], const double (&y)[2], const double (&z)[2],
                                           const Field& f, float out[NMC * NDC]) {
@@ -217,6 +231,27 @@ __device__ __forceinline__ void near_cell(const double (&x)[2], const double (&y
 #pragma unroll
     for (int v = 0; v < NV; ++v) out[v] = float(cell_value<double, FAM>(a[0][v], a[1][v]));
 }
+
+// A cell's centre and half-width along one axis from its edges e0 < e1,
+// rounded as ops/prism.py rounds them: the main loop's tile axes and the near
+// pass's cells take them from here alike.
+__device__ __forceinline__ void centre_half(float e0, float e1, float& c, float& h) {
+    c = __fmul_rn(0.5f, __fadd_rn(e0, e1));
+    h = __fmul_rn(0.5f, __fsub_rn(e1, e0));
+}
+
+// Whether a window cell is near its observation: the far mask's complement,
+// in its order, from dxy = dx^2 + dy^2 and hxy = hx^2 + hy^2 (each rounded as
+// column_of rounds it), the centre's z offset dz and half-width hz. The main
+// loop zeroes the cells it calls near and the near pass evaluates them: one
+// function, so the two cannot disagree on a cell.
+__device__ __forceinline__ bool is_near(float dxy, float hxy, float dz, float hz) {
+    const float r2 = __fadd_rn(dxy, __fmul_rn(dz, dz));
+    return r2 <= __fmul_rn(FAR2, __fadd_rn(hxy, __fmul_rn(hz, hz)));
+}
+
+// x^2 + y^2 rounded as written (no contraction).
+__device__ __forceinline__ float rn_sq2(float x, float y) { return __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)); }
 
 // The blend's view of one observation from a thread's column of cells (one
 // x and one y cell, several z cells): the offsets of the rules' x and y nodes
@@ -246,38 +281,32 @@ __device__ __forceinline__ Column column_of(const Axis<float>* ax, int ly, int l
     square_sums<2>(col.px2, col.py2, col.xy2);
     square_sums<3>(col.px3, col.py3, col.xy3);
     const float dx = __fsub_rn(ax[2].c[lx], xo), dy = __fsub_rn(ax[1].c[ly], yo);
-    col.dxy = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+    col.dxy = rn_sq2(dx, dy);
     col.in_xy = in_xy;
     return col;
 }
 
-// The blend's row of the cell at depth lz of a column: the 8-point rule
-// outside the window; inside it the closed forms where near (the far mask's
-// complement, in its order; hxy = hx^2 + hy^2 rounded), else the 27-point
-// rule.
+// The main loop's row of the cell at depth lz of a column: the 8-point rule
+// outside the window; inside it the 27-point rule, and zero, by a select,
+// where the cell is near (is_near: the near pass adds its closed forms).
 template <int FAM, int NMC, int NDC>
-__device__ __forceinline__ void blend_row(const Axis<float>* ax, const Column& col, float hxy, int lz, int ly,
-                                          int lx, bool in_z, float xo, float yo, float zo, float vol8, const Field& f,
-                                          float row[NMC][NDC]) {
+__device__ __forceinline__ void blend_row(const Axis<float>* ax, const Column& col, float hxy, int lz, bool in_z,
+                                          float zo, float vol8, const Field& f, float row[NMC][NDC]) {
     if (!(col.in_xy && in_z)) {
         const float pz[2] = {__fsub_rn(ax[0].p2[lz][0], zo), __fsub_rn(ax[0].p2[lz][1], zo)};
         const double w[2] = {1.0, 1.0};
         quad_points<FAM, NMC, NDC, 2>(col.px2, col.py2, pz, col.xy2, w, vol8, f, row);
         return;
     }
-    const float dz = __fsub_rn(ax[0].c[lz], zo), hz = ax[0].h[lz];
-    const float r2 = __fadd_rn(col.dxy, __fmul_rn(dz, dz));
-    if (r2 <= __fmul_rn(FAR2, __fadd_rn(hxy, __fmul_rn(hz, hz)))) {
-        const double x[2] = {double(xo) - double(ax[2].e[lx]), double(xo) - double(ax[2].e[lx + 1])};
-        const double y[2] = {double(yo) - double(ax[1].e[ly]), double(yo) - double(ax[1].e[ly + 1])};
-        const double z[2] = {double(zo) - double(ax[0].e[lz]), double(zo) - double(ax[0].e[lz + 1])};
-        near_cell<FAM, NMC, NDC>(x, y, z, f, &row[0][0]);
-    } else {
-        const float pz[3] = {__fsub_rn(ax[0].p3[lz][0], zo), __fsub_rn(ax[0].p3[lz][1], zo),
-                             __fsub_rn(ax[0].p3[lz][2], zo)};
-        const double w[3] = {GL3_W_OUT, GL3_W_MID, GL3_W_OUT};
-        quad_points<FAM, NMC, NDC, 3>(col.px3, col.py3, pz, col.xy3, w, vol8, f, row);
-    }
+    const float pz[3] = {__fsub_rn(ax[0].p3[lz][0], zo), __fsub_rn(ax[0].p3[lz][1], zo),
+                         __fsub_rn(ax[0].p3[lz][2], zo)};
+    const double w[3] = {GL3_W_OUT, GL3_W_MID, GL3_W_OUT};
+    quad_points<FAM, NMC, NDC, 3>(col.px3, col.py3, pz, col.xy3, w, vol8, f, row);
+    const bool near = is_near(col.dxy, hxy, __fsub_rn(ax[0].c[lz], zo), ax[0].h[lz]);
+#pragma unroll
+    for (int k = 0; k < NMC; ++k)
+#pragma unroll
+        for (int j = 0; j < NDC; ++j) row[k][j] = near ? 0.0f : row[k][j];
 }
 
 // ---------------------------------------------------------------- the kernels
@@ -327,8 +356,8 @@ __device__ __forceinline__ void lattice_block(const Lattice& L, const T* __restr
             const float n2[2] = {float(-GL2_NODE), float(GL2_NODE)};
             const float n3[3] = {float(-GL3_NODE), 0.0f, float(GL3_NODE)};
             for (int l = 0; l < w; ++l) {
-                const float c = __fmul_rn(0.5f, __fadd_rn(A.e[l], A.e[l + 1]));
-                const float h = __fmul_rn(0.5f, __fsub_rn(A.e[l + 1], A.e[l]));
+                float c, h;
+                centre_half(A.e[l], A.e[l + 1], c, h);
                 A.c[l] = c;
                 A.h[l] = h;
                 for (int u = 0; u < 2; ++u) A.p2[l][u] = __fadd_rn(c, __fmul_rn(n2[u], h));
@@ -365,7 +394,7 @@ __device__ __forceinline__ void lattice_block(const Lattice& L, const T* __restr
     float vol8[MODE == BLEND ? CPT : 1], hxy = 0.0f;
     if constexpr (MODE == BLEND) {
         const float hx = ax[2].h[lx], hy = ax[1].h[ly];
-        hxy = __fadd_rn(__fmul_rn(hx, hx), __fmul_rn(hy, hy));
+        hxy = rn_sq2(hx, hy);
 #pragma unroll
         for (int c = 0; c < CPT; ++c) vol8[c] = __fmul_rn(__fmul_rn(hx, hy), ax[0].h[lz[c]]);
     }
@@ -422,7 +451,7 @@ __device__ __forceinline__ void lattice_block(const Lattice& L, const T* __restr
                     closed_cell<T, FAM, NV>(&F[0][0], lz[c], ly, lx, &row[0][0]);
                 } else {
                     const bool in_z = static_cast<unsigned>(z0 + lz[c] - wz0) < static_cast<unsigned>(L.wz);
-                    blend_row<FAM, NMC, NDC>(ax, col, hxy, lz[c], ly, lx, in_z, xo, yo, zo, vol8[c], f, row);
+                    blend_row<FAM, NMC, NDC>(ax, col, hxy, lz[c], in_z, zo, vol8[c], f, row);
                 }
 #pragma unroll
                 for (int k = 0; k < NMC; ++k) {
@@ -479,6 +508,96 @@ __global__ void __launch_bounds__(THREADS) lattice_rmatvec_partials(Lattice L, c
     lattice_block<T, FAM, NMC, NDC, MODE, false>(L, u, partial, f);
 }
 
+// ---------------------------------------------------------------- the near pass (the blend's)
+
+// The near lists (ops/matrixfree.py lattice_near_lists): a CSR of the
+// candidates, ptr (rows + 1,) and idx (ptr[rows],) in int32, by observation
+// (the matvec's: rows = nrows, idx the flat cells in increasing order) or by
+// cell (the rmatvec's: rows = N, idx the observations in increasing order).
+struct Near {
+    const float *xe, *ye, *ze;  // edges (nx+1,), (ny+1,), (nz+1,)
+    const float *xd, *yd, *zd;  // (nrows,) observations
+    const int *ptr, *idx;
+    int nx, ny, nz, nrows;
+};
+
+// A cell of the near pass: its edges and, from them, the centre offsets and
+// half-widths the main loop's near test reads.
+struct NearCell {
+    float e[3][2];  // (x, y, z) x (lower, upper) edges
+    float c[3], h[3], hxy;
+};
+
+__device__ __forceinline__ NearCell near_cell_of(const Near& L, int n) {
+    const int ix = n % L.nx, iy = (n / L.nx) % L.ny, iz = n / (L.nx * L.ny);
+    NearCell c;
+    const float* edges[3] = {L.xe, L.ye, L.ze};
+    const int at3[3] = {ix, iy, iz};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        c.e[a][0] = __ldg(edges[a] + at3[a]);
+        c.e[a][1] = __ldg(edges[a] + at3[a] + 1);
+        centre_half(c.e[a][0], c.e[a][1], c.c[a], c.h[a]);
+    }
+    c.hxy = rn_sq2(c.h[0], c.h[1]);
+    return c;
+}
+
+// The row of a candidate pair: the closed forms in double rounded to float
+// where the main loop's test calls it near; false (and no row) where not.
+template <int FAM, int NMC, int NDC>
+__device__ __forceinline__ bool near_row(const NearCell& c, float xo, float yo, float zo, const Field& f,
+                                         float row[NMC][NDC]) {
+    const float dxy = rn_sq2(__fsub_rn(c.c[0], xo), __fsub_rn(c.c[1], yo));
+    if (!is_near(dxy, c.hxy, __fsub_rn(c.c[2], zo), c.h[2])) return false;
+    const double x[2] = {double(xo) - double(c.e[0][0]), double(xo) - double(c.e[0][1])};
+    const double y[2] = {double(yo) - double(c.e[1][0]), double(yo) - double(c.e[1][1])};
+    const double z[2] = {double(zo) - double(c.e[2][0]), double(zo) - double(c.e[2][1])};
+    near_cell<FAM, NMC, NDC>(x, y, z, f, &row[0][0]);
+    return true;
+}
+
+// matvec: out[b, j] = sum over b's near cells n of R[b, n, :, j] . xw[:, n],
+// a warp an observation (near_warp_row). out is the last slot of the main
+// loop's buffer.
+template <int FAM, int NMC, int NDC>
+__global__ void __launch_bounds__(THREADS) lattice_near_matvec_kernel(Near L, const float* __restrict__ xw,
+                                                                      double* __restrict__ out, Field f) {
+    const int b = (blockIdx.x * THREADS + threadIdx.x) >> 5;
+    if (b >= L.nrows) return;  // a whole warp
+    const size_t N = static_cast<size_t>(L.nx) * L.ny * L.nz;
+    near_warp_row<NDC>(
+        __ldg(L.ptr + b), __ldg(L.ptr + b + 1),
+        [&] { return float3{__ldg(L.xd + b), __ldg(L.yd + b), __ldg(L.zd + b)}; },
+        [&](const float3& o, int p, double (&d)[NDC]) {
+            const int n = __ldg(L.idx + p);
+            float row[NMC][NDC];
+            if (near_row<FAM, NMC, NDC>(near_cell_of(L, n), o.x, o.y, o.z, f, row))
+                add_matvec_terms<NMC, NDC>(row, xw, N, n, d);
+        },
+        out + static_cast<size_t>(b) * NDC, 1);
+}
+
+// rmatvec: out[k, n] = sum over n's near observations b of R[b, n, k, :] . u[b, :],
+// a warp a cell (near_warp_row: most cells have none and leave at once). out
+// is the last split of the main loop's buffer: every cell is written.
+template <int FAM, int NMC, int NDC>
+__global__ void __launch_bounds__(THREADS) lattice_near_rmatvec_kernel(Near L, const float* __restrict__ u,
+                                                                       double* __restrict__ out, Field f) {
+    const size_t N = static_cast<size_t>(L.nx) * L.ny * L.nz;
+    const size_t n = (static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x) >> 5;
+    if (n >= N) return;  // a whole warp
+    near_warp_row<NMC>(
+        __ldg(L.ptr + n), __ldg(L.ptr + n + 1), [&] { return near_cell_of(L, static_cast<int>(n)); },
+        [&](const NearCell& c, int p, double (&acc)[NMC]) {
+            const int b = __ldg(L.idx + p);
+            float row[NMC][NDC];
+            if (near_row<FAM, NMC, NDC>(c, __ldg(L.xd + b), __ldg(L.yd + b), __ldg(L.zd + b), f, row))
+                add_rmatvec_terms<NMC, NDC>(row, u, b, acc);
+        },
+        out + n, N);
+}
+
 // out[i] = the sum of partial[p, i] over p, in order.
 template <typename T>
 __device__ __forceinline__ void reduce_in_order(const double* __restrict__ partial, T* __restrict__ out, size_t nout,
@@ -524,18 +643,19 @@ int launch_products(const Launch& a) {
     const Lattice& L = a.L;
     const int tiles = ((L.nz + TZ - 1) / TZ) * ((L.ny + TY - 1) / TY) * ((L.nx + TX - 1) / TX);
     const dim3 grid(tiles, a.splits);
+    const int near = MODE == BLEND;  // the near pass's slot, written before this launch
     if (MATVEC) {
         lattice_matvec_partials<T, FAM, NMC, NDC, MODE><<<grid, THREADS, 0, a.stream>>>(
             L, static_cast<const T*>(a.vin), a.partial, a.f);
         const size_t nout = static_cast<size_t>(L.nrows) * NDC;
         lattice_matvec_reduce<T><<<static_cast<unsigned>((nout + THREADS - 1) / THREADS), THREADS, 0, a.stream>>>(
-            a.partial, static_cast<T*>(a.out), nout, tiles);
+            a.partial, static_cast<T*>(a.out), nout, tiles + near);
     } else {
         lattice_rmatvec_partials<T, FAM, NMC, NDC, MODE><<<grid, THREADS, 0, a.stream>>>(
             L, static_cast<const T*>(a.vin), a.partial, a.f);
         const size_t nout = static_cast<size_t>(NMC) * L.nx * L.ny * L.nz;
         lattice_rmatvec_reduce<T><<<static_cast<unsigned>((nout + THREADS - 1) / THREADS), THREADS, 0, a.stream>>>(
-            a.partial, static_cast<T*>(a.out), nout, a.splits);
+            a.partial, static_cast<T*>(a.out), nout, a.splits + near);
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -544,13 +664,7 @@ template <bool MATVEC, typename T, int MODE>
 int launch_family(int family, int nmc, int ndc, const Launch& a) {
 #define LATTICE_CASE(FAM, NMC, NDC) \
     if (family == FAM && nmc == NMC && ndc == NDC) return launch_products<MATVEC, T, FAM, NMC, NDC, MODE>(a);
-    LATTICE_CASE(GZ, 1, 1)
-    LATTICE_CASE(GZZ, 1, 1)
-    LATTICE_CASE(FTG, 1, 6)
-    LATTICE_CASE(MAG, 1, 1)
-    LATTICE_CASE(MAG, 1, 3)
-    LATTICE_CASE(MAG, 3, 1)
-    LATTICE_CASE(MAG, 3, 3)
+    FOR_EACH_FAMILY(LATTICE_CASE)
 #undef LATTICE_CASE
     return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -568,6 +682,33 @@ int launch(int is_double, int family, int nmc, int ndc, int mode, const Launch& 
     }
     if (mode == BLEND) return launch_family<MATVEC, float, BLEND>(family, nmc, ndc, a);
     return launch_family<MATVEC, float, CLOSED>(family, nmc, ndc, a);
+}
+
+template <bool MATVEC, int FAM, int NMC, int NDC>
+int launch_near(const Near& L, const float* vin, double* out, const Field& f, cudaStream_t stream) {
+    if (MATVEC) {
+        const unsigned blocks = static_cast<unsigned>((static_cast<size_t>(L.nrows) * 32 + THREADS - 1) / THREADS);
+        lattice_near_matvec_kernel<FAM, NMC, NDC><<<blocks, THREADS, 0, stream>>>(L, vin, out, f);
+    } else {
+        const size_t N = static_cast<size_t>(L.nx) * L.ny * L.nz;
+        lattice_near_rmatvec_kernel<FAM, NMC, NDC>
+            <<<static_cast<unsigned>((N * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(L, vin, out, f);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <bool MATVEC>
+int near_pass(int family, int nmc, int ndc, const Near& L, const void* vin, void* out, const Field& f,
+              cudaStream_t stream) {
+    if (L.nx <= 0 || L.ny <= 0 || L.nz <= 0 || L.nrows <= 0 || L.ptr == nullptr || L.idx == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const float* v = static_cast<const float*>(vin);
+    double* o = static_cast<double*>(out);
+#define NEAR_CASE(FAM, NMC, NDC) \
+    if (family == FAM && nmc == NMC && ndc == NDC) return launch_near<MATVEC, FAM, NMC, NDC>(L, v, o, f, stream);
+    FOR_EACH_FAMILY(NEAR_CASE)
+#undef NEAR_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -593,4 +734,30 @@ extern "C" int lattice_matvec(LATTICE_ARGS) {
 
 extern "C" int lattice_rmatvec(LATTICE_ARGS) {
     return launch<false>(is_double, family, nmc, ndc, mode, LATTICE_LAUNCH);
+}
+
+// The blend's near pass, float only. Matvec: ptr, idx the candidates by
+// observation, vin = xw (nmc, N), out the (nrows, ndc) last slot of the
+// matvec's buffer. Rmatvec: ptr, idx the candidates by cell, vin = u (nrows,
+// ndc), out the (nmc, N) last split of the rmatvec's buffer. Either runs
+// before the product's lattice_matvec or lattice_rmatvec, on its stream.
+#define NEAR_ARGS                                                                                                  \
+    int family, int nmc, int ndc, const void *xe, const void *ye, const void *ze, const void *xd, const void *yd, \
+        const void *zd, const void *ptr, const void *idx, const void *vin, void *out, int nx, int ny, int nz,     \
+        int nrows, double m0, double m1, double m2, double s4pi, void *stream
+#define NEAR_LISTS                                                                                                \
+    Near {                                                                                                       \
+        static_cast<const float*>(xe), static_cast<const float*>(ye), static_cast<const float*>(ze),            \
+            static_cast<const float*>(xd), static_cast<const float*>(yd), static_cast<const float*>(zd),        \
+            static_cast<const int*>(ptr), static_cast<const int*>(idx), nx, ny, nz, nrows                        \
+    }
+
+extern "C" int lattice_near_matvec(NEAR_ARGS) {
+    return near_pass<true>(family, nmc, ndc, NEAR_LISTS, vin, out, Field{m0, m1, m2, s4pi, 0},
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lattice_near_rmatvec(NEAR_ARGS) {
+    return near_pass<false>(family, nmc, ndc, NEAR_LISTS, vin, out, Field{m0, m1, m2, s4pi, 0},
+                            static_cast<cudaStream_t>(stream));
 }

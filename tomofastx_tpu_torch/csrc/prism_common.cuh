@@ -1,4 +1,4 @@
-// Device functions shared by kernel B2 (prism_matvec.cu, the per-cell
+// Device functions shared by kernel B2 (prism_matvec.cuh, the per-cell
 // matrix-free operator) and kernel B3 (lattice_matvec.cu, the corner-lattice
 // one): the physics families, the field, the armored logarithms and wrapped
 // arc tangents of ops/prism.py, the magnetic tensor's combination with the
@@ -15,6 +15,12 @@ namespace {
 // GZ .. MAG, CLOSED, BLEND).
 enum Family { GZ = 0, GZZ = 1, FTG = 2, MAG = 3 };
 enum Mode { CLOSED = 0, BLEND = 1 };
+
+// CASE(FAM, NMC, NDC) for each (family, model components, data components)
+// the kernels are built for: g_z, Gzz, FTG-6, and the susceptibility or the
+// magnetization vector against TMI or three components.
+#define FOR_EACH_FAMILY(CASE) \
+    CASE(GZ, 1, 1) CASE(GZZ, 1, 1) CASE(FTG, 1, 6) CASE(MAG, 1, 1) CASE(MAG, 1, 3) CASE(MAG, 3, 1) CASE(MAG, 3, 3)
 
 constexpr double G_GRAV = 6.674e-11;
 constexpr double TWO_PI = 6.283185307179586;      // 2 * math.pi
@@ -205,6 +211,66 @@ __device__ __forceinline__ void quad_points(const float (&px)[O], const float (&
         const float xy = acc[3] * vol8, yz = acc[4] * vol8, zx = acc[5] * vol8;
         const Tensor3<float> T3 = {{{xx, xy, zx}, {xy, yy, yz}, {zx, yz, zz}}};
         combine<float, NMC, NDC>(T3, f, row);
+    }
+}
+
+// ---------------------------------------------------------------- the blend's near passes
+
+// One row of a near pass, a warp's: an observation of the matvec (NSUM = ndc
+// sums) or a cell of the rmatvec (NSUM = nmc). A row with no list position
+// (p0 == end) writes zeros and leaves at once. Otherwise open() loads what
+// the row's terms share (the observation, or the cell), each lane adds the
+// terms of every 32nd position from p0 to end in order, term(opened, p, acc)
+// adding position p's in double where its pair is near, then the warp's
+// shuffle tree, and lane 0 writes out[j * stride]. No atomics: two launches
+// agree to the last bit.
+template <int NSUM, typename Open, typename Term>
+__device__ __forceinline__ void near_warp_row(int p0, int end, Open open, Term term, double* __restrict__ out,
+                                              size_t stride) {
+    const int lane = threadIdx.x & 31;
+    double acc[NSUM];
+#pragma unroll
+    for (int j = 0; j < NSUM; ++j) acc[j] = 0.0;
+    if (p0 == end) {  // the whole warp
+        if (lane == 0) {
+#pragma unroll
+            for (int j = 0; j < NSUM; ++j) out[j * stride] = 0.0;
+        }
+        return;
+    }
+    const auto opened = open();
+    for (int p = p0 + lane; p < end; p += 32) term(opened, p, acc);
+#pragma unroll
+    for (int j = 0; j < NSUM; ++j) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off);
+        if (lane == 0) out[j * stride] = acc[j];
+    }
+}
+
+// A near matvec's terms of cell n: d[j] += row[k][j] * xw[k, n] over k, in
+// double; xw (nmc, N).
+template <int NMC, int NDC>
+__device__ __forceinline__ void add_matvec_terms(const float (&row)[NMC][NDC], const float* __restrict__ xw,
+                                                 size_t N, int n, double (&d)[NDC]) {
+#pragma unroll
+    for (int k = 0; k < NMC; ++k) {
+        const double v = static_cast<double>(__ldg(xw + k * N + n));
+#pragma unroll
+        for (int j = 0; j < NDC; ++j) d[j] += static_cast<double>(row[k][j]) * v;
+    }
+}
+
+// A near rmatvec's terms of observation b: acc[k] += row[k][j] * u[b, j] over
+// j, in double; u (nrows, ndc).
+template <int NMC, int NDC>
+__device__ __forceinline__ void add_rmatvec_terms(const float (&row)[NMC][NDC], const float* __restrict__ u, int b,
+                                                  double (&acc)[NMC]) {
+#pragma unroll
+    for (int j = 0; j < NDC; ++j) {
+        const double v = static_cast<double>(__ldg(u + static_cast<size_t>(b) * NDC + j));
+#pragma unroll
+        for (int k = 0; k < NMC; ++k) acc[k] += static_cast<double>(row[k][j]) * v;
     }
 }
 

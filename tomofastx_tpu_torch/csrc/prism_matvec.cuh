@@ -1,14 +1,19 @@
 // Kernel B2: the two products of the per-cell matrix-free operator, for Hopper
 // (sm_90a), with every (observation, cell) pair's prism response evaluated in
-// registers and never stored.
+// registers and never stored. Two sources include this header, each for one
+// type, so that nvcc builds them in parallel: prism_matvec_f32.cu (the float
+// operators: the blend and its near pass, and the float closed forms) and
+// prism_matvec_f64.cu (the double closed forms).
 //
 // Replaces the XLA fusion of the JAX package's per-cell operator:
 // tomofastx_tpu/ops/matrixfree.py:244 MatrixFreeKernel.matvec and :283 rmatvec,
 // built on the rows of :59 _rows_for_point and :84 _corr_rows_for_point and on
 // the quadrature of tomofastx_tpu/ops/prism.py:529 _quad_accumulate. Its plain
-// version is the port's chunk loop (tomofastx_tpu_torch/ops/matrixfree.py,
+// versions are the port's chunk loop (tomofastx_tpu_torch/ops/matrixfree.py,
 // MatrixFreeKernel._partial_matvec and _partial_rmatvec), which materialises
-// (chunk, N, nmc, ndc) rows a chunk of observations.
+// (chunk, N, nmc, ndc) rows a chunk of observations, and, for the blend, the
+// same split as the kernels' (_split_matvec, _split_rmatvec, _near_matvec,
+// _near_rmatvec).
 //
 //   matvec:  d[b, j] = sum_n sum_k R[b, n, k, j] * xw[k, n]     (nrows, ndc)
 //   rmatvec: g[k, n] = sum_b sum_j R[b, n, k, j] * u[b, j]      (nmc, N)
@@ -50,7 +55,17 @@
 // splits is a function of the shape (ops/prism_matvec.py::matvec_splits).
 // rmatvec: a thread a cell, its cell in registers, 128 a block; the block
 // stages 128 observations (coordinates and weighted residuals) at a time in
-// shared memory and every thread runs through all of them, summing in double.
+// shared memory and every thread runs through all of them, summing in double
+// and rounding once at the end.
+// The blend's main loops give a near pair zero, by a select (its 27-point value
+// may be non-finite), and hold no double closed forms: those are a pass of
+// their own (0.04 % of the pairs at the smoke shape), over the near candidates
+// the operator builds once (ops/matrixfree.py near_cell_indices, by
+// observation, and near_idx_transpose, by cell), each re-tested with the main
+// loop's own is_far. The matvec's near pass (a warp an observation) writes one
+// more split of the buffer, (splits + 1, nrows, ndc), the last one summed; the
+// rmatvec's (a warp a cell) writes the near terms' (nmc, N) double sums, from
+// which the main loop's sums start.
 // No atomics anywhere: every sum has one fixed order, so two runs agree to the
 // last bit. The closed forms are device functions kept out of line
 // (__noinline__), so that each is compiled once a type whatever calls it.
@@ -58,8 +73,8 @@
 // Built without --use_fast_math: a boundary-coincident observation gives a
 // log(0) and so a non-finite product, which the operator's construction probe
 // must see (ops/matrixfree.py PROBE_ABORT).
-//
-// Plain C entry points, loaded with ctypes; each returns cudaGetLastError().
+
+#pragma once
 
 #include <cuda_runtime.h>
 
@@ -313,23 +328,51 @@ __device__ __forceinline__ void quad_row(const Cell<float>& c, float xo, float y
     quad_points<FAM, NMC, NDC, 3>(px, py, pz, xy, wgt1, c.hx * c.hy * c.hz, f, row);
 }
 
-// The row of one pair as the plain version evaluates it.
-template <typename T, int FAM, int NMC, int NDC, int MODE>
+// The row of one pair in the main loops: the closed forms, or, in the blend,
+// the 27-point rule and zero where the pair is near (the near pass evaluates
+// it), never a product with zero (a near pair's 27-point value may be
+// non-finite). FAR_FIRST: is_far decides before the rule, a branch (the
+// rmatvec's: a lane holds a cell, its near observations come in runs);
+// otherwise the rule is evaluated and zeroed by a select (the matvec's: a
+// lane holds an observation). Each is the faster of the two for its kernel
+// (scripts/probe_torch_prism_matvec.py).
+template <typename T, int FAM, int NMC, int NDC, int MODE, bool FAR_FIRST>
 __device__ __forceinline__ void pair_row(const Cell<T>& c, T xo, T yo, T zo, const Field& f, T row[NMC][NDC]) {
-    if constexpr (MODE == BLEND) {
+    if constexpr (MODE == BLEND && FAR_FIRST) {
         if (is_far(c, xo, yo, zo)) {
             quad_row<FAM, NMC, NDC>(c, xo, yo, zo, f, row);
         } else {
-            double r64[NMC][NDC];
-            closed_row<double, FAM, NMC, NDC>(xo, yo, zo, c.X1, c.X2, c.Y1, c.Y2, c.Z1, c.Z2, f, r64);
 #pragma unroll
             for (int k = 0; k < NMC; ++k)
 #pragma unroll
-                for (int j = 0; j < NDC; ++j) row[k][j] = T(r64[k][j]);
+                for (int j = 0; j < NDC; ++j) row[k][j] = T(0);
         }
+    } else if constexpr (MODE == BLEND) {
+        quad_row<FAM, NMC, NDC>(c, xo, yo, zo, f, row);
+        const bool far = is_far(c, xo, yo, zo);
+#pragma unroll
+        for (int k = 0; k < NMC; ++k)
+#pragma unroll
+            for (int j = 0; j < NDC; ++j) row[k][j] = far ? row[k][j] : T(0);
     } else {
         closed_row<T, FAM, NMC, NDC>(xo, yo, zo, c.X1, c.X2, c.Y1, c.Y2, c.Z1, c.Z2, f, row);
     }
+}
+
+// The row of a near candidate (the near pass): the closed forms in double,
+// rounded to float, where the main loop's is_far calls the pair near; false
+// (and no row) where not.
+template <int FAM, int NMC, int NDC>
+__device__ __forceinline__ bool near_row(const Cell<float>& c, float xo, float yo, float zo, const Field& f,
+                                         float row[NMC][NDC]) {
+    if (is_far(c, xo, yo, zo)) return false;
+    double r64[NMC][NDC];
+    closed_row<double, FAM, NMC, NDC>(xo, yo, zo, c.X1, c.X2, c.Y1, c.Y2, c.Z1, c.Z2, f, r64);
+#pragma unroll
+    for (int k = 0; k < NMC; ++k)
+#pragma unroll
+        for (int j = 0; j < NDC; ++j) row[k][j] = float(r64[k][j]);
+    return true;
 }
 
 // ---------------------------------------------------------------- the kernels
@@ -368,7 +411,7 @@ __global__ void __launch_bounds__(THREADS) prism_matvec_partials(Geometry g, con
             const int count = min(THREADS, c1 - base);
             for (int i = 0; i < count; ++i) {
                 T row[NMC][NDC];
-                pair_row<T, FAM, NMC, NDC, MODE>(cells[i], xo, yo, zo, f, row);
+                pair_row<T, FAM, NMC, NDC, MODE, false>(cells[i], xo, yo, zo, f, row);
 #pragma unroll
                 for (int k = 0; k < NMC; ++k) {
                     const double v = static_cast<double>(xs[k][i]);
@@ -395,9 +438,11 @@ __global__ void __launch_bounds__(THREADS) prism_matvec_reduce(const double* __r
     out[i] = static_cast<T>(s);
 }
 
-// rmatvec: g[k, n] = sum over the observations b of R[b, n, k, :] . u[b, :].
+// rmatvec: g[k, n] = sum over the observations b of R[b, n, k, :] . u[b, :];
+// the blend's sums start from its near pass's, near (nmc, N).
 template <typename T, int FAM, int NMC, int NDC, int MODE>
 __global__ void __launch_bounds__(THREADS) prism_rmatvec_kernel(Geometry g, const T* __restrict__ u,
+                                                                const double* __restrict__ near,
                                                                 T* __restrict__ out, int N, int nrows, Field f) {
     __shared__ T ox[THREADS], oy[THREADS], oz[THREADS];
     __shared__ T us[NDC][THREADS];
@@ -410,7 +455,7 @@ __global__ void __launch_bounds__(THREADS) prism_rmatvec_kernel(Geometry g, cons
     }
     double acc[NMC];
 #pragma unroll
-    for (int k = 0; k < NMC; ++k) acc[k] = 0.0;
+    for (int k = 0; k < NMC; ++k) acc[k] = MODE == BLEND && live ? near[static_cast<size_t>(k) * N + n] : 0.0;
     for (int base = 0; base < nrows; base += THREADS) {
         const int b = base + threadIdx.x;
         __syncthreads();
@@ -426,7 +471,7 @@ __global__ void __launch_bounds__(THREADS) prism_rmatvec_kernel(Geometry g, cons
             const int count = min(THREADS, nrows - base);
             for (int i = 0; i < count; ++i) {
                 T row[NMC][NDC];
-                pair_row<T, FAM, NMC, NDC, MODE>(cell, ox[i], oy[i], oz[i], f, row);
+                pair_row<T, FAM, NMC, NDC, MODE, true>(cell, ox[i], oy[i], oz[i], f, row);
 #pragma unroll
                 for (int j = 0; j < NDC; ++j) {
                     const double v = static_cast<double>(us[j][i]);
@@ -442,12 +487,65 @@ __global__ void __launch_bounds__(THREADS) prism_rmatvec_kernel(Geometry g, cons
     }
 }
 
+// ---------------------------------------------------------------- the near pass (the blend's)
+
+// matvec: out[b, j] = sum over b's candidates n (near_idx (nrows, K), the
+// whole grid's numbering, this operator's cells from cell_lo; others < 0 or
+// past N) of R[b, n, :, j] . xw[:, n], where near; a warp an observation
+// (near_warp_row). out is the last split of the matvec's buffer.
+template <int FAM, int NMC, int NDC>
+__global__ void __launch_bounds__(THREADS) prism_near_matvec_kernel(Geometry g, const int* __restrict__ near_idx,
+                                                                    int K, int cell_lo, const float* __restrict__ xw,
+                                                                    double* __restrict__ out, int N, int nrows,
+                                                                    Field f) {
+    const int b = (blockIdx.x * THREADS + threadIdx.x) >> 5;
+    if (b >= nrows) return;  // a whole warp
+    const int* cand = near_idx + static_cast<size_t>(b) * K;
+    near_warp_row<NDC>(
+        0, K, [&] { return float3{at<float>(g.xd, b), at<float>(g.yd, b), at<float>(g.zd, b)}; },
+        [&](const float3& o, int i, double (&d)[NDC]) {
+            const int n = __ldg(cand + i) - cell_lo;
+            if (n < 0 || n >= N) return;
+            const Cell<float> c = make_cell<float>(at<float>(g.X1, n), at<float>(g.X2, n), at<float>(g.Y1, n),
+                                                   at<float>(g.Y2, n), at<float>(g.Z1, n), at<float>(g.Z2, n));
+            float row[NMC][NDC];
+            if (near_row<FAM, NMC, NDC>(c, o.x, o.y, o.z, f, row)) add_matvec_terms<NMC, NDC>(row, xw, N, n, d);
+        },
+        out + static_cast<size_t>(b) * NDC, 1);
+}
+
+// rmatvec: out[k, n] = sum over cell n's candidate observations (tptr (N + 1,),
+// obs: near_idx transposed, in increasing order) of R[b, n, k, :] . u[b, :],
+// where near; a warp a cell (near_warp_row: most cells have none and leave at
+// once); every cell written.
+template <int FAM, int NMC, int NDC>
+__global__ void __launch_bounds__(THREADS) prism_near_rmatvec_kernel(Geometry g, const int* __restrict__ tptr,
+                                                                     const int* __restrict__ obs,
+                                                                     const float* __restrict__ u,
+                                                                     double* __restrict__ out, int N, Field f) {
+    const int n = static_cast<int>((static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x) >> 5);
+    if (n >= N) return;  // a whole warp
+    near_warp_row<NMC>(
+        __ldg(tptr + n), __ldg(tptr + n + 1),
+        [&] {
+            return make_cell<float>(at<float>(g.X1, n), at<float>(g.X2, n), at<float>(g.Y1, n), at<float>(g.Y2, n),
+                                    at<float>(g.Z1, n), at<float>(g.Z2, n));
+        },
+        [&](const Cell<float>& c, int p, double (&acc)[NMC]) {
+            const int b = __ldg(obs + p);
+            float row[NMC][NDC];
+            if (near_row<FAM, NMC, NDC>(c, at<float>(g.xd, b), at<float>(g.yd, b), at<float>(g.zd, b), f, row))
+                add_rmatvec_terms<NMC, NDC>(row, u, b, acc);
+        },
+        out + n, static_cast<size_t>(N));
+}
+
 // ---------------------------------------------------------------- dispatch
 
 struct Launch {
     Geometry g;
     const void* vin;  // xw (nmc, N) or u (nrows, ndc)
-    double* partial;  // (splits, nrows, ndc), matvec only
+    double* partial;  // the matvec's (splits (+ 1 for the blend), nrows, ndc); the blend rmatvec's near sums (nmc, N)
     void* out;        // (nrows, ndc) or (nmc, N)
     int N, nrows, splits, cells_per_split;
     Field f;
@@ -460,14 +558,15 @@ void launch_matvec(const Launch& a) {
     prism_matvec_partials<T, FAM, NMC, NDC, MODE><<<grid, THREADS, 0, a.stream>>>(
         a.g, static_cast<const T*>(a.vin), a.partial, a.N, a.nrows, a.cells_per_split, a.f);
     const int nout = a.nrows * NDC;
+    // The blend's near pass wrote the last split before this launch.
     prism_matvec_reduce<T><<<(nout + THREADS - 1) / THREADS, THREADS, 0, a.stream>>>(
-        a.partial, static_cast<T*>(a.out), nout, a.splits);
+        a.partial, static_cast<T*>(a.out), nout, a.splits + (MODE == BLEND));
 }
 
 template <typename T, int FAM, int NMC, int NDC, int MODE>
 void launch_rmatvec(const Launch& a) {
     prism_rmatvec_kernel<T, FAM, NMC, NDC, MODE><<<(a.N + THREADS - 1) / THREADS, THREADS, 0, a.stream>>>(
-        a.g, static_cast<const T*>(a.vin), static_cast<T*>(a.out), a.N, a.nrows, a.f);
+        a.g, static_cast<const T*>(a.vin), a.partial, static_cast<T*>(a.out), a.N, a.nrows, a.f);
 }
 
 template <bool MATVEC, typename T, int MODE>
@@ -478,25 +577,34 @@ int launch_family(int family, int nmc, int ndc, const Launch& a) {
         else launch_rmatvec<T, FAM, NMC, NDC, MODE>(a);                             \
         return static_cast<int>(cudaGetLastError());                                \
     }
-    PRISM_CASE(GZ, 1, 1)
-    PRISM_CASE(GZZ, 1, 1)
-    PRISM_CASE(FTG, 1, 6)
-    PRISM_CASE(MAG, 1, 1)
-    PRISM_CASE(MAG, 1, 3)
-    PRISM_CASE(MAG, 3, 1)
-    PRISM_CASE(MAG, 3, 3)
+    FOR_EACH_FAMILY(PRISM_CASE)
 #undef PRISM_CASE
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool MATVEC>
-int launch(int is_double, int family, int nmc, int ndc, int mode, const Launch& a) {
-    if (is_double) {
-        if (mode != CLOSED) return static_cast<int>(cudaErrorInvalidValue);  // the blend is float's
-        return launch_family<MATVEC, double, CLOSED>(family, nmc, ndc, a);
+// The near passes, float only: a near matvec reads near_idx (nrows, K) from
+// cell_lo, a near rmatvec the transposed lists (tptr, obs).
+template <bool MATVEC, int FAM, int NMC, int NDC>
+int launch_near(const Launch& a, const int* idx, const int* obs, int K, int cell_lo) {
+    if (MATVEC) {
+        const unsigned blocks = static_cast<unsigned>((static_cast<size_t>(a.nrows) * 32 + THREADS - 1) / THREADS);
+        prism_near_matvec_kernel<FAM, NMC, NDC><<<blocks, THREADS, 0, a.stream>>>(
+            a.g, idx, K, cell_lo, static_cast<const float*>(a.vin), static_cast<double*>(a.out), a.N, a.nrows, a.f);
+    } else {
+        const unsigned blocks = static_cast<unsigned>((static_cast<size_t>(a.N) * 32 + THREADS - 1) / THREADS);
+        prism_near_rmatvec_kernel<FAM, NMC, NDC><<<blocks, THREADS, 0, a.stream>>>(
+            a.g, idx, obs, static_cast<const float*>(a.vin), static_cast<double*>(a.out), a.N, a.f);
     }
-    if (mode == BLEND) return launch_family<MATVEC, float, BLEND>(family, nmc, ndc, a);
-    return launch_family<MATVEC, float, CLOSED>(family, nmc, ndc, a);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <bool MATVEC>
+int near_family(int family, int nmc, int ndc, const Launch& a, const int* idx, const int* obs, int K, int cell_lo) {
+#define NEAR_CASE(FAM, NMC, NDC) \
+    if (family == FAM && nmc == NMC && ndc == NDC) return launch_near<MATVEC, FAM, NMC, NDC>(a, idx, obs, K, cell_lo);
+    FOR_EACH_FAMILY(NEAR_CASE)
+#undef NEAR_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 Launch make_launch(const void* X1, const void* X2, const void* Y1, const void* Y2, const void* Z1, const void* Z2,
@@ -519,8 +627,9 @@ Launch make_launch(const void* X1, const void* X2, const void* Y1, const void* Y
 
 }  // namespace
 
-// One signature for both entry points (the rmatvec ignores partial, splits and
-// cells_per_split). is_double: the operator's type; family: Family; mode: Mode.
+// One signature for both products' entry points (the rmatvec ignores splits
+// and cells_per_split, and reads partial only in the blend: its near sums).
+// is_double: the operator's type; family: Family; mode: Mode.
 #define PRISM_ARGS                                                                                               \
     int is_double, int family, int nmc, int ndc, int mode, int handle_inside, const void *X1, const void *X2,    \
         const void *Y1, const void *Y2, const void *Z1, const void *Z2, const void *xd, const void *yd,          \
@@ -529,13 +638,7 @@ Launch make_launch(const void* X1, const void* X2, const void* Y1, const void* Y
 #define PRISM_LAUNCH                                                                                             \
     make_launch(X1, X2, Y1, Y2, Z1, Z2, xd, yd, zd, vin, partial, out, N, nrows, splits, cells_per_split, m0, m1, \
                 m2, s4pi, handle_inside, stream)
-
-extern "C" int prism_matvec(PRISM_ARGS) {
-    if (N <= 0 || nrows <= 0 || splits <= 0 || cells_per_split <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<true>(is_double, family, nmc, ndc, mode, PRISM_LAUNCH);
-}
-
-extern "C" int prism_rmatvec(PRISM_ARGS) {
-    if (N <= 0 || nrows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<false>(is_double, family, nmc, ndc, mode, PRISM_LAUNCH);
-}
+#define PRISM_CHECK_MATVEC                                                           \
+    if (N <= 0 || nrows <= 0 || splits <= 0 || cells_per_split <= 0) return static_cast<int>(cudaErrorInvalidValue)
+#define PRISM_CHECK_RMATVEC \
+    if (N <= 0 || nrows <= 0) return static_cast<int>(cudaErrorInvalidValue)

@@ -18,6 +18,8 @@ import re
 import shutil
 import subprocess
 
+import torch
+
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build")
 
@@ -97,6 +99,18 @@ def load_library(name: str, functions: tuple, argtypes: tuple):
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
     return lib
+
+
+def float64_output(shape, like, out=None):
+    """A contiguous float64 tensor of `shape` on `like`'s device for a
+    kernel's float64 sums: `out` itself, checked, when given, else a new
+    one."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float64, device=like.device)
+    if tuple(out.shape) != tuple(shape) or out.dtype != torch.float64 or not out.is_contiguous() or (
+            out.device != like.device):
+        raise ValueError(f"the output must be a contiguous float64 {tuple(shape)} on {like.device}")
+    return out
 
 
 def require_launchable(**tensors):

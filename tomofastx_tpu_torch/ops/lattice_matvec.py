@@ -22,6 +22,13 @@ CPU takes the plain version, the operator's chunk loop
 The kernels are bound by operations (the source says how); neither uses
 atomics, so two runs agree to the last bit.
 
+The blend's products are split: the main kernels give the near cells zero,
+and the near pass (lattice_near_matvec, lattice_near_rmatvec) evaluates them
+over the operator's near lists into one more slot of the main kernels'
+float64 partial sums, launched first. Its plain versions are the operator's
+_near_matvec and _near_rmatvec, and _split_matvec / _split_rmatvec are the
+plain version of the whole split.
+
 `launch_plan`, `tile_shape` and `obs_splits` are the launch's choices, in
 Python so that the CPU tests hold them. The library is built with nvcc from
 the .cu source and the header it includes, into ``build/`` beside the
@@ -57,17 +64,26 @@ def build_library() -> tuple[str, str]:
     return _cuda_build.build_library(_NAME)
 
 
+# One signature for both products' entry points: is_double, family, nmc,
+# ndc, mode, the tile (tz, ty, tx); the three edges, three coordinates, the
+# window starts, the input, the partial sums, the output; nx, ny, nz, nrows,
+# the window (wz, wy, wx), splits, observations a split; the field's
+# direction cosines and scale; the stream.
+ARGTYPES = (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9 + (ctypes.c_double,) * 4 + (
+    ctypes.c_void_p,)
+# And one for both near passes': family, nmc, ndc; the three edges, three
+# coordinates, the list's offsets and entries, the input, the output; nx, ny,
+# nz, nrows; the field; the stream.
+NEAR_ARGTYPES = (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4 + (ctypes.c_double,) * 4 + (
+    ctypes.c_void_p,)
+
+
 def _library():
-    # One signature for both entry points: is_double, family, nmc, ndc, mode,
-    # the tile (tz, ty, tx); the three edges, three coordinates, the window
-    # starts, the input, the partial sums, the output; nx, ny, nz, nrows, the
-    # window (wz, wy, wx), splits, observations a split; the field's
-    # direction cosines and scale; the stream.
-    return _cuda_build.load_library(
-        _NAME, ("lattice_matvec", "lattice_rmatvec"),
-        (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9 + (ctypes.c_double,) * 4
-        + (ctypes.c_void_p,),
-    )
+    return _cuda_build.load_library(_NAME, ("lattice_matvec", "lattice_rmatvec"), ARGTYPES)
+
+
+def _near_library():
+    return _cuda_build.load_library(_NAME, ("lattice_near_matvec", "lattice_near_rmatvec"), NEAR_ARGTYPES)
 
 
 def tile_shape(nmc: int, ndc: int) -> tuple[int, int, int]:
@@ -101,7 +117,8 @@ def launch_plan(op) -> dict:
     family and mode (the closed forms, or the float32 blend with its window),
     the tile, the field. Raises for what the kernels do not take: another
     type, rows of a shape no family has, a blend
-    without its windows (or with windows not in int32)."""
+    without its windows (or with windows not in int32) or its near lists
+    (in int32)."""
     dtype = op.xd.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"lattice_matvec: operator of {dtype}; the kernels take float32 or float64")
@@ -120,10 +137,17 @@ def launch_plan(op) -> dict:
             raise ValueError("lattice_matvec: the blend is the float32 operator's")
         if op.win is None or op.wi0 is None or op.wi0.dtype != torch.int32:
             raise ValueError("lattice_matvec: a blended operator needs its windows (win, and wi0 in int32)")
+        if any(a is None or a.dtype != torch.int32 for a in _near_lists(op)):
+            raise ValueError("lattice_matvec: a blended operator needs its near lists (near_ptr, near_cells, "
+                             "near_tptr, near_obs in int32)")
     scale = op.intensity if op.nmc == 1 else MU0_T2NT
     return {"is_double": int(dtype == torch.float64), "family": family, "nmc": op.nmc, "ndc": op.ndc,
             "mode": mode, "tile": tile_shape(op.nmc, op.ndc), "window": tuple(op.win) if mode == BLEND else (0, 0, 0),
             "magv": tuple(float(m) for m in op.magv), "s4pi": scale / (4.0 * math.pi)}
+
+
+def _near_lists(op):
+    return op.near_ptr, op.near_cells, op.near_tptr, op.near_obs
 
 
 def _operands(op, v, shape, what):
@@ -135,7 +159,7 @@ def _operands(op, v, shape, what):
     for a in geometry + (v,):
         if a.dtype != dtype:
             raise TypeError(f"lattice_matvec: tensors of {a.dtype} and {dtype}")
-    for a in geometry + (v,) + ((op.wi0,) if op.far_quad else ()):
+    for a in geometry + (v,) + ((op.wi0, *_near_lists(op)) if op.far_quad else ()):
         if a.device != v.device:
             raise ValueError(f"lattice_matvec: tensors on different devices: {a.device}, {v.device}")
         if not a.is_contiguous():
@@ -160,13 +184,72 @@ def _launch(entry, op, plan, geometry, vin, partial, out, splits, per):
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
+def _near_launch(entry, op, plan, lists, vin, out):
+    """One launch of a near pass; raises on a CUDA error."""
+    fn = getattr(_near_library(), entry)
+    with torch.cuda.device(vin.device):
+        err = fn(plan["family"], plan["nmc"], plan["ndc"],
+                 *(a.data_ptr() for a in (op.xe, op.ye, op.ze, op.xd, op.yd, op.zd, *lists, vin, out)),
+                 op.nx, op.ny, op.nz, op.xd.shape[0], *plan["magv"], plan["s4pi"],
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+
+
+def lattice_near_matvec(op, xw, out=None):
+    """(nrows_padded, ndc) float64: the near cells' terms of blended
+    LatticeMatrixFreeKernel `op` times xw ((nmc, N)), the first launch of
+    lattice_matvec's split (into `out`, a slot of its partial sums, if
+    given). CUDA tensors go through the near-pass kernel (a warp an
+    observation over its candidates, each re-tested by the main loop's near
+    test, the near ones' closed forms in float64 rounded to float32); CPU
+    tensors through op._near_matvec. `lattice_near_matvec.launches` counts
+    its launches."""
+    if xw.device.type == "cpu":
+        y = op._near_matvec(xw)
+        return y if out is None else out.copy_(y)
+    if xw.device.type != "cuda":
+        raise ValueError(f"lattice_near_matvec runs on cuda or cpu tensors, got {xw.device}")
+    plan = launch_plan(op)
+    if plan["mode"] != BLEND:
+        raise ValueError("lattice_near_matvec: the near pass is the float32 blend's")
+    _operands(op, xw, (op.nmc, op.N), "xw")
+    out = _cuda_build.float64_output((op.xd.shape[0], op.ndc), xw, out)
+    _near_launch("lattice_near_matvec", op, plan, (op.near_ptr, op.near_cells), xw, out)
+    lattice_near_matvec.launches += 1
+    return out
+
+
+def lattice_near_rmatvec(op, u, out=None):
+    """(nmc, N) float64: the near cells' terms of blended
+    LatticeMatrixFreeKernel `op` transposed times u ((nrows_padded, ndc)),
+    the first launch of lattice_rmatvec's split (into `out` if given). CUDA
+    tensors go through the near-pass kernel (a warp a cell over its
+    candidate observations in order); CPU tensors through op._near_rmatvec.
+    `lattice_near_rmatvec.launches` counts its launches."""
+    if u.device.type == "cpu":
+        g = op._near_rmatvec(u)
+        return g if out is None else out.copy_(g)
+    if u.device.type != "cuda":
+        raise ValueError(f"lattice_near_rmatvec runs on cuda or cpu tensors, got {u.device}")
+    plan = launch_plan(op)
+    if plan["mode"] != BLEND:
+        raise ValueError("lattice_near_rmatvec: the near pass is the float32 blend's")
+    _operands(op, u, (op.xd.shape[0], op.ndc), "u")
+    out = _cuda_build.float64_output((op.nmc, op.N), u, out)
+    _near_launch("lattice_near_rmatvec", op, plan, (op.near_tptr, op.near_obs), u, out)
+    lattice_near_rmatvec.launches += 1
+    return out
+
+
 def lattice_matvec(op, xw):
     """(nrows_padded, ndc) rows of LatticeMatrixFreeKernel `op` times xw
     ((nmc, N), the column weight applied), before the row weights. CUDA
     tensors go through the hand-written kernel pair (partial sums a cell
-    tile, then their sum in tile order), on PyTorch's current stream; CPU
-    tensors through op._partial_matvec. `lattice_matvec.launches` counts the
-    launches of the pair."""
+    tile, then their sum in tile order; the blend's near pass first, into
+    the last slot), on PyTorch's current stream; CPU tensors through
+    op._partial_matvec. `lattice_matvec.launches` counts the launches of
+    the pair."""
     if xw.device.type == "cpu":
         return op._partial_matvec(xw)
     if xw.device.type != "cuda":
@@ -175,8 +258,11 @@ def lattice_matvec(op, xw):
     geometry = _operands(op, xw, (op.nmc, op.N), "xw")
     nrows, tiles = op.xd.shape[0], n_tiles(op)
     splits, per = obs_splits(nrows, tiles)
-    partial = torch.empty((tiles, nrows, op.ndc), dtype=torch.float64, device=xw.device)
+    blend = plan["mode"] == BLEND
+    partial = torch.empty((tiles + blend, nrows, op.ndc), dtype=torch.float64, device=xw.device)
     out = torch.empty((nrows, op.ndc), dtype=xw.dtype, device=xw.device)
+    if blend:
+        lattice_near_matvec(op, xw, out=partial[tiles])
     _launch("lattice_matvec", op, plan, geometry, xw, partial, out, splits, per)
     lattice_matvec.launches += 1
     return out
@@ -186,8 +272,9 @@ def lattice_rmatvec(op, u):
     """(nmc, N) rows of LatticeMatrixFreeKernel `op` transposed times u
     ((nrows_padded, ndc), the row weights applied), before the column
     weight. CUDA tensors go through the hand-written kernel pair (partial
-    sums a split of the observations, then their sum in split order), on
-    PyTorch's current stream; CPU tensors through op._partial_rmatvec.
+    sums a split of the observations, then their sum in split order; the
+    blend's near pass first, into the last split), on PyTorch's current
+    stream; CPU tensors through op._partial_rmatvec.
     `lattice_rmatvec.launches` counts the launches of the pair."""
     if u.device.type == "cpu":
         return op._partial_rmatvec(u)
@@ -196,8 +283,11 @@ def lattice_rmatvec(op, u):
     plan = launch_plan(op)
     geometry = _operands(op, u, (op.xd.shape[0], op.ndc), "u")
     splits, per = obs_splits(op.xd.shape[0], n_tiles(op))
-    partial = torch.empty((splits, op.nmc, op.N), dtype=torch.float64, device=u.device)
+    blend = plan["mode"] == BLEND
+    partial = torch.empty((splits + blend, op.nmc, op.N), dtype=torch.float64, device=u.device)
     out = torch.empty((op.nmc, op.N), dtype=u.dtype, device=u.device)
+    if blend:
+        lattice_near_rmatvec(op, u, out=partial[splits])
     _launch("lattice_rmatvec", op, plan, geometry, u, partial, out, splits, per)
     lattice_rmatvec.launches += 1
     return out
@@ -205,3 +295,5 @@ def lattice_rmatvec(op, u):
 
 lattice_matvec.launches = 0
 lattice_rmatvec.launches = 0
+lattice_near_matvec.launches = 0
+lattice_near_rmatvec.launches = 0

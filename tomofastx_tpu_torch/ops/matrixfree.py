@@ -27,15 +27,24 @@ problem x data row weights are applied on the fly
 (sensitivity_gravmag.F90:228, 836-843).
 
 On a CUDA device the per-cell operator's products are kernel B2
-(ops/prism_matvec.py, csrc/prism_matvec.cu) and the lattice operator's
-kernel B3 (ops/lattice_matvec.py, csrc/lattice_matvec.cu): every
-(observation, cell) pair evaluated on the fly, no row stored. On the CPU
-they are the plain chunk loops below. The JAX package corrects each
+(ops/prism_matvec.py, csrc/prism_matvec_f32.cu and _f64.cu) and the
+lattice operator's kernel B3 (ops/lattice_matvec.py, csrc/lattice_matvec.cu):
+every (observation, cell) pair evaluated on the fly, no row stored. On the
+CPU they are the plain chunk loops below. The JAX package corrects each
 observation's near cells with a sequential per-point scan, a workaround for
 a TPU worker crash. Here a chunk's corrections are gathered and scattered in
 one batch; the adjoint's scatter sums every cell's terms in one fixed order
 (_index_add_in_order), so two runs agree to the last bit, as two runs of
 kernels B2 and B3 do.
+
+The float32 kernels evaluate the blend's near cells in a pass of their own,
+over near lists each blended operator builds once at construction, on its
+device: its candidate cells by observation and, transposed, its candidate
+observations by cell (near_cell_indices and near_idx_transpose for the
+per-cell operator, lattice_near_lists for the lattice one). The operators'
+_split_matvec / _split_rmatvec are the plain version of that split (the
+main loop with the near cells zeroed, plus the near pass _near_matvec /
+_near_rmatvec), in float64 sums.
 """
 
 from __future__ import annotations
@@ -91,6 +100,55 @@ def _in_float64(cells, xs, ys, zs):
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+# Pairs a plain near pass evaluates at a time.
+PAIR_CHUNK = 1 << 16
+
+
+def _csr_pairs(ptr, idx):
+    """(row, column) int64 of every entry of a CSR list (ptr (rows + 1,),
+    idx the columns of each row in turn), in its order."""
+    rows = torch.repeat_interleave(torch.arange(ptr.shape[0] - 1, device=idx.device), (ptr[1:] - ptr[:-1]).long())
+    return rows, idx.long()
+
+
+def candidate_transpose(ptr, idx, ncols):
+    """The transpose of a CSR list over ncols columns: (ptr (ncols + 1,),
+    the rows of each column in increasing order), int32, by a stable sort of
+    the pairs by column on the lists' device."""
+    rows, cols = _csr_pairs(ptr, idx)
+    tptr = torch.zeros(ncols + 1, dtype=torch.int64, device=idx.device)
+    tptr[1:] = torch.cumsum(torch.bincount(cols, minlength=ncols), 0)
+    return tptr.to(torch.int32), rows[torch.sort(cols, stable=True).indices].to(torch.int32)
+
+
+def _near_sum(shape, pairs, rows_of, terms_of, device):
+    """A plain near pass: float64 zeros of `shape` plus, for the candidate
+    pairs (b, n), PAIR_CHUNK at a time, the (index, terms) that
+    terms_of(rows_of(b, n) in float64, b, n) gives, summed in one fixed
+    order."""
+    out = torch.zeros(shape, dtype=torch.float64, device=device)
+    b, n = pairs
+    for s in range(0, b.shape[0], PAIR_CHUNK):
+        bb, nn = b[s : s + PAIR_CHUNK], n[s : s + PAIR_CHUNK]
+        index, terms = terms_of(rows_of(bb, nn).double(), bb, nn)
+        _index_add_in_order(out.view(-1), index.reshape(-1), terms.reshape(-1))
+    return out
+
+
+def _matvec_terms(xw, ndc):
+    """terms_of for a near matvec: each pair's row times xw, at (b, j)."""
+    x64 = xw.double()
+    j = torch.arange(ndc, device=xw.device)
+    return lambda rows, b, n: (b[:, None] * ndc + j, torch.einsum("pkd,kp->pd", rows, x64[:, n]))
+
+
+def _rmatvec_terms(u, ncells):
+    """terms_of for a near rmatvec: each pair's row times u[b], at (k, n)."""
+    u64 = u.double()
+    return lambda rows, b, n: (torch.arange(rows.shape[1], device=u.device)[:, None] * ncells + n,
+                               torch.einsum("pkd,pd->kp", rows, u64[b]))
 
 
 # =============================================================================
@@ -179,6 +237,17 @@ def near_cell_indices(grid6, xd, yd, zd, margin=1.001):
     return torch.cat([top(s, e) for s, e in spans])
 
 
+def near_idx_transpose(near_idx, cell_lo, ncells):
+    """(near_tptr (ncells + 1,), near_obs) int32: the candidates of
+    near_idx (nrows, K) among the cells [cell_lo, cell_lo + ncells),
+    transposed: each of those cells' observations in increasing order."""
+    local = near_idx.long() - cell_lo
+    own = (local >= 0) & (local < ncells)
+    ptr = torch.zeros(near_idx.shape[0] + 1, dtype=torch.int64, device=near_idx.device)
+    ptr[1:] = torch.cumsum(own.sum(1), 0)
+    return candidate_transpose(ptr, local[own], ncells)
+
+
 @dataclass
 class MatrixFreeKernel:
     """Row-regenerating sensitivity operator ((nrows*ndc) x (nmc*N_true)).
@@ -188,10 +257,13 @@ class MatrixFreeKernel:
     cw = 0, so their rows contribute nothing; matvec pads x and rmatvec
     slices the gradient back. cell_lo is the first cell of this operator's
     cells when it is one slot's part of a cells-sharded operator
-    (ShardedMatrixFreeKernel); near_idx keeps the whole grid's numbering.
+    (ShardedMatrixFreeKernel); near_idx keeps the whole grid's numbering,
+    -1 where a candidate is another part's cell.
     The products run kernel B2 (prism_matvec, prism_rmatvec) on the card
-    and the chunk loop (_partial_matvec, _partial_rmatvec) on the CPU; only
-    the loop reads near_idx, the kernel finds the near cells itself."""
+    and the chunk loop (_partial_matvec, _partial_rmatvec) on the CPU. The
+    blend's near pass reads near_idx (the matvec's) and its transpose over
+    this operator's cells, near_tptr and near_obs (the rmatvec's), built
+    once at construction (near_idx_transpose)."""
 
     grid6: tuple  # (X1, X2, Y1, Y2, Z1, Z2), each (N,)
     xd: torch.Tensor  # (nrows_padded,)
@@ -203,10 +275,14 @@ class MatrixFreeKernel:
     chunk: int
     nrows: int  # true data count
     N_true: int = None  # logical cell count; None = no cell padding
-    # (nrows_padded, K) candidate near-cell indices (near_cell_indices) for
-    # the blend; None when phys.far_quad is off.
+    # (nrows_padded, K) int32 candidate near-cell indices (near_cell_indices)
+    # for the blend; None when phys.far_quad is off.
     near_idx: torch.Tensor = None
     cell_lo: int = 0
+    # The candidates transposed over this operator's cells (N + 1,) and
+    # (pairs,), int32: each cell's observations in increasing order.
+    near_tptr: torch.Tensor = None
+    near_obs: torch.Tensor = None
 
     @property
     def graph_capturable(self) -> bool:
@@ -219,7 +295,7 @@ class MatrixFreeKernel:
     def products_by(self) -> str:
         """What computes the products, for the log."""
         if self.cw.device.type == "cuda":
-            return "kernel B2, csrc/prism_matvec.cu"
+            return f"kernel B2, csrc/prism_matvec_{'f64' if self.xd.dtype == torch.float64 else 'f32'}.cu"
         return "the plain chunk loop on the CPU"
 
     @property
@@ -232,7 +308,8 @@ class MatrixFreeKernel:
 
     @property
     def nbytes(self) -> int:
-        return _nbytes(*self.grid6, self.xd, self.yd, self.zd, self.cw, self.row_w, self.near_idx)
+        return _nbytes(*self.grid6, self.xd, self.yd, self.zd, self.cw, self.row_w, self.near_idx, self.near_tptr,
+                       self.near_obs)
 
     @property
     def _patched(self) -> bool:
@@ -287,6 +364,65 @@ class MatrixFreeKernel:
                 _index_add_in_order(g.view(-1), flat.reshape(-1), vals.reshape(-1))
         return g
 
+    def _near_pair_rows(self, b, n):
+        """(P, nmc, ndc) rows of candidate pairs (observation b, cell n of
+        this operator) as kernel B2's near pass evaluates them: the closed
+        forms in float64 rounded to the operator's type where the far mask
+        calls the pair near, else 0."""
+        from tomofastx_tpu_torch.ops.sensitivity import forward_rows
+
+        sub = tuple(a[n][:, None] for a in self.grid6)
+        xs, ys, zs = self.xd[b], self.yd[b], self.zd[b]
+        args = (self.phys.problem, self.phys.data_type, self.phys.nmc, self.phys.ndc, self.phys.magv,
+                self.phys.intensity, self.phys.handle_inside)
+        closed = forward_rows(*args, *_in_float64(sub, xs, ys, zs)).to(xs.dtype)[:, 0]
+        near = ~prism.far_mask(xs[:, None], ys[:, None], zs[:, None], *sub)[:, 0]
+        return torch.where(near[:, None, None], closed, torch.zeros_like(closed))
+
+    def _near_matvec(self, xw):
+        """(nrows_padded, ndc) float64: the blend's near pass of the matvec
+        over near_idx, this operator's candidates of each observation (the
+        plain version of ops/prism_matvec.py::prism_near_matvec)."""
+        K = self.near_idx.shape[1]
+        local = self.near_idx.long() - self.cell_lo
+        own = (local >= 0) & (local < self.N)
+        b = torch.arange(self.xd.shape[0], device=local.device)[:, None].expand(-1, K)
+        return _near_sum((self.xd.shape[0], self.phys.ndc), (b[own], local[own]), self._near_pair_rows,
+                         _matvec_terms(xw, self.phys.ndc), xw.device)
+
+    def _near_rmatvec(self, u_pad):
+        """(nmc, N) float64: the blend's near pass of the rmatvec over the
+        transposed candidates (the plain version of prism_near_rmatvec)."""
+        n, b = _csr_pairs(self.near_tptr, self.near_obs)
+        return _near_sum((self.phys.nmc, self.N), (b, n), self._near_pair_rows, _rmatvec_terms(u_pad, self.N),
+                         u_pad.device)
+
+    def _main_rows(self, xs, ys, zs):
+        """(B, N, nmc, ndc) rows of kernel B2's main loop: the 27-point rule,
+        zero where the far mask calls a cell near."""
+        quad = _rows(self.phys, self.grid6, xs, ys, zs, base_only=True)
+        near = ~prism.far_mask(xs[:, None], ys[:, None], zs[:, None], *self.grid6)
+        return torch.where(near[..., None, None], torch.zeros_like(quad), quad)
+
+    def _split_matvec(self, xw):
+        """(nrows_padded, ndc) rows x xw as kernel B2 splits the blend: its
+        main loop plus its near pass, summed in float64 and rounded once (the
+        plain version of prism_matvec's split; _partial_matvec, the chunk
+        loop, adds the near correction to float32 rows)."""
+        x64 = xw.double()
+        d = torch.cat([torch.einsum("bnkd,kn->bd", self._main_rows(self.xd[sl], self.yd[sl], self.zd[sl]).double(),
+                                    x64) for sl in self._chunks()])
+        return (d + self._near_matvec(xw)).to(xw.dtype)
+
+    def _split_rmatvec(self, u_pad):
+        """(nmc, N) rows^T u as kernel B2 splits the blend (_split_matvec)."""
+        u64 = u_pad.double()
+        g = self._near_rmatvec(u_pad)
+        for sl in self._chunks():
+            g = g + torch.einsum("bnkd,bd->kn", self._main_rows(self.xd[sl], self.yd[sl], self.zd[sl]).double(),
+                                 u64[sl])
+        return g.to(u_pad.dtype)
+
     def _padded_residual(self, u):
         u_pad = torch.zeros((self.xd.shape[0], self.phys.ndc), dtype=u.dtype, device=u.device)
         u_pad[: self.nrows] = u.reshape(self.nrows, self.phys.ndc)
@@ -309,9 +445,10 @@ class ShardedMatrixFreeKernel:
     [s*N/n, (s+1)*N/n) with their column weights, and every observation.
     matvec adds the slots' partial data on the home device in slot order;
     rmatvec concatenates the slots' gradients. The candidate near cells
-    stay in the whole grid's numbering; each slot corrects those of its
-    own. `whole` is the unsharded operator on the home device, which pads
-    the vectors and weights the rows."""
+    stay in the whole grid's numbering; each slot keeps those of its own
+    (the others -1) and their transpose over its cells. `whole` is the
+    unsharded operator on the home device, which pads the vectors and
+    weights the rows."""
 
     whole: MatrixFreeKernel
     parts: list
@@ -335,10 +472,14 @@ class ShardedMatrixFreeKernel:
         parts = []
         for s, dev in enumerate(mesh.slots):
             sl = slice(s * per, (s + 1) * per)
+            near = {}
+            if k.near_idx is not None:
+                idx = k.near_idx.to(dev)
+                near["near_idx"] = torch.where((idx >= s * per) & (idx < (s + 1) * per), idx, -1)
+                near["near_tptr"], near["near_obs"] = near_idx_transpose(near["near_idx"], s * per, per)
             parts.append(dataclasses.replace(
                 k, grid6=tuple(a[sl].to(dev) for a in k.grid6), xd=k.xd.to(dev), yd=k.yd.to(dev),
-                zd=k.zd.to(dev), cw=k.cw[sl].to(dev), row_w=k.row_w.to(dev),
-                near_idx=None if k.near_idx is None else k.near_idx.to(dev), N_true=None, cell_lo=s * per,
+                zd=k.zd.to(dev), cw=k.cw[sl].to(dev), row_w=k.row_w.to(dev), N_true=None, cell_lo=s * per, **near,
             ))
         whole = dataclasses.replace(k, **{f: getattr(k, f).to(mesh.home) for f in ("xd", "cw", "row_w")})
         return cls(whole, parts, mesh)
@@ -544,6 +685,65 @@ def lattice_near_window(xe, ye, ze, xd, yd, zd, radius=None):
     return (wz, wy, wx), np.stack([iz, iy, ix], axis=1)
 
 
+def _lattice_near_mask(xe_w, ye_w, ze_w, xs, ys, zs):
+    """(B, wz, wy, wx): which cells of each point's window (edges (B, w+1)
+    each) are near it, the far mask's complement in float: the plain loop's
+    choice of the closed forms, and kernel B3's of its near pass."""
+    X1, X2, Y1, Y2, Z1, Z2 = _lattice_bounds(xe_w, ye_w, ze_w)
+    r2 = (
+        (0.5 * (X1 + X2) - xs[:, None, None, None]) ** 2
+        + (0.5 * (Y1 + Y2) - ys[:, None, None, None]) ** 2
+        + (0.5 * (Z1 + Z2) - zs[:, None, None, None]) ** 2
+    )
+    hx, hy, hz = 0.5 * (X2 - X1), 0.5 * (Y2 - Y1), 0.5 * (Z2 - Z1)
+    return r2 <= (prism.FAR_QUAD_RADIUS * prism.FAR_QUAD_RADIUS) * (hx * hx + hy * hy + hz * hz)
+
+
+def lattice_near_lists(xe, ye, ze, xd, yd, zd, win, wi0, margin=1.001):
+    """The blended lattice operator's near lists, built once on the
+    operator's device: {near_ptr (nrows + 1,), near_cells, near_tptr
+    (N + 1,), near_obs}, int32, the operator's fields. The candidates of observation b are the
+    cells of its window (win, wi0) whose centre lies within margin x
+    FAR_QUAD_RADIUS of their own half-diagonals, evaluated in float64: a
+    superset of its near cells, which kernel B3's near pass and the plain
+    version pick by the operator's own float mask. near_cells[near_ptr[b]:
+    near_ptr[b + 1]] holds b's as flat cell indices in increasing order;
+    transposed (candidate_transpose), near_obs[near_tptr[n]:near_tptr[n + 1]]
+    holds cell n's observations in increasing order. Chunked over the
+    observations, as near_cell_indices is."""
+    nx, ny, nz = xe.shape[0] - 1, ye.shape[0] - 1, ze.shape[0] - 1
+    dev = xd.device
+    rad2 = (prism.FAR_QUAD_RADIUS * margin) ** 2
+    cells = []
+    for e, t in ((ze, zd), (ye, yd), (xe, xd)):
+        e = e.double()
+        cells.append((0.5 * (e[:-1] + e[1:]), 0.5 * (e[1:] - e[:-1]), t.double()))
+    nrows = xd.shape[0]
+    chunk = max(1, (1 << 24) // (win[0] * win[1] * win[2]))
+    counts, found = [], []
+    for s in range(0, nrows, chunk):
+        e = min(nrows, s + chunk)
+        idx, d2, h2 = [], [], []
+        for a, (w, (c, h, t)) in enumerate(zip(win, cells)):
+            i = wi0[s:e, a, None].long() + torch.arange(w, device=dev)  # (B, w)
+            idx.append(i)
+            d2.append((c[i] - t[s:e, None]) ** 2)
+            h2.append(h[i] ** 2)
+        shape = [(slice(None), slice(None), None, None), (slice(None), None, slice(None), None),
+                 (slice(None), None, None, slice(None))]
+        r2 = d2[0][shape[0]] + d2[1][shape[1]] + d2[2][shape[2]]
+        near = r2 <= rad2 * (h2[0][shape[0]] + h2[1][shape[1]] + h2[2][shape[2]])
+        flat = (idx[0][shape[0]] * ny + idx[1][shape[1]]) * nx + idx[2][shape[2]]
+        counts.append(near.sum((1, 2, 3)))
+        found.append(flat.expand_as(near)[near])
+    ptr = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = torch.cumsum(torch.cat(counts), 0)
+    near_cells = torch.cat(found)
+    tptr, obs = candidate_transpose(ptr, near_cells, nx * ny * nz)
+    return {"near_ptr": ptr.to(torch.int32), "near_cells": near_cells.to(torch.int32), "near_tptr": tptr,
+            "near_obs": obs}
+
+
 def lattice_rows_for_point(xe, ye, ze, x, y, z, problem, data_type, magv, intensity, nmc, ndc):
     """Per-cell closed-form rows for a batch of points by the corner
     lattice: (B, nz, ny, nx, nmc, ndc). The stored build's float64 rows and
@@ -582,7 +782,9 @@ class LatticeMatrixFreeKernel:
 
     The products run kernel B3 (lattice_matvec, lattice_rmatvec) on the card
     and the chunk loop (_partial_matvec, _partial_rmatvec) on the CPU, both
-    between the column weight and the row weights."""
+    between the column weight and the row weights. Kernel B3's blend
+    evaluates the near cells in a pass of its own over the near lists
+    (lattice_near_lists), built once with the operator."""
 
     xe: torch.Tensor  # (nx+1,)
     ye: torch.Tensor  # (ny+1,)
@@ -608,6 +810,13 @@ class LatticeMatrixFreeKernel:
     # (nrows_padded, 3) int32 window starts (z, y, x) when far_quad: kernel
     # B3 reads them as they are, so they are made int32 at construction.
     wi0: torch.Tensor = None
+    # The near lists when far_quad (lattice_near_lists), int32: each
+    # observation's candidate cells, near_cells[near_ptr[b]:near_ptr[b + 1]],
+    # and each cell's candidate observations, near_obs[near_tptr[n]:...].
+    near_ptr: torch.Tensor = None
+    near_cells: torch.Tensor = None
+    near_tptr: torch.Tensor = None
+    near_obs: torch.Tensor = None
 
     @property
     def graph_capturable(self) -> bool:
@@ -633,7 +842,8 @@ class LatticeMatrixFreeKernel:
 
     @property
     def nbytes(self) -> int:
-        return _nbytes(self.xe, self.ye, self.ze, self.xd, self.yd, self.zd, self.cw, self.row_w, self.wi0)
+        return _nbytes(self.xe, self.ye, self.ze, self.xd, self.yd, self.zd, self.cw, self.row_w, self.wi0,
+                       self.near_ptr, self.near_cells, self.near_tptr, self.near_obs)
 
     def _physics(self):
         return (self.problem, self.data_type, self.magv, self.intensity, self.nmc, self.ndc)
@@ -667,14 +877,7 @@ class LatticeMatrixFreeKernel:
         closed = _lattice_closed_rows(*edges64, *pts64, *self._physics()).to(xs.dtype)
         quad3 = _lattice_quad_rows(xe_w, ye_w, ze_w, *args, order=3)
         quad2 = _lattice_quad_rows(xe_w, ye_w, ze_w, *args, order=2)
-        X1, X2, Y1, Y2, Z1, Z2 = _lattice_bounds(xe_w, ye_w, ze_w)
-        r2 = (
-            (0.5 * (X1 + X2) - xs[:, None, None, None]) ** 2
-            + (0.5 * (Y1 + Y2) - ys[:, None, None, None]) ** 2
-            + (0.5 * (Z1 + Z2) - zs[:, None, None, None]) ** 2
-        )
-        hx, hy, hz = 0.5 * (X2 - X1), 0.5 * (Y2 - Y1), 0.5 * (Z2 - Z1)
-        near = r2 <= (prism.FAR_QUAD_RADIUS * prism.FAR_QUAD_RADIUS) * (hx * hx + hy * hy + hz * hz)
+        near = _lattice_near_mask(xe_w, ye_w, ze_w, xs, ys, zs)
         return torch.where(near[..., None, None], closed, quad3) - quad2
 
     def _chunks(self):
@@ -713,6 +916,69 @@ class LatticeMatrixFreeKernel:
                         + iy[None, :, None, :, None]) * self.nx + ix[None, :, None, None, :]
                 _index_add_in_order(g.view(-1), flat.reshape(-1), contrib.reshape(-1))
         return g.reshape(self.nmc, self.N)
+
+    def _near_pair_rows(self, b, n):
+        """(P, nmc, ndc) rows of candidate pairs (observation b, flat cell
+        n) as kernel B3's near pass evaluates them: each cell's closed forms
+        from its own 8 corners in float64, rounded to the operator's type,
+        where the window's near mask calls the pair near, else 0."""
+        ix, iy, iz = n % self.nx, (n // self.nx) % self.ny, n // (self.nx * self.ny)
+        xs, ys, zs = self.xd[b], self.yd[b], self.zd[b]
+        edges = tuple(torch.stack((e[i], e[i + 1]), 1) for e, i in ((self.xe, ix), (self.ye, iy), (self.ze, iz)))
+        edges64, *pts64 = _in_float64(edges, xs, ys, zs)
+        closed = _lattice_closed_rows(*edges64, *pts64, *self._physics()).to(xs.dtype)[:, 0, 0, 0]
+        near = _lattice_near_mask(*edges, xs, ys, zs)[:, 0, 0, 0]
+        return torch.where(near[:, None, None], closed, torch.zeros_like(closed))
+
+    def _near_matvec(self, xw):
+        """(nrows_padded, ndc) float64: the blend's near pass of the matvec
+        over each observation's candidates (the plain version of
+        ops/lattice_matvec.py::lattice_near_matvec)."""
+        return _near_sum((self.xd.shape[0], self.ndc), _csr_pairs(self.near_ptr, self.near_cells),
+                         self._near_pair_rows, _matvec_terms(xw, self.ndc), xw.device)
+
+    def _near_rmatvec(self, u_pad):
+        """(nmc, N) float64: the blend's near pass of the rmatvec over each
+        cell's candidate observations (the plain version of
+        lattice_near_rmatvec)."""
+        n, b = _csr_pairs(self.near_tptr, self.near_obs)
+        return _near_sum((self.nmc, self.N), (b, n), self._near_pair_rows, _rmatvec_terms(u_pad, self.N),
+                         u_pad.device)
+
+    def _main_rows(self, xs, ys, zs, i0):
+        """(B, nz, ny, nx, nmc, ndc) rows of kernel B3's main loop: the
+        8-point rule, on each point's window the 27-point rule, zero where
+        near."""
+        rows = _lattice_quad_rows(self.xe, self.ye, self.ze, xs, ys, zs, *self._physics(), order=2)
+        iz, iy, ix = self._window_index(i0)
+        ez, ey, ex = (torch.cat((i, i[:, -1:] + 1), 1) for i in (iz, iy, ix))
+        xe_w, ye_w, ze_w = self.xe[ex], self.ye[ey], self.ze[ez]
+        quad3 = _lattice_quad_rows(xe_w, ye_w, ze_w, xs, ys, zs, *self._physics(), order=3)
+        near = _lattice_near_mask(xe_w, ye_w, ze_w, xs, ys, zs)
+        b = torch.arange(xs.shape[0], device=xs.device)[:, None, None, None]
+        rows[b, iz[:, :, None, None], iy[:, None, :, None], ix[:, None, None, :]] = torch.where(
+            near[..., None, None], torch.zeros_like(quad3), quad3)
+        return rows
+
+    def _split_matvec(self, xw):
+        """(nrows_padded, ndc) rows x xw as kernel B3 splits the blend: its
+        main loop plus its near pass, summed in float64 and rounded once (the
+        plain version of lattice_matvec's split; _partial_matvec, the chunk
+        loop, adds the window's correction to float32 rows)."""
+        y = xw.reshape(self.nmc, self.nz, self.ny, self.nx).double()
+        d = torch.cat([torch.einsum("bzyxkd,kzyx->bd", self._main_rows(self.xd[sl], self.yd[sl], self.zd[sl],
+                                                                       self.wi0[sl]).double(), y)
+                       for sl in self._chunks()])
+        return (d + self._near_matvec(xw)).to(xw.dtype)
+
+    def _split_rmatvec(self, u_pad):
+        """(nmc, N) rows^T u as kernel B3 splits the blend (_split_matvec)."""
+        u64 = u_pad.double()
+        g = self._near_rmatvec(u_pad).reshape(self.nmc, self.nz, self.ny, self.nx)
+        for sl in self._chunks():
+            rows = self._main_rows(self.xd[sl], self.yd[sl], self.zd[sl], self.wi0[sl]).double()
+            g = g + torch.einsum("bd,bzyxkd->kzyx", u64[sl], rows)
+        return g.reshape(self.nmc, self.N).to(u_pad.dtype)
 
     def _padded_residual(self, u):
         u_pad = torch.zeros((self.xd.shape[0], self.ndc), dtype=u.dtype, device=u.device)
@@ -786,11 +1052,13 @@ class ShardedLatticeMatrixFreeKernel:
             def put(a):
                 return torch.as_tensor(a[sl], dtype=dt, device=dev)
 
-            parts.append(dataclasses.replace(
-                k, xe=k.xe.to(dev), ye=k.ye.to(dev), ze=k.ze.to(dev), xd=put(xd), yd=put(yd), zd=put(zd),
-                cw=k.cw.to(dev), row_w=rw[sl].to(dev), nrows=per, win=win,
-                wi0=None if wi0 is None else torch.as_tensor(wi0[sl], dtype=torch.int32, device=dev),
-            ))
+            part = dict(xe=k.xe.to(dev), ye=k.ye.to(dev), ze=k.ze.to(dev), xd=put(xd), yd=put(yd), zd=put(zd))
+            if k.far_quad:
+                # Each part's near lists from its own observations and windows.
+                part["wi0"] = torch.as_tensor(wi0[sl], dtype=torch.int32, device=dev)
+                part.update(lattice_near_lists(*(part[f] for f in ("xe", "ye", "ze", "xd", "yd", "zd")), win,
+                                               part["wi0"]))
+            parts.append(dataclasses.replace(k, cw=k.cw.to(dev), row_w=rw[sl].to(dev), nrows=per, win=win, **part))
         return cls(parts, k.nrows, k.ndc, mesh)
 
     @property
@@ -919,20 +1187,21 @@ def make_matrixfree_kernel(
         lat = detect_lattice(grid)
         if lat is not None:
             xe, ye, ze = lat
-            win = wi0 = None
+            geometry = dict(xe=t(xe), ye=t(ye), ze=t(ze), xd=t(xd_p), yd=t(yd_p), zd=t(zd_p))
             if phys.far_quad:
                 # The window reaches the tier-2 radius, where the cheap 2^3
-                # rule becomes accurate.
+                # rule becomes accurate; the near lists are built on it.
                 win, wi0 = lattice_near_window(
                     xe, ye, ze, xd_p, yd_p, zd_p, radius=tier2_radius(phys.problem, phys.data_type)
                 )
-                wi0 = t(wi0, torch.int32)
+                geometry.update(win=win, wi0=t(wi0, torch.int32))
+                geometry.update(lattice_near_lists(*(geometry[f] for f in ("xe", "ye", "ze", "xd", "yd", "zd")), win,
+                                                   geometry["wi0"]))
             return probe(LatticeMatrixFreeKernel(
-                xe=t(xe), ye=t(ye), ze=t(ze), xd=t(xd_p), yd=t(yd_p), zd=t(zd_p),
                 cw=t(column_weight), row_w=t(row_w), chunk=chunk, nrows=nd,
                 nx=grid.nx, ny=grid.ny, nz=grid.nz, problem=phys.problem, magv=phys.magv,
                 intensity=phys.intensity, nmc=phys.nmc, ndc=phys.ndc, data_type=phys.data_type,
-                far_quad=phys.far_quad, win=win, wi0=wi0,
+                far_quad=phys.far_quad, **geometry,
             ))
 
     # Cell padding: dummy unit prisms far outside the model volume (finite
@@ -957,8 +1226,12 @@ def make_matrixfree_kernel(
     cw_pad = np.zeros(N_pad)
     cw_pad[:N] = np.asarray(column_weight)
     xd_t, yd_t, zd_t = t(xd_p), t(yd_p), t(zd_p)
-    near_idx = near_cell_indices(grid6, xd_t, yd_t, zd_t) if phys.far_quad else None
+    near = {}
+    if phys.far_quad:
+        # Built once, in int32: kernel B2's near pass reads them as they are.
+        near["near_idx"] = near_cell_indices(grid6, xd_t, yd_t, zd_t).to(torch.int32)
+        near["near_tptr"], near["near_obs"] = near_idx_transpose(near["near_idx"], 0, N_pad)
     return probe(MatrixFreeKernel(
         grid6=grid6, xd=xd_t, yd=yd_t, zd=zd_t, cw=t(cw_pad), row_w=t(row_w), phys=phys,
-        chunk=chunk, nrows=nd, N_true=N, near_idx=near_idx,
+        chunk=chunk, nrows=nd, N_true=N, **near,
     ))
