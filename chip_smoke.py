@@ -126,8 +126,10 @@ It needs one CUDA device, nvcc and nothing from the network. It
    matrix (torch.mv on it timed as a yardstick); 256 float32 rows through
    the kernel against the float64 closed forms; the construction's probe
    aborting through B3; --mesh 1 to the last bit; a dense uncompressed run
-   (the float32 pair's spread read), and both again with float64 solves held
-   to each other at the formats' tolerance;
+   (the float32 pair's spread read); the float32 solve through kernel B3
+   held to the same solve through its plain loop on the card,
+   LATTICE_PLAIN_DEPTH deep, at the formats' tolerance; and both Parfiles
+   again with float64 solves held to each other at the formats' tolerance;
 21. a grid whose top layer follows a topography (MatrixFreeKernel, its
    products by kernel B2): B2 against its plain loop at full width for g_z
    in float32 (the blend) and float64, and for FTG-6 and TMI on 512 rows,
@@ -181,7 +183,14 @@ It needs one CUDA device, nvcc and nothing from the network. It
    and the lattice operator) on the card against the CPU; and a fused run
    whose LSQR stops early (inversion.minResidual)
    beside its host-driven run, LSQR iterations and seconds a major of each.
-   The runs of this phase that read the tiled cache share one packing of it.
+   The runs of this phase that read the tiled cache share one packing of it;
+29. the 4m capacity rung of scripts/run_capacity_torch.py at its full width
+   (200 x 200 x 100 = 4,000,000 cells, 2025 observations, the lattice
+   operator's float32 blend), its fixtures and Parfile written and solved
+   by the script CAPACITY_DEPTH deep: kernel B3's launches (and its near
+   pass's) counted, the data cost falls, the peak device memory, wall and
+   host peak printed; then one B3 pair on that run's operator against its
+   plain loop, two launches equal to the last bit, timed beside its bound.
 
 The full-width kernels and their torch.mv yardstick are timed over calls back
 to back between one pair of CUDA events (BACK_TO_BACK). Any failed phase ends
@@ -281,6 +290,17 @@ def time_cuda(fn, warm=3, reps=20, calls=1):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds by CUDA events): one call, no warm-up, for a
+    plain version whose result is compared too."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
 
 
 # Kernels of the full-width layouts and their torch.mv yardstick are timed
@@ -1302,6 +1322,10 @@ def phase_17(cli, counters, tmv, work):
 # are kernels B3 and B2.
 LATTICE_DEPTH = (N_MAJOR, N_MINOR)
 GENERIC_DEPTH = (N_MAJOR, N_MINOR)
+# The lattice's float32 solve through its plain chunk loop on the card (a
+# product ~0.4 s: 50.4 s at LATTICE_DEPTH) and the same solve through kernel
+# B3, held to each other at this depth: one major of the same LSQR depth.
+LATTICE_PLAIN_DEPTH = (1, N_MINOR)
 # Observations of phase 21's FTG-6 and TMI operators at full width in cells.
 B2_ROW_CUT = 512
 # JAX's bounds for its blended float32 operators against float64: a whole
@@ -1472,9 +1496,12 @@ def phase_20(cli, counters, workflow, work, inputs):
           "minors:")
     draped = dict(inputs, data=inputs["data_draped"])
     out = {f: os.path.join(work, f"out_lattice_{f}")
-           for f in ("run", "mesh1", "dense", "plain", "run_f64", "dense_f64")}
+           for f in ("run", "mesh1", "dense", "short", "plain", "run_f64", "dense_f64")}
     pf = {f: write_parfile(work, f"Parfile_lattice_{f}.txt", draped, out[f], LATTICE_DEPTH[1], fmt="matrixfree",
-                           compression=0, n_major=LATTICE_DEPTH[0]) for f in ("run", "mesh1", "plain", "run_f64")}
+                           compression=0, n_major=LATTICE_DEPTH[0]) for f in ("run", "mesh1", "run_f64")}
+    pf.update({f: write_parfile(work, f"Parfile_lattice_{f}.txt", draped, out[f], LATTICE_PLAIN_DEPTH[1],
+                                fmt="matrixfree", compression=0, n_major=LATTICE_PLAIN_DEPTH[0])
+               for f in ("short", "plain")})
     for f in ("dense", "dense_f64"):
         pf[f] = write_parfile(work, f"Parfile_lattice_{f}.txt", draped, out[f], LATTICE_DEPTH[1], fmt=None,
                               compression=0, extra=["tpu.sensitWriteCache = 0"], n_major=LATTICE_DEPTH[0])
@@ -1565,12 +1592,16 @@ def phase_20(cli, counters, workflow, work, inputs):
     # lattice's through B3's closed forms), both at the formats' tolerance.
     spread32 = formats_apart("lattice against dense uncompressed, float32 solves", runs["run"], runs["dense"],
                              hold=False)
+    short = dict(kw, depth=LATTICE_PLAIN_DEPTH)
+    runs["short"] = run_main_path(cli, counters, "lattice", pf["short"], out["short"], said, **short)
+    if not launched(runs["short"]["launches"], **b2_launches(runs["short"]["lsqr_iterations"], "lattice")):
+        raise SystemExit(f"FAILED lattice, {LATTICE_PLAIN_DEPTH}: launches {runs['short']['launches']}")
     with lattice_products_by_the_plain_loop():
         runs["plain"] = run_main_path(cli, counters, "lattice, its plain chunk loop on the card", pf["plain"],
-                                      out["plain"], said, **kw)
+                                      out["plain"], said, **short)
     if not launched(runs["plain"]["launches"]):
         raise SystemExit(f"FAILED lattice, plain loop: kernel launches {runs['plain']['launches']}")
-    held32 = formats_apart("lattice through kernel B3 against its plain loop, float32 solves", runs["run"],
+    held32 = formats_apart("lattice through kernel B3 against its plain loop, float32 solves", runs["short"],
                            runs["plain"])
     f64 = ("--precision", "double")
     runs["run_f64"] = run_main_path(cli, counters, "lattice, float64 solve", pf["run_f64"], out["run_f64"], said,
@@ -2045,12 +2076,12 @@ def b2_bound(op, nout, nin):
     return times[which], "bytes" if which == "bytes" else "operations", which, times, near, far
 
 
-def measure_b2(name, op, rtol, reps=10, plain_reps=1):
+def measure_b2(name, op, rtol, reps=10):
     """Kernel B2 on a full-width operator against its plain loop (the
     wrappers' plain versions, on the card): each product held to rtol of
     max|y|, two launches equal to the last bit, the kernel timed by CUDA
-    events (median of `reps`), the plain loop (`plain_reps`), and the
-    bound of this run's pairs."""
+    events (median of `reps`), the plain loop (its one call, the one
+    compared), and the bound of this run's pairs."""
     from tomofastx_tpu_torch.ops import prism_matvec as pm
 
     g = torch.Generator(device="cpu").manual_seed(37)
@@ -2061,11 +2092,12 @@ def measure_b2(name, op, rtol, reps=10, plain_reps=1):
     for f, kernel, plain, v, nout in (("matvec", pm.prism_matvec, op._partial_matvec, xw, nrows * ndc),
                                       ("rmatvec", pm.prism_rmatvec, op._partial_rmatvec, u, nmc * op.N)):
         got = kernel(op, v)
-        err = compare(f"B2 {name}, {f} against its plain loop", got, plain(v), rtol)
+        want, plain_ms = timed_once(lambda: plain(v))
+        err = compare(f"B2 {name}, {f} against its plain loop", got, want, rtol)
+        del want
         if not torch.equal(kernel(op, v), got):
             raise SystemExit(f"FAILED B2 {name}: two {f} launches differ")
         ms = time_cuda(lambda: kernel(op, v), warm=1, reps=reps)
-        plain_ms = time_cuda(lambda: plain(v), warm=0, reps=plain_reps)
         bound_ms, bound_by, which, times, near, far = b2_bound(op, nout, v.numel())
         out[f] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bound_unit": which,
                   "bound_times_ms": times, "near_pairs": near, "far_pairs": far, "max_abs_err": err,
@@ -2348,12 +2380,12 @@ def b3_bound(op, nout, nin):
     return times[which], "bytes" if which == "bytes" else "operations", which, times, (near, window, far)
 
 
-def measure_b3(name, op, rtol, reps=10, plain_reps=1):
+def measure_b3(name, op, rtol, reps=10):
     """Kernel B3 on a full-width lattice operator against its plain loop
     (the wrappers' plain versions, on the card): each product held to rtol
     of max|y|, two launches equal to the last bit, the kernel timed by CUDA
-    events (median of `reps`), the plain loop (`plain_reps`), and the bound
-    of this run's pairs and corners."""
+    events (median of `reps`), the plain loop (its one call, the one
+    compared), and the bound of this run's pairs and corners."""
     from tomofastx_tpu_torch.ops import lattice_matvec as lm
 
     g = torch.Generator(device="cpu").manual_seed(37)
@@ -2364,11 +2396,12 @@ def measure_b3(name, op, rtol, reps=10, plain_reps=1):
     for f, kernel, plain, v, nout in (("matvec", lm.lattice_matvec, op._partial_matvec, xw, nrows * ndc),
                                       ("rmatvec", lm.lattice_rmatvec, op._partial_rmatvec, u, nmc * op.N)):
         got = kernel(op, v)
-        err = compare(f"B3 {name}, {f} against its plain loop", got, plain(v), rtol)
+        want, plain_ms = timed_once(lambda: plain(v))
+        err = compare(f"B3 {name}, {f} against its plain loop", got, want, rtol)
+        del want
         if not torch.equal(kernel(op, v), got):
             raise SystemExit(f"FAILED B3 {name}: two {f} launches differ")
         ms = time_cuda(lambda: kernel(op, v), warm=1, reps=reps)
-        plain_ms = time_cuda(lambda: plain(v), warm=0, reps=plain_reps)
         bound_ms, bound_by, which, times, pairs = b3_bound(op, nout, v.numel())
         out[f] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bound_unit": which,
                   "bound_times_ms": times, "near_window_far_pairs": pairs, "max_abs_err": err, "library_ms": None}
@@ -3143,6 +3176,74 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: a capacity rung at its full width.
+# ---------------------------------------------------------------------------
+
+# The 4m rung of scripts/run_capacity_torch.py (200 x 200 x 100 cells, 2025
+# observations 0.1 m above the top, the lattice operator's float32 blend),
+# cut to this depth: the full run is 3 x 20.
+CAPACITY_RUNG, CAPACITY_DEPTH = "4m", (1, 10)
+
+
+def capacity_script():
+    """scripts/run_capacity_torch.py, loaded as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("run_capacity_torch",
+                                                  os.path.join(HERE, "scripts", "run_capacity_torch.py"))
+    module = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_29(counters, workflow, work):
+    """The CAPACITY_RUNG rung's fixtures and Parfile written by
+    scripts/run_capacity_torch.py and solved through it CAPACITY_DEPTH deep,
+    with every kernel's count set to 0 just before and read just after:
+    kernel B3 and its near pass once a product; the data cost falls; then one
+    B3 pair on that run's operator against its plain loop at f32 1e-5 of
+    max|y|, two launches equal to the last bit."""
+    from tomofastx_tpu_torch.ops.matrixfree import LatticeMatrixFreeKernel
+
+    cap = capacity_script()
+    t0 = time.time()
+    fx = cap.write_fixture(CAPACITY_RUNG, os.path.join(work, "capacity"), depth=CAPACITY_DEPTH)
+    print(f"capacity rung {CAPACITY_RUNG} ({fx.ncells:,} cells x {fx.ndata:,} observations, {fx.depth[0]} major x "
+          f"{fx.depth[1]} minors; fixtures written in {fx.fixtures_s:.1f} s):")
+    for fn in counters.values():
+        fn.launches = 0
+    with capturing_the_system(workflow) as kept:
+        res, log, wall, peak = cap.solve(fx, device="cuda", verbose=False)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    rec = cap.record(fx, res, log, wall, peak, "cuda")
+    op = kept["arrays"]["S"][0]
+    del kept["arrays"]
+    if not (isinstance(op, LatticeMatrixFreeKernel) and op.far_quad
+            and re.search(r"products by kernel B3, csrc/lattice_matvec\.cu\)", log)):
+        raise SystemExit(f"FAILED capacity {CAPACITY_RUNG}: not the lattice operator's blend through kernel B3 "
+                         f"({type(op).__name__}; {rec['operator']})")
+    want = b2_launches(res.timings["lsqr_iters"], "lattice")
+    print(f"  kernel B3's launches {launches['lattice_matvec']} matvec, {launches['lattice_rmatvec']} rmatvec, near "
+          f"passes {launches['lattice_near_matvec']} and {launches['lattice_near_rmatvec']} (expected "
+          f"{want['lattice_matvec']} and {want['lattice_rmatvec']}, one each a product)")
+    if not launched(launches, **want) or res.timings["lsqr_iters"] != [CAPACITY_DEPTH[1]] * CAPACITY_DEPTH[0]:
+        raise SystemExit(f"FAILED capacity {CAPACITY_RUNG}: launches {launches}, LSQR {res.timings['lsqr_iters']}")
+    initial = float(re.search(r"data cost \(initial\) \[grav\] = (\S+)", log).group(1))
+    final = rec["cost_history_grav"][-1]
+    print(f"  data cost {initial:.6e} -> {final:.6e}; wall_s {wall:.1f} (forward phase {rec['forward_phase_s']:.1f} s), "
+          f"peak device memory {peak / 1e9:.2f} GB, host peak RSS {rec['host_peak_rss_bytes'] / 1e9:.2f} GB; the "
+          f"operator holds {op.nbytes / 1e6:.1f} MB, a product's float64 partial sums {op.partial_nbytes / 1e6:.1f} MB")
+    if not (np.isfinite(res.models[0].val).all() and final < initial):
+        raise SystemExit(f"FAILED capacity {CAPACITY_RUNG}: the data cost does not fall, or the model is not finite")
+    b3 = measure_b3(f"g_z float32 (the blend), {op.xd.shape[0]} x {op.N} (capacity {CAPACITY_RUNG})", op, RTOL_F32,
+                    reps=3)
+    del op
+    torch.cuda.empty_cache()
+    rec.update(launches=launches, data_cost_initial=initial, b3=b3, phase_s=time.time() - t0)
+    return rec
+
+
 def main() -> int:
     t_all = time.time()
 
@@ -3736,6 +3837,10 @@ def main() -> int:
             "bttb": (mf["bttb"]["runs"]["run"],), "refine64": (variants["refine"]["runs"]["double"],),
             "per_cell": (mf["generic"]["run"],), "lattice": (mf["lattice"]["runs"]["run"],)})
         small_rel.update({f"fused_{k}": v for k, v in fused["small"].items()})
+
+        # ---- 29. a capacity rung at its full width ----
+        clock(29)
+        capacity = phase_29(counters, workflow, work)
         for name, run in [(f"bttb {k}", v) for k, v in mf["bttb"]["runs"].items()] + [
                 ("lattice dense", mf["lattice"]["runs"]["dense"]), ("lattice dense f64", mf["lattice"]["runs"]["dense_f64"]),
                 ("auto", mf["auto"]["run"])]:
@@ -3841,6 +3946,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[f"{kind}_near_{f}"],
             "launches_fused": fused["runs"][run]["launches_fused"][f"{kind}_near_{f}"],
+            f"launches_capacity_{CAPACITY_RUNG}": capacity["launches"][f"{kind}_near_{f}"],
             **{k: main["near"][f][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape_of_these_times": f"g_z float32 blend, 4096 x 262144: the {run} main path's operator, "
                                     f"{main['near'][f]['near_pairs']:,} near pairs",
@@ -3866,10 +3972,12 @@ def main() -> int:
             "launches": mf["lattice"]["runs"]["run"]["launches"][name],
             "launches_mesh1": mf["lattice"]["runs"]["mesh1"]["launches"][name],
             "launches_fused": fused["runs"]["lattice"]["launches_fused"][name],
+            f"launches_capacity_{CAPACITY_RUNG}": capacity["launches"][name],
             **{k: b3_main[f][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "yardstick_torch_mv_f32_ms": mf["lattice"]["yardstick"][yard],
             "shape_of_these_times": "g_z float32 blend, 4096 x 262144: the lattice main path's operator",
-            "measured": {k: v[f] for k, v in mf["lattice"]["b3"].items()},
+            "measured": {**{k: v[f] for k, v in mf["lattice"]["b3"].items()},
+                         f"capacity {CAPACITY_RUNG}": capacity["b3"][f]},
             "small_problems": b3_small,
             "registers": b3_main["registers"],
         }
@@ -3888,7 +3996,7 @@ def main() -> int:
         "coupled_dense_against_tiled": coupled_spread, "coupling_weights": weights, "coupling_scales": scales,
         "coupled_blocks_ms": coupled["blocks_ms"], "coupled_blocks_launches": coupled["blocks_launches"],
         "resume_profile_debug_nans": late, "matrixfree": jsonable(mf), "build_and_storage_variants": jsonable(variants),
-        "fused": jsonable(fused),
+        "fused": jsonable(fused), f"capacity_{CAPACITY_RUNG}": jsonable(capacity),
         "operators": operators, "observations": NDATA, "cells": NX * NY * NZ,
         "kernel_build_s": build_s, "total_s": total_s,
         "memory_bytes_per_s_assumed": MEMORY_BYTES_PER_S, "fp32_flop_per_s_assumed": FP32_FLOP_PER_S,

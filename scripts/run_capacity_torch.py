@@ -1,0 +1,421 @@
+#!/usr/bin/env python3
+"""Capacity runs of the PyTorch/CUDA port on one card: the JAX package's
+capacity ladder, rung by rung, through the port's own entry point.
+
+    python3 scripts/run_capacity_torch.py --rung 4m           # -> CAPACITY_4M_TORCH.json
+    python3 scripts/run_capacity_torch.py --rung 32m --out-dir output/capacity
+    python3 scripts/run_capacity_torch.py --rung 4m --small --device cpu   # the small sizes
+
+Each rung writes the synthetic fixtures (grid, true model, survey) and the
+Parfile of one JAX capacity script into a temporary directory (removed at the
+end), key for key and byte for byte as that script writes them, and runs
+tomofastx_tpu_torch.inversion.workflow.solve_problem_joint_gravmag on it with
+the script's arguments:
+
+    2m        scripts/run_2m_cell.py       160 x 160 x 80 cells, 2025 observations:
+              bfloat16 kernel storage (kernel B1) with the exact-physics
+              refinement forward, the mixed build (1024 cells in float64),
+              the fused major loop in chunks of 5; 20 x 100
+    4m .. 32m scripts/run_4m_matrixfree.py 200 x 200 x 100 to 400 x 400 x 200 cells,
+              2025 observations: the corner-lattice operator's float32 blend
+              (kernel B3 and its near pass); 3 x 20, 3 x 15, 3 x 12, 3 x 10
+    joint1m   scripts/run_million_joint.py 128 x 128 x 64 cells, 1600 observations of
+              gravity and TMI: the compensated float32 build stored
+              bfloat16, cross-gradient, 2-lithology ADMM and damping, fused
+              in chunks of 5; 15 x 60
+    bttb134m  scripts/run_bttb_giant.py    512 x 512 x 512 cells, 256 x 256 observations
+              on the cell lattice at stride 2: BTTBKernel (torch.fft), the
+              host-driven loop; 5 x 20
+
+--small takes the sizes those scripts take under MC_SMALL, MJ_SMALL or
+BG_SMALL. A run writes CAPACITY_<RUNG>_TORCH.json (with --small,
+CAPACITY_<RUNG>_SMALL_TORCH.json) into --out-dir (the repository's root by
+default): the sizes, the operator the log names, the wall and setup seconds,
+peak device memory, host peak RSS, the cost history, the truth correlation,
+and the card's name and power limit. It exits non-zero when the data cost of
+an active problem does not fall from the first major to the last.
+
+Imports torch and numpy, and the port; nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import re
+import resource
+import subprocess
+import sys
+import tempfile
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+H = (100.0, 100.0, 50.0)  # cell size of every rung (m)
+
+
+@dataclass(frozen=True)
+class Rung:
+    """One rung: the JAX script it ports, its kind, and its sizes at full
+    width and under the script's small switch: ((nx, ny, nz), observations a
+    side, (majors, minors))."""
+
+    source: str
+    kind: str  # "bf16", "matrixfree", "joint" or "bttb"
+    full: tuple
+    small: tuple
+
+
+RUNGS = {
+    "2m": Rung("scripts/run_2m_cell.py", "bf16", ((160, 160, 80), 45, (20, 100)), ((40, 40, 20), 20, (4, 20))),
+    "4m": Rung("scripts/run_4m_matrixfree.py", "matrixfree", ((200, 200, 100), 45, (3, 20)),
+               ((40, 40, 20), 20, (2, 10))),
+    "8m": Rung("scripts/run_4m_matrixfree.py", "matrixfree", ((256, 250, 128), 45, (3, 15)),
+               ((40, 40, 20), 20, (2, 10))),
+    "16m": Rung("scripts/run_4m_matrixfree.py", "matrixfree", ((320, 320, 160), 45, (3, 12)),
+                ((40, 40, 20), 20, (2, 10))),
+    "32m": Rung("scripts/run_4m_matrixfree.py", "matrixfree", ((400, 400, 200), 45, (3, 10)),
+                ((40, 40, 20), 20, (2, 10))),
+    "joint1m": Rung("scripts/run_million_joint.py", "joint", ((128, 128, 64), 40, (15, 60)),
+                    ((32, 32, 16), 20, (4, 20))),
+    "bttb134m": Rung("scripts/run_bttb_giant.py", "bttb", ((512, 512, 512), 256, (5, 20)),
+                     ((64, 64, 32), 32, (2, 10))),
+}
+BTTB_STRIDE = 2  # the BTTB survey's spacing in cells
+
+
+@dataclass
+class Fixture:
+    """What a rung's writer leaves: the Parfile lines, the true models (one a
+    problem), the solver's keyword arguments and the sizes."""
+
+    rung: str
+    work: str
+    lines: list
+    truth: list
+    solve_kw: dict
+    size: tuple
+    ndata: int
+    depth: tuple
+    fixtures_s: float
+    masks: dict = field(default_factory=dict)
+
+    @property
+    def ncells(self) -> int:
+        return int(np.prod(self.size))
+
+
+def write_grid_file(path, nx, ny, nz, hx, hy, hz):
+    """The model grid file of an nx x ny x nz lattice of cells hx x hy x hz
+    (9 columns, i fastest); returns the cells' (i, j, k)."""
+    from tomofastx_tpu_torch.io.tableio import save_table
+
+    i = np.tile(np.arange(nx), ny * nz)
+    j = np.tile(np.repeat(np.arange(ny), nx), nz)
+    k = np.repeat(np.arange(nz), nx * ny)
+    cols = np.column_stack([
+        i * hx, (i + 1) * hx, j * hy, (j + 1) * hy, k * hz, (k + 1) * hz, i + 1, j + 1, k + 1,
+    ])
+    save_table(path, cols, fmt="%.1f %.1f %.1f %.1f %.1f %.1f %d %d %d", header=f"{nx * ny * nz}")
+    return i, j, k
+
+
+def write_survey(path, xs, ys):
+    """Observations on the x-y lattice xs x ys, 0.1 m above the grid's top."""
+    from tomofastx_tpu_torch.io.tableio import save_table
+
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    nd = X.size
+    save_table(path, np.column_stack([X.ravel(), Y.ravel(), np.full(nd, -0.1), np.zeros(nd)]),
+               fmt="%.2f %.2f %.2f %.1f", header=f"{nd}")
+
+
+def _box(i, j, k, x0, xn, y0, yn, z0, zn):
+    return (i >= x0) & (i < x0 + xn) & (j >= y0) & (j < y0 + yn) & (k >= z0) & (k < z0 + zn)
+
+
+def _bodies(i, j, k, nx, ny, nz):
+    """The two buried prisms of the 2M-cell and joint fixtures."""
+    return (_box(i, j, k, nx // 4, nx // 8, ny // 4, ny // 8, nz // 4, nz // 4),
+            _box(i, j, k, 5 * nx // 8, nx // 8, ny // 2, ny // 8, nz // 8, nz // 4))
+
+
+def _gravity_lines(work, nx, ny, nz, nd, majors, minors):
+    """The Parfile lines every gravity rung shares."""
+    return [
+        f"global.outputFolderPath = {work}/out/\n",
+        f"modelGrid.size = {nx} {ny} {nz}\n",
+        f"modelGrid.grav.file = {work}/grid.txt\n",
+        f"forward.data.grav.nData = {nd}\n",
+        f"forward.data.grav.dataGridFile = {work}/data.txt\n",
+        "forward.data.grav.useSyntheticModelForDataValues = 1\n",
+        f"forward.data.grav.syntheticModelFile = {work}/true_model.txt\n",
+        "forward.depthWeighting.type = 1\n",
+        "forward.depthWeighting.grav.power = 2.0\n",
+        "forward.depthWeighting.grav.Z0 = 0.1\n",
+        f"inversion.nMajorIterations = {majors}\n",
+        f"inversion.nMinorIterations = {minors}\n",
+        "inversion.minResidual = 1e-13\n",
+        "inversion.modelDamping.grav.weight = 1e-11\n",
+    ]
+
+
+def _centred_survey(work, nx, ny, nside):
+    xs = (np.arange(nside) + 0.5) * (nx * H[0] / nside)
+    ys = (np.arange(nside) + 0.5) * (ny * H[1] / nside)
+    write_survey(f"{work}/data.txt", xs, ys)
+
+
+def _write_bf16(work, size, nside, depth):
+    """scripts/run_2m_cell.py: two prisms, bfloat16 storage, refinement."""
+    from tomofastx_tpu_torch.io.tableio import save_table
+
+    nx, ny, nz = size
+    i, j, k = write_grid_file(f"{work}/grid.txt", nx, ny, nz, *H)
+    body1, body2 = _bodies(i, j, k, nx, ny, nz)
+    val = np.zeros(nx * ny * nz)
+    val[body1] = 500.0
+    val[body2] = -300.0
+    save_table(f"{work}/true_model.txt", val[:, None], fmt="%.2f", header=f"{val.size}")
+    _centred_survey(work, nx, ny, nside)
+    lines = _gravity_lines(work, nx, ny, nz, nside * nside, *depth) + [
+        "tpu.kernelStoreDtype = bfloat16\n",
+        "tpu.refineForward = 1\n",
+        "tpu.sensitWriteCache = 0\n",
+    ]
+    return lines, [val], {"fused_chunk": 5, "near_field_f64": 1024}, {}
+
+
+def _write_matrixfree(work, size, nside, depth):
+    """scripts/run_4m_matrixfree.py: one prism, the float32 blend."""
+    from tomofastx_tpu_torch.io.tableio import save_table
+
+    nx, ny, nz = size
+    i, j, k = write_grid_file(f"{work}/grid.txt", nx, ny, nz, *H)
+    val = np.zeros(nx * ny * nz)
+    val[_bodies(i, j, k, nx, ny, nz)[0]] = 500.0
+    save_table(f"{work}/true_model.txt", val[:, None], fmt="%.2f", header=f"{val.size}")
+    _centred_survey(work, nx, ny, nside)
+    lines = _gravity_lines(work, nx, ny, nz, nside * nside, *depth) + [
+        "tpu.kernelFormat = matrixfree\n",
+        "tpu.farFieldQuad = 1\n",
+    ]
+    return lines, [val], {}, {}
+
+
+def _write_joint(work, size, nside, depth):
+    """scripts/run_million_joint.py: density in both prisms, susceptibility in
+    the first only; cross-gradient, ADMM, bfloat16 storage."""
+    from tomofastx_tpu_torch.io.tableio import save_table
+
+    nx, ny, nz = size
+    majors, minors = depth
+    nd = nside * nside
+    i, j, k = write_grid_file(f"{work}/grid.txt", nx, ny, nz, *H)
+    body_a, body_b = _bodies(i, j, k, nx, ny, nz)
+    rho = np.zeros(nx * ny * nz)
+    rho[body_a] = 400.0
+    rho[body_b] = -300.0
+    chi = np.zeros(nx * ny * nz)
+    chi[body_a] = 0.05
+    save_table(f"{work}/true_rho.txt", rho[:, None], fmt="%.2f", header=f"{rho.size}")
+    save_table(f"{work}/true_chi.txt", chi[:, None], fmt="%.5f", header=f"{chi.size}")
+    _centred_survey(work, nx, ny, nside)
+    lines = [
+        f"global.outputFolderPath = {work}/out/\n",
+        f"modelGrid.size = {nx} {ny} {nz}\n",
+        f"modelGrid.grav.file = {work}/grid.txt\n",
+        f"modelGrid.magn.file = {work}/grid.txt\n",
+        f"forward.data.grav.nData = {nd}\n",
+        f"forward.data.grav.dataGridFile = {work}/data.txt\n",
+        f"forward.data.magn.nData = {nd}\n",
+        f"forward.data.magn.dataGridFile = {work}/data.txt\n",
+        "forward.data.grav.useSyntheticModelForDataValues = 1\n",
+        f"forward.data.grav.syntheticModelFile = {work}/true_rho.txt\n",
+        "forward.data.magn.useSyntheticModelForDataValues = 1\n",
+        f"forward.data.magn.syntheticModelFile = {work}/true_chi.txt\n",
+        "forward.magneticField.inclination = 75.0\n",
+        "forward.magneticField.declination = 10.0\n",
+        "forward.magneticField.intensity_nT = 50000.0\n",
+        "forward.depthWeighting.type = 1\n",
+        "forward.depthWeighting.grav.power = 2.0\n",
+        "forward.depthWeighting.grav.Z0 = 0.1\n",
+        "forward.depthWeighting.magn.power = 3.0\n",
+        "forward.depthWeighting.magn.Z0 = 0.1\n",
+        f"inversion.nMajorIterations = {majors}\n",
+        f"inversion.nMinorIterations = {minors}\n",
+        "inversion.minResidual = 1e-13\n",
+        "inversion.joint.grav.problemWeight = 1.0\n",
+        "inversion.joint.magn.problemWeight = 1e-8\n",
+        "inversion.modelDamping.grav.weight = 1e-11\n",
+        "inversion.modelDamping.magn.weight = 1e-11\n",
+        "inversion.crossGradient.weight = 0.01\n",
+        "inversion.crossGradient.derivativeType = 1\n",
+        "inversion.admm.enableADMM = 1\n",
+        "inversion.admm.nLithologies = 2\n",
+        "inversion.admm.grav.bounds = -350. -250. -1. 450.\n",
+        "inversion.admm.grav.weight = 1e-7\n",
+        "inversion.admm.magn.bounds = -0.001 0.001 0.04 0.06\n",
+        "inversion.admm.magn.weight = 1e-7\n",
+        "tpu.kernelStoreDtype = bfloat16\n",
+        "tpu.sensitWriteCache = 0\n",
+    ]
+    return lines, [rho, chi], {"fused_chunk": 5, "compute_dtype": torch.float32}, {"shared": body_a,
+                                                                                   "grav_only": body_b}
+
+
+def _write_bttb(work, size, nside, depth):
+    """scripts/run_bttb_giant.py: one shallow prism, the survey on the cell
+    lattice at a stride of BTTB_STRIDE cells."""
+    from tomofastx_tpu_torch.io.tableio import save_table
+
+    nx, ny, nz = size
+    i, j, k = write_grid_file(f"{work}/grid.txt", nx, ny, nz, *H)
+    val = np.zeros(nx * ny * nz)
+    val[_box(i, j, k, nx // 4, nx // 8, ny // 4, ny // 8, nz // 8, nz // 8)] = 500.0
+    del i, j, k
+    save_table(f"{work}/true_model.txt", val[:, None], fmt="%.2f", header=f"{val.size}")
+    xs = 0.5 * H[0] + np.arange(nside) * BTTB_STRIDE * H[0]
+    ys = 0.5 * H[1] + np.arange(nside) * BTTB_STRIDE * H[1]
+    write_survey(f"{work}/data.txt", xs, ys)
+    lines = _gravity_lines(work, nx, ny, nz, nside * nside, *depth) + ["tpu.kernelFormat = matrixfree\n"]
+    return lines, [val], {}, {}
+
+
+WRITERS = {"bf16": _write_bf16, "matrixfree": _write_matrixfree, "joint": _write_joint, "bttb": _write_bttb}
+
+
+def write_fixture(rung: str, work: str, small: bool = False, depth=None) -> Fixture:
+    """Write rung `rung`'s fixtures and return its Parfile lines and the
+    rest; depth (majors, minors) in place of the rung's own, if given."""
+    spec = RUNGS[rung]
+    size, nside, own_depth = spec.small if small else spec.full
+    depth = tuple(depth or own_depth)
+    os.makedirs(work, exist_ok=True)
+    t0 = time.time()
+    lines, truth, solve_kw, masks = WRITERS[spec.kind](work, size, nside, depth)
+    return Fixture(rung, work, lines, truth, solve_kw, size, nside * nside, depth, time.time() - t0, masks)
+
+
+class _Tee(io.TextIOBase):
+    """Writes through to a stream and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.kept = stream, io.StringIO()
+
+    def write(self, s):
+        self.kept.write(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def solve(fx: Fixture, device="cuda", solve_dtype=torch.float32, verbose=True):
+    """solve_problem_joint_gravmag on the fixture's Parfile on `device`, as
+    the JAX script calls its own; returns (the WorkflowResult, the log, the
+    wall seconds, the peak device memory in bytes or None on the CPU)."""
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
+
+    cfg = parse_parfile_lines(fx.lines)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout if verbose else io.StringIO())
+    t0 = time.time()
+    with contextlib.redirect_stdout(tee):
+        res = solve_problem_joint_gravmag(cfg, base_dir=fx.work, verbose=True, device=device,
+                                          solve_dtype=solve_dtype, **fx.solve_kw)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    return res, tee.kept.getvalue(), wall, peak
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def record(fx: Fixture, res, log: str, wall: float, peak, device) -> dict:
+    """The rung's record: sizes, the operator the log names, seconds, memory,
+    costs and the truth correlation."""
+    problems = ("grav", "magn")[: len(fx.truth)]
+    setup = [float(v) for v in re.findall(r"forward phase done at t\+([0-9.]+)s", log)]
+    out = {
+        "rung": fx.rung, "jax_source": RUNGS[fx.rung].source, "ncells": fx.ncells, "ndata": fx.ndata,
+        "majors": fx.depth[0], "minors": fx.depth[1],
+        "operator": [ln.strip() for ln in re.findall(r"^ *\w+ kernel: .*$", log, re.M)],
+        "refinement_forward": [ln.strip() for ln in re.findall(r"^ *\w+ refinement forward: .*$", log, re.M)],
+        "loop": re.findall(r"^fused major loop: .*$", log, re.M) or ["host-driven"],
+        "wall_s": wall,
+        "fixtures_s": fx.fixtures_s,
+        # The workflow's forward phase: reading the inputs, the depth weight,
+        # the kernel build or the matrix-free operator (its near lists and
+        # probe product included).
+        "forward_phase_s": setup[0] if setup else None,
+        "build_s": fx.fixtures_s + (setup[0] if setup else 0.0),
+        "timings": {k: v for k, v in res.timings.items() if isinstance(v, (int, float, list))},
+        "peak_device_bytes": peak,
+        "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "device": str(device),
+    }
+    for i, p in enumerate(problems):
+        m = np.asarray(res.models[i].val).ravel()
+        out[f"cost_history_{p}"] = [float(h["cost_data"][i]) for h in res.costs_history]
+        out[f"final_cost_{p}"] = float(res.cost_data[i])
+        out[f"truth_correlation_{p}"] = float(np.corrcoef(m, fx.truth[i])[0, 1])
+    if "shared" in fx.masks:
+        chi = np.asarray(res.models[1].val).ravel()
+        out["chi_in_shared_body"] = float(np.mean(np.abs(chi[fx.masks["shared"]])))
+        out["chi_in_grav_only_body"] = float(np.mean(np.abs(chi[fx.masks["grav_only"]])))
+    out["cost_falls"] = all(out[f"cost_history_{p}"][-1] < out[f"cost_history_{p}"][0] for p in problems)
+    if torch.device(device).type == "cuda":
+        out["card"] = nvidia_smi_line()
+        out["card_name"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--rung", required=True, choices=list(RUNGS))
+    parser.add_argument("--small", action="store_true", help="the JAX script's small sizes")
+    parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    parser.add_argument("--out-dir", default=REPO, help="where the record is written (default: the repository)")
+    args = parser.parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        print("run_capacity_torch.py: no CUDA device (pass --device cpu for the CPU)", file=sys.stderr)
+        return 2
+    with tempfile.TemporaryDirectory(prefix=f"capacity_{args.rung}_") as work:
+        fx = write_fixture(args.rung, work, small=args.small)
+        print(f"fixtures of {args.rung} ({fx.ncells:,} cells, {fx.ndata:,} observations) written in "
+              f"{fx.fixtures_s:.1f} s", flush=True)
+        res, log, wall, peak = solve(fx, device=args.device)
+        out = record(fx, res, log, wall, peak, args.device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    path = os.path.join(args.out_dir, f"CAPACITY_{args.rung.upper()}{'_SMALL' if args.small else ''}_TORCH.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out, indent=1))
+    if not out["cost_falls"]:
+        print(f"FAILED {args.rung}: the data cost does not fall from the first major to the last", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

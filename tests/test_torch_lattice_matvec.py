@@ -267,6 +267,27 @@ def test_tiles_and_splits_cover_every_cell_and_observation_once(nrows, n, nv):
         assert (tiles, splits, per) == (512, 4, 1024)
 
 
+@pytest.mark.parametrize("nrows, n, far_quad, want", [
+    (4096, (64, 64, 64), True, ((512 + 1) * 4096 * 8, (4 + 1) * 262144 * 8)),
+    (4096, (64, 64, 64), False, (512 * 4096 * 8, 4 * 262144 * 8)),
+    (2032, (100, 200, 200), True, ((13 * 25 * 25 + 1) * 2032 * 8, 2 * 4_000_000 * 8)),
+    (2032, (200, 400, 400), True, ((25 * 50 * 50 + 1) * 2032 * 8, 2 * 32_000_000 * 8)),
+])
+def test_partial_bytes_of_a_product(nrows, n, far_quad, want):
+    """The float64 partial sums one product of kernel B3 allocates: a slot a
+    cell tile of the padded rows for the matvec, a slot a split of the
+    observations of the cells for the rmatvec, each with one more for the
+    blend's near pass; the smoke's shape and the 4M- and 32M-cell rungs'
+    (1.016 GB for the 32M-cell matvec). The operator's partial_nbytes is the
+    larger."""
+    nz, ny, nx = n
+    base = _port_operator("grav_gz", torch.float32 if far_quad else torch.float64)
+    op = dataclasses.replace(base, nx=nx, ny=ny, nz=nz, far_quad=far_quad,
+                             xd=torch.zeros(nrows, dtype=base.xd.dtype))
+    assert lm.partial_bytes(op) == want
+    assert op.partial_nbytes == max(want)
+
+
 def test_sharded_parts_against_jax(jax_family):
     """The observation-sharded lattice operator over 3 CPU slots (12
     observations padded to 4 a slot): each part's rows through the

@@ -185,6 +185,20 @@ def test_launch_plan_refuses_what_the_kernels_do_not_take():
         pm.prism_rmatvec(op, torch.zeros((op.xd.shape[0], 1), device="meta"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_partial_bytes_of_a_product(dtype):
+    """The float64 partial sums one product of kernel B2 allocates: a slot a
+    split of the cells (and one for the blend's near pass) of the padded
+    rows for the matvec, the blend's near sums of the cells for the
+    rmatvec; the operator's partial_nbytes is the larger."""
+    op = _port_operator("grav_ftg", dtype)
+    nrows = op.xd.shape[0]
+    splits, _ = pm.matvec_splits(nrows, op.N)
+    blend = int(dtype == torch.float32)
+    assert pm.partial_bytes(op) == (8 * (splits + blend) * nrows * 6, 8 * blend * op.N)
+    assert op.partial_nbytes == max(pm.partial_bytes(op))
+
+
 @pytest.mark.parametrize("nrows, N", [(4096, 262144), (512, 262144), (546, 262144), (12, 126), (4096, 65536),
                                       (16384, 1048576), (1, 1), (130, 129)])
 def test_matvec_splits_cover_every_cell_once(nrows, N):

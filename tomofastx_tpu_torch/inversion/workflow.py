@@ -429,10 +429,14 @@ def solve_problem_joint_gravmag(
             )
             # The per-cell and lattice operators name what computes their
             # products: kernel B2 or B3 on the card, the plain chunk loop on
-            # the CPU.
+            # the CPU; on the card, also the float64 partial sums one product
+            # allocates beside what the operator holds.
             route = getattr(ctx.operator, "products_by", None)
+            partial = getattr(ctx.operator, "partial_nbytes", None) if device.type == "cuda" else None
             log(f"  {PROBLEM_PREFIX[i]} kernel: matrix-free ({type(ctx.operator).__name__}, no row storage; "
-                f"{ctx.operator.nbytes / 1e6:.1f} MB on {device}" + (f"; products by {route})" if route else ")"))
+                f"{ctx.operator.nbytes / 1e6:.1f} MB on {device}"
+                + (f", {partial / 1e6:.1f} MB of float64 partial sums a product" if partial is not None else "")
+                + (f"; products by {route})" if route else ")"))
             continue
         if fmt == "auto":
             fmt = "packed" if par.compression_type > 0 else "dense"

@@ -112,6 +112,23 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def partial_shapes(op) -> tuple[tuple, tuple]:
+    """Shapes of the float64 partial sums that one lattice_matvec and one
+    lattice_rmatvec of `op` allocate on the card: a slot a cell tile (and one
+    for the blend's near pass) of the padded rows, and a slot a split of the
+    observations (and one) of the cells. They live for one product; the
+    operator's nbytes does not count them."""
+    nrows, tiles = op.xd.shape[0], n_tiles(op)
+    splits, _ = obs_splits(nrows, tiles)
+    blend = int(bool(op.far_quad))
+    return (tiles + blend, nrows, op.ndc), (splits + blend, op.nmc, op.N)
+
+
+def partial_bytes(op) -> tuple[int, int]:
+    """Bytes of partial_shapes(op)."""
+    return tuple(8 * math.prod(shape) for shape in partial_shapes(op))
+
+
 def launch_plan(op) -> dict:
     """What the kernels are told about lattice operator `op`: its type,
     family and mode (the closed forms, or the float32 blend with its window),
@@ -256,13 +273,12 @@ def lattice_matvec(op, xw):
         raise ValueError(f"lattice_matvec runs on cuda or cpu tensors, got {xw.device}")
     plan = launch_plan(op)
     geometry = _operands(op, xw, (op.nmc, op.N), "xw")
-    nrows, tiles = op.xd.shape[0], n_tiles(op)
-    splits, per = obs_splits(nrows, tiles)
-    blend = plan["mode"] == BLEND
-    partial = torch.empty((tiles + blend, nrows, op.ndc), dtype=torch.float64, device=xw.device)
+    nrows = op.xd.shape[0]
+    splits, per = obs_splits(nrows, n_tiles(op))
+    partial = torch.empty(partial_shapes(op)[0], dtype=torch.float64, device=xw.device)
     out = torch.empty((nrows, op.ndc), dtype=xw.dtype, device=xw.device)
-    if blend:
-        lattice_near_matvec(op, xw, out=partial[tiles])
+    if plan["mode"] == BLEND:
+        lattice_near_matvec(op, xw, out=partial[-1])
     _launch("lattice_matvec", op, plan, geometry, xw, partial, out, splits, per)
     lattice_matvec.launches += 1
     return out
@@ -283,11 +299,10 @@ def lattice_rmatvec(op, u):
     plan = launch_plan(op)
     geometry = _operands(op, u, (op.xd.shape[0], op.ndc), "u")
     splits, per = obs_splits(op.xd.shape[0], n_tiles(op))
-    blend = plan["mode"] == BLEND
-    partial = torch.empty((splits + blend, op.nmc, op.N), dtype=torch.float64, device=u.device)
+    partial = torch.empty(partial_shapes(op)[1], dtype=torch.float64, device=u.device)
     out = torch.empty((op.nmc, op.N), dtype=u.dtype, device=u.device)
-    if blend:
-        lattice_near_rmatvec(op, u, out=partial[splits])
+    if plan["mode"] == BLEND:
+        lattice_near_rmatvec(op, u, out=partial[-1])
     _launch("lattice_rmatvec", op, plan, geometry, u, partial, out, splits, per)
     lattice_rmatvec.launches += 1
     return out

@@ -65,6 +65,8 @@ from tomofastx_tpu_torch.ops.prism import (
     mag_corner_potentials,
 )
 from tomofastx_tpu_torch.ops.lattice_matvec import lattice_matvec, lattice_rmatvec
+from tomofastx_tpu_torch.ops.lattice_matvec import partial_bytes as lattice_partial_bytes
+from tomofastx_tpu_torch.ops.prism_matvec import partial_bytes as prism_partial_bytes
 from tomofastx_tpu_torch.ops.prism_matvec import prism_matvec, prism_rmatvec
 
 PROBE_ABORT = (
@@ -310,6 +312,14 @@ class MatrixFreeKernel:
     def nbytes(self) -> int:
         return _nbytes(*self.grid6, self.xd, self.yd, self.zd, self.cw, self.row_w, self.near_idx, self.near_tptr,
                        self.near_obs)
+
+    @property
+    def partial_nbytes(self) -> int:
+        """Bytes of the float64 partial sums one product of kernel B2
+        allocates on the card (the larger of its matvec's and its
+        rmatvec's), beside nbytes, which the operator holds between
+        products."""
+        return max(prism_partial_bytes(self))
 
     @property
     def _patched(self) -> bool:
@@ -844,6 +854,14 @@ class LatticeMatrixFreeKernel:
     def nbytes(self) -> int:
         return _nbytes(self.xe, self.ye, self.ze, self.xd, self.yd, self.zd, self.cw, self.row_w, self.wi0,
                        self.near_ptr, self.near_cells, self.near_tptr, self.near_obs)
+
+    @property
+    def partial_nbytes(self) -> int:
+        """Bytes of the float64 partial sums one product of kernel B3
+        allocates on the card (the larger of its matvec's and its
+        rmatvec's), beside nbytes, which the operator holds between
+        products."""
+        return max(lattice_partial_bytes(self))
 
     def _physics(self):
         return (self.problem, self.data_type, self.magv, self.intensity, self.nmc, self.ndc)

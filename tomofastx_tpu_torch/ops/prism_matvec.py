@@ -129,6 +129,24 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def partial_shapes(op) -> tuple[tuple, tuple]:
+    """Shapes of the float64 partial sums that one prism_matvec and one
+    prism_rmatvec of `op` allocate on the card: a slot a split of the cells
+    (and one for the blend's near pass) of the padded rows, and the blend's
+    near sums of the cells that the rmatvec starts from (none without the
+    blend). They live for one product; the operator's nbytes does not count
+    them."""
+    nrows = op.xd.shape[0]
+    splits, _ = matvec_splits(nrows, op.N)
+    blend = int(bool(op.phys.far_quad))
+    return (splits + blend, nrows, op.phys.ndc), (blend, op.phys.nmc, op.N)
+
+
+def partial_bytes(op) -> tuple[int, int]:
+    """Bytes of partial_shapes(op)."""
+    return tuple(8 * math.prod(shape) for shape in partial_shapes(op))
+
+
 def _near_lists(op):
     return op.near_idx, op.near_tptr, op.near_obs
 
@@ -241,11 +259,10 @@ def prism_matvec(op, xw):
     geometry = _operands(op, xw, (op.phys.nmc, op.N), "xw")
     nrows = op.xd.shape[0]
     splits, per = matvec_splits(nrows, op.N)
-    blend = plan["mode"] == BLEND
-    partial = torch.empty((splits + blend, nrows, op.phys.ndc), dtype=torch.float64, device=xw.device)
+    partial = torch.empty(partial_shapes(op)[0], dtype=torch.float64, device=xw.device)
     out = torch.empty((nrows, op.phys.ndc), dtype=xw.dtype, device=xw.device)
-    if blend:
-        prism_near_matvec(op, xw, out=partial[splits])
+    if plan["mode"] == BLEND:
+        prism_near_matvec(op, xw, out=partial[-1])
     _launch("prism_matvec", op, plan, geometry, xw, partial, out, splits, per)
     prism_matvec.launches += 1
     return out
