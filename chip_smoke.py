@@ -190,7 +190,21 @@ It needs one CUDA device, nvcc and nothing from the network. It
    by the script CAPACITY_DEPTH deep: kernel B3's launches (and its near
    pass's) counted, the data cost falls, the peak device memory, wall and
    host peak printed; then one B3 pair on that run's operator against its
-   plain loop, two launches equal to the last bit, timed beside its bound.
+   plain loop, two launches equal to the last bit, timed beside its bound;
+30. the last two JAX capacity scripts' rungs of scripts/run_capacity_torch.py
+   at their full width: generic4m (200 x 200 x 100 cells whose x edges grow
+   and shear, 2025 observations at jittered heights: the per-cell operator's
+   float32 blend) at its own depth, 2 x 10, kernel B2's launches (and its
+   near pass's) counted, the data cost falls, then one B2 pair of that run's
+   operator against its plain loop on CAPACITY_B2_ROWS observation rows,
+   two launches equal, its near passes there against theirs, and the pair
+   and the near passes timed on the whole operator beside their bounds; and
+   1m (the mixed build's dense float32 kernel of 2025 x 1,048,576) cut to
+   DENSE_DEPTH with no sensitivity cache written, in one fused chunk: the
+   major captured once as a CUDA graph and replayed, no hand kernel
+   launched, the data cost falls; then the script's matrix-free section
+   (the lattice operator on the same grid and survey, seconds an LSQR
+   iteration) with kernel B3's launches counted.
 
 The full-width kernels and their torch.mv yardstick are timed over calls back
 to back between one pair of CUDA events (BACK_TO_BACK). Any failed phase ends
@@ -1323,9 +1337,10 @@ def phase_17(cli, counters, tmv, work):
 LATTICE_DEPTH = (N_MAJOR, N_MINOR)
 GENERIC_DEPTH = (N_MAJOR, N_MINOR)
 # The lattice's float32 solve through its plain chunk loop on the card (a
-# product ~0.4 s: 50.4 s at LATTICE_DEPTH) and the same solve through kernel
-# B3, held to each other at this depth: one major of the same LSQR depth.
-LATTICE_PLAIN_DEPTH = (1, N_MINOR)
+# product ~0.4 s: 50.4 s at LATTICE_DEPTH, 19.3 s at 1 x 20) and the same
+# solve through kernel B3, held to each other at this depth: one major of
+# half the LSQR depth, to leave the run room for phase 30.
+LATTICE_PLAIN_DEPTH = (1, N_MINOR // 2)
 # Observations of phase 21's FTG-6 and TMI operators at full width in cells.
 B2_ROW_CUT = 512
 # JAX's bounds for its blended float32 operators against float64: a whole
@@ -2061,10 +2076,11 @@ def b2_pairs(op):
     return near, total - near
 
 
-def b2_bound(op, nout, nin):
+def b2_bound(op, nout, nin, pairs=None):
     """Kernel B2's least milliseconds for one product of `op` (module
-    comment above B2_QUAD_FLOPS): (the largest, which, and each time)."""
-    near, far = b2_pairs(op)
+    comment above B2_QUAD_FLOPS), from its (near, far) pairs (b2_pairs(op)
+    unless given): (the largest, which, each time, near, far)."""
+    near, far = pairs or b2_pairs(op)
     key, elt = b2_family_key(op.phys), op.xd.element_size()
     times = {
         "bytes": (6 * op.N + 3 * op.xd.shape[0] + nin + nout) * elt / MEMORY_BYTES_PER_S * 1e3,
@@ -3244,6 +3260,207 @@ def phase_29(counters, workflow, work):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the last two JAX capacity scripts' rungs at their full width.
+# ---------------------------------------------------------------------------
+
+# generic4m (scripts/probe_generic_4m.py: 200 x 200 x 100 cells whose x edges
+# grow 2 % a cell and shear 3 m a layer, 2025 observations at jittered
+# heights, the per-cell operator's float32 blend through kernel B2) at its
+# own depth, 2 x 10; and 1m (scripts/run_million_cell.py, the mixed build: a
+# dense float32 kernel of 2025 x 1,048,576) cut to 2 majors x 10 LSQR in one
+# fused chunk, with no sensitivity cache written: the full run is 30 x 100
+# and writes a 17 GB cache, which is the capacity script's to measure.
+GENERIC_RUNG = "generic4m"
+DENSE_RUNG, DENSE_DEPTH = "1m", (2, 10)
+DENSE_CUT_LINES = ("tpu.sensitWriteCache = 0\n",)
+# Kernel B2 at capacity is held against its plain loop on this many
+# observation rows spread over the survey (the matvec on them, the rmatvec
+# from them): over all 2032 x 4M pairs the plain loop would take ~20 s.
+CAPACITY_B2_ROWS = 128
+# B2's near passes on those rows against their plain versions. Each pass
+# rounds a near pair's float64 closed form to float32 before its float64 sum,
+# and the kernel's and the plain version's float64 closed forms may differ in
+# their last bits, so a pair can round to the neighbouring float32. On the
+# smoke's topography a row has ~100 near pairs and none did (RTOL_F64 holds);
+# on generic4m's growing cells a row has ~21,000 (43M near pairs), and an
+# H100 read 1.1e-9 of max|y|: a few such roundings, as RTOL_SPLIT allows.
+RTOL_NEAR_CAPACITY = RTOL_SPLIT
+
+
+def b2_row_subset(op, rows):
+    """The per-cell operator `op` cut to the observation rows `rows` (their
+    count a multiple of its chunk): their geometry, row weights, near
+    candidates and the candidates' transpose."""
+    import dataclasses
+
+    from tomofastx_tpu_torch.ops.matrixfree import near_idx_transpose
+
+    idx = torch.as_tensor(rows, dtype=torch.int64, device=op.xd.device)
+    near_idx = op.near_idx[idx]
+    near_tptr, near_obs = near_idx_transpose(near_idx, op.cell_lo, op.N)
+    return dataclasses.replace(op, xd=op.xd[idx], yd=op.yd[idx], zd=op.zd[idx], row_w=op.row_w[idx],
+                               nrows=len(rows), near_idx=near_idx, near_tptr=near_tptr, near_obs=near_obs)
+
+
+def measure_b2_capacity(name, op, reps=3):
+    """Kernel B2 on a capacity operator: its pair on CAPACITY_B2_ROWS rows
+    against the plain loop at f32 1e-5 of max|y|, two launches equal, and
+    its near passes there against their plain versions (to
+    RTOL_NEAR_CAPACITY); then the pair and the near passes timed on the
+    whole operator (median of `reps`) beside the bounds of this run's
+    pairs."""
+    from tomofastx_tpu_torch.ops import prism_matvec as pm
+
+    rows = np.linspace(0, op.nrows - 1, CAPACITY_B2_ROWS).round().astype(np.int64)
+    sub = b2_row_subset(op, rows)
+    g = torch.Generator(device="cpu").manual_seed(37)
+    xw = op.cw[None, :] * torch.randn((1, op.N), generator=g, dtype=torch.float64).to("cuda", torch.float32)
+    u_sub = sub.row_w * torch.randn((len(rows), 1), generator=g, dtype=torch.float64).to("cuda", torch.float32)
+    u = op.row_w * torch.randn((op.xd.shape[0], 1), generator=g, dtype=torch.float64).to("cuda", torch.float32)
+    out = {"shape": [op.xd.shape[0], op.N, 1, 1], "rows_against_the_plain_loop": len(rows)}
+    near, far = b2_pairs(op)
+    for f, kernel, plain, v_sub, v, nout in (
+            ("matvec", pm.prism_matvec, sub._partial_matvec, xw, xw, op.xd.shape[0]),
+            ("rmatvec", pm.prism_rmatvec, sub._partial_rmatvec, u_sub, u, op.N)):
+        got = kernel(sub, v_sub)
+        want, plain_ms = timed_once(lambda: plain(v_sub))
+        err = compare(f"B2 {name}, {f} on {len(rows)} rows against its plain loop", got, want, RTOL_F32)
+        del want
+        if not torch.equal(kernel(sub, v_sub), got):
+            raise SystemExit(f"FAILED B2 {name}: two {f} launches differ")
+        ms = time_cuda(lambda: kernel(op, v), warm=1, reps=reps)
+        bound_ms, bound_by, which, times, _, _ = b2_bound(op, nout, v.numel(), (near, far))
+        out[f] = {"ms": ms, "plain_ms_on_the_rows": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "bound_unit": which, "bound_times_ms": times, "near_pairs": near, "far_pairs": far,
+                  "max_abs_err": err, "library_ms": None}
+        print(f"  B2 {name} {f}: kernel {ms:.3f} ms (median of {reps}, the whole operator), plain loop "
+              f"{plain_ms:.1f} ms on {len(rows)} rows, bound {bound_ms:.3f} ms by {which} ("
+              + ", ".join(f"{k} {t:.3f}" for k, t in times.items()) + f" ms; {near:,} near pairs, {far:,} far)")
+    out["near"] = near_pass("B2", f"{name} on {len(rows)} rows", sub,
+                            {"matvec": pm.prism_near_matvec, "rmatvec": pm.prism_near_rmatvec},
+                            ((sub._near_matvec, xw), (sub._near_rmatvec, u_sub)), RTOL_NEAR_CAPACITY)
+    for f, kernel, v in (("matvec", pm.prism_near_matvec, xw), ("rmatvec", pm.prism_near_rmatvec, u)):
+        bound_ms, bound_by, which, times = near_bound(op, near, B2_CLOSED_FLOPS[b2_family_key(op.phys)], f)
+        row = out["near"][f]
+        row.update(ms=time_cuda(lambda: kernel(op, v), warm=1, reps=reps), bound_ms=bound_ms, bound_by=bound_by,
+                   bound_unit=which, bound_times_ms=times, near_pairs=near, candidates=op.near_idx.numel(),
+                   library_ms=None)
+        print(f"  B2 {name} near pass {f}: kernel {row['ms']:.3f} ms (the whole operator), bound {bound_ms:.4f} ms "
+              f"by {which} ({near:,} near pairs of {op.near_idx.numel():,} candidates)")
+    return out
+
+
+def phase_30(counters, workflow, work):
+    """The GENERIC_RUNG rung written by scripts/run_capacity_torch.py and
+    solved through it at its own depth, every kernel's count set to 0 just
+    before and read just after: the per-cell operator's blend through kernel
+    B2, B2 and its near pass once a product, the data cost falls; then one B2
+    pair of that run's operator against its plain loop on
+    CAPACITY_B2_ROWS rows, timed on the whole operator. Then the DENSE_RUNG
+    rung at DENSE_DEPTH with DENSE_CUT_LINES: the dense float32 kernel in a
+    captured and replayed fused loop, no hand kernel launched, the data cost
+    falls; and the script's matrix-free section with kernel B3's launches
+    counted."""
+    from tomofastx_tpu_torch.ops.matrixfree import MatrixFreeKernel
+
+    cap = capacity_script()
+    out = {}
+    t0 = time.time()
+    fx = cap.write_fixture(GENERIC_RUNG, os.path.join(work, "capacity_generic"))
+    print(f"capacity rung {GENERIC_RUNG} ({fx.ncells:,} cells x {fx.ndata:,} observations, {fx.depth[0]} majors x "
+          f"{fx.depth[1]} minors, its own depth; fixtures written in {fx.fixtures_s:.1f} s):")
+    for fn in counters.values():
+        fn.launches = 0
+    with capturing_the_system(workflow) as kept:
+        res, log, wall, peak = cap.solve(fx, device="cuda", verbose=False)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    rec = cap.record(fx, res, log, wall, peak, "cuda")
+    op = kept["arrays"]["S"][0]
+    del kept["arrays"]
+    if not (isinstance(op, MatrixFreeKernel) and op.phys.far_quad and rec["far_field_blend"]
+            and re.search(r"products by kernel B2, csrc/prism_matvec_f32\.cu\)", log)):
+        raise SystemExit(f"FAILED capacity {GENERIC_RUNG}: not the per-cell operator's blend through kernel B2 "
+                         f"({type(op).__name__}; {rec['operator']})")
+    want = b2_launches(res.timings["lsqr_iters"])
+    print(f"  {rec['operator'][0]}")
+    print(f"  kernel B2's launches {launches['prism_matvec']} matvec, {launches['prism_rmatvec']} rmatvec, near "
+          f"passes {launches['prism_near_matvec']} and {launches['prism_near_rmatvec']} (expected "
+          f"{want['prism_matvec']} and {want['prism_rmatvec']}, one each a product)")
+    if not launched(launches, **want) or res.timings["lsqr_iters"] != [fx.depth[1]] * fx.depth[0]:
+        raise SystemExit(f"FAILED capacity {GENERIC_RUNG}: launches {launches}, LSQR {res.timings['lsqr_iters']}")
+    initial = float(re.search(r"data cost \(initial\) \[grav\] = (\S+)", log).group(1))
+    costs = rec["cost_history_grav"]
+    print(f"  data cost {initial:.6e} -> {', '.join(f'{c:.6e}' for c in costs)}; wall_s {wall:.1f} (forward phase "
+          f"{rec['forward_phase_s']:.1f} s), peak device memory {peak / 1e9:.2f} GB, host peak RSS "
+          f"{rec['host_peak_rss_bytes'] / 1e9:.2f} GB; near lists K = {op.near_idx.shape[1]}, the operator holds "
+          f"{op.nbytes / 1e6:.1f} MB, a product's float64 partial sums {op.partial_nbytes / 1e6:.1f} MB")
+    if not (np.isfinite(res.models[0].val).all() and costs[-1] < costs[0] < initial):
+        raise SystemExit(f"FAILED capacity {GENERIC_RUNG}: the data cost does not fall, or the model is not finite")
+    del res
+    b2 = measure_b2_capacity(f"g_z float32 (the blend), {op.xd.shape[0]} x {op.N} (capacity {GENERIC_RUNG})", op)
+    del op
+    torch.cuda.empty_cache()
+    rec.update(launches=launches, data_cost_initial=initial, b2=b2, phase_s=time.time() - t0)
+    print(f"  {GENERIC_RUNG} took {rec['phase_s']:.1f} s of phase 30")
+    out[GENERIC_RUNG] = rec
+
+    t0 = time.time()
+    fx = cap.write_fixture(DENSE_RUNG, os.path.join(work, "capacity_dense"), depth=DENSE_DEPTH)
+    fx.lines += list(DENSE_CUT_LINES)
+    print(f"capacity rung {DENSE_RUNG} ({fx.ncells:,} cells x {fx.ndata:,} observations, the build "
+          f"{cap.MC_BUILDS[cap.RUNGS[DENSE_RUNG].build][0]}; cut to {fx.depth[0]} majors x {fx.depth[1]} minors "
+          f"(30 x 100 in full) and {', '.join(ln.strip() for ln in DENSE_CUT_LINES)}; fixtures written in "
+          f"{fx.fixtures_s:.1f} s):")
+    for fn in counters.values():
+        fn.launches = 0
+    with keeping_the_fused_solver(workflow, counters) as kept:
+        res, log, wall, peak = cap.solve(fx, device="cuda", verbose=False)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    rec = cap.record(fx, res, log, wall, peak, "cuda")
+    solver = kept["solver"]
+    said = rf"grav kernel: dense \({fx.ndata}, {fx.ncells}\) torch\.float32"
+    captured = re.search(r"fused major captured as a CUDA graph in ([0-9.]+)s", log)
+    print(f"  {rec['operator'][0]}; {rec['loop'][0]}")
+    print(f"  captures {solver.captures}, replays {solver.replays}, hand kernels launched {sum(launches.values())} "
+          f"(inside the capture {sum(kept['captured'].values())})")
+    if not (re.search(said, log) and captured and solver.captures == 1 and solver.replays == fx.depth[0]):
+        raise SystemExit(f"FAILED capacity {DENSE_RUNG}: not the dense float32 kernel in a captured, replayed fused "
+                         f"loop ({rec['operator']}; {rec['loop']})")
+    if any(launches.values()) or any(kept["captured"].values()):
+        raise SystemExit(f"FAILED capacity {DENSE_RUNG}: a hand kernel was launched in the dense solve: {launches}")
+    initial = float(re.search(r"data cost \(initial\) \[grav\] = (\S+)", log).group(1))
+    costs = rec["cost_history_grav"]
+    print(f"  data cost {initial:.6e} -> {', '.join(f'{c:.6e}' for c in costs)}; wall_s {wall:.1f} (forward phase "
+          f"{rec['forward_phase_s']:.1f} s, build {rec['timings'].get('build_s', 0.0):.1f} s, capture "
+          f"{float(captured.group(1)):.2f} s), peak device memory {peak / 1e9:.2f} GB, host peak RSS "
+          f"{rec['host_peak_rss_bytes'] / 1e9:.2f} GB")
+    if not (np.isfinite(res.models[0].val).all() and costs[-1] < costs[0] < initial):
+        raise SystemExit(f"FAILED capacity {DENSE_RUNG}: the data cost does not fall, or the model is not finite")
+    del res, kept
+    torch.cuda.empty_cache()
+    for fn in counters.values():
+        fn.launches = 0
+    mf = cap.matrixfree_per_iteration(fx, "cuda")
+    mf_launches = {k: fn.launches for k, fn in counters.items()}
+    iters = mf["matrixfree_lsqr_iters"]
+    want = {f"lattice_{near}{f}": 2 * (iters + (f == "rmatvec")) + 2 for near in ("", "near_")
+            for f in ("matvec", "rmatvec")}
+    print(f"  matrix-free section: {mf['matrixfree_operator']} ({mf['matrixfree_products_by']}), "
+          f"{mf['matrixfree_s_per_iter'] * 1e3:.2f} ms an LSQR iteration of {iters} (a matvec "
+          f"{mf['matrixfree_matvec_s'] * 1e3:.2f} ms, an rmatvec {mf['matrixfree_rmatvec_s'] * 1e3:.2f} ms); kernel "
+          "B3's launches " + ", ".join(f"{k} {mf_launches[k]}" for k in want) + " (two LSQR runs: a matvec an "
+          "iteration, an rmatvec an iteration and one before; then each product twice, timed)")
+    if mf["matrixfree_operator"] != "LatticeMatrixFreeKernel" or not launched(mf_launches, **want):
+        raise SystemExit(f"FAILED capacity {DENSE_RUNG}: the matrix-free section, {mf}, launches {mf_launches}")
+    rec.update(launches=launches, data_cost_initial=initial, captures=solver.captures, replays=solver.replays,
+               capture_s=float(captured.group(1)), matrixfree=dict(mf, launches=mf_launches),
+               cut={"depth": list(DENSE_DEPTH), "lines": list(DENSE_CUT_LINES)}, phase_s=time.time() - t0)
+    print(f"  {DENSE_RUNG} took {rec['phase_s']:.1f} s of phase 30")
+    out[DENSE_RUNG] = rec
+    return out
+
+
 def main() -> int:
     t_all = time.time()
 
@@ -3841,6 +4058,10 @@ def main() -> int:
         # ---- 29. a capacity rung at its full width ----
         clock(29)
         capacity = phase_29(counters, workflow, work)
+
+        # ---- 30. the million-cell dense run and the per-cell operator at 4M cells ----
+        clock(30)
+        slice30 = phase_30(counters, workflow, work)
         for name, run in [(f"bttb {k}", v) for k, v in mf["bttb"]["runs"].items()] + [
                 ("lattice dense", mf["lattice"]["runs"]["dense"]), ("lattice dense f64", mf["lattice"]["runs"]["dense_f64"]),
                 ("auto", mf["auto"]["run"])]:
@@ -3930,10 +4151,12 @@ def main() -> int:
                         "tomofastx_tpu/ops/prism.py:529)",
             "launches": mf["generic"]["run"]["launches"][name],
             "launches_fused": fused["runs"]["per-cell"]["launches_fused"][name],
+            f"launches_capacity_{GENERIC_RUNG}": slice30[GENERIC_RUNG]["launches"][name],
             **{k: b2_main[f][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "yardstick_torch_mv_f32_ms": mf["generic"]["yardstick"][yard],
             "shape_of_these_times": "g_z float32 blend, 4096 x 262144: the per-cell main path's operator",
-            "measured": {k: v[f] for k, v in mf["generic"]["b2"].items()},
+            "measured": {**{k: v[f] for k, v in mf["generic"]["b2"].items()},
+                         f"capacity {GENERIC_RUNG}": slice30[GENERIC_RUNG]["b2"][f]},
             "small_problems": b2_small,
             "registers": b2_main["registers"],
         }
@@ -3947,10 +4170,15 @@ def main() -> int:
             "launches": launches[f"{kind}_near_{f}"],
             "launches_fused": fused["runs"][run]["launches_fused"][f"{kind}_near_{f}"],
             f"launches_capacity_{CAPACITY_RUNG}": capacity["launches"][f"{kind}_near_{f}"],
+            f"launches_capacity_{GENERIC_RUNG}": slice30[GENERIC_RUNG]["launches"][f"{kind}_near_{f}"],
+            f"launches_capacity_{DENSE_RUNG}_matrixfree": slice30[DENSE_RUNG]["matrixfree"]["launches"][
+                f"{kind}_near_{f}"],
             **{k: main["near"][f][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape_of_these_times": f"g_z float32 blend, 4096 x 262144: the {run} main path's operator, "
                                     f"{main['near'][f]['near_pairs']:,} near pairs",
-            "measured": {k: v["near"][f] for k, v in measured.items() if "near" in v},
+            "measured": {**{k: v["near"][f] for k, v in measured.items() if "near" in v},
+                         **({f"capacity {GENERIC_RUNG}": slice30[GENERIC_RUNG]["b2"]["near"][f]}
+                            if kind == "prism" else {})},
         }
         for kind, source, replaces, launches, run, main, measured in (
             ("prism", "tomofastx_tpu_torch/csrc/prism_matvec_f32.cu (+ prism_matvec.cuh)",
@@ -3973,6 +4201,8 @@ def main() -> int:
             "launches_mesh1": mf["lattice"]["runs"]["mesh1"]["launches"][name],
             "launches_fused": fused["runs"]["lattice"]["launches_fused"][name],
             f"launches_capacity_{CAPACITY_RUNG}": capacity["launches"][name],
+            f"launches_capacity_{DENSE_RUNG}_matrixfree": slice30[DENSE_RUNG]["matrixfree"]["launches"][name],
+            f"matrixfree_s_per_iter_{DENSE_RUNG}": slice30[DENSE_RUNG]["matrixfree"]["matrixfree_s_per_iter"],
             **{k: b3_main[f][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "yardstick_torch_mv_f32_ms": mf["lattice"]["yardstick"][yard],
             "shape_of_these_times": "g_z float32 blend, 4096 x 262144: the lattice main path's operator",
@@ -3997,6 +4227,7 @@ def main() -> int:
         "coupled_blocks_ms": coupled["blocks_ms"], "coupled_blocks_launches": coupled["blocks_launches"],
         "resume_profile_debug_nans": late, "matrixfree": jsonable(mf), "build_and_storage_variants": jsonable(variants),
         "fused": jsonable(fused), f"capacity_{CAPACITY_RUNG}": jsonable(capacity),
+        **{f"capacity_{k}": jsonable(v) for k, v in slice30.items()},
         "operators": operators, "observations": NDATA, "cells": NX * NY * NZ,
         "kernel_build_s": build_s, "total_s": total_s,
         "memory_bytes_per_s_assumed": MEMORY_BYTES_PER_S, "fp32_flop_per_s_assumed": FP32_FLOP_PER_S,

@@ -19,6 +19,19 @@ the script's arguments:
     4m .. 32m scripts/run_4m_matrixfree.py 200 x 200 x 100 to 400 x 400 x 200 cells,
               2025 observations: the corner-lattice operator's float32 blend
               (kernel B3 and its near pass); 3 x 20, 3 x 15, 3 x 12, 3 x 10
+    1m, 1m_f64, 1m_f32quad
+              scripts/run_million_cell.py under MC_BUILD = mixed, f64, f32quad:
+              128 x 128 x 64 cells, 2025 observations, a dense float32
+              kernel (8.49 GB) built mixed (1024 cells in float64), in
+              float64 or compensated float32, and written to the sensitivity
+              cache (17 GB on disk), the fused major loop in chunks of 10;
+              30 x 100. Then that script's matrix-free section: the operator
+              the factory picks on the same grid and survey (the lattice one,
+              kernel B3), seconds an LSQR iteration of 3
+    generic4m scripts/probe_generic_4m.py  200 x 200 x 100 cells, 2025 observations: x
+              edges growing 2 % a cell and sheared 3 m a layer, heights
+              jittered, so neither BTTB nor the lattice applies: the per-cell
+              operator's float32 blend (kernel B2 and its near pass); 2 x 10
     joint1m   scripts/run_million_joint.py 128 x 128 x 64 cells, 1600 observations of
               gravity and TMI: the compensated float32 build stored
               bfloat16, cross-gradient, 2-lithology ADMM and damping, fused
@@ -27,13 +40,17 @@ the script's arguments:
               on the cell lattice at stride 2: BTTBKernel (torch.fft), the
               host-driven loop; 5 x 20
 
---small takes the sizes those scripts take under MC_SMALL, MJ_SMALL or
-BG_SMALL. A run writes CAPACITY_<RUNG>_TORCH.json (with --small,
+--small takes the sizes those scripts take under MC_SMALL, MJ_SMALL, GP_SMALL
+or BG_SMALL. A run writes CAPACITY_<RUNG>_TORCH.json (with --small,
 CAPACITY_<RUNG>_SMALL_TORCH.json) into --out-dir (the repository's root by
 default): the sizes, the operator the log names, the wall and setup seconds,
 peak device memory, host peak RSS, the cost history, the truth correlation,
-and the card's name and power limit. It exits non-zero when the data cost of
-an active problem does not fall from the first major to the last.
+and the card's name and power limit; the 1m rungs add the build, the cache's
+seconds and bytes and the matrix-free section, generic4m the near lists and
+the partial sums of a product. It exits non-zero when the data cost of
+an active problem does not fall from the first major to the last, and 3
+(before writing anything) when the temporary directory, under TMPDIR, has no
+room for the rung's sensitivity cache.
 
 Imports torch and numpy, and the port; nothing of JAX.
 """
@@ -47,6 +64,7 @@ import json
 import os
 import re
 import resource
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -67,12 +85,13 @@ H = (100.0, 100.0, 50.0)  # cell size of every rung (m)
 class Rung:
     """One rung: the JAX script it ports, its kind, and its sizes at full
     width and under the script's small switch: ((nx, ny, nz), observations a
-    side, (majors, minors))."""
+    side, (majors, minors)); for the dense kind, the script's MC_BUILD."""
 
     source: str
-    kind: str  # "bf16", "matrixfree", "joint" or "bttb"
+    kind: str  # "bf16", "matrixfree", "joint", "bttb", "dense" or "generic"
     full: tuple
     small: tuple
+    build: str = ""
 
 
 RUNGS = {
@@ -85,12 +104,28 @@ RUNGS = {
                 ((40, 40, 20), 20, (2, 10))),
     "32m": Rung("scripts/run_4m_matrixfree.py", "matrixfree", ((400, 400, 200), 45, (3, 10)),
                 ((40, 40, 20), 20, (2, 10))),
+    **{rung: Rung("scripts/run_million_cell.py", "dense", ((128, 128, 64), 45, (30, 100)),
+                  ((32, 32, 16), 20, (5, 20)), build)
+       for rung, build in (("1m", "mixed"), ("1m_f64", "f64"), ("1m_f32quad", "f32quad"))},
+    "generic4m": Rung("scripts/probe_generic_4m.py", "generic", ((200, 200, 100), 45, (2, 10)),
+                      ((40, 40, 20), 20, (2, 10))),
     "joint1m": Rung("scripts/run_million_joint.py", "joint", ((128, 128, 64), 40, (15, 60)),
                     ((32, 32, 16), 20, (4, 20))),
     "bttb134m": Rung("scripts/run_bttb_giant.py", "bttb", ((512, 512, 512), 256, (5, 20)),
                      ((64, 64, 32), 32, (2, 10))),
 }
 BTTB_STRIDE = 2  # the BTTB survey's spacing in cells
+# scripts/run_million_cell.py's builds by MC_BUILD: the name its record gives
+# the build, near_field_f64 and the build's compute dtype.
+MC_BUILDS = {
+    "mixed": ("mixed_f32_k1024_farquad", 1024, torch.float64),
+    "f64": ("full_f64_lattice", 0, torch.float64),
+    "f32quad": ("compensated_f32_quad", 0, torch.float32),
+}
+# What GENERIC_4M_PROBE.json ran, beside the port's generic4m run.
+GENERIC_JAX_RECORD = ("GENERIC_4M_PROBE.json is a TPU run of the JAX package, whose factory gates the per-cell "
+                      "float32 blend off above 2M cells off the CPU (tomofastx_tpu/ops/matrixfree.py:39); the port "
+                      "blends at every size, so that record's cost is no yardstick for this one")
 
 
 @dataclass
@@ -175,8 +210,10 @@ def _centred_survey(work, nx, ny, nside):
     write_survey(f"{work}/data.txt", xs, ys)
 
 
-def _write_bf16(work, size, nside, depth):
-    """scripts/run_2m_cell.py: two prisms, bfloat16 storage, refinement."""
+def _two_prisms(work, size, nside, depth):
+    """The grid, the two prisms (+500, -300) and the centred survey of
+    scripts/run_2m_cell.py and run_million_cell.py; (the gravity Parfile
+    lines, the true model)."""
     from tomofastx_tpu_torch.io.tableio import save_table
 
     nx, ny, nz = size
@@ -187,12 +224,62 @@ def _write_bf16(work, size, nside, depth):
     val[body2] = -300.0
     save_table(f"{work}/true_model.txt", val[:, None], fmt="%.2f", header=f"{val.size}")
     _centred_survey(work, nx, ny, nside)
-    lines = _gravity_lines(work, nx, ny, nz, nside * nside, *depth) + [
+    return _gravity_lines(work, nx, ny, nz, nside * nside, *depth), val
+
+
+def _write_bf16(work, size, nside, depth):
+    """scripts/run_2m_cell.py: two prisms, bfloat16 storage, refinement."""
+    lines, val = _two_prisms(work, size, nside, depth)
+    lines += [
         "tpu.kernelStoreDtype = bfloat16\n",
         "tpu.refineForward = 1\n",
         "tpu.sensitWriteCache = 0\n",
     ]
     return lines, [val], {"fused_chunk": 5, "near_field_f64": 1024}, {}
+
+
+def _write_dense(work, size, nside, depth, build):
+    """scripts/run_million_cell.py under MC_BUILD = build: two prisms, the
+    dense float32 kernel written to the sensitivity cache (the default of
+    tpu.sensitWriteCache), the fused loop in chunks of 10."""
+    lines, val = _two_prisms(work, size, nside, depth)
+    _, near_field, compute_dtype = MC_BUILDS[build]
+    return lines, [val], {"fused_chunk": 10, "near_field_f64": near_field, "compute_dtype": compute_dtype}, {}
+
+
+def _write_generic(work, size, nside, depth):
+    """scripts/probe_generic_4m.py: x edges growing 2 % a cell and each
+    layer's shifted by 3 m a layer (no tensor-product lattice), one prism,
+    observation heights jittered (no BTTB), the float32 blend."""
+    from tomofastx_tpu_torch.io.tableio import save_table
+
+    nx, ny, nz = size
+    hx, hy, hz = H
+    nd = nside * nside
+    xe = np.concatenate([[0.0], np.cumsum(hx * 1.02 ** np.arange(nx))])
+    ye = np.arange(ny + 1) * hy
+    ze = np.arange(nz + 1) * hz
+    i = np.tile(np.arange(nx), ny * nz)
+    j = np.tile(np.repeat(np.arange(ny), nx), nz)
+    k = np.repeat(np.arange(nz), nx * ny)
+    shear = 3.0 * k
+    cols = np.column_stack([xe[i] + shear, xe[i + 1] + shear, ye[j], ye[j + 1], ze[k], ze[k + 1], i + 1, j + 1, k + 1])
+    save_table(f"{work}/grid.txt", cols, fmt="%.3f %.3f %.1f %.1f %.1f %.1f %d %d %d", header=f"{i.size}")
+    del cols
+    val = np.zeros(i.size)
+    val[_bodies(i, j, k, nx, ny, nz)[0]] = 500.0
+    save_table(f"{work}/true_model.txt", val[:, None], fmt="%.2f", header=f"{val.size}")
+    xs = (np.arange(nside) + 0.5) * (xe[-1] / nside)
+    ys = (np.arange(nside) + 0.5) * (ny * hy / nside)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    zs = -0.1 - 0.05 * np.random.default_rng(11).uniform(size=nd)
+    save_table(f"{work}/data.txt", np.column_stack([X.ravel(), Y.ravel(), zs, np.zeros(nd)]),
+               fmt="%.3f %.3f %.4f %.1f", header=f"{nd}")
+    lines = _gravity_lines(work, nx, ny, nz, nd, *depth) + [
+        "tpu.kernelFormat = matrixfree\n",
+        "tpu.farFieldQuad = 1\n",
+    ]
+    return lines, [val], {}, {}
 
 
 def _write_matrixfree(work, size, nside, depth):
@@ -291,7 +378,8 @@ def _write_bttb(work, size, nside, depth):
     return lines, [val], {}, {}
 
 
-WRITERS = {"bf16": _write_bf16, "matrixfree": _write_matrixfree, "joint": _write_joint, "bttb": _write_bttb}
+WRITERS = {"bf16": _write_bf16, "matrixfree": _write_matrixfree, "joint": _write_joint, "bttb": _write_bttb,
+           "dense": _write_dense, "generic": _write_generic}
 
 
 def write_fixture(rung: str, work: str, small: bool = False, depth=None) -> Fixture:
@@ -302,7 +390,7 @@ def write_fixture(rung: str, work: str, small: bool = False, depth=None) -> Fixt
     depth = tuple(depth or own_depth)
     os.makedirs(work, exist_ok=True)
     t0 = time.time()
-    lines, truth, solve_kw, masks = WRITERS[spec.kind](work, size, nside, depth)
+    lines, truth, solve_kw, masks = WRITERS[spec.kind](work, size, nside, depth, *([spec.build] if spec.build else []))
     return Fixture(rung, work, lines, truth, solve_kw, size, nside * nside, depth, time.time() - t0, masks)
 
 
@@ -344,6 +432,62 @@ def solve(fx: Fixture, device="cuda", solve_dtype=torch.float32, verbose=True):
     return res, tee.kept.getvalue(), wall, peak
 
 
+def sensit_cache_bytes(rung: str, small: bool = False) -> int:
+    """Bytes of the sensitivity cache that the rung's run writes
+    (io/sensit_cache.py, uncompressed: a 20-byte head, a row a record of a
+    16-byte head and an int32 column and a float32 value a cell, then the
+    nnz and weight files; the meta text file not counted): the dense kind's,
+    0 for the others, which write none."""
+    spec = RUNGS[rung]
+    if spec.kind != "dense":
+        return 0
+    size, nside, _ = spec.small if small else spec.full
+    ncells = int(np.prod(size))
+    return 20 + nside * nside * (16 + 8 * ncells) + (4 + 4 * ncells) + (4 + 8 * ncells)
+
+
+def matrixfree_per_iteration(fx: Fixture, device="cuda", niter=3) -> dict:
+    """The second section of scripts/run_million_cell.py: the matrix-free
+    operator on the rung's grid and survey (float32, not validated), LSQR of
+    `niter` iterations on a seeded right-hand side, once to warm up and once
+    timed between synchronisations; seconds an iteration, the operator's
+    class and what computes its products; then each product's seconds (the
+    second of two calls)."""
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines
+    from tomofastx_tpu_torch.io import data_io, model_io
+    from tomofastx_tpu_torch.ops import sensitivity as sens
+    from tomofastx_tpu_torch.ops.lsqr import lsqr_solve
+    from tomofastx_tpu_torch.ops.matrixfree import make_matrixfree_kernel
+
+    cuda = torch.device(device).type == "cuda"
+    par = parse_parfile_lines(fx.lines).grav
+    grid = model_io.read_model_grid(f"{fx.work}/grid.txt", *fx.size)
+    data = data_io.read_data_points(f"{fx.work}/data.txt", fx.ndata, 1, grid_only=True)
+    cw = sens.calculate_depth_weight(par, grid, data, torch.float32, device)
+    op = make_matrixfree_kernel(par, grid, data, cw, 1.0, data.weight, torch.float32, validate=False, device=device)
+    b = torch.as_tensor(np.random.default_rng(0).normal(size=fx.ndata).astype(np.float32), device=device)
+
+    def run():
+        return lsqr_solve(op.matvec, op.rmatvec, b, op.ncols, niter=niter, rmin=0.0)
+
+    def timed(fn):
+        t0 = time.time()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    run()
+    r, seconds = timed(run)
+    out = {"matrixfree_s_per_iter": seconds / int(r.iters), "matrixfree_lsqr_iters": int(r.iters),
+           "matrixfree_operator": type(op).__name__, "matrixfree_products_by": getattr(op, "products_by", None)}
+    # Each product alone, once warm: what an iteration spends beside them.
+    for name, fn, v in (("matvec", op.matvec, r.x), ("rmatvec", op.rmatvec, b)):
+        fn(v)
+        out[f"matrixfree_{name}_s"] = timed(lambda: fn(v))[1]
+    return out
+
+
 def nvidia_smi_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -383,6 +527,21 @@ def record(fx: Fixture, res, log: str, wall: float, peak, device) -> dict:
         chi = np.asarray(res.models[1].val).ravel()
         out["chi_in_shared_body"] = float(np.mean(np.abs(chi[fx.masks["shared"]])))
         out["chi_in_grav_only_body"] = float(np.mean(np.abs(chi[fx.masks["grav_only"]])))
+    spec = RUNGS[fx.rung]
+    if spec.kind == "dense":
+        sensit = os.path.join(fx.work, "out", "SENSIT")
+        cached = os.listdir(sensit) if os.path.isdir(sensit) else []  # none under tpu.sensitWriteCache = 0
+        out.update(build=MC_BUILDS[spec.build][0], cache_write_s=res.timings.get("cache_write_s"),
+                   cache_bytes=sum(os.path.getsize(os.path.join(sensit, f)) for f in cached))
+    if spec.kind == "generic":
+        # The operator's log line: its near lists (float32 blend only) and,
+        # on the card, its partial sums (to 0.1 MB, as the log gives them).
+        near = re.search(r"near lists K = (\d+), ([\d,]+) candidate pairs", log)
+        partial = re.search(r"([0-9.]+) MB of float64 partial sums a product", log)
+        out.update(far_field_blend=near is not None,
+                   near_lists={"K": int(near[1]), "candidate_pairs": int(near[2].replace(",", ""))} if near else None,
+                   partial_nbytes=round(float(partial[1]) * 1e6) if partial else None,
+                   jax_record=GENERIC_JAX_RECORD)
     out["cost_falls"] = all(out[f"cost_history_{p}"][-1] < out[f"cost_history_{p}"][0] for p in problems)
     if torch.device(device).type == "cuda":
         out["card"] = nvidia_smi_line()
@@ -401,11 +560,19 @@ def main(argv=None) -> int:
         print("run_capacity_torch.py: no CUDA device (pass --device cpu for the CPU)", file=sys.stderr)
         return 2
     with tempfile.TemporaryDirectory(prefix=f"capacity_{args.rung}_") as work:
+        need, free = sensit_cache_bytes(args.rung, args.small), shutil.disk_usage(work).free
+        if need > free:
+            print(f"run_capacity_torch.py: the {args.rung} rung writes a sensitivity cache of {need:,} bytes into "
+                  f"{work}, where {free:,} bytes are free (set TMPDIR to a larger disk)", file=sys.stderr)
+            return 3
         fx = write_fixture(args.rung, work, small=args.small)
         print(f"fixtures of {args.rung} ({fx.ncells:,} cells, {fx.ndata:,} observations) written in "
               f"{fx.fixtures_s:.1f} s", flush=True)
         res, log, wall, peak = solve(fx, device=args.device)
         out = record(fx, res, log, wall, peak, args.device)
+        out["work_dir_free_bytes"] = free
+        if RUNGS[args.rung].kind == "dense":
+            out.update(matrixfree_per_iteration(fx, args.device))
     os.makedirs(args.out_dir, exist_ok=True)
     path = os.path.join(args.out_dir, f"CAPACITY_{args.rung.upper()}{'_SMALL' if args.small else ''}_TORCH.json")
     with open(path, "w") as f:

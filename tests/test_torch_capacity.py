@@ -9,6 +9,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import sys
 
 import ml_dtypes
@@ -32,7 +33,12 @@ _spec.loader.exec_module(cap)
 
 # Each JAX script's switch to its small sizes.
 SMALL_ENV = {"scripts/run_2m_cell.py": "MC_SMALL", "scripts/run_4m_matrixfree.py": "MC_SMALL",
-             "scripts/run_million_joint.py": "MJ_SMALL", "scripts/run_bttb_giant.py": "BG_SMALL"}
+             "scripts/run_million_joint.py": "MJ_SMALL", "scripts/run_bttb_giant.py": "BG_SMALL",
+             "scripts/run_million_cell.py": "MC_SMALL", "scripts/probe_generic_4m.py": "GP_SMALL"}
+# The environment that picks a script's other settings: run_million_cell.py's
+# build (MC_BUILD, its legacy alias MC_F64_BUILD) and probe_generic_4m.py's
+# far-field quadrature (GP_FARQ, default 1) and platform (GP_CPU).
+OTHER_ENV = ("MC_BUILD", "MC_F64_BUILD", "GP_FARQ", "GP_CPU")
 # One rung of each kind: the four matrix-free rungs share one small size.
 KINDS = {"bf16": "2m", "matrixfree": "4m", "joint": "joint1m", "bttb": "bttb134m"}
 
@@ -42,11 +48,13 @@ class _Stopped(BaseException):
     Exception` around its fused solve."""
 
 
-def jax_script_fixture(script, work, monkeypatch):
-    """What the JAX capacity script `script` writes under its small switch:
-    its main() run with its work directory swapped for `work`, its
-    compile-cache set-up a no-op, and its solve stopped where it is called.
-    Returns (its Parfile lines, its solve's keyword arguments)."""
+def jax_script_fixture(script, work, monkeypatch, build=""):
+    """What the JAX capacity script `script` writes under its small switch
+    (and MC_BUILD = build, if given): its main() run with its work directory
+    swapped for `work`, its compile-cache set-up a no-op, and its solve
+    stopped where it is called. Returns (its Parfile lines, its solve's
+    keyword arguments, the directory it wrote into: run_million_cell.py
+    appends the build's suffix to `work`)."""
     seen = {}
     real_parse = jparfile.parse_parfile_lines
 
@@ -58,7 +66,11 @@ def jax_script_fixture(script, work, monkeypatch):
         seen["kw"] = kw
         raise _Stopped
 
+    for name in OTHER_ENV:
+        monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv(SMALL_ENV[script], "1")
+    if build:
+        monkeypatch.setenv("MC_BUILD", build)
     monkeypatch.setattr(jcompile_cache, "enable", lambda *a, **k: None)
     monkeypatch.setattr(jparfile, "parse_parfile_lines", parse)
     monkeypatch.setattr(jworkflow, "solve_problem_joint_gravmag", stop)
@@ -72,7 +84,9 @@ def jax_script_fixture(script, work, monkeypatch):
     exec(compile(src, path, "exec"), space)
     with pytest.raises(_Stopped):
         space["main"]()
-    return seen["lines"], seen["kw"]
+    out = next(ln.partition("=")[2].strip() for ln in seen["lines"] if ln.startswith("global.outputFolderPath"))
+    assert out.startswith(work) and out.endswith("/out/"), out
+    return seen["lines"], seen["kw"], out[: -len("/out/")]
 
 
 def _keys(lines, work):
@@ -95,7 +109,7 @@ def test_small_fixture_is_what_the_jax_script_writes(tmp_path, monkeypatch, rung
     spec = cap.RUNGS[rung]
     jwork, twork = str(tmp_path / "jax"), str(tmp_path / "torch")
     os.makedirs(jwork)
-    jlines, jkw = jax_script_fixture(spec.source, jwork, monkeypatch)
+    jlines, jkw, jwork = jax_script_fixture(spec.source, jwork, monkeypatch, spec.build)
     fx = cap.write_fixture(rung, twork, small=True)
     assert _keys(fx.lines, twork) == _keys(jlines, jwork)
     assert _files(twork) == _files(jwork)
@@ -116,13 +130,23 @@ def test_rungs_at_full_width_are_the_jax_scripts():
     JSON record states them, where the repository holds it)."""
     records = {"2m": "CAPACITY_2M.json", "4m": "CAPACITY_4M_MATRIXFREE.json", "8m": "CAPACITY_8M_MATRIXFREE.json",
                "16m": "CAPACITY_16M_MATRIXFREE.json", "32m": "CAPACITY_32M_MATRIXFREE.json",
-               "joint1m": "MILLION_JOINT.json", "bttb134m": "BTTB_GIANT_134M.json"}
+               "joint1m": "MILLION_JOINT.json", "bttb134m": "BTTB_GIANT_134M.json",
+               "1m_f64": "MILLION_CELL_F64.json", "1m_f32quad": "MILLION_CELL_F32QUAD.json",
+               "generic4m": "GENERIC_4M_PROBE.json"}
     for rung, name in records.items():
         with open(os.path.join(REPO, name)) as f:
             rec = json.load(f)
         size, side, (majors, minors) = cap.RUNGS[rung].full
         assert (int(np.prod(size)), side * side, majors, minors) == (
             rec["ncells"], rec["ndata"], rec["majors"], rec["minors"]), rung
+        if cap.RUNGS[rung].build:
+            assert cap.MC_BUILDS[cap.RUNGS[rung].build][0] == rec["build"], rung
+    # MILLION_CELL.json holds the mixed build's run at the script's small size.
+    with open(os.path.join(REPO, "MILLION_CELL.json")) as f:
+        rec = json.load(f)
+    size, side, (majors, minors) = cap.RUNGS["1m"].small
+    assert (int(np.prod(size)), side * side, majors, minors) == (rec["ncells"], rec["ndata"], rec["majors"],
+                                                                  rec["minors"])
 
 
 # LSQR minor iterations of the parity runs. The small fixtures sit where
@@ -145,11 +169,11 @@ def _with_minors(lines, n):
 @contextlib.contextmanager
 def port_kernels_in_jax():
     """The port's kernel builds recorded, and the JAX package's build handing
-    them back in the same order, bfloat16 as they are: the two bfloat16 rungs
-    build in float32 (the mixed build, the compensated build), whose rows
-    the packages round differently (held by tests/test_torch_build_variants.py),
-    so that here both solve one kernel; and the JAX package's float32 builds
-    take most of this file's time."""
+    them back in the same order, as they are (bfloat16 or float32): the two
+    bfloat16 rungs, and the mixed and compensated million-cell builds, build
+    in float32, whose rows the packages round differently (held by
+    tests/test_torch_build_variants.py), so that here both solve one kernel;
+    and the JAX package's float32 builds take most of this file's time."""
     built = []
     port_build = tsens.compute_sensitivity
 
@@ -160,7 +184,7 @@ def port_kernels_in_jax():
 
     def hand_back(*a, **k):
         K, S = built.pop(0)
-        S = S.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        S = S.view(torch.int16).numpy().view(ml_dtypes.bfloat16) if S.dtype == torch.bfloat16 else S.numpy()
         return jsens.SensitKernel(S=jnp.asarray(S), ndata=K.ndata, ndata_components=K.ndata_components,
                                   nmodel_components=K.nmodel_components, nx=K.nx, ny=K.ny, nz=K.nz,
                                   compression_type=K.compression_type, comp_error=K.comp_error, nnz=K.nnz)
@@ -240,7 +264,29 @@ def test_script_imports_nothing_of_jax():
         src = f.read()
     assert not re.search(r"^\s*(?:import|from)\s+(jax|tomofastx_tpu)\b(?!_)", src, re.M)
     imports = [ln for ln in src.splitlines() if ln.lstrip().startswith(("import ", "from "))]
-    assert not any(re.search(r"\brun_(2m_cell|4m_matrixfree|million_\w+|bttb_giant)\b", ln) for ln in imports)
+    assert not any(re.search(r"\b(run_(2m_cell|4m_matrixfree|million_\w+|bttb_giant)|probe_generic_4m)\b", ln)
+                   for ln in imports)
+
+
+@pytest.mark.parametrize("rung", [r for r, spec in cap.RUNGS.items() if spec.kind == "dense"])
+def test_script_refuses_a_cache_the_disk_cannot_hold(tmp_path, monkeypatch, capsys, rung):
+    """A 1m rung whose temporary directory has fewer free bytes than its
+    sensitivity cache needs (16.99 GB) returns 3, names the bytes and writes
+    nothing: no fixture, no record."""
+    need = cap.sensit_cache_bytes(rung)
+    assert need == 20 + 2025 * (16 + 8 * 1048576) + 12 * 1048576 + 8
+    asked = []
+
+    def usage(path):
+        asked.append(path)
+        return shutil._ntuple_diskusage(need, need - 1, need - 1)
+
+    monkeypatch.setattr(cap.shutil, "disk_usage", usage)
+    monkeypatch.setattr(cap.tempfile, "tempdir", str(tmp_path))
+    monkeypatch.setattr(cap, "write_fixture", lambda *a, **k: pytest.fail("fixtures written"))
+    assert cap.main(["--rung", rung, "--device", "cpu", "--out-dir", str(tmp_path / "out")]) == 3
+    assert f"{need:,} bytes" in capsys.readouterr().err
+    assert len(asked) == 1 and asked[0].startswith(str(tmp_path)) and os.listdir(tmp_path) == []
 
 
 def test_script_refuses_to_run_without_a_card(tmp_path, monkeypatch):

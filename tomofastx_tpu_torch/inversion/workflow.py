@@ -430,12 +430,15 @@ def solve_problem_joint_gravmag(
             # The per-cell and lattice operators name what computes their
             # products: kernel B2 or B3 on the card, the plain chunk loop on
             # the CPU; on the card, also the float64 partial sums one product
-            # allocates beside what the operator holds.
+            # allocates beside what the operator holds; and the per-cell
+            # blend's near lists, K candidate cells a row.
             route = getattr(ctx.operator, "products_by", None)
             partial = getattr(ctx.operator, "partial_nbytes", None) if device.type == "cuda" else None
+            near = getattr(ctx.operator, "near_idx", None)
             log(f"  {PROBLEM_PREFIX[i]} kernel: matrix-free ({type(ctx.operator).__name__}, no row storage; "
                 f"{ctx.operator.nbytes / 1e6:.1f} MB on {device}"
                 + (f", {partial / 1e6:.1f} MB of float64 partial sums a product" if partial is not None else "")
+                + (f", near lists K = {near.shape[1]}, {near.numel():,} candidate pairs" if near is not None else "")
                 + (f"; products by {route})" if route else ")"))
             continue
         if fmt == "auto":
