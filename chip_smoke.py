@@ -8,7 +8,8 @@ It needs one CUDA device, nvcc and nothing from the network. It
 1. builds the hand-written kernels (tile_matvec, blocked_matvec, the
    bfloat16 GEMV pair of kernel B1, the per-cell matrix-free pair of kernel
    B2 from its float32 and its float64 source, and the corner-lattice pair of
-   kernel B3, each blend with its near pass) from tomofastx_tpu_torch/csrc/,
+   kernel B3, each blend with the build of its stored near rows and its near
+   passes over them) from tomofastx_tpu_torch/csrc/,
    one compiler a source, all started together, and keeps what ptxas says
    of each kernel's registers;
 2. holds each kernel against its plain PyTorch version on a random ragged
@@ -24,7 +25,10 @@ It needs one CUDA device, nvcc and nothing from the network. It
    closed forms), with partial tiles and observations on lattice planes
    (against the CPU too), and over 3 slots of the card; each float32 blend's
    products also against the plain version of its split (main loop and near
-   pass, float64 sums), and B2's and B3's near passes alone against theirs;
+   pass, float64 sums), B2's and B3's stored near rows against their plain
+   build (the same pairs, each row within RTOL_NEAR_ROWS), and their near
+   passes alone against the plain product over the stored rows and the plain
+   pass that evaluates the rows again;
 3. writes a full-width synthetic gravity problem (4096 observations x 262144
    cells on a 64x64x64 lattice, Haar compression at rate 0.15, damping,
    3-lithology ADMM, 3 majors x 20 LSQR iterations, float64 build stored
@@ -121,8 +125,10 @@ It needs one CUDA device, nvcc and nothing from the network. It
    too): B3 against its plain loop at full width for g_z in float32 (the
    blend) and float64 (the closed forms), and for FTG-6 and TMI on 512 rows,
    each timed beside the plain loop and its bound with the registers of its
-   kernels, and each blend's near pass alone timed beside its plain version
-   and bound; the products against the dense uncompressed
+   kernels, and each blend's stored near rows and near passes held as in 2,
+   each pass timed on the card alone (a CUDA graph of calls) beside its
+   plain version and its bytes bound, and the rows' build timed beside its
+   plain version; the products against the dense uncompressed
    matrix (torch.mv on it timed as a yardstick); 256 float32 rows through
    the kernel against the float64 closed forms; the construction's probe
    aborting through B3; --mesh 1 to the last bit; a dense uncompressed run
@@ -134,7 +140,7 @@ It needs one CUDA device, nvcc and nothing from the network. It
    products by kernel B2): B2 against its plain loop at full width for g_z
    in float32 (the blend) and float64, and for FTG-6 and TMI on 512 rows,
    each timed beside the plain loop and its bound with the registers of its
-   kernels, and each blend's near pass alone as for B3; the products against the
+   kernels, and each blend's near rows and passes as for B3; the products against the
    dense uncompressed matrix (torch.mv on it timed as a yardstick); then a
    GENERIC_DEPTH solve through the command-line entry point, B2's launches
    counted;
@@ -145,7 +151,8 @@ It needs one CUDA device, nvcc and nothing from the network. It
    rmatvec beside the bytes it holds;
 23. seven small float64 matrix-free problems (BTTB g_z and FTG, lattice g_z
    and TMI through kernel B3, per-cell g_z and borehole TMI through kernel
-   B2, lattice g_z over four slots of the card) on the card against the CPU;
+   B2, lattice g_z over four slots of the card) on the card against the CPU,
+   3 x 10; their CPU solves run in two worker processes from phase 5 on;
 24. tpu.kernelStoreDtype = bfloat16 through the command-line entry point: the
    dense kernel built straight into bfloat16 (no cache written), every product
    through kernel B1 (launches counted), --mesh 1 to the last bit, against
@@ -188,17 +195,20 @@ It needs one CUDA device, nvcc and nothing from the network. It
    (200 x 200 x 100 = 4,000,000 cells, 2025 observations, the lattice
    operator's float32 blend), its fixtures and Parfile written and solved
    by the script CAPACITY_DEPTH deep: kernel B3's launches (and its near
-   pass's) counted, the data cost falls, the peak device memory, wall and
-   host peak printed; then one B3 pair on that run's operator against its
-   plain loop, two launches equal to the last bit, timed beside its bound;
+   passes' and near rows' build's) counted, the data cost falls, the peak
+   device memory, wall and host peak printed; then one B3 pair on that run's
+   operator against its plain loop, two launches equal to the last bit,
+   timed beside its bound, its near rows and passes held and timed as in 20;
 30. the last two JAX capacity scripts' rungs of scripts/run_capacity_torch.py
    at their full width: generic4m (200 x 200 x 100 cells whose x edges grow
    and shear, 2025 observations at jittered heights: the per-cell operator's
    float32 blend) at its own depth, 2 x 10, kernel B2's launches (and its
-   near pass's) counted, the data cost falls, then one B2 pair of that run's
-   operator against its plain loop on CAPACITY_B2_ROWS observation rows,
-   two launches equal, its near passes there against theirs, and the pair
-   and the near passes timed on the whole operator beside their bounds; and
+   near passes' and near rows' build's) counted, the data cost falls, then
+   one B2 pair of that run's operator against its plain loop on
+   CAPACITY_B2_ROWS observation rows, two launches equal, its near rows and
+   passes there against theirs, and the pair, the near passes and the
+   rows' build timed on the whole operator beside their bounds (the rows
+   held against their plain build there too); and
    1m (the mixed build's dense float32 kernel of 2025 x 1,048,576) cut to
    DENSE_DEPTH with no sensitivity cache written, in one fused chunk: the
    major captured once as a CUDA graph and replayed, no hand kernel
@@ -771,9 +781,47 @@ def solve_from_cache(work, name, inputs, cache_dir, fmt, mesh, counters, kind="g
     return run
 
 
+def solve_small(pf, dev, mesh=None, solve_kw=None):
+    """One float64 solve of a small problem's Parfile `pf` on `dev` (over
+    `mesh` when given): {"models": {problem: final model}, "cost_data":
+    {problem: data cost}, "s": seconds, "log": what it printed}. A worker of
+    start_cpu_pool runs it too."""
+    from tomofastx_tpu_torch.config.parfile import read_parfile
+    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
+
+    log = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(log):
+        res = solve_problem_joint_gravmag(read_parfile(pf), solve_dtype=torch.float64, device=dev, mesh=mesh,
+                                          **(solve_kw or {}))
+    return {"models": {i: np.asarray(m.val) for i, m in res.models.items()},
+            "cost_data": {i: float(res.cost_data[i]) for i in res.models}, "s": time.time() - t0,
+            "log": log.getvalue()}
+
+
+# Phase 23's CPU solves run in CPU_POOL_WORKERS processes of CPU_POOL_THREADS
+# threads each, from phase 5 on, beside the card's phases: on an H100 machine's
+# host the per-cell borehole problem's CPU solve alone took 8.6-23.5 s for 10
+# LSQR iterations (PERF.md).
+CPU_POOL_WORKERS, CPU_POOL_THREADS = 2, 2
+
+
+def _cpu_worker(threads):
+    torch.set_num_threads(threads)
+
+
+def start_cpu_pool():
+    """The worker processes of the CPU solves (spawned: this process holds a
+    CUDA context); main() terminates them on its way out."""
+    import multiprocessing
+
+    return multiprocessing.get_context("spawn").Pool(CPU_POOL_WORKERS, initializer=_cpu_worker,
+                                                     initargs=(CPU_POOL_THREADS,))
+
+
 def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None, swap=None, mesh=None,
                                    operator=None, solve_kw=None, model_tol=1e-6, n_minor=10, counted=None,
-                                   **parfile_args):
+                                   cpu_pool=None, **parfile_args):
     """A small problem of `kind` on the card (float64 solve, so the float64
     variants of the kernels and products carry it) against the same problem
     on the CPU: every active problem's final model within 1e-6 of its range,
@@ -784,46 +832,50 @@ def small_problem_card_against_cpu(work, name, what, kind="grav", coupling=None,
     both runs must log; solve_kw, further arguments of both solves (the
     build's precision or its float64 near field); model_tol, the model's
     tolerance (of its range) where it is not 1e-6; counted, the kernels
-    (name: wrapper) that the card run must launch, counted in that run."""
-    from tomofastx_tpu_torch.config.parfile import read_parfile
-    from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
-
+    (name: wrapper) that the card run must launch, counted in that run.
+    With cpu_pool (start_cpu_pool) the CPU solve starts there at once and
+    this returns a function that runs the card's and compares when called;
+    else it does both now."""
     small = os.path.join(work, name)
     os.makedirs(small)
     inputs = write_inputs(small, 16, 16, 8, 8, variants=("mag", "components", "borehole", "draped", "topography"))
     inputs.update({k: inputs[v] for k, v in (swap or {}).items()})
     if coupling is not None:
         parfile_args["extra"] = list(parfile_args.get("extra", ())) + coupling(small, inputs)
-    res = {}
-    for dev in ("cpu", "cuda"):
-        pf = write_parfile(small, f"Parfile_{dev}.txt", inputs, os.path.join(small, f"out_{dev}"), n_minor, kind=kind,
-                           **parfile_args)
-        log = io.StringIO()
+    pfs = {dev: write_parfile(small, f"Parfile_{dev}.txt", inputs, os.path.join(small, f"out_{dev}"), n_minor,
+                              kind=kind, **parfile_args) for dev in ("cpu", "cuda")}
+    cpu = None if cpu_pool is None else cpu_pool.apply_async(solve_small, (pfs["cpu"], "cpu", None, solve_kw))
+
+    def finish():
+        res = {"cpu": solve_small(pfs["cpu"], "cpu", None, solve_kw) if cpu is None else cpu.get()}
         for fn in (counted or {}).values():
             fn.launches = 0
-        with contextlib.redirect_stdout(log):
-            res[dev] = solve_problem_joint_gravmag(read_parfile(pf), solve_dtype=torch.float64, device=dev,
-                                                   mesh=mesh if dev == "cuda" else None, **(solve_kw or {}))
-        if counted and dev == "cuda":
+        res["cuda"] = solve_small(pfs["cuda"], "cuda", mesh, solve_kw)
+        if counted:
             launches = {k: fn.launches for k, fn in counted.items()}
             print(f"  small problem ({what}): launches on the card {launches}")
             if not all(launches.values()):
                 raise SystemExit(f"FAILED small problem ({what}): a kernel of its path was not launched")
-        if operator is not None and f"kernel: matrix-free ({operator}," not in log.getvalue():
-            raise SystemExit(f"FAILED small problem ({what}): the {dev} run did not take {operator}")
-    worst = 0.0
-    for i in res["cpu"].models:
-        a, b = res["cpu"].models[i].val, res["cuda"].models[i].val
-        rel = float(np.abs(a - b).max() / (a.max() - a.min()))
-        ca, cb = res["cpu"].cost_data[i], res["cuda"].cost_data[i]
-        print(f"  small problem ({what}, {('grav', 'mag')[i]}; 16x16x8 cells, 64 observations, "
-              f"{parfile_args.get('n_major', N_MAJOR)} x {n_minor}, f64 solve), card "
-              f"against CPU: final model {a.shape} differs by {rel:.3e} of its range, data cost {cb:.6e} against "
-              f"{ca:.6e} (tolerance {model_tol:g} of the range for the model, 1e-6 for the cost)")
-        if not rel <= model_tol or not abs(cb - ca) <= 1e-6 or not cb < 1.0:
-            raise SystemExit(f"FAILED small problem ({what}): card against CPU")
-        worst = max(worst, rel)
-    return worst
+        for dev, r in res.items():
+            if operator is not None and f"kernel: matrix-free ({operator}," not in r["log"]:
+                raise SystemExit(f"FAILED small problem ({what}): the {dev} run did not take {operator}")
+        worst = 0.0
+        for i in res["cpu"]["models"]:
+            a, b = res["cpu"]["models"][i], res["cuda"]["models"][i]
+            rel = float(np.abs(a - b).max() / (a.max() - a.min()))
+            ca, cb = res["cpu"]["cost_data"][i], res["cuda"]["cost_data"][i]
+            print(f"  small problem ({what}, {('grav', 'mag')[i]}; 16x16x8 cells, 64 observations, "
+                  f"{parfile_args.get('n_major', N_MAJOR)} x {n_minor}, f64 solve), card "
+                  f"against CPU: final model {a.shape} differs by {rel:.3e} of its range, data cost {cb:.6e} against "
+                  f"{ca:.6e} (tolerance {model_tol:g} of the range for the model, 1e-6 for the cost; the CPU solve "
+                  f"{res['cpu']['s']:.1f} s" + (" in a worker process" if cpu is not None else "")
+                  + f", the card's {res['cuda']['s']:.1f} s)")
+            if not rel <= model_tol or not abs(cb - ca) <= 1e-6 or not cb < 1.0:
+                raise SystemExit(f"FAILED small problem ({what}): card against CPU")
+            worst = max(worst, rel)
+        return worst
+
+    return finish() if cpu is None else finish
 
 
 def dense_from_pack(uvals, ubidx, ncols_padded):
@@ -1533,7 +1585,8 @@ def phase_20(cli, counters, workflow, work, inputs):
           f"{runs['run']['launches']['lattice_rmatvec']} rmatvec (expected {want['lattice_matvec']} = the probe, "
           f"{3 + LATTICE_DEPTH[0]} forward products and one a LSQR iteration; {want['lattice_rmatvec']} = one a LSQR "
           f"iteration and one a solve), near passes {runs['run']['launches']['lattice_near_matvec']} and "
-          f"{runs['run']['launches']['lattice_near_rmatvec']} (one a product)")
+          f"{runs['run']['launches']['lattice_near_rmatvec']} (one a product), near rows built "
+          f"{runs['run']['launches']['lattice_near_build']} (once)")
     if not launched(runs["run"]["launches"], **want):
         raise SystemExit(f"FAILED lattice main path: launches {runs['run']['launches']}")
     if not op.far_quad:
@@ -1588,7 +1641,8 @@ def phase_20(cli, counters, workflow, work, inputs):
     torch.cuda.empty_cache()
     b3_probe()
     runs["mesh1"] = run_main_path(cli, counters, "lattice --mesh 1", pf["mesh1"], out["mesh1"], said, mesh="1", **kw)
-    if not launched(runs["mesh1"]["launches"], **want):
+    # The near rows are built twice: with the operator, and with its one part.
+    if not launched(runs["mesh1"]["launches"], **dict(want, lattice_near_build=2)):
         raise SystemExit(f"FAILED lattice --mesh 1: launches {runs['mesh1']['launches']}")
     held = hold_equal("lattice --mesh 1", runs["mesh1"], out["mesh1"], runs["run"], out["run"])
     if not held["equal_to_the_last_bit"]:
@@ -1614,7 +1668,9 @@ def phase_20(cli, counters, workflow, work, inputs):
     with lattice_products_by_the_plain_loop():
         runs["plain"] = run_main_path(cli, counters, "lattice, its plain chunk loop on the card", pf["plain"],
                                       out["plain"], said, **short)
-    if not launched(runs["plain"]["launches"]):
+    # The construction still builds the stored near rows by its kernels; the
+    # products never read them.
+    if not launched(runs["plain"]["launches"], lattice_near_build=1):
         raise SystemExit(f"FAILED lattice, plain loop: kernel launches {runs['plain']['launches']}")
     held32 = formats_apart("lattice through kernel B3 against its plain loop, float32 solves", runs["short"],
                            runs["plain"])
@@ -1698,24 +1754,27 @@ def phase_21(cli, counters, work, inputs):
     print(f"  kernel B2's launches: {run['launches']['prism_matvec']} matvec, {run['launches']['prism_rmatvec']} "
           f"rmatvec (expected {want['prism_matvec']} = the probe, {3 + GENERIC_DEPTH[0]} forward products and one a "
           f"LSQR iteration; {want['prism_rmatvec']} = one a LSQR iteration and one a solve), near passes "
-          f"{run['launches']['prism_near_matvec']} and {run['launches']['prism_near_rmatvec']} (one a product)")
+          f"{run['launches']['prism_near_matvec']} and {run['launches']['prism_near_rmatvec']} (one a product), near "
+          f"rows built {run['launches']['prism_near_build']} (once)")
     if not launched(run["launches"], **want):
         raise SystemExit(f"FAILED per-cell main path: launches {run['launches']}")
     return {"operator": times, "build_s": build_s, "against_dense": errs, "run": run, "b2": b2,
             "yardstick": yardstick}
 
 
-def b2_launches(lsqr_iterations, kernel="prism", near=True):
+def b2_launches(lsqr_iterations, kernel="prism", near=True, builds=1):
     """Kernel B2's (or, kernel = "lattice", B3's) launches in a host-driven
     matrix-free run: the construction's probe matvec, the forward products
     (synthetic, prior and starting models, and one after each major), and
     each solve's LSQR (a matvec an iteration; an rmatvec an iteration and one
     before the loop); near: a float32 blend's, whose every product launches
-    its near pass too."""
+    its near pass too, and whose construction builds its stored near rows
+    (`builds` times: once, and once more for each part of a mesh)."""
     want = {f"{kernel}_matvec": 1 + 3 + len(lsqr_iterations) + sum(lsqr_iterations),
             f"{kernel}_rmatvec": sum(it + 1 for it in lsqr_iterations)}
     if near:
         want.update({f"{kernel}_near_{f}": want[f"{kernel}_{f}"] for f in ("matvec", "rmatvec")})
+        want[f"{kernel}_near_build"] = builds
     return want
 
 
@@ -1768,27 +1827,36 @@ def phase_22(cli, counters, work):
     return {"run": run, "operator": times, "forward_rows_max_err": err}
 
 
-def phase_23(work, mesh4, counters):
+def start_phase_23(work, mesh4, counters, cpu_pool):
     """Small float64 matrix-free problems, card against CPU; the per-cell
-    ones through kernel B2, the lattice ones through B3, counted."""
+    ones through kernel B2, the lattice ones through B3, counted: their CPU
+    solves started in cpu_pool, {name: the function that runs the card's
+    and compares} returned for phase 23."""
     b2 = {k: counters[k] for k in ("prism_matvec", "prism_rmatvec")}
     b3 = {k: counters[k] for k in ("lattice_matvec", "lattice_rmatvec")}
+    # The longest CPU solve first.
     cases = [
-        ("bttb_gz", "BTTB g_z", dict(operator="BTTBKernel")),
-        ("bttb_ftg", "BTTB FTG full tensor", dict(operator="BTTBKernel", kind="ftg")),
+        ("generic_borehole_tmi", "per-cell TMI, borehole", dict(operator="MatrixFreeKernel", kind="borehole",
+                                                                counted=b2)),
+        ("generic_gz", "per-cell g_z, topography", dict(operator="MatrixFreeKernel", swap={"grid": "grid_topo"},
+                                                        counted=b2)),
         ("lattice_gz", "lattice g_z, draped", dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"},
                                                    counted=b3)),
         ("lattice_tmi", "lattice TMI, draped", dict(operator="LatticeMatrixFreeKernel", kind="tmi",
                                                     swap={"data": "data_draped"}, counted=b3)),
-        ("generic_gz", "per-cell g_z, topography", dict(operator="MatrixFreeKernel", swap={"grid": "grid_topo"},
-                                                        counted=b2)),
-        ("generic_borehole_tmi", "per-cell TMI, borehole", dict(operator="MatrixFreeKernel", kind="borehole",
-                                                                counted=b2)),
+        ("bttb_gz", "BTTB g_z", dict(operator="BTTBKernel")),
+        ("bttb_ftg", "BTTB FTG full tensor", dict(operator="BTTBKernel", kind="ftg")),
         ("lattice_gz_4_slots", "lattice g_z, draped, four slots of the card",
          dict(operator="LatticeMatrixFreeKernel", swap={"data": "data_draped"}, mesh=mesh4, counted=b3)),
     ]
     return {name: small_problem_card_against_cpu(work, f"small_mf_{name}", f"matrix-free {what}", fmt="matrixfree",
-                                                 compression=0, **kw) for name, what, kw in cases}
+                                                 compression=0, cpu_pool=cpu_pool, **kw) for name, what, kw in cases}
+
+
+def phase_23(started):
+    """The card's solves of start_phase_23's problems, each against its CPU
+    solve: {name: the model's largest difference, of its range}."""
+    return {name: finish() for name, finish in started.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1826,9 +1894,11 @@ FP64_FLOP_PER_S = 34e12
 # What ptxas said of each kernel in this run's builds: {mangled name: registers}.
 REGISTERS = {}
 # The template arguments of the families whose registers are reported: the
-# float32 blend's kernels (type, family, nmc, ndc, mode) and the near passes'
-# (family, nmc, ndc), as mangled.
+# float32 blend's kernels (type, family, nmc, ndc, mode) and the near rows'
+# build (family, nmc, ndc), as mangled; the near passes over the stored rows
+# are templates of (nmc, ndc, lanes) alone.
 REGISTER_FAMILIES = {"g_z": "Li0ELi1ELi1E", "FTG-6": "Li2ELi1ELi6E", "TMI": "Li3ELi1ELi1E"}
+REGISTER_SHAPES = {"g_z": "Li1ELi1E", "FTG-6": "Li1ELi6E", "TMI": "Li1ELi1E"}
 
 
 def ptxas_registers(log):
@@ -1839,65 +1909,159 @@ def ptxas_registers(log):
 
 def kernel_registers(kernels, registers=None):
     """Registers of each family of REGISTER_FAMILIES for each (kernel name,
-    blend?) of `kernels`, from `registers` ({mangled name: registers}; this
-    run's REGISTERS by default): {kernel: {family: registers}}."""
+    kind) of `kernels` (kind True: a blend kernel; False: one of the family
+    alone; "stream": a near pass, the most over its lanes), from
+    `registers` ({mangled name: registers}; this run's REGISTERS by
+    default): {kernel: {family: registers}}."""
     registers = REGISTERS if registers is None else registers
     out = {}
-    for kernel, blend in kernels:
+    for kernel, kind in kernels:
         for fam, targs in REGISTER_FAMILIES.items():
-            key = f"{kernel}I" + (f"f{targs}Li1EE" if blend else f"{targs}E")
+            if kind == "stream":
+                key = f"{kernel}I{REGISTER_SHAPES[fam]}"
+                out.setdefault(kernel, {})[fam] = max((r for name, r in registers.items() if key in name),
+                                                      default=None)
+                continue
+            key = f"{kernel}I" + (f"f{targs}Li1EE" if kind else f"{targs}E")
             out.setdefault(kernel, {})[fam] = next((r for name, r in registers.items() if key in name), None)
     return out
 
 
-def near_pass(tag, name, op, kernels, v_pairs, rtol, reps=0):
-    """A blend's near passes alone: each kernel against the operator's plain
-    near pass on the same tensors (to rtol of max|y|), launched once a call,
-    two launches equal to the last bit; with reps, the kernel timed (median
-    of reps) and the plain version once. Returns {f: {...}}."""
-    out = {}
-    for (f, kernel), (plain, v) in zip(kernels.items(), v_pairs):
+# The stored near rows against their plain build on the card: the same pairs,
+# and each row the same float64 closed form rounded to float32, where a few
+# land on the neighbouring float32 (the kernel's and torch's float64
+# transcendentals may differ in their last bits).
+RTOL_NEAR_ROWS = 1e-6
+
+
+def time_graph(fn, calls=20, reps=5):
+    """Median milliseconds a call of fn() on the card alone: `calls` calls
+    captured as one CUDA graph, its replay timed by CUDA events (`reps`
+    replays), over calls: no host time, which a near pass at the smoke's
+    shape otherwise is mostly."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return float(np.median(times))
+
+
+def near_rows_against_plain(tag, name, op, timed=False):
+    """The operator's stored near rows (its build's, on the card) against
+    their plain build on the same tensors: the same pairs in both orders,
+    the rows within RTOL_NEAR_ROWS of max|row|. Returns the largest
+    difference of a row (timed: and the plain build's milliseconds)."""
+    from tomofastx_tpu_torch.ops._cuda_build import NEAR_ROW_FIELDS
+
+    plain, plain_ms = timed_once(op.near_rows_plain)
+    for f in NEAR_ROW_FIELDS:
+        if not f.endswith("val") and not torch.equal(getattr(op, f), plain[f]):
+            raise SystemExit(f"FAILED {tag} {name}: the stored near rows' {f} differ from their plain build's")
+    err = max(compare(f"{tag} {name}, stored near rows ({op.near_rval.shape[0]:,} pairs, {order}) against their "
+                      "plain build", getattr(op, f), plain[f], RTOL_NEAR_ROWS)
+              for f, order in (("near_rval", "by observation"), ("near_cval", "by cell")))
+    return (err, plain_ms) if timed else err
+
+
+def near_pass(tag, name, op, kernels, vecs, rtol, reps=0):
+    """A blend's near passes alone: its stored rows against their plain
+    build (near_rows_against_plain); each kernel against the plain product
+    over the stored rows (the same float32 rows, float64 sums in another
+    order: to RTOL_F64 of max|y|) and the plain pass that evaluates every row
+    again (to rtol), launched once a call, two launches equal to the last
+    bit; with reps, the kernel timed one call a pair of events (`ms`, the
+    wrapper's host time in, as every kernel's `ms`) and on the card alone
+    (`ms_on_card`, time_graph), each plain version by the one call its
+    comparison makes, and the one-off build of the rows (median of 3) beside
+    its plain version's. Returns {f: {...}, "rows": {...}}."""
+    err, plain_build_ms = near_rows_against_plain(tag, name, op, timed=True)
+    out = {"rows": {"max_abs_err": err, "stored_nbytes": op.near_rows_nbytes, "pairs": op.near_rval.shape[0],
+                    "lanes": list(op.near_lanes)}}
+    plains = {"matvec": (op._stored_near_matvec, op._near_matvec), "rmatvec": (op._stored_near_rmatvec,
+                                                                             op._near_rmatvec)}
+    for f, kernel in kernels.items():
+        v = vecs[f]
+        stored, again = plains[f]
         before = kernel.launches
         got = kernel(op, v)
         if kernel.launches != before + 1:
             raise SystemExit(f"FAILED {tag} {name}: the near pass {f} did not launch once")
-        row = {"max_abs_err": compare(f"{tag} {name}, near pass {f} against its plain version", got, plain(v), rtol)}
+        want, plain_ms = timed_once(lambda: stored(v))
+        want_again, again_ms = timed_once(lambda: again(v))
+        row = {"max_abs_err": compare(f"{tag} {name}, near pass {f} against the plain product over the stored rows",
+                                      got, want, RTOL_F64),
+               "max_abs_err_against_the_recomputing_pass": compare(
+                   f"{tag} {name}, near pass {f} against the plain pass that evaluates the rows again", got,
+                   want_again, rtol)}
+        del want, want_again
         if not torch.equal(kernel(op, v), got):
             raise SystemExit(f"FAILED {tag} {name}: two near {f} launches differ")
         if reps:
             row["ms"] = time_cuda(lambda: kernel(op, v), warm=1, reps=reps)
-            row["plain_ms"] = time_cuda(lambda: plain(v), warm=0, reps=1)
+            row["ms_on_card"] = time_graph(lambda: kernel(op, v))
+            row["plain_ms"] = plain_ms
+            row["plain_ms_recomputing"] = again_ms
         out[f] = row
+    if reps:
+        out["rows"]["build_ms"] = time_cuda(op.with_near_rows, warm=1, reps=3)
+        out["rows"]["plain_build_ms"] = plain_build_ms
+        print(f"  {tag} {name} near rows: {out['rows']['pairs']:,} pairs, {op.near_rows_nbytes / 1e6:.2f} MB stored, "
+              f"built in {out['rows']['build_ms']:.3f} ms (plain build {out['rows']['plain_build_ms']:.1f} ms), lanes "
+              f"{op.near_lanes}")
     return out
 
 
 def near_bound(op, near, corner_flops, f):
     """A near pass's least milliseconds for one call on `op` (f "matvec" or
-    "rmatvec"): its near pairs' closed forms in float64 (corner_flops a
-    pair, each square root, arc tangent and log one operation), or the
-    bytes it must move, each once: its lists, the geometry and input of the
-    cells and observations its candidates name (each distinct one once;
-    the lattice's edges whole), and its float64 output (the matvec's rows,
-    the rmatvec's every cell)."""
-    elt = op.xd.element_size()
+    "rmatvec"): the bytes it must move, each once: its order of the stored
+    rows (offsets, indices, float32 rows; by cell also the cells' numbers),
+    the input entries they name (each distinct one once) and its float64
+    output (the matvec's rows, the rmatvec's every cell). Beside it, the
+    float64 operations of the near pairs' closed forms (corner_flops a pair,
+    each square root, arc tangent and log one operation), which the build
+    evaluates once and the earlier pass evaluated in every product."""
     nmc, ndc = (op.phys.nmc, op.phys.ndc) if hasattr(op, "phys") else (op.nmc, op.ndc)
-    if hasattr(op, "grid6"):  # the per-cell operator: 6 bounds a cell, its candidates in near_idx
-        idx = op.near_idx.long() - op.cell_lo
-        cells, cell_geometry, edges = idx[(idx >= 0) & (idx < op.N)], 6, 0
-        matvec_lists = op.near_idx.numel()
-    else:  # the lattice: a cell's bounds are its edges
-        cells, cell_geometry, edges = op.near_cells.long(), 0, op.xe.numel() + op.ye.numel() + op.ze.numel()
-        matvec_lists = op.near_ptr.numel() + op.near_cells.numel()
-    ncells, nobs = int(torch.unique(cells).numel()), int(torch.unique(op.near_obs).numel())
+    nv = nmc * ndc
     if f == "matvec":
-        entries, values, out = matvec_lists, ncells * (cell_geometry + nmc) + nobs * 3, op.xd.shape[0] * ndc
+        lists = op.near_rptr.numel() + op.near_rcell.numel()
+        named, out = int(torch.unique(op.near_rcell).numel()) * nmc, op.xd.shape[0] * ndc
     else:
-        entries, values, out = op.near_tptr.numel() + op.near_obs.numel(), ncells * cell_geometry + nobs * (3 + ndc), \
-            nmc * op.N
-    times = {"bytes": (4 * entries + (values + edges) * elt + 8 * out) / MEMORY_BYTES_PER_S * 1e3,
+        lists = op.near_ccell.numel() + op.near_cptr.numel() + op.near_cobs.numel()
+        named, out = int(torch.unique(op.near_cobs).numel()) * ndc, nmc * op.N
+    times = {"bytes": (4 * lists + 4 * near * nv + 4 * named + 8 * out) / MEMORY_BYTES_PER_S * 1e3,
+             "float64 operations of the closed forms (evaluated at the build)":
+                 corner_flops * near / FP64_FLOP_PER_S * 1e3}
+    return times["bytes"], "bytes", "bytes", times
+
+
+def near_build_bound(op, near, corner_flops):
+    """The near rows' build's least milliseconds on `op`: the larger of the
+    near pairs' closed forms in float64 (corner_flops a pair, each
+    transcendental one operation) and the bytes it must move (its candidate
+    lists, read once, and the rows in both orders with their indices,
+    written once). Returns (ms, bound_by, times)."""
+    nv = (op.phys.nmc * op.phys.ndc) if hasattr(op, "phys") else op.nmc * op.ndc
+    candidates = op.near_idx.numel() if hasattr(op, "grid6") else op.near_ptr.numel() + op.near_cells.numel()
+    written = op.near_rows_nbytes
+    times = {"bytes": (4 * candidates + written) / MEMORY_BYTES_PER_S * 1e3,
              "float64 operations": corner_flops * near / FP64_FLOP_PER_S * 1e3}
     which = max(times, key=times.get)
-    return times[which], "bytes" if which == "bytes" else "operations", which, times
+    return times[which], "bytes" if which == "bytes" else "operations", times
 
 
 B2_QUAD_FLOPS = {"grav1": 309, "grav2": 417, "grav6": 1155, "magn": 1170}
@@ -2025,8 +2189,8 @@ def b2_small_problems():
                 row["against_the_split"] = max(errs)
                 row["near_pass"] = near_pass("B2", case, op, {"matvec": pm.prism_near_matvec,
                                                               "rmatvec": pm.prism_near_rmatvec},
-                                             ((op._near_matvec, op.cw[None, :] * op._padded_model(x)),
-                                              (op._near_rmatvec, op._padded_residual(u))), RTOL_F64)
+                                             {"matvec": op.cw[None, :] * op._padded_model(x),
+                                              "rmatvec": op._padded_residual(u)}, RTOL_F64)
             out[f"{case}, {what}"] = row
     # The cells-sharded operator: each of 7 slots of the card evaluates its own
     # cells, and each cell's adjoint sum runs over the same observations in the
@@ -2123,21 +2287,35 @@ def measure_b2(name, op, rtol, reps=10):
               + f" ms; {near:,} near pairs, {far:,} far)")
     if op.phys.far_quad:
         out["registers"] = kernel_registers([("prism_matvec_partials", True), ("prism_rmatvec_kernel", True),
-                                             ("prism_near_matvec_kernel", False),
-                                             ("prism_near_rmatvec_kernel", False)])
+                                             ("prism_near_rows_kernel", False), ("prism_near_matvec_kernel", "stream"),
+                                             ("prism_near_rmatvec_kernel", "stream")])
         print("  B2 registers (ptxas): " + "; ".join(f"{k} " + ", ".join(f"{fam} {r}" for fam, r in v.items())
                                                    for k, v in out["registers"].items()))
         near = out["matvec"]["near_pairs"]
         out["near"] = near_pass("B2", name, op, {"matvec": pm.prism_near_matvec, "rmatvec": pm.prism_near_rmatvec},
-                                ((op._near_matvec, xw), (op._near_rmatvec, u)), RTOL_F64, reps=reps)
-        for f in ("matvec", "rmatvec"):
-            bound_ms, bound_by, which, times = near_bound(op, near, B2_CLOSED_FLOPS[b2_family_key(op.phys)], f)
-            row = out["near"][f]
-            row.update(bound_ms=bound_ms, bound_by=bound_by, bound_unit=which, bound_times_ms=times, near_pairs=near,
-                       library_ms=None)
-            print(f"  B2 {name} near pass {f}: kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
-                  f"{bound_ms:.4f} ms by {which} ({near:,} near pairs)")
+                                {"matvec": xw, "rmatvec": u}, RTOL_F64, reps=reps)
+        near_bounds(out["near"], "B2", name, op, near, B2_CLOSED_FLOPS[b2_family_key(op.phys)])
     return out
+
+
+def near_bounds(near, tag, name, op, pairs, corner_flops):
+    """The bounds of a blend's near passes and of its rows' build (near_pass's
+    readings `near`, updated), printed beside their times."""
+    for f in ("matvec", "rmatvec"):
+        bound_ms, bound_by, which, times = near_bound(op, pairs, corner_flops, f)
+        row = near[f]
+        row.update(bound_ms=bound_ms, bound_by=bound_by, bound_unit=which, bound_times_ms=times, near_pairs=pairs,
+                   library_ms=None)
+        on = f" on {row['plain_on']}" if "plain_on" in row else ""
+        print(f"  {tag} {name} near pass {f}: kernel {row['ms']:.3f} ms one call a pair of events "
+              f"({row['ms_on_card']:.4f} ms on the card alone), plain {row['plain_ms']:.1f} ms over the stored rows{on} "
+              f"({row['plain_ms_recomputing']:.1f} ms evaluating them again), bound {bound_ms:.4f} ms by bytes "
+              f"({pairs:,} near pairs; their closed forms {times[list(times)[1]]:.4f} ms by float64 operations)")
+    bound_ms, bound_by, times = near_build_bound(op, pairs, corner_flops)
+    near["rows"].update(bound_ms=bound_ms, bound_by=bound_by, bound_times_ms=times, library_ms=None)
+    print(f"  {tag} {name} near rows' build: {near['rows']['build_ms']:.3f} ms (plain build "
+          f"{near['rows']['plain_build_ms']:.1f} ms" + (f" on {near['rows']['plain_on']}" if "plain_on" in near["rows"]
+                                                         else "") + f"), bound {bound_ms:.4f} ms by {bound_by}")
 
 
 # ---------------------------------------------------------------------------
@@ -2305,8 +2483,8 @@ def b3_small_problems():
                 row["against_the_split"] = max(errs)
                 row["near_pass"] = near_pass("B3", case, op, {"matvec": lm.lattice_near_matvec,
                                                               "rmatvec": lm.lattice_near_rmatvec},
-                                             ((op._near_matvec, op.cw[None, :] * x.reshape(op.nmc, op.N)),
-                                              (op._near_rmatvec, op._padded_residual(u))), RTOL_F64)
+                                             {"matvec": op.cw[None, :] * x.reshape(op.nmc, op.N),
+                                              "rmatvec": op._padded_residual(u)}, RTOL_F64)
             out[f"{case}, {what}"] = row
         if case in ("FTG-6", "TMI", "MVI 3-component"):
             cpu = b3_operator(case, grid, X, Y, Z, torch.float64, chunk=4, device="cpu")
@@ -2426,22 +2604,18 @@ def measure_b3(name, op, rtol, reps=10):
               + f" ms; pairs near {pairs[0]:,}, window {pairs[1]:,}, outside {pairs[2]:,})")
     if op.far_quad:
         out["registers"] = kernel_registers([("lattice_matvec_partials", True), ("lattice_rmatvec_partials", True),
-                                             ("lattice_near_matvec_kernel", False),
-                                             ("lattice_near_rmatvec_kernel", False)])
+                                             ("lattice_near_rows_kernel", False),
+                                             ("lattice_near_matvec_kernel", "stream"),
+                                             ("lattice_near_rmatvec_kernel", "stream")])
         print("  B3 registers (ptxas): " + "; ".join(f"{k} " + ", ".join(f"{fam} {r}" for fam, r in v.items())
                                                    for k, v in out["registers"].items()))
         near = out["matvec"]["near_window_far_pairs"][0]
         key = "magn" if op.problem == "magn" else f"grav{1 if op.data_type == 1 else 2 if op.ndc == 1 else 6}"
         out["near"] = near_pass("B3", name, op, {"matvec": lm.lattice_near_matvec,
                                                  "rmatvec": lm.lattice_near_rmatvec},
-                                ((op._near_matvec, xw), (op._near_rmatvec, u)), RTOL_F64, reps=reps)
-        for f in ("matvec", "rmatvec"):
-            bound_ms, bound_by, which, times = near_bound(op, near, 8 * B3_CORNER_FLOPS[key], f)
-            row = out["near"][f]
-            row.update(bound_ms=bound_ms, bound_by=bound_by, bound_unit=which, bound_times_ms=times, near_pairs=near,
-                       candidates=op.near_cells.numel(), library_ms=None)
-            print(f"  B3 {name} near pass {f}: kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
-                  f"{bound_ms:.4f} ms by {which} ({near:,} near pairs of {op.near_cells.numel():,} candidates)")
+                                {"matvec": xw, "rmatvec": u}, RTOL_F64, reps=reps)
+        near_bounds(out["near"], "B3", f"{name} ({op.near_cells.numel():,} candidates)", op, near,
+                    8 * B3_CORNER_FLOPS[key])
     return out
 
 
@@ -2718,7 +2892,8 @@ KERNEL_SYMBOL = {"tile_matvec": "tile_matvec_kernel", "tile_matvec_sharded": "ti
                  "lattice_matvec": "lattice_matvec_reduce", "lattice_rmatvec": "lattice_rmatvec_reduce",
                  "prism_near_matvec": "prism_near_matvec_kernel", "prism_near_rmatvec": "prism_near_rmatvec_kernel",
                  "lattice_near_matvec": "lattice_near_matvec_kernel",
-                 "lattice_near_rmatvec": "lattice_near_rmatvec_kernel"}
+                 "lattice_near_rmatvec": "lattice_near_rmatvec_kernel",
+                 "prism_near_build": "prism_near_rows_kernel", "lattice_near_build": "lattice_near_rows_kernel"}
 
 
 class KeptFusedSolver:
@@ -3015,9 +3190,11 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
     t_phase = time.time()
     seconds = {}
 
-    def fused(name, pf, out_dir, said, ref, kind="grav", mesh=None, kernels=None, **kw):
+    def fused(name, pf, out_dir, said, ref, kind="grav", mesh=None, kernels=None, builds=None, **kw):
         """A --fused run through the command line, held to its host-driven
         run. kernels: {kernel: (its launches a step, its eager forwards)};
+        builds: {kernel: its launches, all outside the graph} (the stored
+        near rows' build, once with the operator);
         the step's launches are counted once inside the capture and once in
         the warm-up step, the forwards (of the synthetic, prior, starting
         and incoming models) outside the graph; each kernel's launches on
@@ -3043,7 +3220,7 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
                 if v["captured"] != per_step or v["counted"] - v["captured"] != eager:
                     raise SystemExit(f"FAILED fused {name}: {k} counted {v['counted']}, {v['captured']} inside the "
                                      f"capture (expected {eager} + {per_step})")
-        if not launched(run["launches"], **{k: run["launches"][k] for k in kernels}):
+        if not launched(run["launches"], **{k: run["launches"][k] for k in kernels}, **(builds or {})):
             raise SystemExit(f"FAILED fused {name}: a kernel off its path was launched: {run['launches']}")
         runs[name] = run
         seconds[name] = time.time() - t0
@@ -3111,7 +3288,8 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
     kept = fused("per-cell", pf, out["per_cell"], matrixfree_said("MatrixFreeKernel"), refs["per_cell"][0],
                  sensit_written=False, compression="uncompressed",
                  kernels={"prism_matvec": (N_MINOR + 1, 5), "prism_rmatvec": (N_MINOR + 1, 0),
-                          "prism_near_matvec": (N_MINOR + 1, 5), "prism_near_rmatvec": (N_MINOR + 1, 0)})
+                          "prism_near_matvec": (N_MINOR + 1, 5), "prism_near_rmatvec": (N_MINOR + 1, 0)},
+                 builds={"prism_near_build": 1})
     per_cell_graph = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["prism_matvec"],
                                                 runs["per-cell"]["launches_fused"]["prism_matvec"]["a_replay"])
     del kept
@@ -3127,7 +3305,8 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
     kept = fused("lattice", pf, out["lattice"], matrixfree_said("LatticeMatrixFreeKernel"), refs["lattice"][0],
                  sensit_written=False, compression="uncompressed", what=f"{NDATA} draped observations",
                  kernels={"lattice_matvec": (N_MINOR + 1, 5), "lattice_rmatvec": (N_MINOR + 1, 0),
-                          "lattice_near_matvec": (N_MINOR + 1, 5), "lattice_near_rmatvec": (N_MINOR + 1, 0)})
+                          "lattice_near_matvec": (N_MINOR + 1, 5), "lattice_near_rmatvec": (N_MINOR + 1, 0)},
+                 builds={"lattice_near_build": 1})
     lattice_graph = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["lattice_matvec"],
                                                runs["lattice"]["launches_fused"]["lattice_matvec"]["a_replay"])
     del kept
@@ -3291,7 +3470,8 @@ RTOL_NEAR_CAPACITY = RTOL_SPLIT
 def b2_row_subset(op, rows):
     """The per-cell operator `op` cut to the observation rows `rows` (their
     count a multiple of its chunk): their geometry, row weights, near
-    candidates and the candidates' transpose."""
+    candidates, the candidates' transpose and the stored near rows built
+    from them."""
     import dataclasses
 
     from tomofastx_tpu_torch.ops.matrixfree import near_idx_transpose
@@ -3300,7 +3480,8 @@ def b2_row_subset(op, rows):
     near_idx = op.near_idx[idx]
     near_tptr, near_obs = near_idx_transpose(near_idx, op.cell_lo, op.N)
     return dataclasses.replace(op, xd=op.xd[idx], yd=op.yd[idx], zd=op.zd[idx], row_w=op.row_w[idx],
-                               nrows=len(rows), near_idx=near_idx, near_tptr=near_tptr, near_obs=near_obs)
+                               nrows=len(rows), near_idx=near_idx, near_tptr=near_tptr,
+                               near_obs=near_obs).with_near_rows()
 
 
 def measure_b2_capacity(name, op, reps=3):
@@ -3339,15 +3520,22 @@ def measure_b2_capacity(name, op, reps=3):
               + ", ".join(f"{k} {t:.3f}" for k, t in times.items()) + f" ms; {near:,} near pairs, {far:,} far)")
     out["near"] = near_pass("B2", f"{name} on {len(rows)} rows", sub,
                             {"matvec": pm.prism_near_matvec, "rmatvec": pm.prism_near_rmatvec},
-                            ((sub._near_matvec, xw), (sub._near_rmatvec, u_sub)), RTOL_NEAR_CAPACITY)
+                            {"matvec": xw, "rmatvec": u_sub}, RTOL_NEAR_CAPACITY, reps=reps)
+    del sub
+    # The passes and the build timed again on the whole operator; their plain
+    # versions stay those on the rows (over the whole operator the plain
+    # build alone takes ~3 s).
+    built = out["near"]["rows"]
+    built.update(stored_nbytes=op.near_rows_nbytes, pairs=op.near_rval.shape[0], lanes=list(op.near_lanes),
+                 build_ms=time_cuda(op.with_near_rows, warm=1, reps=reps), plain_on=f"{len(rows)} rows")
+    print(f"  B2 {name} near rows: {near:,} pairs, {op.near_rows_nbytes / 1e6:.1f} MB stored, built in "
+          f"{built['build_ms']:.1f} ms, lanes {op.near_lanes}")
     for f, kernel, v in (("matvec", pm.prism_near_matvec, xw), ("rmatvec", pm.prism_near_rmatvec, u)):
-        bound_ms, bound_by, which, times = near_bound(op, near, B2_CLOSED_FLOPS[b2_family_key(op.phys)], f)
-        row = out["near"][f]
-        row.update(ms=time_cuda(lambda: kernel(op, v), warm=1, reps=reps), bound_ms=bound_ms, bound_by=bound_by,
-                   bound_unit=which, bound_times_ms=times, near_pairs=near, candidates=op.near_idx.numel(),
-                   library_ms=None)
-        print(f"  B2 {name} near pass {f}: kernel {row['ms']:.3f} ms (the whole operator), bound {bound_ms:.4f} ms "
-              f"by {which} ({near:,} near pairs of {op.near_idx.numel():,} candidates)")
+        out["near"][f].update(ms=time_cuda(lambda: kernel(op, v), warm=1, reps=reps),
+                              ms_on_card=time_graph(lambda: kernel(op, v), calls=10, reps=reps),
+                              candidates=op.near_idx.numel(), plain_on=f"{len(rows)} rows")
+    near_bounds(out["near"], "B2", f"{name} ({op.near_idx.numel():,} candidates; the whole operator)", op, near,
+                B2_CLOSED_FLOPS[b2_family_key(op.phys)])
     return out
 
 
@@ -3446,6 +3634,7 @@ def phase_30(counters, workflow, work):
     iters = mf["matrixfree_lsqr_iters"]
     want = {f"lattice_{near}{f}": 2 * (iters + (f == "rmatvec")) + 2 for near in ("", "near_")
             for f in ("matvec", "rmatvec")}
+    want["lattice_near_build"] = 1  # the operator's stored near rows, built once
     print(f"  matrix-free section: {mf['matrixfree_operator']} ({mf['matrixfree_products_by']}), "
           f"{mf['matrixfree_s_per_iter'] * 1e3:.2f} ms an LSQR iteration of {iters} (a matvec "
           f"{mf['matrixfree_matvec_s'] * 1e3:.2f} ms, an rmatvec {mf['matrixfree_rmatvec_s'] * 1e3:.2f} ms); kernel "
@@ -3495,7 +3684,8 @@ def main() -> int:
                 "prism_rmatvec": pmv.prism_rmatvec, "lattice_matvec": lmv.lattice_matvec,
                 "lattice_rmatvec": lmv.lattice_rmatvec, "prism_near_matvec": pmv.prism_near_matvec,
                 "prism_near_rmatvec": pmv.prism_near_rmatvec, "lattice_near_matvec": lmv.lattice_near_matvec,
-                "lattice_near_rmatvec": lmv.lattice_near_rmatvec}
+                "lattice_near_rmatvec": lmv.lattice_near_rmatvec, "prism_near_build": pmv.prism_near_build,
+                "lattice_near_build": lmv.lattice_near_build}
     device = torch.device("cuda")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     smi = nvidia_smi_line()
@@ -3558,6 +3748,7 @@ def main() -> int:
     del uvals, ubidx, bvals, bidx, x64, parts, S16
 
     work = tempfile.mkdtemp(prefix="tomofastx_smoke_")
+    cpu_pool = None
     try:
         # ---- 3. the main paths, through the command-line entry point ----
         clock(3)
@@ -3656,6 +3847,8 @@ def main() -> int:
         # Four slots on the one card: the one way to cut a pack on a machine
         # with one card. The parts' values are views of the packs.
         mesh4 = Mesh(np.array([device] * 4, dtype=object), ("cells",))
+        cpu_pool = start_cpu_pool()
+        phase23 = start_phase_23(work, mesh4, counters, cpu_pool)
         tks = shard_kernel(tk, mesh4)
         views = all(
             p[0].data_ptr() == whole[k * p[0].shape[0]].data_ptr()
@@ -4034,7 +4227,7 @@ def main() -> int:
         clock(22)
         mf["auto"] = phase_22(cli, counters, work)
         clock(23)
-        small_rel.update({f"matrixfree_{k}": v for k, v in phase_23(work, mesh4, counters).items()})
+        small_rel.update({f"matrixfree_{k}": v for k, v in phase_23(phase23).items()})
 
         # ---- 24-27. bfloat16 storage, the three builds, refineForward, small problems ----
         clock(24)
@@ -4068,6 +4261,9 @@ def main() -> int:
             if any(run["launches"].values()):
                 raise SystemExit(f"FAILED {name}: a kernel of another format was launched")
     finally:
+        if cpu_pool is not None:
+            cpu_pool.terminate()
+            cpu_pool.join()
         shutil.rmtree(work, ignore_errors=True)
 
     total_s = time.time() - t_all
@@ -4080,6 +4276,13 @@ def main() -> int:
 
     b2_main = mf["generic"]["b2"]["g_z float32"]
     b3_main = mf["lattice"]["b3"]["g_z float32"]
+
+    def capacity_near(kind, what):
+        """The near passes' (or, what = "rows", their build's) readings of
+        the capacity rung that runs `kind`'s operator."""
+        if kind == "prism":
+            return {f"capacity {GENERIC_RUNG}": slice30[GENERIC_RUNG]["b2"]["near"][what]}
+        return {f"capacity {CAPACITY_RUNG}": capacity["b3"]["near"][what]}
     kernels = [
         {
             "name": "tile_matvec", "route": "cuda",
@@ -4173,12 +4376,14 @@ def main() -> int:
             f"launches_capacity_{GENERIC_RUNG}": slice30[GENERIC_RUNG]["launches"][f"{kind}_near_{f}"],
             f"launches_capacity_{DENSE_RUNG}_matrixfree": slice30[DENSE_RUNG]["matrixfree"]["launches"][
                 f"{kind}_near_{f}"],
-            **{k: main["near"][f][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{k: main["near"][f][k] for k in ("max_abs_err", "ms", "ms_on_card", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")},
+            "build_ms": main["near"]["rows"]["build_ms"], "stored_nbytes": main["near"]["rows"]["stored_nbytes"],
             "shape_of_these_times": f"g_z float32 blend, 4096 x 262144: the {run} main path's operator, "
-                                    f"{main['near'][f]['near_pairs']:,} near pairs",
-            "measured": {**{k: v["near"][f] for k, v in measured.items() if "near" in v},
-                         **({f"capacity {GENERIC_RUNG}": slice30[GENERIC_RUNG]["b2"]["near"][f]}
-                            if kind == "prism" else {})},
+                                    f"{main['near'][f]['near_pairs']:,} near pairs; ms one call a pair of events "
+                                    "(the wrapper's host time in, as every kernel's ms), ms_on_card the card alone "
+                                    "(a CUDA graph of calls), plain_ms the plain product over the stored rows",
+            "measured": {**{k: v["near"][f] for k, v in measured.items() if "near" in v}, **capacity_near(kind, f)},
         }
         for kind, source, replaces, launches, run, main, measured in (
             ("prism", "tomofastx_tpu_torch/csrc/prism_matvec_f32.cu (+ prism_matvec.cuh)",
@@ -4190,6 +4395,36 @@ def main() -> int:
              "each observation's window, inside XLA's fusion of the lattice products)",
              mf["lattice"]["runs"]["run"]["launches"], "lattice", b3_main, mf["lattice"]["b3"]))
         for f in ("matvec", "rmatvec")
+    ] + [
+        {
+            "name": f"{kind}_near_build", "route": "cuda", "source": source,
+            "wrapper": f"tomofastx_tpu_torch/ops/{kind}_matvec.py: {kind}_near_build (a mark kernel and "
+                       f"{kind}_near_rows_kernel)",
+            "replaces": replaces,
+            "launches": launches[f"{kind}_near_build"],
+            "launches_fused_run": fused["runs"][run]["launches"][f"{kind}_near_build"],
+            f"launches_capacity_{CAPACITY_RUNG}": capacity["launches"][f"{kind}_near_build"],
+            f"launches_capacity_{GENERIC_RUNG}": slice30[GENERIC_RUNG]["launches"][f"{kind}_near_build"],
+            f"launches_capacity_{DENSE_RUNG}_matrixfree": slice30[DENSE_RUNG]["matrixfree"]["launches"][
+                f"{kind}_near_build"],
+            "max_abs_err": main["near"]["rows"]["max_abs_err"], "ms": main["near"]["rows"]["build_ms"],
+            "plain_ms": main["near"]["rows"]["plain_build_ms"], "bound_ms": main["near"]["rows"]["bound_ms"],
+            "bound_by": main["near"]["rows"]["bound_by"], "library_ms": None,
+            "stored_nbytes": main["near"]["rows"]["stored_nbytes"],
+            "shape_of_these_times": f"g_z float32 blend, 4096 x 262144: the {run} main path's operator, "
+                                    f"{main['near']['rows']['pairs']:,} near pairs stored, once with the operator",
+            "measured": {**{k: v["near"]["rows"] for k, v in measured.items() if "near" in v},
+                         **capacity_near(kind, "rows")},
+        }
+        for kind, source, replaces, launches, run, main, measured in (
+            ("prism", "tomofastx_tpu_torch/csrc/prism_matvec_f32.cu (+ prism_matvec.cuh)",
+             "tomofastx_tpu/ops/matrixfree.py:84 _corr_rows_for_point (no Pallas kernel: the near cells' closed forms, "
+             "which the JAX package evaluates inside every product's fusion)",
+             mf["generic"]["run"]["launches"], "per-cell", b2_main, mf["generic"]["b2"]),
+            ("lattice", "tomofastx_tpu_torch/csrc/lattice_matvec.cu",
+             "tomofastx_tpu/ops/matrixfree.py:662 _corr_window (no Pallas kernel: the near cells' closed forms, which "
+             "the JAX package evaluates inside every product's fusion)",
+             mf["lattice"]["runs"]["run"]["launches"], "lattice", b3_main, mf["lattice"]["b3"]))
     ] + [
         {
             "name": name, "route": "cuda",

@@ -1,40 +1,36 @@
 #!/usr/bin/env python3
-"""Kernel B3 (csrc/lattice_matvec.cu) at the smoke shape of chip_smoke.py
-against variants of its own source, in turns on one card: what its blend's
-time is made of.
+"""Kernel B3's near passes (csrc/lattice_matvec.cu) against an earlier
+source's, in turns on one card: what storing the near rows buys.
 
-    python3 scripts/probe_torch_lattice_matvec.py [--parent-dir DIR]
+    python3 scripts/probe_torch_lattice_matvec.py --parent-dir DIR [--shape smoke|4m]
 
-Variants, each the source (and csrc/prism_common.cuh) with one textual
-edit, built with nvcc -Xptxas -v into build/, all at once:
-- "as is";
-- "rsqrtf": the reciprocal square root with its fix-up for a denormal
-  argument (what the first version of the kernel called);
-- "no near pass": the near-pass entry points return without launching, so
-  the near cells' slot of the partial sums is never written (it holds
-  whatever the caching allocator's block held). A timing of the main loop
-  alone: its products are not the operator's;
-- "near test first": the main loop tests a window cell for nearness before
-  its 27-point rule and skips the rule where near (a branch in place of the
-  select);
-- "parent", with --parent-dir: an earlier lattice_matvec.cu and
-  prism_common.cuh copied into DIR, whose blend evaluates the near cells in
-  its main loop (no near pass: the wrappers skip it for this variant).
+DIR holds an earlier lattice_matvec.cu and prism_common.cuh (for instance
+from `git show <commit>:tomofastx_tpu_torch/csrc/...`) whose near passes
+evaluate every near cell's closed forms in each call over the operator's
+near lists (near_ptr, near_cells by observation; near_tptr, near_obs by
+cell), with that source's entry points: lattice_near_matvec(family, nmc,
+ndc, xe, ye, ze, xd, yd, zd, ptr, idx, vin, out, nx, ny, nz, nrows, m0, m1,
+m2, s4pi, stream) and lattice_near_rmatvec alike. Both sources are built
+with nvcc -Xptxas -v into build/, at once.
 
-For each: ptxas' registers of the blend kernels of g_z, FTG-6 and TMI (and
-of the near passes where the source has them), and the milliseconds (CUDA
-events, median of 10) of the float32 blend's matvec and rmatvec at 4096 x
-262144 (g_z, the draped survey of chip_smoke.py) and on its first 512
-observations (FTG-6, TMI), every variant timed twice in the order v1 .. vn,
-vn .. v1; its outputs against "as is", with the largest difference in
-float32 units in the last place. Needs one CUDA device and nvcc."""
+--shape smoke: the float32 blend of chip_smoke.py's draped survey at 4096 x
+262144 (g_z) and on its first 512 observations (FTG-6, TMI); --shape 4m:
+the 4m rung of scripts/run_capacity_torch.py (2032 x 4,000,000 cells, g_z),
+its fixtures written into a temporary folder.
+
+For each operator: its stored near rows (pairs, bytes, the lanes of a
+segment) and their build's milliseconds (CUDA events, median of 3); then
+each near pass of the parent and of this source timed in the order parent,
+as is, as is, parent: on the card alone (a CUDA graph of 20 calls, median
+of 5 replays) and one call a pair of events (median of 10, the wrapper's
+host time in); each output against this source's, as the largest
+difference of max|y|. Needs one CUDA device and nvcc."""
 
 from __future__ import annotations
 
 import argparse
 import ctypes
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -52,58 +48,25 @@ from tomofastx_tpu_torch.ops import _cuda_build  # noqa: E402
 from tomofastx_tpu_torch.ops import lattice_matvec as lm  # noqa: E402
 
 CSRC = os.path.join(REPO, "tomofastx_tpu_torch", "csrc")
-NEAR_ENTRIES = ('extern "C" int lattice_near_matvec(NEAR_ARGS) {', 'extern "C" int lattice_near_rmatvec(NEAR_ARGS) {')
-# blend_row's 27-point rule and select, and the same with the near test first.
-SELECT = """    const float pz[3] = {__fsub_rn(ax[0].p3[lz][0], zo), __fsub_rn(ax[0].p3[lz][1], zo),
-                         __fsub_rn(ax[0].p3[lz][2], zo)};
-    const double w[3] = {GL3_W_OUT, GL3_W_MID, GL3_W_OUT};
-    quad_points<FAM, NMC, NDC, 3>(col.px3, col.py3, pz, col.xy3, w, vol8, f, row);
-    const bool near = is_near(col.dxy, hxy, __fsub_rn(ax[0].c[lz], zo), ax[0].h[lz]);
-#pragma unroll
-    for (int k = 0; k < NMC; ++k)
-#pragma unroll
-        for (int j = 0; j < NDC; ++j) row[k][j] = near ? 0.0f : row[k][j];"""
-NEAR_FIRST = """    if (is_near(col.dxy, hxy, __fsub_rn(ax[0].c[lz], zo), ax[0].h[lz])) {
-#pragma unroll
-        for (int k = 0; k < NMC; ++k)
-#pragma unroll
-            for (int j = 0; j < NDC; ++j) row[k][j] = 0.0f;
-        return;
-    }
-    const float pz[3] = {__fsub_rn(ax[0].p3[lz][0], zo), __fsub_rn(ax[0].p3[lz][1], zo),
-                         __fsub_rn(ax[0].p3[lz][2], zo)};
-    const double w[3] = {GL3_W_OUT, GL3_W_MID, GL3_W_OUT};
-    quad_points<FAM, NMC, NDC, 3>(col.px3, col.py3, pz, col.xy3, w, vol8, f, row);"""
+# The earlier near passes' entry points: family, nmc, ndc; the three edges,
+# three coordinates, the list's offsets and entries, the input, the output;
+# nx, ny, nz, nrows; the field; the stream.
+PARENT_NEAR_ARGTYPES = (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4 + (
+    ctypes.c_double,) * 4 + (ctypes.c_void_p,)
 
 
-def variant_sources(parent_dir):
-    """{name: {file name: text}}."""
-    with open(os.path.join(CSRC, "lattice_matvec.cu")) as f:
-        src = f.read()
-    with open(os.path.join(CSRC, "prism_common.cuh")) as f:
-        hdr = f.read()
-    rsqrtf = hdr.replace("const float ir = rsqrt_ftz(r2);", "const float ir = rsqrtf(r2);")
-    no_near = src
-    for entry in NEAR_ENTRIES:
-        no_near = no_near.replace(entry, entry + "\n    return 0;")
-    near_first = src.replace(SELECT, NEAR_FIRST)
-    if rsqrtf == hdr or no_near.count("return 0;") != src.count("return 0;") + 2 or near_first == src:
-        raise SystemExit("the source no longer has the lines the variants edit")
-    out = {"as is": {"lattice_matvec.cu": src, "prism_common.cuh": hdr},
-           "rsqrtf": {"lattice_matvec.cu": src, "prism_common.cuh": rsqrtf},
-           "no near pass": {"lattice_matvec.cu": no_near, "prism_common.cuh": hdr},
-           "near test first": {"lattice_matvec.cu": near_first, "prism_common.cuh": hdr}}
-    if parent_dir:
-        out["parent"] = {}
-        for name in ("lattice_matvec.cu", "prism_common.cuh"):
-            with open(os.path.join(parent_dir, name)) as f:
-                out["parent"][name] = f.read()
+def read_sources(directory, names):
+    """{name: text} of the files `names` in `directory`."""
+    out = {}
+    for name in names:
+        with open(os.path.join(directory, name)) as f:
+            out[name] = f.read()
     return out
 
 
 def registers(log, kernels):
-    """{kernel: {family: registers}} of the float32 blend's kernels and the
-    near passes' (chip_smoke.kernel_registers) from ptxas' log."""
+    """{kernel: {family: registers}} (chip_smoke.kernel_registers) from
+    ptxas' log."""
     return smoke.kernel_registers(kernels, smoke.ptxas_registers(log))
 
 
@@ -123,49 +86,86 @@ def build(files, main, out_dir, entries):
         raise SystemExit(f"nvcc failed on {d}:\n{proc.stderr[-3000:]}")
     handle = ctypes.CDLL(lib)
     for fn, argtypes in entries.items():
-        if hasattr(handle, fn):
-            getattr(handle, fn).argtypes = argtypes
-            getattr(handle, fn).restype = ctypes.c_int
+        getattr(handle, fn).argtypes = argtypes
+        getattr(handle, fn).restype = ctypes.c_int
     return handle, proc.stdout + proc.stderr
 
 
-def ulps(a, b):
-    """The largest |a - b| in float32 units in the last place of b."""
-    a, b = a.float(), b.float()
-    spacing = torch.nextafter(b.abs(), torch.full_like(b, float("inf"))) - b.abs()
-    return float(((a.double() - b.double()).abs() / spacing.double()).max())
+def time_near_passes(name, op, passes, vecs):
+    """The operator's stored rows and build, then each near pass of
+    `passes` ({variant: {f: fn(op, v)}}, "parent" and "as is") timed in
+    turns; printed."""
+    pairs = op.near_rval.shape[0]
+    build_ms = smoke.time_cuda(op.with_near_rows, warm=1, reps=3)
+    print(f"{name}: {pairs:,} near pairs stored in {op.near_rows_nbytes / 1e6:.2f} MB, lanes {op.near_lanes}; "
+          f"build {build_ms:.3f} ms (median of 3)", flush=True)
+    order = ["parent", "as is", "as is", "parent"]
+    for f in ("matvec", "rmatvec"):
+        v = vecs[f]
+        ref = passes["as is"][f](op, v)
+        graph, eager, apart = {}, {}, {}
+        for variant in order:
+            fn = passes[variant][f]
+            got = fn(op, v)
+            apart[variant] = float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+            graph.setdefault(variant, []).append(smoke.time_graph(lambda: fn(op, v), calls=20, reps=5))
+            eager.setdefault(variant, []).append(smoke.time_cuda(lambda: fn(op, v), warm=2, reps=10))
+        for variant in ("parent", "as is"):
+            print(f"  {name} near {f} {variant}: on the card {', '.join(f'{t:.4f}' for t in graph[variant])} ms, "
+                  f"one call a pair {', '.join(f'{t:.4f}' for t in eager[variant])} ms; against as is "
+                  f"{apart[variant]:.2e} of max|y|", flush=True)
 
 
-def time_variants(ops, libs, set_library, kernels, g):
-    """Every operator's products through each variant (set_library(name)
-    installs it), timed in turns; printed against "as is"."""
-    for oname, op in ops.items():
-        nmc, ndc, nrows = kernels["shape"](op)
-        xw = torch.randn((nmc, op.N), generator=g, dtype=torch.float64).to("cuda", torch.float32)
-        u = torch.randn((nrows, ndc), generator=g, dtype=torch.float64).to("cuda", torch.float32)
-        times, outs = {}, {}
-        for name in list(libs) + list(libs)[::-1]:
-            set_library(name)
-            for f, kernel, v in (("matvec", kernels["matvec"], xw), ("rmatvec", kernels["rmatvec"], u)):
-                outs[(name, f)] = kernel(op, v)
-                times.setdefault((name, f), []).append(smoke.time_cuda(lambda: kernel(op, v), warm=2, reps=10))
-        for (name, f), t in times.items():
-            a, b = outs[(name, f)], outs[("as is", f)]
-            if name.startswith("no near"):
-                same = "not compared (the near terms are left out)"
-            elif torch.equal(a, b):
-                same = "equal"
-            else:
-                rel = float((a.double() - b.double()).abs().max() / b.double().abs().max())
-                same = f"{rel:.2e} of max|y| apart, at most {ulps(a, b):.3g} float32 ulps"
-            print(f"{oname} {f} {name}: {', '.join(f'{v:.4f}' for v in t)} ms; against as is: {same}", flush=True)
+def parent_passes(lib):
+    """The parent library's near passes as fn(op, v) over op's near lists."""
+
+    def call(entry, lists, shape):
+        def fn(op, v):
+            plan = lm.launch_plan(op)
+            out = torch.empty(shape(op), dtype=torch.float64, device=v.device)
+            _cuda_build.check(entry, getattr(lib, entry)(
+                plan["family"], plan["nmc"], plan["ndc"],
+                *(a.data_ptr() for a in (op.xe, op.ye, op.ze, op.xd, op.yd, op.zd, *lists(op), v, out)),
+                op.nx, op.ny, op.nz, op.xd.shape[0], *plan["magv"], plan["s4pi"],
+                torch.cuda.current_stream().cuda_stream))
+            return out
+        return fn
+
+    return {"matvec": call("lattice_near_matvec", lambda op: (op.near_ptr, op.near_cells),
+                           lambda op: (op.xd.shape[0], op.ndc)),
+            "rmatvec": call("lattice_near_rmatvec", lambda op: (op.near_tptr, op.near_obs),
+                            lambda op: (op.nmc, op.N))}
 
 
-def lattice_operators(work):
+def capacity_operator(rung, work):
+    """The float32 matrix-free operator of scripts/run_capacity_torch.py's
+    rung `rung` on the card, its fixtures written into `work` (as that
+    script's matrixfree_per_iteration builds it)."""
+    from tomofastx_tpu_torch.config.parfile import parse_parfile_lines
+    from tomofastx_tpu_torch.io import data_io, model_io
+    from tomofastx_tpu_torch.ops import sensitivity as sens
+    from tomofastx_tpu_torch.ops.matrixfree import make_matrixfree_kernel
+
+    fx = smoke.capacity_script().write_fixture(rung, work)
+    par = parse_parfile_lines(fx.lines).grav
+    grid = model_io.read_model_grid(f"{fx.work}/grid.txt", *fx.size)
+    data = data_io.read_data_points(f"{fx.work}/data.txt", fx.ndata, 1, grid_only=True)
+    cw = sens.calculate_depth_weight(par, grid, data, torch.float32, "cuda")
+    return make_matrixfree_kernel(par, grid, data, cw, 1.0, data.weight, torch.float32, validate=False, device="cuda")
+
+
+def vectors(op, nmc, ndc, g):
+    return {"matvec": torch.randn((nmc, op.N), generator=g, dtype=torch.float64).to("cuda", torch.float32),
+            "rmatvec": torch.randn((op.xd.shape[0], ndc), generator=g, dtype=torch.float64).to("cuda", torch.float32)}
+
+
+def lattice_operators(work, shape):
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.io import data_io, model_io
     from tomofastx_tpu_torch.ops.matrixfree import make_matrixfree_kernel
 
+    if shape != "smoke":
+        return {f"g_z, capacity {shape}": capacity_operator(shape, work)}
     inputs = smoke.write_inputs(work, smoke.NX, smoke.NY, smoke.NZ, smoke.SIDE, variants=("draped",))
     draped = dict(inputs, data=inputs["data_draped"])
     pf = smoke.write_parfile(work, "Parfile.txt", draped, os.path.join(work, "out"), smoke.N_MINOR, fmt="matrixfree",
@@ -183,8 +183,9 @@ def lattice_operators(work):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent-dir", default=None, help="a directory holding an earlier lattice_matvec.cu and "
+    ap.add_argument("--parent-dir", required=True, help="a directory holding an earlier lattice_matvec.cu and "
                     "prism_common.cuh")
+    ap.add_argument("--shape", default="smoke", choices=("smoke", "4m"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -192,32 +193,23 @@ def main() -> int:
     print(smoke.nvidia_smi_line(), flush=True)
     out_dir = os.path.join(REPO, "build", "lattice_variants")
     os.makedirs(out_dir, exist_ok=True)
-    entries = {"lattice_matvec": lm.ARGTYPES, "lattice_rmatvec": lm.ARGTYPES,
-               "lattice_near_matvec": lm.NEAR_ARGTYPES, "lattice_near_rmatvec": lm.NEAR_ARGTYPES}
-    sources = variant_sources(args.parent_dir)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        built = {name: pool.submit(build, files, "lattice_matvec.cu", out_dir, entries)
-                 for name, files in sources.items()}
-    libs = {}
-    for name, job in built.items():
-        libs[name], log = job.result()
-        regs = registers(log, [("lattice_matvec_partials", True), ("lattice_rmatvec_partials", True),
-                               ("lattice_near_matvec_kernel", False), ("lattice_near_rmatvec_kernel", False)])
-        print(f"{name}: registers " + "; ".join(f"{k} " + ", ".join(f"{fam} {r}" for fam, r in v.items())
-                                                for k, v in regs.items()), flush=True)
-    launch = lm._near_launch
-
-    def set_library(name):
-        lm._library = lm._near_library = (lambda h: (lambda: h))(libs[name])
-        # The parent has no near pass: its main loop evaluates the near cells.
-        lm._near_launch = (lambda *a: None) if name == "parent" else launch
-
+    names = ("lattice_matvec.cu", "prism_common.cuh")
+    parent_entries = {"lattice_near_matvec": PARENT_NEAR_ARGTYPES, "lattice_near_rmatvec": PARENT_NEAR_ARGTYPES}
+    with ThreadPoolExecutor(2) as pool:
+        parent_job = pool.submit(build, read_sources(args.parent_dir, names), names[0], out_dir, parent_entries)
+        as_is = pool.submit(lm.build_library)
+        parent, log = parent_job.result()
+        as_is.result()
+    print("parent registers: " + "; ".join(f"{k} " + ", ".join(f"{fam} {r}" for fam, r in v.items()) for k, v in
+                                          registers(log, [("lattice_near_matvec_kernel", False),
+                                                          ("lattice_near_rmatvec_kernel", False)]).items()), flush=True)
+    passes = {"parent": parent_passes(parent),
+              "as is": {"matvec": lm.lattice_near_matvec, "rmatvec": lm.lattice_near_rmatvec}}
     work = tempfile.mkdtemp()
     try:
-        time_variants(lattice_operators(work), libs, set_library,
-                      {"matvec": lm.lattice_matvec, "rmatvec": lm.lattice_rmatvec,
-                       "shape": lambda op: (op.nmc, op.ndc, op.xd.shape[0])},
-                      torch.Generator(device="cpu").manual_seed(37))
+        g = torch.Generator(device="cpu").manual_seed(37)
+        for name, op in lattice_operators(work, args.shape).items():
+            time_near_passes(name, op, passes, vectors(op, op.nmc, op.ndc, g))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0

@@ -1,37 +1,34 @@
 #!/usr/bin/env python3
-"""Kernel B2 (csrc/prism_matvec.cuh, its float32 source prism_matvec_f32.cu)
-at the smoke shape of chip_smoke.py against variants of its own source, in
-turns on one card: what its blend's time is made of.
+"""Kernel B2's near passes (csrc/prism_matvec_f32.cu) against an earlier
+source's, in turns on one card: what storing the near rows buys.
 
-    python3 scripts/probe_torch_prism_matvec.py [--parent-dir DIR]
+    python3 scripts/probe_torch_prism_matvec.py --parent-dir DIR [--shape smoke|generic4m]
 
-Variants, each built with nvcc -Xptxas -v into build/, all at once:
-- "as is";
-- "no near pass": the near-pass entry points return without launching (the
-  matvec's near split is never written, the rmatvec's sums start from
-  whatever its buffer holds). A timing of the main loops alone: their
-  products are not the operator's;
-- "far test first": the matvec's main loop, too, tests a pair with is_far
-  before its 27-point rule and skips the rule where near (a branch in place
-  of its select; the rmatvec's main loop takes the branch as is);
-- with --parent-dir, an earlier prism_matvec.cu and prism_common.cuh copied
-  into DIR, whose blend evaluates the near pairs in its main loop (the
-  wrappers skip the near pass for it): "parent", and "parent, no near
-  branch", where every pair takes the 27-point rule (a timing of that main
-  loop alone).
+DIR holds an earlier prism_matvec_f32.cu, prism_matvec.cuh and
+prism_common.cuh (for instance from `git show <commit>:tomofastx_tpu_torch/
+csrc/...`) whose near passes evaluate every near pair's closed forms in each
+call over the operator's near candidates (near_idx by observation; near_tptr,
+near_obs by cell), with that source's entry points: prism_near_matvec(family,
+nmc, ndc, handle_inside, X1, X2, Y1, Y2, Z1, Z2, xd, yd, zd, idx, obs, vin,
+out, N, nrows, K, cell_lo, m0, m1, m2, s4pi, stream) and prism_near_rmatvec
+alike. Both sources are built with nvcc -Xptxas -v into build/, at once.
 
-For each: ptxas' registers of the float32 blend's kernels of g_z, FTG-6 and
-TMI (and of the near passes where the source has them), and the
-milliseconds (CUDA events, median of 10) of the float32 blend's matvec and
-rmatvec at 4096 x 262144 (g_z, the topography grid of chip_smoke.py's phase
-21) and on its first 512 observations (FTG-6, TMI), every variant timed
-twice in the order v1 .. vn, vn .. v1; its outputs against "as is", with the
-largest difference in float32 units in the last place. Needs one CUDA device
-and nvcc."""
+--shape smoke: the float32 blend of chip_smoke.py's topography grid at 4096 x
+262144 (g_z) and on its first 512 observations (FTG-6, TMI); --shape
+generic4m: the generic4m rung of scripts/run_capacity_torch.py (2032 x
+4,000,000 cells whose x edges grow and shear, g_z), its fixtures written into
+a temporary folder.
+
+For each operator, as scripts/probe_torch_lattice_matvec.py: its stored near
+rows and their build's milliseconds, then each near pass of the parent and of
+this source timed in the order parent, as is, as is, parent, on the card
+alone and one call a pair of events, each output against this source's.
+Needs one CUDA device and nvcc."""
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import shutil
 import sys
@@ -46,63 +43,49 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 import chip_smoke as smoke  # noqa: E402
-from probe_torch_lattice_matvec import CSRC, build, registers, time_variants  # noqa: E402
+from probe_torch_lattice_matvec import (  # noqa: E402
+    build, capacity_operator, read_sources, registers, time_near_passes, vectors)
+from tomofastx_tpu_torch.ops import _cuda_build  # noqa: E402
 from tomofastx_tpu_torch.ops import prism_matvec as pm  # noqa: E402
 
-NEAR_ENTRIES = ('extern "C" int prism_near_matvec(PRISM_NEAR_ARGS) {',
-                'extern "C" int prism_near_rmatvec(PRISM_NEAR_ARGS) {')
-PARENT_NEAR_BRANCH = "        if (is_far(c, xo, yo, zo)) {"
-# pair_row's 27-point rule and select (the matvec's), and the same with the far test first.
-SELECT = """        quad_row<FAM, NMC, NDC>(c, xo, yo, zo, f, row);
-        const bool far = is_far(c, xo, yo, zo);
-#pragma unroll
-        for (int k = 0; k < NMC; ++k)
-#pragma unroll
-            for (int j = 0; j < NDC; ++j) row[k][j] = far ? row[k][j] : T(0);"""
-FAR_FIRST = """        if (is_far(c, xo, yo, zo)) {
-            quad_row<FAM, NMC, NDC>(c, xo, yo, zo, f, row);
-        } else {
-#pragma unroll
-            for (int k = 0; k < NMC; ++k)
-#pragma unroll
-                for (int j = 0; j < NDC; ++j) row[k][j] = T(0);
-        }"""
+# The earlier near passes' entry points: family, nmc, ndc, handle_inside; the
+# six bounds, three coordinates, the candidates (near_idx, or the transposed
+# offsets and observations), the input, the output; N, nrows, K, cell_lo;
+# the field; the stream.
+PARENT_NEAR_ARGTYPES = (ctypes.c_int,) * 4 + (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 4 + (
+    ctypes.c_double,) * 4 + (ctypes.c_void_p,)
 
 
-def variant_sources(parent_dir):
-    """{name: ({file name: text}, the source nvcc compiles)}."""
-    files = {}
-    for name in ("prism_matvec_f32.cu", "prism_matvec.cuh", "prism_common.cuh"):
-        with open(os.path.join(CSRC, name)) as f:
-            files[name] = f.read()
-    src = files["prism_matvec_f32.cu"]
-    no_near = src
-    for entry in NEAR_ENTRIES:
-        no_near = no_near.replace(entry, entry + "\n    return 0;")
-    far_first = files["prism_matvec.cuh"].replace(SELECT, FAR_FIRST)
-    if no_near.count("return 0;") != src.count("return 0;") + 2 or far_first == files["prism_matvec.cuh"]:
-        raise SystemExit("the source no longer has the lines the variants edit")
-    out = {"as is": (files, "prism_matvec_f32.cu"),
-           "no near pass": (dict(files, **{"prism_matvec_f32.cu": no_near}), "prism_matvec_f32.cu"),
-           "far test first": (dict(files, **{"prism_matvec.cuh": far_first}), "prism_matvec_f32.cu")}
-    if parent_dir:
-        parent = {}
-        for name in ("prism_matvec.cu", "prism_common.cuh"):
-            with open(os.path.join(parent_dir, name)) as f:
-                parent[name] = f.read()
-        no_branch = parent["prism_matvec.cu"].replace(PARENT_NEAR_BRANCH, "        if (true) {")
-        if no_branch == parent["prism_matvec.cu"]:
-            raise SystemExit("the parent source has not the near branch the variant edits")
-        out["parent"] = (parent, "prism_matvec.cu")
-        out["parent, no near branch"] = (dict(parent, **{"prism_matvec.cu": no_branch}), "prism_matvec.cu")
-    return out
+def parent_passes(lib):
+    """The parent library's near passes as fn(op, v) over op's candidates."""
+
+    def call(entry, lists, shape):
+        def fn(op, v):
+            plan = pm.launch_plan(op)
+            out = torch.empty(shape(op), dtype=torch.float64, device=v.device)
+            idx, obs = lists(op)
+            _cuda_build.check(entry, getattr(lib, entry)(
+                plan["family"], plan["nmc"], plan["ndc"], plan["handle_inside"],
+                *(a.data_ptr() for a in (*op.grid6, op.xd, op.yd, op.zd, idx)),
+                None if obs is None else obs.data_ptr(), v.data_ptr(), out.data_ptr(), op.N, op.xd.shape[0],
+                op.near_idx.shape[1], op.cell_lo, *plan["magv"], plan["s4pi"],
+                torch.cuda.current_stream().cuda_stream))
+            return out
+        return fn
+
+    return {"matvec": call("prism_near_matvec", lambda op: (op.near_idx, None),
+                           lambda op: (op.xd.shape[0], op.phys.ndc)),
+            "rmatvec": call("prism_near_rmatvec", lambda op: (op.near_tptr, op.near_obs),
+                            lambda op: (op.phys.nmc, op.N))}
 
 
-def operators(work):
+def operators(work, shape):
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.io import data_io, model_io
     from tomofastx_tpu_torch.ops.matrixfree import MatrixFreeKernel, make_matrixfree_kernel
 
+    if shape != "smoke":
+        return {f"g_z, capacity {shape}": capacity_operator(shape, work)}
     inputs = smoke.write_inputs(work, smoke.NX, smoke.NY, smoke.NZ, smoke.SIDE, variants=("topography",))
     topo = dict(inputs, grid=inputs["grid_topo"])
     pf = smoke.write_parfile(work, "Parfile.txt", topo, os.path.join(work, "out"), smoke.N_MINOR, fmt="matrixfree",
@@ -122,8 +105,9 @@ def operators(work):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent-dir", default=None, help="a directory holding an earlier prism_matvec.cu and "
-                    "prism_common.cuh")
+    ap.add_argument("--parent-dir", required=True, help="a directory holding an earlier prism_matvec_f32.cu, "
+                    "prism_matvec.cuh and prism_common.cuh")
+    ap.add_argument("--shape", default="smoke", choices=("smoke", "generic4m"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -131,33 +115,23 @@ def main() -> int:
     print(smoke.nvidia_smi_line(), flush=True)
     out_dir = os.path.join(REPO, "build", "prism_variants")
     os.makedirs(out_dir, exist_ok=True)
-    entries = {"prism_matvec": pm.ARGTYPES, "prism_rmatvec": pm.ARGTYPES, "prism_near_matvec": pm.NEAR_ARGTYPES,
-               "prism_near_rmatvec": pm.NEAR_ARGTYPES}
-    sources = variant_sources(args.parent_dir)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        built = {name: pool.submit(build, files, main_source, out_dir, entries)
-                 for name, (files, main_source) in sources.items()}
-    libs = {}
-    for name, job in built.items():
-        libs[name], log = job.result()
-        regs = registers(log, [("prism_matvec_partials", True), ("prism_rmatvec_kernel", True),
-                               ("prism_near_matvec_kernel", False), ("prism_near_rmatvec_kernel", False)])
-        print(f"{name}: registers " + "; ".join(f"{k} " + ", ".join(f"{fam} {r}" for fam, r in v.items())
-                                                for k, v in regs.items()), flush=True)
-    launch = pm._near_launch
-
-    def set_library(name):
-        pm._library = (lambda h: (lambda is_double: h))(libs[name])
-        pm._near_library = (lambda h: (lambda: h))(libs[name])
-        # The parent has no near pass: its main loop evaluates the near pairs.
-        pm._near_launch = (lambda *a: None) if name.startswith("parent") else launch
-
+    names = ("prism_matvec_f32.cu", "prism_matvec.cuh", "prism_common.cuh")
+    parent_entries = {"prism_near_matvec": PARENT_NEAR_ARGTYPES, "prism_near_rmatvec": PARENT_NEAR_ARGTYPES}
+    with ThreadPoolExecutor(2) as pool:
+        parent_job = pool.submit(build, read_sources(args.parent_dir, names), names[0], out_dir, parent_entries)
+        as_is = pool.submit(pm.build_library, pm.SOURCES[0])
+        parent, log = parent_job.result()
+        as_is.result()
+    print("parent registers: " + "; ".join(f"{k} " + ", ".join(f"{fam} {r}" for fam, r in v.items()) for k, v in
+                                          registers(log, [("prism_near_matvec_kernel", False),
+                                                          ("prism_near_rmatvec_kernel", False)]).items()), flush=True)
+    passes = {"parent": parent_passes(parent),
+              "as is": {"matvec": pm.prism_near_matvec, "rmatvec": pm.prism_near_rmatvec}}
     work = tempfile.mkdtemp()
     try:
-        time_variants(operators(work), libs, set_library,
-                      {"matvec": pm.prism_matvec, "rmatvec": pm.prism_rmatvec,
-                       "shape": lambda op: (op.phys.nmc, op.phys.ndc, op.xd.shape[0])},
-                      torch.Generator(device="cpu").manual_seed(37))
+        g = torch.Generator(device="cpu").manual_seed(37)
+        for name, op in operators(work, args.shape).items():
+            time_near_passes(name, op, passes, vectors(op, op.phys.nmc, op.phys.ndc, g))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0

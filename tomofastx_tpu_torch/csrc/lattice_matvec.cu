@@ -1,6 +1,6 @@
 // Kernel B3: the two products of the corner-lattice matrix-free operator, for
-// Hopper (sm_90a), with every (observation, cell) pair's response evaluated on
-// the fly and never stored.
+// Hopper (sm_90a), with every far (observation, cell) pair's response
+// evaluated on the fly and never stored.
 //
 // Replaces the XLA fusion of the JAX package's lattice operator:
 // tomofastx_tpu/ops/matrixfree.py:570 LatticeMatrixFreeKernel, :724 matvec and
@@ -59,13 +59,13 @@
 //     boundary crosses its box. A near cell contributes zero to this main
 //     loop, by a select (its 27-point value may be non-finite), so that the
 //     loop holds no float64 code and no registers for it (0.04 % of the pairs
-//     at the smoke shape). The near cells are a pass of their own, over near
-//     lists the operator builds once (ops/matrixfree.py lattice_near_lists):
-//     each observation's candidate cells (the window's cells within 1.001
-//     times the near radius) and, transposed, each cell's observations. The
-//     pass re-tests every candidate with the main loop's own near test
-//     (is_near) and evaluates the near ones' 8 corners in double (near_cell),
-//     a warp an observation (matvec) or a cell (rmatvec).
+//     at the smoke shape). The near cells' rows are stored: built once, with
+//     the operator, over near lists (ops/matrixfree.py lattice_near_lists:
+//     each observation's window cells within 1.001 times the near radius),
+//     each candidate tested with the main loop's own near test (is_near) and
+//     the near ones' 8 corners evaluated in double (near_cell), in two orders
+//     (by observation and by cell); a near pass is a streaming read of them
+//     (prism_common.cuh near_stream), bound by bytes.
 // matvec: each thread holds its cells' xw; an observation's terms are summed in
 // double over the thread's cells, then the warp (shuffles in a fixed tree),
 // then the block's 4 warps in order, into a (tiles, nrows, ndc) buffer that a
@@ -207,8 +207,9 @@ __device__ __forceinline__ void closed_cell(const T* F, int lz, int ly, int lx, 
     }
 }
 
-// A near cell of the blend (the near pass alone evaluates it): its own 8
-// corners in double, differenced in the same order, rounded to float.
+// A near cell of the blend (the build of the stored near rows evaluates it):
+// its own 8 corners in double, differenced in the same order, rounded to
+// float.
 // (x, y, z)[M] = observation - edge.
 template <int FAM, int NMC, int NDC>
 __device__ __forceinline__ void near_cell(const double (&x)[2], const double (&y)[2], const double (&z)[2],
@@ -243,8 +244,8 @@ __device__ __forceinline__ void centre_half(float e0, float e1, float& c, float&
 // Whether a window cell is near its observation: the far mask's complement,
 // in its order, from dxy = dx^2 + dy^2 and hxy = hx^2 + hy^2 (each rounded as
 // column_of rounds it), the centre's z offset dz and half-width hz. The main
-// loop zeroes the cells it calls near and the near pass evaluates them: one
-// function, so the two cannot disagree on a cell.
+// loop zeroes the cells it calls near and the build of the near rows keeps
+// them: one function, so the two cannot disagree on a cell.
 __device__ __forceinline__ bool is_near(float dxy, float hxy, float dz, float hz) {
     const float r2 = __fadd_rn(dxy, __fmul_rn(dz, dz));
     return r2 <= __fmul_rn(FAR2, __fadd_rn(hxy, __fmul_rn(hz, hz)));
@@ -288,7 +289,7 @@ __device__ __forceinline__ Column column_of(const Axis<float>* ax, int ly, int l
 
 // The main loop's row of the cell at depth lz of a column: the 8-point rule
 // outside the window; inside it the 27-point rule, and zero, by a select,
-// where the cell is near (is_near: the near pass adds its closed forms).
+// where the cell is near (is_near: the near pass adds its stored row).
 template <int FAM, int NMC, int NDC>
 __device__ __forceinline__ void blend_row(const Axis<float>* ax, const Column& col, float hxy, int lz, bool in_z,
                                           float zo, float vol8, const Field& f, float row[NMC][NDC]) {
@@ -508,12 +509,11 @@ __global__ void __launch_bounds__(THREADS) lattice_rmatvec_partials(Lattice L, c
     lattice_block<T, FAM, NMC, NDC, MODE, false>(L, u, partial, f);
 }
 
-// ---------------------------------------------------------------- the near pass (the blend's)
+// ---------------------------------------------------------------- the near rows (the blend's)
 
 // The near lists (ops/matrixfree.py lattice_near_lists): a CSR of the
-// candidates, ptr (rows + 1,) and idx (ptr[rows],) in int32, by observation
-// (the matvec's: rows = nrows, idx the flat cells in increasing order) or by
-// cell (the rmatvec's: rows = N, idx the observations in increasing order).
+// candidates by observation, ptr (nrows + 1,) and idx (ptr[nrows],) in int32,
+// each observation's candidate cells (flat) in increasing order.
 struct Near {
     const float *xe, *ye, *ze;  // edges (nx+1,), (ny+1,), (nz+1,)
     const float *xd, *yd, *zd;  // (nrows,) observations
@@ -521,7 +521,7 @@ struct Near {
     int nx, ny, nz, nrows;
 };
 
-// A cell of the near pass: its edges and, from them, the centre offsets and
+// A cell of the near rows: its edges and, from them, the centre offsets and
 // half-widths the main loop's near test reads.
 struct NearCell {
     float e[3][2];  // (x, y, z) x (lower, upper) edges
@@ -543,13 +543,18 @@ __device__ __forceinline__ NearCell near_cell_of(const Near& L, int n) {
     return c;
 }
 
+// Whether the main loop's test (is_near) calls a candidate pair near.
+__device__ __forceinline__ bool near_test(const NearCell& c, float xo, float yo, float zo) {
+    const float dxy = rn_sq2(__fsub_rn(c.c[0], xo), __fsub_rn(c.c[1], yo));
+    return is_near(dxy, c.hxy, __fsub_rn(c.c[2], zo), c.h[2]);
+}
+
 // The row of a candidate pair: the closed forms in double rounded to float
 // where the main loop's test calls it near; false (and no row) where not.
 template <int FAM, int NMC, int NDC>
 __device__ __forceinline__ bool near_row(const NearCell& c, float xo, float yo, float zo, const Field& f,
                                          float row[NMC][NDC]) {
-    const float dxy = rn_sq2(__fsub_rn(c.c[0], xo), __fsub_rn(c.c[1], yo));
-    if (!is_near(dxy, c.hxy, __fsub_rn(c.c[2], zo), c.h[2])) return false;
+    if (!near_test(c, xo, yo, zo)) return false;
     const double x[2] = {double(xo) - double(c.e[0][0]), double(xo) - double(c.e[0][1])};
     const double y[2] = {double(yo) - double(c.e[1][0]), double(yo) - double(c.e[1][1])};
     const double z[2] = {double(zo) - double(c.e[2][0]), double(zo) - double(c.e[2][1])};
@@ -557,46 +562,69 @@ __device__ __forceinline__ bool near_row(const NearCell& c, float xo, float yo, 
     return true;
 }
 
-// matvec: out[b, j] = sum over b's near cells n of R[b, n, :, j] . xw[:, n],
-// a warp an observation (near_warp_row). out is the last slot of the main
-// loop's buffer.
-template <int FAM, int NMC, int NDC>
-__global__ void __launch_bounds__(THREADS) lattice_near_matvec_kernel(Near L, const float* __restrict__ xw,
-                                                                      double* __restrict__ out, Field f) {
+// The near rows' build, once with the operator (ops/lattice_matvec.py
+// lattice_near_build). First the candidates: flag[p] = 1 where the main
+// loop's test calls candidate p near; a warp an observation.
+__global__ void __launch_bounds__(THREADS) lattice_near_mark_kernel(Near L, unsigned char* __restrict__ flag) {
     const int b = (blockIdx.x * THREADS + threadIdx.x) >> 5;
     if (b >= L.nrows) return;  // a whole warp
-    const size_t N = static_cast<size_t>(L.nx) * L.ny * L.nz;
-    near_warp_row<NDC>(
-        __ldg(L.ptr + b), __ldg(L.ptr + b + 1),
-        [&] { return float3{__ldg(L.xd + b), __ldg(L.yd + b), __ldg(L.zd + b)}; },
-        [&](const float3& o, int p, double (&d)[NDC]) {
-            const int n = __ldg(L.idx + p);
-            float row[NMC][NDC];
-            if (near_row<FAM, NMC, NDC>(near_cell_of(L, n), o.x, o.y, o.z, f, row))
-                add_matvec_terms<NMC, NDC>(row, xw, N, n, d);
-        },
-        out + static_cast<size_t>(b) * NDC, 1);
+    const float xo = __ldg(L.xd + b), yo = __ldg(L.yd + b), zo = __ldg(L.zd + b);
+    const int end = __ldg(L.ptr + b + 1);
+    for (int p = __ldg(L.ptr + b) + (threadIdx.x & 31); p < end; p += 32)
+        flag[p] = near_test(near_cell_of(L, __ldg(L.idx + p)), xo, yo, zo) ? 1 : 0;
 }
 
-// rmatvec: out[k, n] = sum over n's near observations b of R[b, n, k, :] . u[b, :],
-// a warp a cell (near_warp_row: most cells have none and leave at once). out
-// is the last split of the main loop's buffer: every cell is written.
+// Then the rows of the pairs kept (observation obs[p], flat cell cell[p]):
+// val[p] = near_row's (nmc, ndc), each cell's own 8 corners in double,
+// differenced and rounded to float; a thread a pair.
 template <int FAM, int NMC, int NDC>
-__global__ void __launch_bounds__(THREADS) lattice_near_rmatvec_kernel(Near L, const float* __restrict__ u,
-                                                                       double* __restrict__ out, Field f) {
-    const size_t N = static_cast<size_t>(L.nx) * L.ny * L.nz;
-    const size_t n = (static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x) >> 5;
-    if (n >= N) return;  // a whole warp
-    near_warp_row<NMC>(
-        __ldg(L.ptr + n), __ldg(L.ptr + n + 1), [&] { return near_cell_of(L, static_cast<int>(n)); },
-        [&](const NearCell& c, int p, double (&acc)[NMC]) {
-            const int b = __ldg(L.idx + p);
-            float row[NMC][NDC];
-            if (near_row<FAM, NMC, NDC>(c, __ldg(L.xd + b), __ldg(L.yd + b), __ldg(L.zd + b), f, row))
-                add_rmatvec_terms<NMC, NDC>(row, u, b, acc);
-        },
-        out + n, N);
+__global__ void __launch_bounds__(THREADS) lattice_near_rows_kernel(Near L, const int* __restrict__ obs,
+                                                                    const int* __restrict__ cell, int nnz,
+                                                                    float* __restrict__ val, Field f) {
+    const int p = blockIdx.x * THREADS + threadIdx.x;
+    if (p >= nnz) return;
+    const int b = __ldg(obs + p);
+    float row[NMC][NDC];
+    if (!near_row<FAM, NMC, NDC>(near_cell_of(L, __ldg(cell + p)), __ldg(L.xd + b), __ldg(L.yd + b),
+                                 __ldg(L.zd + b), f, row)) {
+#pragma unroll
+        for (int k = 0; k < NMC; ++k)
+#pragma unroll
+            for (int j = 0; j < NDC; ++j) row[k][j] = 0.0f;  // never: the pair was marked near by the same test
+    }
+#pragma unroll
+    for (int k = 0; k < NMC; ++k)
+#pragma unroll
+        for (int j = 0; j < NDC; ++j) val[static_cast<size_t>(p) * (NMC * NDC) + k * NDC + j] = row[k][j];
 }
+
+// The near passes over the stored rows (prism_common.cuh near_stream): the
+// matvec's by observation, into the last slot of the matvec's buffer; the
+// rmatvec's by cell, into the last split of the rmatvec's buffer.
+template <int NMC, int NDC, int G>
+__global__ void __launch_bounds__(STREAM_THREADS) lattice_near_matvec_kernel(NearRows r, const float* __restrict__ xw,
+                                                                             double* __restrict__ out, size_t N) {
+    near_stream<NMC, NDC, G, true>(r, xw, out, N);
+}
+
+template <int NMC, int NDC, int G>
+__global__ void __launch_bounds__(STREAM_THREADS) lattice_near_rmatvec_kernel(NearRows r,
+                                                                              const float* __restrict__ u,
+                                                                              double* __restrict__ out, size_t N) {
+    near_stream<NMC, NDC, G, false>(r, u, out, N);
+}
+
+template <bool MATVEC, int NMC, int NDC, int G>
+struct LatticeNearLaunch {
+    static void run(const NearRows& r, const float* vin, double* out, size_t N, cudaStream_t stream) {
+        if (MATVEC)
+            lattice_near_matvec_kernel<NMC, NDC, G>
+                <<<near_stream_blocks<G>(r.segments), STREAM_THREADS, 0, stream>>>(r, vin, out, N);
+        else
+            lattice_near_rmatvec_kernel<NMC, NDC, G>
+                <<<near_stream_blocks<G>(r.segments), STREAM_THREADS, 0, stream>>>(r, vin, out, N);
+    }
+};
 
 // out[i] = the sum of partial[p, i] over p, in order.
 template <typename T>
@@ -684,30 +712,17 @@ int launch(int is_double, int family, int nmc, int ndc, int mode, const Launch& 
     return launch_family<MATVEC, float, CLOSED>(family, nmc, ndc, a);
 }
 
-template <bool MATVEC, int FAM, int NMC, int NDC>
-int launch_near(const Near& L, const float* vin, double* out, const Field& f, cudaStream_t stream) {
-    if (MATVEC) {
-        const unsigned blocks = static_cast<unsigned>((static_cast<size_t>(L.nrows) * 32 + THREADS - 1) / THREADS);
-        lattice_near_matvec_kernel<FAM, NMC, NDC><<<blocks, THREADS, 0, stream>>>(L, vin, out, f);
-    } else {
-        const size_t N = static_cast<size_t>(L.nx) * L.ny * L.nz;
-        lattice_near_rmatvec_kernel<FAM, NMC, NDC>
-            <<<static_cast<unsigned>((N * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(L, vin, out, f);
+// The build's rows kernel of one family.
+int near_rows_family(int family, int nmc, int ndc, const Near& L, const int* obs, const int* cell, int nnz,
+                     float* val, const Field& f, cudaStream_t stream) {
+    const unsigned blocks = static_cast<unsigned>((nnz + THREADS - 1) / THREADS);
+#define ROWS_CASE(FAM, NMC, NDC)                                                                                 \
+    if (family == FAM && nmc == NMC && ndc == NDC) {                                                             \
+        lattice_near_rows_kernel<FAM, NMC, NDC><<<blocks, THREADS, 0, stream>>>(L, obs, cell, nnz, val, f);      \
+        return static_cast<int>(cudaGetLastError());                                                             \
     }
-    return static_cast<int>(cudaGetLastError());
-}
-
-template <bool MATVEC>
-int near_pass(int family, int nmc, int ndc, const Near& L, const void* vin, void* out, const Field& f,
-              cudaStream_t stream) {
-    if (L.nx <= 0 || L.ny <= 0 || L.nz <= 0 || L.nrows <= 0 || L.ptr == nullptr || L.idx == nullptr)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const float* v = static_cast<const float*>(vin);
-    double* o = static_cast<double*>(out);
-#define NEAR_CASE(FAM, NMC, NDC) \
-    if (family == FAM && nmc == NMC && ndc == NDC) return launch_near<MATVEC, FAM, NMC, NDC>(L, v, o, f, stream);
-    FOR_EACH_FAMILY(NEAR_CASE)
-#undef NEAR_CASE
+    FOR_EACH_FAMILY(ROWS_CASE)
+#undef ROWS_CASE
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -736,28 +751,65 @@ extern "C" int lattice_rmatvec(LATTICE_ARGS) {
     return launch<false>(is_double, family, nmc, ndc, mode, LATTICE_LAUNCH);
 }
 
-// The blend's near pass, float only. Matvec: ptr, idx the candidates by
-// observation, vin = xw (nmc, N), out the (nrows, ndc) last slot of the
-// matvec's buffer. Rmatvec: ptr, idx the candidates by cell, vin = u (nrows,
-// ndc), out the (nmc, N) last split of the rmatvec's buffer. Either runs
-// before the product's lattice_matvec or lattice_rmatvec, on its stream.
-#define NEAR_ARGS                                                                                                  \
-    int family, int nmc, int ndc, const void *xe, const void *ye, const void *ze, const void *xd, const void *yd, \
-        const void *zd, const void *ptr, const void *idx, const void *vin, void *out, int nx, int ny, int nz,     \
-        int nrows, double m0, double m1, double m2, double s4pi, void *stream
-#define NEAR_LISTS                                                                                                \
-    Near {                                                                                                       \
-        static_cast<const float*>(xe), static_cast<const float*>(ye), static_cast<const float*>(ze),            \
-            static_cast<const float*>(xd), static_cast<const float*>(yd), static_cast<const float*>(zd),        \
-            static_cast<const int*>(ptr), static_cast<const int*>(idx), nx, ny, nz, nrows                        \
+// The build of the blend's near rows, float only, run once with the operator
+// (ops/lattice_matvec.py lattice_near_build). lattice_near_mark: flag
+// (ptr[nrows],) bytes over the candidates ptr, idx by observation.
+// lattice_near_rows: val (nnz, nmc, ndc) of the pairs kept, observation
+// obs[p] and flat cell cell[p] (int32).
+#define NEAR_GEOMETRY                                                                                          \
+    const void *xe, const void *ye, const void *ze, const void *xd, const void *yd, const void *zd
+#define NEAR_LISTS(PTR, IDX)                                                                                   \
+    Near {                                                                                                     \
+        static_cast<const float*>(xe), static_cast<const float*>(ye), static_cast<const float*>(ze),          \
+            static_cast<const float*>(xd), static_cast<const float*>(yd), static_cast<const float*>(zd),      \
+            static_cast<const int*>(PTR), static_cast<const int*>(IDX), nx, ny, nz, nrows                      \
+    }
+
+extern "C" int lattice_near_mark(NEAR_GEOMETRY, const void *ptr, const void *idx, int nx, int ny, int nz, int nrows,
+                                 void *flag, void *stream) {
+    if (nx <= 0 || ny <= 0 || nz <= 0 || nrows <= 0 || ptr == nullptr || idx == nullptr || flag == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = static_cast<unsigned>((static_cast<size_t>(nrows) * 32 + THREADS - 1) / THREADS);
+    lattice_near_mark_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        NEAR_LISTS(ptr, idx), static_cast<unsigned char*>(flag));
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lattice_near_rows(int family, int nmc, int ndc, NEAR_GEOMETRY, const void *obs, const void *cell,
+                                 int nnz, int nx, int ny, int nz, int nrows, void *val, double m0, double m1,
+                                 double m2, double s4pi, void *stream) {
+    if (nx <= 0 || ny <= 0 || nz <= 0 || nrows <= 0 || nnz < 0 ||
+        (nnz > 0 && (obs == nullptr || cell == nullptr || val == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (nnz == 0) return static_cast<int>(cudaGetLastError());
+    return near_rows_family(family, nmc, ndc, NEAR_LISTS(nullptr, nullptr), static_cast<const int*>(obs),
+                            static_cast<const int*>(cell), nnz, static_cast<float*>(val), Field{m0, m1, m2, s4pi, 0},
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The blend's near passes over the stored rows, float only, each run before
+// the product's lattice_matvec or lattice_rmatvec on its stream. Matvec: ptr,
+// idx, val the rows by observation (segments = the padded rows), vin = xw
+// (nmc, N), out the (nrows, ndc) last slot of the matvec's buffer. Rmatvec:
+// ptr, idx, val, seg the rows by cell (segments = the cells that have a near
+// pair), vin = u (nrows, ndc), out the (nmc, N) last split of the rmatvec's
+// buffer (cleared here first). lanes: a segment's group (ops/matrixfree.py
+// stream_lanes).
+#define NEAR_ARGS                                                                                              \
+    int nmc, int ndc, int lanes, const void *ptr, const void *idx, const void *val, const void *seg,           \
+        int segments, const void *vin, void *out, int N, void *stream
+#define NEAR_ROWS                                                                                              \
+    NearRows {                                                                                                \
+        static_cast<const int*>(ptr), static_cast<const int*>(idx), static_cast<const float*>(val),           \
+            static_cast<const int*>(seg), segments                                                            \
     }
 
 extern "C" int lattice_near_matvec(NEAR_ARGS) {
-    return near_pass<true>(family, nmc, ndc, NEAR_LISTS, vin, out, Field{m0, m1, m2, s4pi, 0},
-                           static_cast<cudaStream_t>(stream));
+    return near_stream_pass<LatticeNearLaunch, true>(nmc, ndc, lanes, NEAR_ROWS, vin, out, N,
+                                                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lattice_near_rmatvec(NEAR_ARGS) {
-    return near_pass<false>(family, nmc, ndc, NEAR_LISTS, vin, out, Field{m0, m1, m2, s4pi, 0},
-                            static_cast<cudaStream_t>(stream));
+    return near_stream_pass<LatticeNearLaunch, false>(nmc, ndc, lanes, NEAR_ROWS, vin, out, N,
+                                                      static_cast<cudaStream_t>(stream));
 }

@@ -216,62 +216,153 @@ __device__ __forceinline__ void quad_points(const float (&px)[O], const float (&
 
 // ---------------------------------------------------------------- the blend's near passes
 
-// One row of a near pass, a warp's: an observation of the matvec (NSUM = ndc
-// sums) or a cell of the rmatvec (NSUM = nmc). A row with no list position
-// (p0 == end) writes zeros and leaves at once. Otherwise open() loads what
-// the row's terms share (the observation, or the cell), each lane adds the
-// terms of every 32nd position from p0 to end in order, term(opened, p, acc)
-// adding position p's in double where its pair is near, then the warp's
-// shuffle tree, and lane 0 writes out[j * stride]. No atomics: two launches
-// agree to the last bit.
-template <int NSUM, typename Open, typename Term>
-__device__ __forceinline__ void near_warp_row(int p0, int end, Open open, Term term, double* __restrict__ out,
-                                              size_t stride) {
-    const int lane = threadIdx.x & 31;
+// A blended operator's near rows are stored once, when it is built
+// (ops/matrixfree.py near_row_layout): each near pair's closed forms in
+// double, rounded to float, in two orders. A near pass is then a streaming
+// read of them, bound by bytes: no closed form is evaluated in a product.
+//
+// One order of the stored rows: segment s holds the pairs ptr[s] ..
+// ptr[s + 1] - 1, idx[p] the pair's cell (by observation: the matvec's) or
+// observation (by cell: the rmatvec's), val[p] its row (nmc, ndc), and, by
+// cell, seg[s] the segment's cell; `segments` segments.
+struct NearRows {
+    const int* ptr;
+    const int* idx;
+    const float* val;
+    const int* seg;
+    int segments;
+};
+
+constexpr int STREAM_THREADS = 256;  // threads of a near pass's block
+
+// One segment of a near pass for each group of G lanes (G in 1, 2, 4, 8, 16,
+// 32 or 256: ops/matrixfree.py stream_lanes, from the mean pairs a segment).
+// Each lane sums the terms of every G-th pair from the segment's first, in
+// order, in double; then the group's shuffle tree (the warp's, then, for a
+// group of several warps, their sums in order), and its first lane writes:
+//   MATVEC:  out[s, j] = sum_p sum_k val[p, k, j] * xw[k, idx[p]]   (every row)
+//   rmatvec: out[k, seg[s]] = sum_p sum_j val[p, k, j] * u[idx[p], j]
+// (the rmatvec's caller clears the cells no segment names). No atomics: two
+// launches agree to the last bit.
+template <int NMC, int NDC, int G, bool MATVEC>
+__device__ __forceinline__ void near_stream(const NearRows& r, const float* __restrict__ vin,
+                                            double* __restrict__ out, size_t N) {
+    constexpr int NSUM = MATVEC ? NDC : NMC;
+    constexpr int NV = NMC * NDC;
+    static_assert(G == 256 || (G >= 1 && G <= 32 && (G & (G - 1)) == 0), "lanes of a group");
+    const int tid = threadIdx.x;
+    const int s = blockIdx.x * (STREAM_THREADS / G) + tid / G;
+    const int lane = tid % G;
     double acc[NSUM];
 #pragma unroll
     for (int j = 0; j < NSUM; ++j) acc[j] = 0.0;
-    if (p0 == end) {  // the whole warp
-        if (lane == 0) {
+    if (s < r.segments) {
+        const int p1 = __ldg(r.ptr + s + 1);
+        for (int p = __ldg(r.ptr + s) + lane; p < p1; p += G) {
+            const size_t i = static_cast<size_t>(__ldg(r.idx + p));
+            float v[NV];
 #pragma unroll
-            for (int j = 0; j < NSUM; ++j) out[j * stride] = 0.0;
+            for (int q = 0; q < NV; ++q) v[q] = __ldg(r.val + static_cast<size_t>(p) * NV + q);
+            if constexpr (MATVEC) {
+#pragma unroll
+                for (int k = 0; k < NMC; ++k) {
+                    const double x = static_cast<double>(__ldg(vin + k * N + i));
+#pragma unroll
+                    for (int j = 0; j < NDC; ++j) acc[j] += static_cast<double>(v[k * NDC + j]) * x;
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < NDC; ++j) {
+                    const double u = static_cast<double>(__ldg(vin + i * NDC + j));
+#pragma unroll
+                    for (int k = 0; k < NMC; ++k) acc[k] += static_cast<double>(v[k * NDC + j]) * u;
+                }
+            }
         }
-        return;
     }
-    const auto opened = open();
-    for (int p = p0 + lane; p < end; p += 32) term(opened, p, acc);
+    if constexpr (G > 1) {
+        constexpr int W = G < 32 ? G : 32;  // every lane of the warp takes part
 #pragma unroll
-    for (int j = 0; j < NSUM; ++j) {
+        for (int j = 0; j < NSUM; ++j)
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off);
-        if (lane == 0) out[j * stride] = acc[j];
+            for (int off = W / 2; off > 0; off >>= 1) acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off, W);
+    }
+    if constexpr (G > 32) {
+        __shared__ double red[STREAM_THREADS / 32][NSUM];
+        if ((tid & 31) == 0) {
+#pragma unroll
+            for (int j = 0; j < NSUM; ++j) red[tid >> 5][j] = acc[j];
+        }
+        __syncthreads();
+        if (lane == 0) {
+            const int w0 = tid >> 5;
+#pragma unroll
+            for (int j = 0; j < NSUM; ++j) {
+                acc[j] = red[w0][j];
+                for (int w = 1; w < G / 32; ++w) acc[j] += red[w0 + w][j];
+            }
+        }
+    }
+    if (lane == 0 && s < r.segments) {
+        if constexpr (MATVEC) {
+#pragma unroll
+            for (int j = 0; j < NDC; ++j) out[static_cast<size_t>(s) * NDC + j] = acc[j];
+        } else {
+            const size_t n = static_cast<size_t>(__ldg(r.seg + s));
+#pragma unroll
+            for (int k = 0; k < NMC; ++k) out[k * N + n] = acc[k];
+        }
     }
 }
 
-// A near matvec's terms of cell n: d[j] += row[k][j] * xw[k, n] over k, in
-// double; xw (nmc, N).
-template <int NMC, int NDC>
-__device__ __forceinline__ void add_matvec_terms(const float (&row)[NMC][NDC], const float* __restrict__ xw,
-                                                 size_t N, int n, double (&d)[NDC]) {
-#pragma unroll
-    for (int k = 0; k < NMC; ++k) {
-        const double v = static_cast<double>(__ldg(xw + k * N + n));
-#pragma unroll
-        for (int j = 0; j < NDC; ++j) d[j] += static_cast<double>(row[k][j]) * v;
+// Launch<MATVEC, NMC, NDC, G>::run(rows, vin, out, N, stream) launches the
+// family's near-pass kernel (each source names its own, for the profiler)
+// on (segments + per block - 1) / per block blocks.
+template <template <bool, int, int, int> class Launch, bool MATVEC, int NMC, int NDC>
+int near_stream_lanes(int lanes, const NearRows& r, const float* vin, double* out, size_t N, cudaStream_t stream) {
+    switch (lanes) {
+        case 1: Launch<MATVEC, NMC, NDC, 1>::run(r, vin, out, N, stream); break;
+        case 2: Launch<MATVEC, NMC, NDC, 2>::run(r, vin, out, N, stream); break;
+        case 4: Launch<MATVEC, NMC, NDC, 4>::run(r, vin, out, N, stream); break;
+        case 8: Launch<MATVEC, NMC, NDC, 8>::run(r, vin, out, N, stream); break;
+        case 16: Launch<MATVEC, NMC, NDC, 16>::run(r, vin, out, N, stream); break;
+        case 32: Launch<MATVEC, NMC, NDC, 32>::run(r, vin, out, N, stream); break;
+        case 256: Launch<MATVEC, NMC, NDC, 256>::run(r, vin, out, N, stream); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    return static_cast<int>(cudaGetLastError());
 }
 
-// A near rmatvec's terms of observation b: acc[k] += row[k][j] * u[b, j] over
-// j, in double; u (nrows, ndc).
-template <int NMC, int NDC>
-__device__ __forceinline__ void add_rmatvec_terms(const float (&row)[NMC][NDC], const float* __restrict__ u, int b,
-                                                  double (&acc)[NMC]) {
-#pragma unroll
-    for (int j = 0; j < NDC; ++j) {
-        const double v = static_cast<double>(__ldg(u + static_cast<size_t>(b) * NDC + j));
-#pragma unroll
-        for (int k = 0; k < NMC; ++k) acc[k] += static_cast<double>(row[k][j]) * v;
+// A near pass over stored rows: the matvec's (segments = the operator's
+// rows, out (segments, ndc)) or the rmatvec's (segments = the cells that
+// have a near pair, out (nmc, N), cleared first by a memset on the stream,
+// which a CUDA graph captures as it does a kernel).
+template <template <bool, int, int, int> class Launch, bool MATVEC>
+int near_stream_pass(int nmc, int ndc, int lanes, const NearRows& r, const void* vin, void* out, int N,
+                     cudaStream_t stream) {
+    // (idx and val are null where no pair is stored: then no lane reads them.)
+    if (N <= 0 || r.segments < 0 || r.ptr == nullptr || vin == nullptr || out == nullptr ||
+        (!MATVEC && r.segments > 0 && r.seg == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const float* v = static_cast<const float*>(vin);
+    double* o = static_cast<double*>(out);
+    if (!MATVEC) {
+        const cudaError_t err = cudaMemsetAsync(o, 0, sizeof(double) * static_cast<size_t>(nmc) * N, stream);
+        if (err != cudaSuccess) return static_cast<int>(err);
     }
+    if (r.segments == 0) return static_cast<int>(cudaGetLastError());
+#define NEAR_STREAM_CASE(NMC, NDC) \
+    if (nmc == NMC && ndc == NDC) return near_stream_lanes<Launch, MATVEC, NMC, NDC>(lanes, r, v, o, N, stream);
+    NEAR_STREAM_CASE(1, 1) NEAR_STREAM_CASE(1, 3) NEAR_STREAM_CASE(1, 6) NEAR_STREAM_CASE(3, 1) NEAR_STREAM_CASE(3, 3)
+#undef NEAR_STREAM_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The blocks of a near pass of `segments` segments, G lanes each.
+template <int G>
+unsigned near_stream_blocks(int segments) {
+    constexpr int PER = STREAM_THREADS / G;
+    return static_cast<unsigned>((segments + PER - 1) / PER);
 }
 
 }  // namespace

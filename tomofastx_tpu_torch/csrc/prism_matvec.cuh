@@ -1,9 +1,9 @@
 // Kernel B2: the two products of the per-cell matrix-free operator, for Hopper
-// (sm_90a), with every (observation, cell) pair's prism response evaluated in
-// registers and never stored. Two sources include this header, each for one
+// (sm_90a), with every far (observation, cell) pair's prism response evaluated
+// in registers and never stored. Two sources include this header, each for one
 // type, so that nvcc builds them in parallel: prism_matvec_f32.cu (the float
-// operators: the blend and its near pass, and the float closed forms) and
-// prism_matvec_f64.cu (the double closed forms).
+// operators: the blend, its near rows and near passes, and the float closed
+// forms) and prism_matvec_f64.cu (the double closed forms).
 //
 // Replaces the XLA fusion of the JAX package's per-cell operator:
 // tomofastx_tpu/ops/matrixfree.py:244 MatrixFreeKernel.matvec and :283 rmatvec,
@@ -58,14 +58,15 @@
 // shared memory and every thread runs through all of them, summing in double
 // and rounding once at the end.
 // The blend's main loops give a near pair zero, by a select (its 27-point value
-// may be non-finite), and hold no double closed forms: those are a pass of
-// their own (0.04 % of the pairs at the smoke shape), over the near candidates
-// the operator builds once (ops/matrixfree.py near_cell_indices, by
-// observation, and near_idx_transpose, by cell), each re-tested with the main
-// loop's own is_far. The matvec's near pass (a warp an observation) writes one
-// more split of the buffer, (splits + 1, nrows, ndc), the last one summed; the
-// rmatvec's (a warp a cell) writes the near terms' (nmc, N) double sums, from
-// which the main loop's sums start.
+// may be non-finite), and hold no double closed forms. The near pairs (0.04 %
+// of the pairs at the smoke shape, 0.53 % on a grid of growing cells) are
+// stored: prism_matvec_f32.cu builds their rows once, with the operator, over
+// the near candidates (ops/matrixfree.py near_cell_indices), each tested with
+// the main loop's own is_far and evaluated by near_row, in two orders (by
+// observation and by cell); a near pass is then a streaming read of them
+// (prism_common.cuh near_stream). The matvec's writes one more split of the
+// buffer, (splits + 1, nrows, ndc), the last one summed; the rmatvec's writes
+// the near terms' (nmc, N) double sums, from which the main loop's sums start.
 // No atomics anywhere: every sum has one fixed order, so two runs agree to the
 // last bit. The closed forms are device functions kept out of line
 // (__noinline__), so that each is compiled once a type whatever calls it.
@@ -359,9 +360,9 @@ __device__ __forceinline__ void pair_row(const Cell<T>& c, T xo, T yo, T zo, con
     }
 }
 
-// The row of a near candidate (the near pass): the closed forms in double,
-// rounded to float, where the main loop's is_far calls the pair near; false
-// (and no row) where not.
+// The row of a near candidate (the build of the stored near rows): the closed
+// forms in double, rounded to float, where the main loop's is_far calls the
+// pair near; false (and no row) where not.
 template <int FAM, int NMC, int NDC>
 __device__ __forceinline__ bool near_row(const Cell<float>& c, float xo, float yo, float zo, const Field& f,
                                          float row[NMC][NDC]) {
@@ -487,59 +488,6 @@ __global__ void __launch_bounds__(THREADS) prism_rmatvec_kernel(Geometry g, cons
     }
 }
 
-// ---------------------------------------------------------------- the near pass (the blend's)
-
-// matvec: out[b, j] = sum over b's candidates n (near_idx (nrows, K), the
-// whole grid's numbering, this operator's cells from cell_lo; others < 0 or
-// past N) of R[b, n, :, j] . xw[:, n], where near; a warp an observation
-// (near_warp_row). out is the last split of the matvec's buffer.
-template <int FAM, int NMC, int NDC>
-__global__ void __launch_bounds__(THREADS) prism_near_matvec_kernel(Geometry g, const int* __restrict__ near_idx,
-                                                                    int K, int cell_lo, const float* __restrict__ xw,
-                                                                    double* __restrict__ out, int N, int nrows,
-                                                                    Field f) {
-    const int b = (blockIdx.x * THREADS + threadIdx.x) >> 5;
-    if (b >= nrows) return;  // a whole warp
-    const int* cand = near_idx + static_cast<size_t>(b) * K;
-    near_warp_row<NDC>(
-        0, K, [&] { return float3{at<float>(g.xd, b), at<float>(g.yd, b), at<float>(g.zd, b)}; },
-        [&](const float3& o, int i, double (&d)[NDC]) {
-            const int n = __ldg(cand + i) - cell_lo;
-            if (n < 0 || n >= N) return;
-            const Cell<float> c = make_cell<float>(at<float>(g.X1, n), at<float>(g.X2, n), at<float>(g.Y1, n),
-                                                   at<float>(g.Y2, n), at<float>(g.Z1, n), at<float>(g.Z2, n));
-            float row[NMC][NDC];
-            if (near_row<FAM, NMC, NDC>(c, o.x, o.y, o.z, f, row)) add_matvec_terms<NMC, NDC>(row, xw, N, n, d);
-        },
-        out + static_cast<size_t>(b) * NDC, 1);
-}
-
-// rmatvec: out[k, n] = sum over cell n's candidate observations (tptr (N + 1,),
-// obs: near_idx transposed, in increasing order) of R[b, n, k, :] . u[b, :],
-// where near; a warp a cell (near_warp_row: most cells have none and leave at
-// once); every cell written.
-template <int FAM, int NMC, int NDC>
-__global__ void __launch_bounds__(THREADS) prism_near_rmatvec_kernel(Geometry g, const int* __restrict__ tptr,
-                                                                     const int* __restrict__ obs,
-                                                                     const float* __restrict__ u,
-                                                                     double* __restrict__ out, int N, Field f) {
-    const int n = static_cast<int>((static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x) >> 5);
-    if (n >= N) return;  // a whole warp
-    near_warp_row<NMC>(
-        __ldg(tptr + n), __ldg(tptr + n + 1),
-        [&] {
-            return make_cell<float>(at<float>(g.X1, n), at<float>(g.X2, n), at<float>(g.Y1, n), at<float>(g.Y2, n),
-                                    at<float>(g.Z1, n), at<float>(g.Z2, n));
-        },
-        [&](const Cell<float>& c, int p, double (&acc)[NMC]) {
-            const int b = __ldg(obs + p);
-            float row[NMC][NDC];
-            if (near_row<FAM, NMC, NDC>(c, at<float>(g.xd, b), at<float>(g.yd, b), at<float>(g.zd, b), f, row))
-                add_rmatvec_terms<NMC, NDC>(row, u, b, acc);
-        },
-        out + n, static_cast<size_t>(N));
-}
-
 // ---------------------------------------------------------------- dispatch
 
 struct Launch {
@@ -579,31 +527,6 @@ int launch_family(int family, int nmc, int ndc, const Launch& a) {
     }
     FOR_EACH_FAMILY(PRISM_CASE)
 #undef PRISM_CASE
-    return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The near passes, float only: a near matvec reads near_idx (nrows, K) from
-// cell_lo, a near rmatvec the transposed lists (tptr, obs).
-template <bool MATVEC, int FAM, int NMC, int NDC>
-int launch_near(const Launch& a, const int* idx, const int* obs, int K, int cell_lo) {
-    if (MATVEC) {
-        const unsigned blocks = static_cast<unsigned>((static_cast<size_t>(a.nrows) * 32 + THREADS - 1) / THREADS);
-        prism_near_matvec_kernel<FAM, NMC, NDC><<<blocks, THREADS, 0, a.stream>>>(
-            a.g, idx, K, cell_lo, static_cast<const float*>(a.vin), static_cast<double*>(a.out), a.N, a.nrows, a.f);
-    } else {
-        const unsigned blocks = static_cast<unsigned>((static_cast<size_t>(a.N) * 32 + THREADS - 1) / THREADS);
-        prism_near_rmatvec_kernel<FAM, NMC, NDC><<<blocks, THREADS, 0, a.stream>>>(
-            a.g, idx, obs, static_cast<const float*>(a.vin), static_cast<double*>(a.out), a.N, a.f);
-    }
-    return static_cast<int>(cudaGetLastError());
-}
-
-template <bool MATVEC>
-int near_family(int family, int nmc, int ndc, const Launch& a, const int* idx, const int* obs, int K, int cell_lo) {
-#define NEAR_CASE(FAM, NMC, NDC) \
-    if (family == FAM && nmc == NMC && ndc == NDC) return launch_near<MATVEC, FAM, NMC, NDC>(a, idx, obs, K, cell_lo);
-    FOR_EACH_FAMILY(NEAR_CASE)
-#undef NEAR_CASE
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

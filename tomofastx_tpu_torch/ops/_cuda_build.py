@@ -121,3 +121,49 @@ def require_launchable(**tensors):
             raise ValueError(f"{name} must be contiguous")
         if a.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+# A blended matrix-free operator's stored near rows (ops/matrixfree.py
+# near_row_layout): by observation (near_rptr, near_rcell, near_rval) and by
+# cell (near_ccell, near_cptr, near_cobs, near_cval).
+NEAR_ROW_FIELDS = ("near_rptr", "near_rcell", "near_rval", "near_ccell", "near_cptr", "near_cobs", "near_cval")
+
+# Both near passes' entry points over the stored rows (csrc/prism_common.cuh
+# near_stream_pass): nmc, ndc, lanes; the offsets, entries, rows and (by cell)
+# the segments' cells; the segments; the input, the output; N; the stream.
+NEAR_STREAM_ARGTYPES = (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) + (ctypes.c_void_p,) * 2 + (
+    ctypes.c_int, ctypes.c_void_p)
+
+
+def stored_near_rows(op) -> tuple:
+    """The stored near rows of `op`, NEAR_ROW_FIELDS in order."""
+    return tuple(getattr(op, f) for f in NEAR_ROW_FIELDS)
+
+
+def stored_near_rows_ok(op) -> bool:
+    """Whether `op` holds its stored near rows as the near passes read
+    them: int32 indices, float32 rows, and its groups of lanes."""
+    rows = stored_near_rows(op)
+    if any(a is None for a in rows) or getattr(op, "near_lanes", None) is None:
+        return False
+    return all(a.dtype == (torch.float32 if f.endswith("val") else torch.int32) for f, a in zip(NEAR_ROW_FIELDS, rows))
+
+
+def near_stream(fn, entry, nmc, ndc, op, by_obs, vin, out, N):
+    """One launch of a near pass over `op`'s stored rows (by observation, the
+    matvec's, or by cell, the rmatvec's) from vin into out on the current
+    stream; raises on a CUDA error."""
+    if by_obs:
+        ptr, idx, val, seg, lanes = op.near_rptr, op.near_rcell, op.near_rval, None, op.near_lanes[0]
+    else:
+        ptr, idx, val, seg, lanes = op.near_cptr, op.near_cobs, op.near_cval, op.near_ccell, op.near_lanes[1]
+    with torch.cuda.device(vin.device):
+        check(entry, fn(nmc, ndc, lanes, ptr.data_ptr(), idx.data_ptr(), val.data_ptr(),
+                        None if seg is None else seg.data_ptr(), ptr.shape[0] - 1, vin.data_ptr(), out.data_ptr(), N,
+                        torch.cuda.current_stream().cuda_stream))
+
+
+def check(entry, err):
+    """Raises unless a library entry point returned 0 (cudaSuccess)."""
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")

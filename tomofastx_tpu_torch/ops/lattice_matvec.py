@@ -23,11 +23,16 @@ The kernels are bound by operations (the source says how); neither uses
 atomics, so two runs agree to the last bit.
 
 The blend's products are split: the main kernels give the near cells zero,
-and the near pass (lattice_near_matvec, lattice_near_rmatvec) evaluates them
-over the operator's near lists into one more slot of the main kernels'
-float64 partial sums, launched first. Its plain versions are the operator's
-_near_matvec and _near_rmatvec, and _split_matvec / _split_rmatvec are the
-plain version of the whole split.
+and the near pass (lattice_near_matvec, lattice_near_rmatvec) adds their
+terms into one more slot of the main kernels' float64 partial sums, launched
+first. The near pairs' rows are stored, built once with the operator by
+lattice_near_build's kernels (each cell's 8 corners in float64, rounded to
+float32; ops/matrixfree.py near_row_layout keeps them by observation and by
+cell), so a near pass is a streaming read of them, bound by bytes. The plain
+versions: the operator's _near_matvec and _near_rmatvec (which evaluate the
+rows again), _stored_near_matvec and _stored_near_rmatvec (over the stored
+rows) and _near_pairs_plain (the build); _split_matvec / _split_rmatvec are
+the plain version of the whole split.
 
 `launch_plan`, `tile_shape` and `obs_splits` are the launch's choices, in
 Python so that the CPU tests hold them. The library is built with nvcc from
@@ -71,11 +76,14 @@ def build_library() -> tuple[str, str]:
 # direction cosines and scale; the stream.
 ARGTYPES = (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9 + (ctypes.c_double,) * 4 + (
     ctypes.c_void_p,)
-# And one for both near passes': family, nmc, ndc; the three edges, three
-# coordinates, the list's offsets and entries, the input, the output; nx, ny,
-# nz, nrows; the field; the stream.
-NEAR_ARGTYPES = (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4 + (ctypes.c_double,) * 4 + (
-    ctypes.c_void_p,)
+# The near rows' build: lattice_near_mark (the three edges, three
+# coordinates, the candidates' offsets and cells; nx, ny, nz, nrows; the
+# flags; the stream) and lattice_near_rows (family, nmc, ndc; the edges and
+# coordinates, the pairs' observations and cells; their count; nx, ny, nz,
+# nrows; the rows; the field; the stream).
+MARK_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,) * 2
+ROWS_ARGTYPES = (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,) + (
+    ctypes.c_double,) * 4 + (ctypes.c_void_p,)
 
 
 def _library():
@@ -83,7 +91,14 @@ def _library():
 
 
 def _near_library():
-    return _cuda_build.load_library(_NAME, ("lattice_near_matvec", "lattice_near_rmatvec"), NEAR_ARGTYPES)
+    return _cuda_build.load_library(_NAME, ("lattice_near_matvec", "lattice_near_rmatvec"),
+                                    _cuda_build.NEAR_STREAM_ARGTYPES)
+
+
+def _build_entries():
+    """(lattice_near_mark, lattice_near_rows) of the library, declared."""
+    return (_cuda_build.load_library(_NAME, ("lattice_near_mark",), MARK_ARGTYPES).lattice_near_mark,
+            _cuda_build.load_library(_NAME, ("lattice_near_rows",), ROWS_ARGTYPES).lattice_near_rows)
 
 
 def tile_shape(nmc: int, ndc: int) -> tuple[int, int, int]:
@@ -133,9 +148,9 @@ def launch_plan(op) -> dict:
     """What the kernels are told about lattice operator `op`: its type,
     family and mode (the closed forms, or the float32 blend with its window),
     the tile, the field. Raises for what the kernels do not take: another
-    type, rows of a shape no family has, a blend
-    without its windows (or with windows not in int32) or its near lists
-    (in int32)."""
+    type, rows of a shape no family has, a blend without its windows (or
+    with windows not in int32) or its near lists (in int32); at a launch,
+    _operands also refuses one without its stored near rows."""
     dtype = op.xd.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"lattice_matvec: operator of {dtype}; the kernels take float32 or float64")
@@ -167,8 +182,10 @@ def _near_lists(op):
     return op.near_ptr, op.near_cells, op.near_tptr, op.near_obs
 
 
-def _operands(op, v, shape, what):
-    """The operator's tensors and v, checked for one launch."""
+def _operands(op, v, shape, what, stored=True):
+    """The operator's tensors and v, checked for one launch (stored: with
+    the blend's stored near rows, which every launch but their build's
+    reads)."""
     geometry = (op.xe, op.ye, op.ze, op.xd, op.yd, op.zd)
     dtype = op.xd.dtype
     if tuple(v.shape) != shape:
@@ -176,7 +193,12 @@ def _operands(op, v, shape, what):
     for a in geometry + (v,):
         if a.dtype != dtype:
             raise TypeError(f"lattice_matvec: tensors of {a.dtype} and {dtype}")
-    for a in geometry + (v,) + ((op.wi0, *_near_lists(op)) if op.far_quad else ()):
+    stored = stored and op.far_quad
+    if stored and not _cuda_build.stored_near_rows_ok(op):
+        raise ValueError("lattice_matvec: a blended operator needs its stored near rows (near_rptr .. near_cval: "
+                         "indices in int32, rows in float32, and near_lanes)")
+    blend = (op.wi0, *_near_lists(op), *(_cuda_build.stored_near_rows(op) if stored else ())) if op.far_quad else ()
+    for a in geometry + (v,) + blend:
         if a.device != v.device:
             raise ValueError(f"lattice_matvec: tensors on different devices: {a.device}, {v.device}")
         if not a.is_contiguous():
@@ -201,26 +223,55 @@ def _launch(entry, op, plan, geometry, vin, partial, out, splits, per):
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
-def _near_launch(entry, op, plan, lists, vin, out):
-    """One launch of a near pass; raises on a CUDA error."""
-    fn = getattr(_near_library(), entry)
-    with torch.cuda.device(vin.device):
-        err = fn(plan["family"], plan["nmc"], plan["ndc"],
-                 *(a.data_ptr() for a in (op.xe, op.ye, op.ze, op.xd, op.yd, op.zd, *lists, vin, out)),
-                 op.nx, op.ny, op.nz, op.xd.shape[0], *plan["magv"], plan["s4pi"],
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+def lattice_near_build(op):
+    """The near pairs of blended LatticeMatrixFreeKernel `op` and their rows:
+    (b, n, rows), the observations and flat cells (int64, in increasing
+    order of (b, n)) of the candidates in its near lists (near_ptr,
+    near_cells) that the main loop's near test calls near, and their (P,
+    nmc, ndc) rows, each cell's 8 corners in float64 differenced and rounded
+    to float32. Run once, when the operator is built (ops/matrixfree.py
+    LatticeMatrixFreeKernel.with_near_rows), never inside a capture. On the
+    card: one kernel marks the candidates (a warp an observation, is_near),
+    PyTorch gathers the pairs kept, and a second kernel evaluates their rows
+    (a thread a pair, near_row). On CPU tensors it returns
+    op._near_pairs_plain (no CPU operator stores its rows).
+    `lattice_near_build.launches` counts the builds on the card."""
+    dev = op.near_cells.device
+    if dev.type == "cpu":
+        return op._near_pairs_plain()
+    if dev.type != "cuda":
+        raise ValueError(f"lattice_near_build runs on cuda or cpu tensors, got {dev}")
+    plan = launch_plan(op)
+    if plan["mode"] != BLEND:
+        raise ValueError("lattice_near_build: the near rows are the float32 blend's")
+    geometry = [a.data_ptr() for a in _operands(op, op.xd, (op.xd.shape[0],), "xd", stored=False)]
+    nrows = op.xd.shape[0]
+    mark, rows_fn = _build_entries()
+    flag = torch.empty(op.near_cells.shape[0], dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _cuda_build.check("lattice_near_mark", mark(*geometry, op.near_ptr.data_ptr(), op.near_cells.data_ptr(), op.nx,
+                                                    op.ny, op.nz, nrows, flag.data_ptr(), stream))
+        p = torch.nonzero(flag).squeeze(1)
+        del flag
+        b = torch.searchsorted(op.near_ptr[1:].long(), p, right=True)
+        n = op.near_cells[p].long()
+        obs, cell = b.to(torch.int32), n.to(torch.int32)
+        rows = torch.empty((b.shape[0], op.nmc, op.ndc), dtype=torch.float32, device=dev)
+        _cuda_build.check("lattice_near_rows", rows_fn(
+            plan["family"], plan["nmc"], plan["ndc"], *geometry, obs.data_ptr(), cell.data_ptr(), b.shape[0], op.nx,
+            op.ny, op.nz, nrows, rows.data_ptr(), *plan["magv"], plan["s4pi"], stream))
+    lattice_near_build.launches += 1
+    return b, n, rows
 
 
 def lattice_near_matvec(op, xw, out=None):
     """(nrows_padded, ndc) float64: the near cells' terms of blended
     LatticeMatrixFreeKernel `op` times xw ((nmc, N)), the first launch of
     lattice_matvec's split (into `out`, a slot of its partial sums, if
-    given). CUDA tensors go through the near-pass kernel (a warp an
-    observation over its candidates, each re-tested by the main loop's near
-    test, the near ones' closed forms in float64 rounded to float32); CPU
-    tensors through op._near_matvec. `lattice_near_matvec.launches` counts
+    given). CUDA tensors go through the near-pass kernel (a group of lanes an
+    observation streams its stored rows, near_rptr, near_rcell, near_rval);
+    CPU tensors through op._near_matvec. `lattice_near_matvec.launches` counts
     its launches."""
     if xw.device.type == "cpu":
         y = op._near_matvec(xw)
@@ -232,7 +283,8 @@ def lattice_near_matvec(op, xw, out=None):
         raise ValueError("lattice_near_matvec: the near pass is the float32 blend's")
     _operands(op, xw, (op.nmc, op.N), "xw")
     out = _cuda_build.float64_output((op.xd.shape[0], op.ndc), xw, out)
-    _near_launch("lattice_near_matvec", op, plan, (op.near_ptr, op.near_cells), xw, out)
+    _cuda_build.near_stream(_near_library().lattice_near_matvec, "lattice_near_matvec", plan["nmc"], plan["ndc"],
+                            op, True, xw, out, op.N)
     lattice_near_matvec.launches += 1
     return out
 
@@ -241,8 +293,10 @@ def lattice_near_rmatvec(op, u, out=None):
     """(nmc, N) float64: the near cells' terms of blended
     LatticeMatrixFreeKernel `op` transposed times u ((nrows_padded, ndc)),
     the first launch of lattice_rmatvec's split (into `out` if given). CUDA
-    tensors go through the near-pass kernel (a warp a cell over its
-    candidate observations in order); CPU tensors through op._near_rmatvec.
+    tensors go through the near-pass kernel (a group of lanes a cell that
+    has a near pair streams its stored rows, near_cptr, near_cobs,
+    near_cval, the others' sums cleared first); CPU tensors through
+    op._near_rmatvec.
     `lattice_near_rmatvec.launches` counts its launches."""
     if u.device.type == "cpu":
         g = op._near_rmatvec(u)
@@ -254,7 +308,8 @@ def lattice_near_rmatvec(op, u, out=None):
         raise ValueError("lattice_near_rmatvec: the near pass is the float32 blend's")
     _operands(op, u, (op.xd.shape[0], op.ndc), "u")
     out = _cuda_build.float64_output((op.nmc, op.N), u, out)
-    _near_launch("lattice_near_rmatvec", op, plan, (op.near_tptr, op.near_obs), u, out)
+    _cuda_build.near_stream(_near_library().lattice_near_rmatvec, "lattice_near_rmatvec", plan["nmc"], plan["ndc"],
+                            op, False, u, out, op.N)
     lattice_near_rmatvec.launches += 1
     return out
 
@@ -312,3 +367,4 @@ lattice_matvec.launches = 0
 lattice_rmatvec.launches = 0
 lattice_near_matvec.launches = 0
 lattice_near_rmatvec.launches = 0
+lattice_near_build.launches = 0

@@ -37,14 +37,19 @@ one batch; the adjoint's scatter sums every cell's terms in one fixed order
 (_index_add_in_order), so two runs agree to the last bit, as two runs of
 kernels B2 and B3 do.
 
-The float32 kernels evaluate the blend's near cells in a pass of their own,
-over near lists each blended operator builds once at construction, on its
-device: its candidate cells by observation and, transposed, its candidate
-observations by cell (near_cell_indices and near_idx_transpose for the
-per-cell operator, lattice_near_lists for the lattice one). The operators'
-_split_matvec / _split_rmatvec are the plain version of that split (the
-main loop with the near cells zeroed, plus the near pass _near_matvec /
-_near_rmatvec), in float64 sums.
+The float32 kernels take the blend's near cells out of their main loops. Each
+blended operator builds its near lists once at construction, on its device
+(its candidate cells by observation and, transposed, its candidate
+observations by cell: near_cell_indices and near_idx_transpose for the
+per-cell operator, lattice_near_lists for the lattice one), and from them,
+on the card, its stored near rows (with_near_rows): the pairs the main
+loop's own test calls near, each row's closed forms in float64 rounded to
+float32, by observation and by cell (near_row_layout). A near pass is a read
+of those rows. On the CPU no product reads them, so none are stored there. The operators' _split_matvec / _split_rmatvec are the plain version of
+that split (the main loop with the near cells zeroed, plus the near pass
+_near_matvec / _near_rmatvec, which evaluates the rows again), in float64
+sums; _stored_near_matvec / _stored_near_rmatvec are the near pass over the
+stored rows, and _near_pairs_plain the plain version of their build.
 """
 
 from __future__ import annotations
@@ -64,10 +69,11 @@ from tomofastx_tpu_torch.ops.prism import (
     gz_corner_potential,
     mag_corner_potentials,
 )
-from tomofastx_tpu_torch.ops.lattice_matvec import lattice_matvec, lattice_rmatvec
+from tomofastx_tpu_torch.ops._cuda_build import NEAR_ROW_FIELDS
+from tomofastx_tpu_torch.ops.lattice_matvec import lattice_matvec, lattice_near_build, lattice_rmatvec
 from tomofastx_tpu_torch.ops.lattice_matvec import partial_bytes as lattice_partial_bytes
 from tomofastx_tpu_torch.ops.prism_matvec import partial_bytes as prism_partial_bytes
-from tomofastx_tpu_torch.ops.prism_matvec import prism_matvec, prism_rmatvec
+from tomofastx_tpu_torch.ops.prism_matvec import prism_matvec, prism_near_build, prism_rmatvec
 
 PROBE_ABORT = (
     "Data coordinate coincides with model grid boundary. Adjust the model grid! (non-finite "
@@ -125,16 +131,80 @@ def candidate_transpose(ptr, idx, ncols):
     return tptr.to(torch.int32), rows[torch.sort(cols, stable=True).indices].to(torch.int32)
 
 
-def _near_sum(shape, pairs, rows_of, terms_of, device):
-    """A plain near pass: float64 zeros of `shape` plus, for the candidate
-    pairs (b, n), PAIR_CHUNK at a time, the (index, terms) that
-    terms_of(rows_of(b, n) in float64, b, n) gives, summed in one fixed
-    order."""
+# The lanes a segment of the stored near rows may take in a near pass
+# (csrc/prism_common.cuh near_stream): a power of two up to a warp, or a
+# block of 256.
+STREAM_LANES = (1, 2, 4, 8, 16, 32, 256)
+
+
+def stream_lanes(pairs: int, segments: int) -> int:
+    """The lanes a near pass gives each of `segments` segments of `pairs`
+    stored pairs in all: about 4 pairs a lane, up to a warp; a block of 256
+    where a segment holds 1024 pairs or more on the mean."""
+    mean = pairs / max(segments, 1)
+    if mean >= 1024:
+        return 256
+    lanes = 1
+    while lanes < 32 and 4 * lanes < mean:
+        lanes *= 2
+    return lanes
+
+
+def near_row_layout(b, n, rows, nrows, lanes=None) -> dict:
+    """A blended operator's stored near rows from its near pairs (b, n)
+    (int64, in increasing order of (b, n)) and their rows (P, nmc, ndc):
+    {near_rptr (nrows + 1,), near_rcell, near_rval} by observation (the near
+    matvec's), {near_ccell, near_cptr (cells + 1,), near_cobs, near_cval} by
+    cell over the cells that have a near pair, each cell's observations in
+    increasing order (the near rmatvec's), indices in int32, and near_lanes,
+    (lanes a row, lanes a cell) of the near passes (stream_lanes, unless
+    given: a sharded part takes its whole operator's, so that each cell's sum
+    keeps its order)."""
+    dev = rows.device
+    rptr = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
+    rptr[1:] = torch.cumsum(torch.bincount(b, minlength=nrows), 0)
+    order = torch.sort(n, stable=True).indices
+    ccell, counts = torch.unique_consecutive(n[order], return_counts=True)
+    cptr = torch.zeros(ccell.shape[0] + 1, dtype=torch.int64, device=dev)
+    cptr[1:] = torch.cumsum(counts, 0)
+    if lanes is None:
+        lanes = (stream_lanes(b.shape[0], nrows), stream_lanes(b.shape[0], ccell.shape[0]))
+    return {"near_rptr": rptr.to(torch.int32), "near_rcell": n.to(torch.int32), "near_rval": rows.contiguous(),
+            "near_ccell": ccell.to(torch.int32), "near_cptr": cptr.to(torch.int32),
+            "near_cobs": b[order].to(torch.int32), "near_cval": rows[order].contiguous(), "near_lanes": tuple(lanes)}
+
+
+def _stored_near_matvec(op, xw, ndc):
+    """(nrows_padded, ndc) float64: the near matvec over op's stored rows by
+    observation, each row's terms summed in one fixed order."""
+    pairs = _csr_pairs(op.near_rptr, op.near_rcell)
+    return _near_sum((op.near_rptr.shape[0] - 1, ndc), pairs, lambda s, e: op.near_rval[s:e],
+                     _matvec_terms(xw, ndc), xw.device)
+
+
+def _stored_near_rmatvec(op, u, ncells):
+    """(nmc, ncells) float64: the near rmatvec over op's stored rows by cell,
+    each cell's terms summed in one fixed order."""
+    seg, b = _csr_pairs(op.near_cptr, op.near_cobs)
+    return _near_sum((op.near_cval.shape[1], ncells), (b, op.near_ccell.long()[seg]), lambda s, e: op.near_cval[s:e],
+                     _rmatvec_terms(u, ncells), u.device)
+
+
+def _pair_rows(rows_of, b, n):
+    """rows_at for _near_sum: rows_of(b, n) of the pairs s .. e - 1."""
+    return lambda s, e: rows_of(b[s:e], n[s:e])
+
+
+def _near_sum(shape, pairs, rows_at, terms_of, device):
+    """A plain near pass: float64 zeros of `shape` plus, for the pairs (b,
+    n), PAIR_CHUNK at a time, the (index, terms) that terms_of(rows, b, n)
+    gives, rows = rows_at(s, e) of the pairs s .. e - 1 in float64, summed
+    in one fixed order."""
     out = torch.zeros(shape, dtype=torch.float64, device=device)
     b, n = pairs
     for s in range(0, b.shape[0], PAIR_CHUNK):
-        bb, nn = b[s : s + PAIR_CHUNK], n[s : s + PAIR_CHUNK]
-        index, terms = terms_of(rows_of(bb, nn).double(), bb, nn)
+        e = min(b.shape[0], s + PAIR_CHUNK)
+        index, terms = terms_of(rows_at(s, e).double(), b[s:e], n[s:e])
         _index_add_in_order(out.view(-1), index.reshape(-1), terms.reshape(-1))
     return out
 
@@ -151,6 +221,16 @@ def _rmatvec_terms(u, ncells):
     u64 = u.double()
     return lambda rows, b, n: (torch.arange(rows.shape[1], device=u.device)[:, None] * ncells + n,
                                torch.einsum("pkd,pd->kp", rows, u64[b]))
+
+
+def _near_pairs_kept(b, n, mask_of, rows_of):
+    """(b, n, rows) of the candidate pairs (b, n) that mask_of(b, n) calls
+    near, in their order, and rows_of(b, n) of them, PAIR_CHUNK at a time."""
+    keep = torch.cat([mask_of(b[s : s + PAIR_CHUNK], n[s : s + PAIR_CHUNK])
+                      for s in range(0, b.shape[0], PAIR_CHUNK)] or [torch.zeros(0, dtype=torch.bool, device=b.device)])
+    b, n = b[keep], n[keep]
+    rows = [rows_of(b[s : s + PAIR_CHUNK], n[s : s + PAIR_CHUNK]) for s in range(0, b.shape[0], PAIR_CHUNK)]
+    return b, n, torch.cat(rows) if rows else rows_of(b, n)
 
 
 # =============================================================================
@@ -263,9 +343,10 @@ class MatrixFreeKernel:
     -1 where a candidate is another part's cell.
     The products run kernel B2 (prism_matvec, prism_rmatvec) on the card
     and the chunk loop (_partial_matvec, _partial_rmatvec) on the CPU. The
-    blend's near pass reads near_idx (the matvec's) and its transpose over
-    this operator's cells, near_tptr and near_obs (the rmatvec's), built
-    once at construction (near_idx_transpose)."""
+    blend's near candidates, near_idx and its transpose over this operator's
+    cells (near_tptr, near_obs; near_idx_transpose), and on the card its
+    stored near rows (near_rptr .. near_cval, near_lanes; with_near_rows),
+    which the near passes read, are built once at construction."""
 
     grid6: tuple  # (X1, X2, Y1, Y2, Z1, Z2), each (N,)
     xd: torch.Tensor  # (nrows_padded,)
@@ -285,6 +366,19 @@ class MatrixFreeKernel:
     # (pairs,), int32: each cell's observations in increasing order.
     near_tptr: torch.Tensor = None
     near_obs: torch.Tensor = None
+    # The stored near rows (near_row_layout): the pairs the main loop's far
+    # test calls near, by observation (near_rptr, near_rcell, near_rval) and
+    # by cell (near_ccell, near_cptr, near_cobs, near_cval), and the near
+    # passes' lanes a segment; None when phys.far_quad is off, and off the
+    # card.
+    near_rptr: torch.Tensor = None
+    near_rcell: torch.Tensor = None
+    near_rval: torch.Tensor = None
+    near_ccell: torch.Tensor = None
+    near_cptr: torch.Tensor = None
+    near_cobs: torch.Tensor = None
+    near_cval: torch.Tensor = None
+    near_lanes: tuple = None
 
     @property
     def graph_capturable(self) -> bool:
@@ -311,7 +405,23 @@ class MatrixFreeKernel:
     @property
     def nbytes(self) -> int:
         return _nbytes(*self.grid6, self.xd, self.yd, self.zd, self.cw, self.row_w, self.near_idx, self.near_tptr,
-                       self.near_obs)
+                       self.near_obs) + self.near_rows_nbytes
+
+    @property
+    def near_rows_nbytes(self) -> int:
+        """Bytes of the stored near rows, in both orders (part of nbytes)."""
+        return _nbytes(*(getattr(self, f) for f in NEAR_ROW_FIELDS))
+
+    def with_near_rows(self, lanes=None) -> "MatrixFreeKernel":
+        """This operator with its stored near rows, built once, at
+        construction, by kernel B2's build (ops/prism_matvec.py
+        prism_near_build) and laid out by near_row_layout. As it is without
+        a blend, and off the card, where no product reads them: the CPU's
+        products run the chunk loop, its near wrappers _near_matvec /
+        _near_rmatvec (near_rows_plain gives the layout on any device)."""
+        if not self.phys.far_quad or self.near_idx is None or self.xd.device.type != "cuda":
+            return self
+        return dataclasses.replace(self, **near_row_layout(*prism_near_build(self), self.xd.shape[0], lanes))
 
     @property
     def partial_nbytes(self) -> int:
@@ -386,26 +496,61 @@ class MatrixFreeKernel:
         args = (self.phys.problem, self.phys.data_type, self.phys.nmc, self.phys.ndc, self.phys.magv,
                 self.phys.intensity, self.phys.handle_inside)
         closed = forward_rows(*args, *_in_float64(sub, xs, ys, zs)).to(xs.dtype)[:, 0]
-        near = ~prism.far_mask(xs[:, None], ys[:, None], zs[:, None], *sub)[:, 0]
-        return torch.where(near[:, None, None], closed, torch.zeros_like(closed))
+        return torch.where(self._near_pair_mask(b, n)[:, None, None], closed, torch.zeros_like(closed))
+
+    def _near_pair_mask(self, b, n):
+        """(P,) bool: which candidate pairs (observation b, cell n of this
+        operator) the far mask calls near."""
+        sub = tuple(a[n][:, None] for a in self.grid6)
+        return ~prism.far_mask(self.xd[b][:, None], self.yd[b][:, None], self.zd[b][:, None], *sub)[:, 0]
+
+    def _near_pairs_plain(self):
+        """(b, n, rows): the plain version of the stored near rows' build
+        (ops/prism_matvec.py::prism_near_build): the candidates of near_idx
+        among this operator's cells that the far mask calls near, in
+        increasing order of (b, n), and their _near_pair_rows."""
+        K = self.near_idx.shape[1]
+        local = self.near_idx.long() - self.cell_lo
+        own = (local >= 0) & (local < self.N)
+        b = torch.arange(self.xd.shape[0], device=local.device)[:, None].expand(-1, K)[own]
+        n = local[own]
+        key = torch.sort(b * self.N + n).values
+        return _near_pairs_kept(key // self.N, key % self.N, self._near_pair_mask, self._near_pair_rows)
+
+    def near_rows_plain(self) -> dict:
+        """The stored near rows as their plain build gives them
+        (near_row_layout of _near_pairs_plain, with this operator's lanes)."""
+        return near_row_layout(*self._near_pairs_plain(), self.xd.shape[0], self.near_lanes)
+
+    def _stored_near_matvec(self, xw):
+        """(nrows_padded, ndc) float64: the near matvec over the stored rows
+        (the plain version of prism_near_matvec's kernel)."""
+        return _stored_near_matvec(self, xw, self.phys.ndc)
+
+    def _stored_near_rmatvec(self, u_pad):
+        """(nmc, N) float64: the near rmatvec over the stored rows (the plain
+        version of prism_near_rmatvec's kernel)."""
+        return _stored_near_rmatvec(self, u_pad, self.N)
 
     def _near_matvec(self, xw):
         """(nrows_padded, ndc) float64: the blend's near pass of the matvec
-        over near_idx, this operator's candidates of each observation (the
-        plain version of ops/prism_matvec.py::prism_near_matvec)."""
+        over near_idx, this operator's candidates of each observation, each
+        pair's row evaluated again (the plain version of
+        ops/prism_matvec.py::prism_near_matvec)."""
         K = self.near_idx.shape[1]
         local = self.near_idx.long() - self.cell_lo
         own = (local >= 0) & (local < self.N)
         b = torch.arange(self.xd.shape[0], device=local.device)[:, None].expand(-1, K)
-        return _near_sum((self.xd.shape[0], self.phys.ndc), (b[own], local[own]), self._near_pair_rows,
+        b, n = b[own], local[own]
+        return _near_sum((self.xd.shape[0], self.phys.ndc), (b, n), _pair_rows(self._near_pair_rows, b, n),
                          _matvec_terms(xw, self.phys.ndc), xw.device)
 
     def _near_rmatvec(self, u_pad):
         """(nmc, N) float64: the blend's near pass of the rmatvec over the
         transposed candidates (the plain version of prism_near_rmatvec)."""
         n, b = _csr_pairs(self.near_tptr, self.near_obs)
-        return _near_sum((self.phys.nmc, self.N), (b, n), self._near_pair_rows, _rmatvec_terms(u_pad, self.N),
-                         u_pad.device)
+        return _near_sum((self.phys.nmc, self.N), (b, n), _pair_rows(self._near_pair_rows, b, n),
+                         _rmatvec_terms(u_pad, self.N), u_pad.device)
 
     def _main_rows(self, xs, ys, zs):
         """(B, N, nmc, ndc) rows of kernel B2's main loop: the 27-point rule,
@@ -456,9 +601,10 @@ class ShardedMatrixFreeKernel:
     matvec adds the slots' partial data on the home device in slot order;
     rmatvec concatenates the slots' gradients. The candidate near cells
     stay in the whole grid's numbering; each slot keeps those of its own
-    (the others -1) and their transpose over its cells. `whole` is the
-    unsharded operator on the home device, which pads the vectors and
-    weights the rows."""
+    (the others -1), their transpose over its cells and, on the card, its
+    stored near rows. `whole` is the unsharded operator on the home device
+    without stored near rows: it only pads the vectors and weights the
+    rows."""
 
     whole: MatrixFreeKernel
     parts: list
@@ -487,11 +633,16 @@ class ShardedMatrixFreeKernel:
                 idx = k.near_idx.to(dev)
                 near["near_idx"] = torch.where((idx >= s * per) & (idx < (s + 1) * per), idx, -1)
                 near["near_tptr"], near["near_obs"] = near_idx_transpose(near["near_idx"], s * per, per)
-            parts.append(dataclasses.replace(
+            part = dataclasses.replace(
                 k, grid6=tuple(a[sl].to(dev) for a in k.grid6), xd=k.xd.to(dev), yd=k.yd.to(dev),
                 zd=k.zd.to(dev), cw=k.cw[sl].to(dev), row_w=k.row_w.to(dev), N_true=None, cell_lo=s * per, **near,
-            ))
-        whole = dataclasses.replace(k, **{f: getattr(k, f).to(mesh.home) for f in ("xd", "cw", "row_w")})
+                **dict.fromkeys(NEAR_ROW_FIELDS),
+            )
+            # Each part's stored near rows, with the whole operator's lanes:
+            # each cell's near sum then runs as unsharded, to the last bit.
+            parts.append(part.with_near_rows(k.near_lanes))
+        whole = dataclasses.replace(k, **{f: getattr(k, f).to(mesh.home) for f in ("xd", "cw", "row_w")},
+                                    **dict.fromkeys(NEAR_ROW_FIELDS), near_lanes=None)
         return cls(whole, parts, mesh)
 
     @property
@@ -792,9 +943,10 @@ class LatticeMatrixFreeKernel:
 
     The products run kernel B3 (lattice_matvec, lattice_rmatvec) on the card
     and the chunk loop (_partial_matvec, _partial_rmatvec) on the CPU, both
-    between the column weight and the row weights. Kernel B3's blend
-    evaluates the near cells in a pass of its own over the near lists
-    (lattice_near_lists), built once with the operator."""
+    between the column weight and the row weights. Kernel B3's blend adds
+    the near cells in a pass of its own over their stored rows
+    (with_near_rows), built once with the operator on the card from its
+    near lists (lattice_near_lists)."""
 
     xe: torch.Tensor  # (nx+1,)
     ye: torch.Tensor  # (ny+1,)
@@ -827,6 +979,17 @@ class LatticeMatrixFreeKernel:
     near_cells: torch.Tensor = None
     near_tptr: torch.Tensor = None
     near_obs: torch.Tensor = None
+    # The stored near rows when far_quad, on the card (near_row_layout), as
+    # the per-cell operator's: by observation, by cell, and the near passes'
+    # lanes.
+    near_rptr: torch.Tensor = None
+    near_rcell: torch.Tensor = None
+    near_rval: torch.Tensor = None
+    near_ccell: torch.Tensor = None
+    near_cptr: torch.Tensor = None
+    near_cobs: torch.Tensor = None
+    near_cval: torch.Tensor = None
+    near_lanes: tuple = None
 
     @property
     def graph_capturable(self) -> bool:
@@ -853,7 +1016,22 @@ class LatticeMatrixFreeKernel:
     @property
     def nbytes(self) -> int:
         return _nbytes(self.xe, self.ye, self.ze, self.xd, self.yd, self.zd, self.cw, self.row_w, self.wi0,
-                       self.near_ptr, self.near_cells, self.near_tptr, self.near_obs)
+                       self.near_ptr, self.near_cells, self.near_tptr, self.near_obs) + self.near_rows_nbytes
+
+    @property
+    def near_rows_nbytes(self) -> int:
+        """Bytes of the stored near rows, in both orders (part of nbytes)."""
+        return _nbytes(*(getattr(self, f) for f in NEAR_ROW_FIELDS))
+
+    def with_near_rows(self, lanes=None) -> "LatticeMatrixFreeKernel":
+        """This operator with its stored near rows, built once, at
+        construction, by kernel B3's build (ops/lattice_matvec.py
+        lattice_near_build) and laid out by near_row_layout. As it is
+        without a blend, and off the card, where no product reads them (as
+        MatrixFreeKernel.with_near_rows)."""
+        if not self.far_quad or self.near_cells is None or self.xd.device.type != "cuda":
+            return self
+        return dataclasses.replace(self, **near_row_layout(*lattice_near_build(self), self.xd.shape[0], lanes))
 
     @property
     def partial_nbytes(self) -> int:
@@ -940,28 +1118,59 @@ class LatticeMatrixFreeKernel:
         n) as kernel B3's near pass evaluates them: each cell's closed forms
         from its own 8 corners in float64, rounded to the operator's type,
         where the window's near mask calls the pair near, else 0."""
-        ix, iy, iz = n % self.nx, (n // self.nx) % self.ny, n // (self.nx * self.ny)
         xs, ys, zs = self.xd[b], self.yd[b], self.zd[b]
-        edges = tuple(torch.stack((e[i], e[i + 1]), 1) for e, i in ((self.xe, ix), (self.ye, iy), (self.ze, iz)))
-        edges64, *pts64 = _in_float64(edges, xs, ys, zs)
+        edges64, *pts64 = _in_float64(self._pair_edges(n), xs, ys, zs)
         closed = _lattice_closed_rows(*edges64, *pts64, *self._physics()).to(xs.dtype)[:, 0, 0, 0]
-        near = _lattice_near_mask(*edges, xs, ys, zs)[:, 0, 0, 0]
-        return torch.where(near[:, None, None], closed, torch.zeros_like(closed))
+        return torch.where(self._near_pair_mask(b, n)[:, None, None], closed, torch.zeros_like(closed))
+
+    def _pair_edges(self, n):
+        """(x, y, z) edges (P, 2) of the flat cells n."""
+        ix, iy, iz = n % self.nx, (n // self.nx) % self.ny, n // (self.nx * self.ny)
+        return tuple(torch.stack((e[i], e[i + 1]), 1) for e, i in ((self.xe, ix), (self.ye, iy), (self.ze, iz)))
+
+    def _near_pair_mask(self, b, n):
+        """(P,) bool: which candidate pairs (observation b, flat cell n) the
+        window's near mask calls near."""
+        return _lattice_near_mask(*self._pair_edges(n), self.xd[b], self.yd[b], self.zd[b])[:, 0, 0, 0]
+
+    def _near_pairs_plain(self):
+        """(b, n, rows): the plain version of the stored near rows' build
+        (ops/lattice_matvec.py::lattice_near_build): the candidates of the
+        near lists that the near mask calls near, in increasing order of (b,
+        n), and their _near_pair_rows."""
+        b, n = _csr_pairs(self.near_ptr, self.near_cells)
+        return _near_pairs_kept(b, n, self._near_pair_mask, self._near_pair_rows)
+
+    def near_rows_plain(self) -> dict:
+        """The stored near rows as their plain build gives them
+        (near_row_layout of _near_pairs_plain, with this operator's lanes)."""
+        return near_row_layout(*self._near_pairs_plain(), self.xd.shape[0], self.near_lanes)
+
+    def _stored_near_matvec(self, xw):
+        """(nrows_padded, ndc) float64: the near matvec over the stored rows
+        (the plain version of lattice_near_matvec's kernel)."""
+        return _stored_near_matvec(self, xw, self.ndc)
+
+    def _stored_near_rmatvec(self, u_pad):
+        """(nmc, N) float64: the near rmatvec over the stored rows (the plain
+        version of lattice_near_rmatvec's kernel)."""
+        return _stored_near_rmatvec(self, u_pad, self.N)
 
     def _near_matvec(self, xw):
         """(nrows_padded, ndc) float64: the blend's near pass of the matvec
-        over each observation's candidates (the plain version of
-        ops/lattice_matvec.py::lattice_near_matvec)."""
-        return _near_sum((self.xd.shape[0], self.ndc), _csr_pairs(self.near_ptr, self.near_cells),
-                         self._near_pair_rows, _matvec_terms(xw, self.ndc), xw.device)
+        over each observation's candidates, each pair's row evaluated again
+        (the plain version of ops/lattice_matvec.py::lattice_near_matvec)."""
+        b, n = _csr_pairs(self.near_ptr, self.near_cells)
+        return _near_sum((self.xd.shape[0], self.ndc), (b, n), _pair_rows(self._near_pair_rows, b, n),
+                         _matvec_terms(xw, self.ndc), xw.device)
 
     def _near_rmatvec(self, u_pad):
         """(nmc, N) float64: the blend's near pass of the rmatvec over each
         cell's candidate observations (the plain version of
         lattice_near_rmatvec)."""
         n, b = _csr_pairs(self.near_tptr, self.near_obs)
-        return _near_sum((self.nmc, self.N), (b, n), self._near_pair_rows, _rmatvec_terms(u_pad, self.N),
-                         u_pad.device)
+        return _near_sum((self.nmc, self.N), (b, n), _pair_rows(self._near_pair_rows, b, n),
+                         _rmatvec_terms(u_pad, self.N), u_pad.device)
 
     def _main_rows(self, xs, ys, zs, i0):
         """(B, nz, ny, nx, nmc, ndc) rows of kernel B3's main loop: the
@@ -1072,11 +1281,15 @@ class ShardedLatticeMatrixFreeKernel:
 
             part = dict(xe=k.xe.to(dev), ye=k.ye.to(dev), ze=k.ze.to(dev), xd=put(xd), yd=put(yd), zd=put(zd))
             if k.far_quad:
-                # Each part's near lists from its own observations and windows.
+                # Each part's near lists (and rows) from its own observations
+                # and windows.
                 part["wi0"] = torch.as_tensor(wi0[sl], dtype=torch.int32, device=dev)
                 part.update(lattice_near_lists(*(part[f] for f in ("xe", "ye", "ze", "xd", "yd", "zd")), win,
                                                part["wi0"]))
-            parts.append(dataclasses.replace(k, cw=k.cw.to(dev), row_w=rw[sl].to(dev), nrows=per, win=win, **part))
+            part = dataclasses.replace(k, cw=k.cw.to(dev), row_w=rw[sl].to(dev), nrows=per, win=win, **part,
+                                       **dict.fromkeys(NEAR_ROW_FIELDS))
+            # Each part's stored near rows, with the whole operator's lanes.
+            parts.append(part.with_near_rows(k.near_lanes))
         return cls(parts, k.nrows, k.ndc, mesh)
 
     @property
@@ -1220,7 +1433,7 @@ def make_matrixfree_kernel(
                 nx=grid.nx, ny=grid.ny, nz=grid.nz, problem=phys.problem, magv=phys.magv,
                 intensity=phys.intensity, nmc=phys.nmc, ndc=phys.ndc, data_type=phys.data_type,
                 far_quad=phys.far_quad, **geometry,
-            ))
+            ).with_near_rows())
 
     # Cell padding: dummy unit prisms far outside the model volume (finite
     # closed forms for every real observation point) with cw = 0.
@@ -1246,10 +1459,11 @@ def make_matrixfree_kernel(
     xd_t, yd_t, zd_t = t(xd_p), t(yd_p), t(zd_p)
     near = {}
     if phys.far_quad:
-        # Built once, in int32: kernel B2's near pass reads them as they are.
+        # Built once, in int32: kernel B2's build of the near rows reads them
+        # as they are.
         near["near_idx"] = near_cell_indices(grid6, xd_t, yd_t, zd_t).to(torch.int32)
         near["near_tptr"], near["near_obs"] = near_idx_transpose(near["near_idx"], 0, N_pad)
     return probe(MatrixFreeKernel(
         grid6=grid6, xd=xd_t, yd=yd_t, zd=zd_t, cw=t(cw_pad), row_w=t(row_w), phys=phys,
         chunk=chunk, nrows=nd, N_true=N, **near,
-    ))
+    ).with_near_rows())

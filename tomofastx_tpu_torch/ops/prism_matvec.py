@@ -20,12 +20,17 @@ _partial_rmatvec), unchanged. The kernels are bound by operations (the
 source says how); neither uses atomics, so two runs agree to the last bit.
 
 The blend's products are split: the main kernels give the near pairs zero,
-and the near pass (prism_near_matvec, prism_near_rmatvec) evaluates them over
-the operator's near candidates, launched first: the matvec's into one more
-split of the main kernels' float64 partial sums, the rmatvec's into the
-float64 sums its main kernel starts from. Its plain versions are the
-operator's _near_matvec and _near_rmatvec, and _split_matvec /
-_split_rmatvec are the plain version of the whole split.
+and the near pass (prism_near_matvec, prism_near_rmatvec) adds their terms,
+launched first: the matvec's into one more split of the main kernels'
+float64 partial sums, the rmatvec's into the float64 sums its main kernel
+starts from. The near pairs' rows are stored, built once with the operator
+by prism_near_build's kernels (their closed forms in float64, rounded to
+float32; ops/matrixfree.py near_row_layout keeps them by observation and by
+cell), so a near pass is a streaming read of them, bound by bytes. The plain
+versions: the operator's _near_matvec and _near_rmatvec (which evaluate the
+rows again), _stored_near_matvec and _stored_near_rmatvec (over the stored
+rows) and _near_pairs_plain (the build); _split_matvec / _split_rmatvec are
+the plain version of the whole split.
 
 `launch_plan` and `matvec_splits` are the launch's choices, in Python so
 that the CPU tests hold them. Two libraries are built with nvcc, one a type
@@ -70,12 +75,13 @@ def build_library(name: str) -> tuple[str, str]:
 # direction cosines and scale; the stream.
 ARGTYPES = (ctypes.c_int,) * 6 + (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 4 + (ctypes.c_double,) * 4 + (
     ctypes.c_void_p,)
-# And one for both near passes': family, nmc, ndc, handle_inside; the six
-# bounds, three coordinates, the candidates (near_idx, or the transposed
-# offsets and observations), the input, the output; N, nrows, K, cell_lo;
-# the field; the stream.
-NEAR_ARGTYPES = (ctypes.c_int,) * 4 + (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 4 + (ctypes.c_double,) * 4 + (
-    ctypes.c_void_p,)
+# The near rows' build: prism_near_mark (the six bounds, three coordinates,
+# near_idx; nrows, K, cell_lo, N; the flags; the stream) and prism_near_rows
+# (family, nmc, ndc, handle_inside; the bounds and coordinates, the pairs'
+# observations and cells; their count; the rows; the field; the stream).
+MARK_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,) * 2
+ROWS_ARGTYPES = (ctypes.c_int,) * 4 + (ctypes.c_void_p,) * 11 + (ctypes.c_int,) + (ctypes.c_void_p,) + (
+    ctypes.c_double,) * 4 + (ctypes.c_void_p,)
 
 
 def _library(is_double: int):
@@ -83,13 +89,22 @@ def _library(is_double: int):
 
 
 def _near_library():
-    return _cuda_build.load_library(SOURCES[0], ("prism_near_matvec", "prism_near_rmatvec"), NEAR_ARGTYPES)
+    return _cuda_build.load_library(SOURCES[0], ("prism_near_matvec", "prism_near_rmatvec"),
+                                    _cuda_build.NEAR_STREAM_ARGTYPES)
+
+
+def _build_entries():
+    """(prism_near_mark, prism_near_rows) of the float32 library, declared."""
+    return (_cuda_build.load_library(SOURCES[0], ("prism_near_mark",), MARK_ARGTYPES).prism_near_mark,
+            _cuda_build.load_library(SOURCES[0], ("prism_near_rows",), ROWS_ARGTYPES).prism_near_rows)
 
 
 def launch_plan(op) -> dict:
     """What the kernels are told about operator `op`: its type, family and
     mode (the closed forms, or the float32 blend), the field. Raises for
-    what the plain loop evaluates and the kernels do not."""
+    what the plain loop evaluates and the kernels do not: a blend without
+    its near candidates (and, at a launch, _operands for one without its
+    stored near rows)."""
     phys = op.phys
     dtype = op.xd.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -151,8 +166,10 @@ def _near_lists(op):
     return op.near_idx, op.near_tptr, op.near_obs
 
 
-def _operands(op, v, shape, what):
-    """The operator's tensors and v, checked for one launch."""
+def _operands(op, v, shape, what, stored=True):
+    """The operator's tensors and v, checked for one launch (stored: with
+    the blend's stored near rows, which every launch but their build's
+    reads)."""
     geometry = (*op.grid6, op.xd, op.yd, op.zd)
     dtype = op.xd.dtype
     if tuple(v.shape) != shape:
@@ -160,7 +177,12 @@ def _operands(op, v, shape, what):
     for a in geometry + (v,):
         if a.dtype != dtype:
             raise TypeError(f"prism_matvec: tensors of {a.dtype} and {dtype}")
-    for a in geometry + (v,) + (_near_lists(op) if op.phys.far_quad else ()):
+    stored = stored and op.phys.far_quad
+    if stored and not _cuda_build.stored_near_rows_ok(op):
+        raise ValueError("prism_matvec: a blended operator without its stored near rows (near_rptr .. near_cval: "
+                         "indices in int32, rows in float32, and near_lanes)")
+    blend = (*_near_lists(op), *(_cuda_build.stored_near_rows(op) if stored else ())) if op.phys.far_quad else ()
+    for a in geometry + (v,) + blend:
         if a.device != v.device:
             raise ValueError(f"prism_matvec: tensors on different devices: {a.device}, {v.device}")
         if not a.is_contiguous():
@@ -181,18 +203,46 @@ def _launch(entry, op, plan, geometry, vin, partial, out, splits, per):
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
-def _near_launch(entry, op, plan, lists, vin, out):
-    """One launch of a near pass; raises on a CUDA error."""
-    fn = getattr(_near_library(), entry)
-    idx, obs = lists
-    with torch.cuda.device(vin.device):
-        err = fn(plan["family"], plan["nmc"], plan["ndc"], plan["handle_inside"],
-                 *(a.data_ptr() for a in (*op.grid6, op.xd, op.yd, op.zd, idx)),
-                 None if obs is None else obs.data_ptr(), vin.data_ptr(), out.data_ptr(), op.N, op.xd.shape[0],
-                 op.near_idx.shape[1], op.cell_lo, *plan["magv"], plan["s4pi"],
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+def prism_near_build(op):
+    """The near pairs of blended MatrixFreeKernel `op` and their rows: (b,
+    n, rows), the observations and this operator's cells (int64, in
+    increasing order of (b, n)) of the candidates in near_idx that the main
+    loop's far test calls near, and their (P, nmc, ndc) rows, the closed
+    forms in float64 rounded to float32. Run once, when the operator is
+    built (ops/matrixfree.py MatrixFreeKernel.with_near_rows), never inside
+    a capture. On the card: one kernel marks the candidates (a thread each,
+    is_far), PyTorch gathers and orders the pairs kept, and a second kernel
+    evaluates their rows (a thread a pair, near_row). On CPU tensors it
+    returns op._near_pairs_plain (no CPU operator stores its rows: no CPU
+    product reads them). `prism_near_build.launches` counts the builds on
+    the card."""
+    dev = op.near_idx.device
+    if dev.type == "cpu":
+        return op._near_pairs_plain()
+    if dev.type != "cuda":
+        raise ValueError(f"prism_near_build runs on cuda or cpu tensors, got {dev}")
+    plan = _blend_plan(op, "prism_near_build")
+    _operands(op, op.xd, (op.xd.shape[0],), "xd", stored=False)
+    nrows, K = op.near_idx.shape
+    geometry = [a.data_ptr() for a in (*op.grid6, op.xd, op.yd, op.zd)]
+    mark, rows_fn = _build_entries()
+    flag = torch.empty((nrows, K), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _cuda_build.check("prism_near_mark", mark(*geometry, op.near_idx.data_ptr(), nrows, K, op.cell_lo, op.N,
+                                                  flag.data_ptr(), stream))
+        p = torch.nonzero(flag.view(-1)).squeeze(1)
+        del flag
+        key = (p // K) * op.N + (op.near_idx.view(-1)[p].long() - op.cell_lo)
+        key = torch.sort(key).values
+        b, n = key // op.N, key % op.N
+        obs, cell = b.to(torch.int32), n.to(torch.int32)
+        rows = torch.empty((b.shape[0], op.phys.nmc, op.phys.ndc), dtype=torch.float32, device=dev)
+        _cuda_build.check("prism_near_rows", rows_fn(
+            plan["family"], plan["nmc"], plan["ndc"], plan["handle_inside"], *geometry, obs.data_ptr(),
+            cell.data_ptr(), b.shape[0], rows.data_ptr(), *plan["magv"], plan["s4pi"], stream))
+    prism_near_build.launches += 1
+    return b, n, rows
 
 
 def _blend_plan(op, what):
@@ -206,11 +256,10 @@ def prism_near_matvec(op, xw, out=None):
     """(nrows_padded, ndc) float64: the near pairs' terms of blended
     MatrixFreeKernel `op` times xw ((nmc, N)), the first launch of
     prism_matvec's split (into `out`, a split of its partial sums, if
-    given). CUDA tensors go through the near-pass kernel (a warp an
-    observation over its near_idx candidates among the operator's cells,
-    each re-tested by the main loop's is_far, the near ones' closed forms in
-    float64 rounded to float32); CPU tensors through op._near_matvec.
-    `prism_near_matvec.launches` counts its launches."""
+    given). CUDA tensors go through the near-pass kernel (a group of lanes an
+    observation streams its stored rows, near_rptr, near_rcell, near_rval);
+    CPU tensors through op._near_matvec. `prism_near_matvec.launches` counts
+    its launches."""
     if xw.device.type == "cpu":
         y = op._near_matvec(xw)
         return y if out is None else out.copy_(y)
@@ -219,7 +268,8 @@ def prism_near_matvec(op, xw, out=None):
     plan = _blend_plan(op, "prism_near_matvec")
     _operands(op, xw, (op.phys.nmc, op.N), "xw")
     out = _cuda_build.float64_output((op.xd.shape[0], op.phys.ndc), xw, out)
-    _near_launch("prism_near_matvec", op, plan, (op.near_idx, None), xw, out)
+    _cuda_build.near_stream(_near_library().prism_near_matvec, "prism_near_matvec", plan["nmc"], plan["ndc"], op,
+                            True, xw, out, op.N)
     prism_near_matvec.launches += 1
     return out
 
@@ -228,9 +278,10 @@ def prism_near_rmatvec(op, u):
     """(nmc, N) float64: the near pairs' terms of blended MatrixFreeKernel
     `op` transposed times u ((nrows_padded, ndc)), the sums prism_rmatvec's
     main kernel starts from. CUDA tensors go through the near-pass kernel (a
-    warp a cell over its candidate observations, near_tptr and near_obs, in
-    order); CPU tensors through op._near_rmatvec.
-    `prism_near_rmatvec.launches` counts its launches."""
+    group of lanes a cell that has a near pair streams its stored rows,
+    near_cptr, near_cobs, near_cval, the others' sums cleared first); CPU
+    tensors through op._near_rmatvec. `prism_near_rmatvec.launches` counts
+    its launches."""
     if u.device.type == "cpu":
         return op._near_rmatvec(u)
     if u.device.type != "cuda":
@@ -238,7 +289,8 @@ def prism_near_rmatvec(op, u):
     plan = _blend_plan(op, "prism_near_rmatvec")
     _operands(op, u, (op.xd.shape[0], op.phys.ndc), "u")
     out = _cuda_build.float64_output((op.phys.nmc, op.N), u)
-    _near_launch("prism_near_rmatvec", op, plan, (op.near_tptr, op.near_obs), u, out)
+    _cuda_build.near_stream(_near_library().prism_near_rmatvec, "prism_near_rmatvec", plan["nmc"], plan["ndc"], op,
+                            False, u, out, op.N)
     prism_near_rmatvec.launches += 1
     return out
 
@@ -292,3 +344,4 @@ prism_matvec.launches = 0
 prism_rmatvec.launches = 0
 prism_near_matvec.launches = 0
 prism_near_rmatvec.launches = 0
+prism_near_build.launches = 0
