@@ -169,7 +169,9 @@ It needs one CUDA device, nvcc and nothing from the network. It
    build, mixed build, float32 compression, refineForward) on the card
    against the CPU;
 28. the fused major loop, --fused 3 through the command-line entry point
-   (one captured CUDA graph a major, replayed three times): tiled from the
+   (one CUDA graph a major, launched three times: head -> WHILE node over
+   one LSQR iteration -> tail, csrc/graph_while.cu; the WHILE node first
+   alone on three small graphs against its plain loop): tiled from the
    tiled run's cache (tile_matvec replayed inside the graph), the same with
    --mesh 1 (tile_matvec_sharded; equal to the last bit to the unmeshed
    fused run), bfloat16 dense (kernel B1), the coupled joint problem tiled,
@@ -178,18 +180,21 @@ It needs one CUDA device, nvcc and nothing from the network. It
    draped survey of 20 (kernel B3), each held to the
    host-driven run of its Parfile at the formats' tolerance, and each
    kernel's launches on the card read from its own run (those its wrapper
-   counted outside the capture, plus one replay's by torch.profiler, equal
-   to those counted inside the capture, times the replays the run's solver
-   made); a
+   counted outside the capture, plus, for each major, the head's and tail's
+   launches and the body's times its runs, the WHILE node's counter, equal
+   to the LSQR iterations; one more major profiled by torch.profiler must
+   show them); a
    5-major run written every 2 (chunks of 2, 2 and 1 majors, one capture)
    and its resumption from the checkpoint of major 4, equal to the last
    bit; through the library, the tiled, per-cell and lattice runs' graphs
-   replayed against the same steps launched eagerly on the card (equal to
-   the last bit, with torch.profiler's count of tile_matvec, B2 or B3 in that
-   chunk; the per-cell and lattice runs count their near passes too); and four small float64 fused problems (tiled, coupled dense, BTTB
-   and the lattice operator) on the card against the CPU; and a fused run
-   whose LSQR stops early (inversion.minResidual)
-   beside its host-driven run, LSQR iterations and seconds a major of each.
+   launched against the same steps launched eagerly on the card (LSQR
+   unrolled; equal to the last bit, with torch.profiler's count of
+   tile_matvec, B2 or B3 in each major of that chunk; the per-cell and
+   lattice runs count their near passes too); and four small float64 fused
+   problems (tiled, coupled dense, BTTB and the lattice operator) on the
+   card against the CPU; and a fused run whose LSQR stops early
+   (inversion.minResidual) beside its host-driven run: LSQR iterations, the
+   WHILE node's body runs (equal to them) and seconds a major of each.
    The runs of this phase that read the tiled cache share one packing of it;
 29. the 4m capacity rung of scripts/run_capacity_torch.py at its full width
    (200 x 200 x 100 = 4,000,000 cells, 2025 observations, the lattice
@@ -626,6 +631,8 @@ def run_main_path(cli, counters, name, parfile, out_dir, must_say, sensit_writte
     run["lsqr_iterations"] += [int(v) for its in re.findall(r"fused \d+ iterations in [0-9.]+s, lsqr iters = "
                                                            r"\[([0-9, ]+)\]", log) for v in its.split(",")]
     run["captures_s"] = [float(v) for v in re.findall(r"fused major captured as a CUDA graph in ([0-9.]+)s", log)]
+    run["lsqr_body_runs"] = [int(v) for its in re.findall(r"LSQR body runs = \[([0-9, ]+)\]", log)
+                             for v in its.split(",")]
     run["builds_s"] = [float(v) for v in re.findall(r"kernel built(?:\+cached)? in ([0-9.]+)s", log)]
     run["packs_s"] = [float(v) for v in re.findall(r"cache packed into [a-z ]+ in ([0-9.]+)s", log)]
     run["row_weights_s"] = [float(v) for v in re.findall(r"row weights applied on \S+ in ([0-9.]+)s", log)]
@@ -1185,7 +1192,11 @@ def cuda_kernel_events(fn):
     """The names of the kernels fn() launches on the card, by torch.profiler
     (memory copies and sets left out), read from its raw results: making
     its FunctionEvents takes longer than the products of the lattice and
-    per-cell operators themselves."""
+    per-cell operators themselves. A kernel run is one record: a record
+    whose kernel, card, stream and start time another holds already is
+    dropped, and counted in cuda_kernel_events.duplicates (one profile of a
+    coupled major came back with 164 tile_matvec records for its 84 runs,
+    and the next run of the same script with 84)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
@@ -1196,8 +1207,17 @@ def cuda_kernel_events(fn):
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
-    return [e.name() for e in prof.profiler.kineto_results.events()
-            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.name().startswith(("Memcpy", "Memset"))]
+    runs = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.name().startswith(("Memcpy", "Memset")):
+            key = (e.name(), e.device_index(), e.device_resource_id(), e.start_ns())
+            cuda_kernel_events.duplicates += key in runs
+            runs[key] = e.duration_ns()
+    cuda_kernel_events.last = list(runs.items())  # (name, card, stream, start ns): duration ns
+    return [key[0] for key in runs]
+
+
+cuda_kernel_events.duplicates = 0
 
 
 def time_blocks(spec, arrays):
@@ -2876,16 +2896,18 @@ def phase_27(work):
 
 
 # ---------------------------------------------------------------------------
-# Phase 28: the fused major loop (--fused M), one captured CUDA graph a major.
+# Phase 28: the fused major loop (--fused M), one CUDA graph a major whose
+# LSQR loop is a WHILE node.
 # ---------------------------------------------------------------------------
 
-FUSED_M = N_MAJOR  # --fused 3: a run's three majors in one chunk, three replays
+FUSED_M = N_MAJOR  # --fused 3: a run's three majors in one chunk, three launches
 
 
 # The symbol torch.profiler names for each counter's kernel: A2 launches A1's
 # kernel once a part; one launch of the bf16 rmatvec pair, of B2's matvec pair
-# and of each of B3's pairs ends in its reduce; each near pass is one kernel.
-# No symbol holds another.
+# and of each of B3's pairs ends in its reduce; each near pass is one kernel;
+# the WHILE node's graph runs set_condition once after its head and once after
+# each run of its body. No symbol holds another.
 KERNEL_SYMBOL = {"tile_matvec": "tile_matvec_kernel", "tile_matvec_sharded": "tile_matvec_kernel",
                  "bf16_matvec": "bf16_matvec_kernel", "bf16_rmatvec": "bf16_rmatvec_reduce",
                  "prism_matvec": "prism_matvec_reduce", "prism_rmatvec": "prism_rmatvec_kernel",
@@ -2893,29 +2915,40 @@ KERNEL_SYMBOL = {"tile_matvec": "tile_matvec_kernel", "tile_matvec_sharded": "ti
                  "prism_near_matvec": "prism_near_matvec_kernel", "prism_near_rmatvec": "prism_near_rmatvec_kernel",
                  "lattice_near_matvec": "lattice_near_matvec_kernel",
                  "lattice_near_rmatvec": "lattice_near_rmatvec_kernel",
-                 "prism_near_build": "prism_near_rows_kernel", "lattice_near_build": "lattice_near_rows_kernel"}
+                 "prism_near_build": "prism_near_rows_kernel", "lattice_near_build": "lattice_near_rows_kernel",
+                 "graph_while": "set_condition"}
 
 
 class KeptFusedSolver:
     """A fused solver whose calls go through unchanged; `kept` holds the
     solver, the tensors of its last call and, per kernel, the launches its
-    wrapper counted while the major's graph was captured."""
+    wrapper counted while the major was captured ("captured": head, LSQR
+    body and tail) and while its LSQR body was ("captured_body")."""
 
     def __init__(self, solver, kept, counters):
         self.solver, self.kept = solver, kept
-        capture = solver._capture_graph
+        capture, capture_body = solver._capture_graph, solver._capture_body
 
-        def counted_capture(stream):
-            before = {k: fn.launches for k, fn in counters.items()}
-            out = capture(stream)
-            kept["captured"] = {k: fn.launches - before[k] for k, fn in counters.items()}
+        def counted(key, fn, *args):
+            before = {k: c.launches for k, c in counters.items()}
+            out = fn(*args)
+            kept[key] = {k: c.launches - before[k] for k, c in counters.items()}
             return out
 
-        solver._capture_graph = counted_capture
+        solver._capture_graph = lambda stream: counted("captured", capture, stream)
+        solver._capture_body = lambda body, pool, loop: counted("captured_body", capture_body, body, pool, loop)
 
     def __call__(self, arrays):
+        """The call, timed to the end of its work on the card: a chunk's
+        seconds and its capture's at full precision (the log rounds them to
+        10 ms)."""
         self.kept.update(solver=self.solver, arrays=arrays)
-        return self.solver(arrays)
+        capture_s = self.solver.capture_s
+        t0 = time.time()
+        out = self.solver(arrays)
+        torch.cuda.synchronize()
+        self.kept.setdefault("calls", []).append((time.time() - t0, self.solver.capture_s - capture_s))
+        return out
 
     def __getattr__(self, name):
         return getattr(self.solver, name)
@@ -2932,39 +2965,52 @@ def keeping_the_fused_solver(workflow, counters):
         workflow.make_fused_solver = orig
 
 
-def profiled_launches(fn, want):
-    """Each kernel of `want`'s launches in fn() by torch.profiler (the
-    events of its symbol), and all kernels; profiled once more only if a
-    count comes back short of `want` (a profile can come back short of its
-    kernels, time_operator), the larger counts kept."""
-    got, n_all = {k: 0 for k in want}, 0
-    for _ in range(2):
-        events = cuda_kernel_events(fn)
-        n_all = max(n_all, len(events))
-        for k in want:
-            got[k] = max(got[k], sum(1 for e in events if KERNEL_SYMBOL[k] in e))
-        if all(got[k] >= want[k] for k in want):
-            break
-    return got, n_all
+def launches_a_major(kept, k, runs):
+    """Kernel k's launches in one major of the captured graph whose LSQR
+    body ran `runs` times: the head's and the tail's once, the body's once a
+    run (each counted once at the capture)."""
+    body = kept["captured_body"][k]
+    return kept["captured"][k] - body + body * runs
 
 
 def launches_on_the_card(name, run, kept, kernels):
     """What each kernel launched on the card in a --fused run, from that
     run's own counts: its wrapper's launches (counted once at the capture)
-    less those counted inside the capture, plus the launches of one replay
-    of the run's graph (torch.profiler) times the replays the run's solver
-    made. Fails unless a replay launches what the capture counted."""
-    solver, captured = kept["solver"], kept["captured"]
-    a_replay, n_all = profiled_launches(solver._graph.replay, {k: captured[k] for k in kernels})
-    out = {k: {"counted": run["launches"][k], "captured": captured[k], "a_replay": a_replay[k],
-               "replays": solver.replays,
-               "on_the_card": run["launches"][k] - captured[k] + a_replay[k] * solver.replays} for k in kernels}
-    print(f"  fused {name}: " + "; ".join(
-        f"{k} counted {v['counted']} ({v['captured']} inside the capture), torch.profiler saw {v['a_replay']} in one "
-        f"replay of {n_all} kernels, {v['replays']} replays: {v['on_the_card']} launched on the card"
-        for k, v in out.items()))
-    if any(v["a_replay"] != v["captured"] or not v["captured"] for v in out.values()):
-        raise SystemExit(f"FAILED fused {name}: a replay does not launch what its capture counted")
+    less those counted inside the capture, plus, for each major the run's
+    graph ran, its head's and tail's launches and its body's times the
+    body's runs in that major (the WHILE node's counter, logged). One more
+    major launched under torch.profiler must show what the capture counted
+    for its body's runs (torch.profiler sees the kernels inside a WHILE
+    body: while_node); fails unless it does."""
+    solver, captured, body = kept["solver"], kept["captured"], kept["captured_body"]
+    runs = run["lsqr_body_runs"]
+    duplicates = cuda_kernel_events.duplicates
+    for attempt in range(2):  # a profile can come back short of its kernels (time_operator)
+        solver._s.zero_()  # an active major (the run left the step index past its last)
+        events = cuda_kernel_events(solver._launch)
+        runs_profiled = int(solver._runs)
+        want = {k: launches_a_major(kept, k, runs_profiled) for k in kernels}
+        got = {k: sum(1 for e in events if KERNEL_SYMBOL[k] in e) for k in kernels}
+        if all(got[k] >= want[k] for k in kernels):
+            break
+    out = {k: {"counted": run["launches"][k], "captured": captured[k], "captured_body": body[k],
+               "lsqr_body_runs": runs, "replays": solver.replays, "profiled_major": got[k],
+               "profiled_major_expected": want[k], "profiled_major_body_runs": runs_profiled,
+               "profiled_records_dropped": cuda_kernel_events.duplicates - duplicates,
+               "on_the_card": run["launches"][k] - captured[k] + sum(launches_a_major(kept, k, r) for r in runs)}
+           for k in kernels}
+    print(f"  fused {name}: LSQR body runs {runs}; " + "; ".join(
+        f"{k} counted {v['counted']} ({v['captured']} inside the capture, {v['captured_body']} of them in the "
+        f"body), torch.profiler saw {v['profiled_major']} in one more major of {len(events)} kernels (expected "
+        f"{v['profiled_major_expected']}, its body run {runs_profiled} times; {v['profiled_records_dropped']} "
+        f"second records of a kernel run dropped), {v['replays']} majors: "
+        f"{v['on_the_card']} launched on the card" for k, v in out.items()))
+    if any(got[k] != want[k] or not captured[k] or not body[k] for k in kernels):
+        for k in kernels:  # what the profile held of each kernel: streams, starts and durations
+            seen = sorted((key[2], key[3], d) for key, d in cuda_kernel_events.last if KERNEL_SYMBOL[k] in key[0])
+            print(f"  {k}: {len(seen)} runs on streams {sorted({v[0] for v in seen})}, the first (stream, start ns "
+                  f"from the first, ns): {[(v[0], v[1] - seen[0][1], v[2]) for v in seen[:12]]}")
+        raise SystemExit(f"FAILED fused {name}: a major does not launch what its capture counted")
     return out
 
 
@@ -2977,29 +3023,30 @@ def tree_equal(a, b):
     return torch.equal(a, b)
 
 
-class ProfiledReplays:
-    """Stands in for a fused solver's graph for one call: each replay of the
-    graph profiled in a window of its own (torch.profiler), the kernels of
-    `symbol` and all kernels counted a replay."""
+class ProfiledLaunches:
+    """Stands in for a fused solver's launch for one call: each major's
+    launch profiled in a window of its own (torch.profiler), the kernels of
+    `symbol` and all kernels counted a major."""
 
-    def __init__(self, graph, symbol):
-        self.graph, self.symbol, self.counts, self.kernels = graph, symbol, [], []
+    def __init__(self, launch, symbol):
+        self.launch_graph, self.symbol, self.counts, self.kernels = launch, symbol, [], []
 
-    def replay(self):
-        events = cuda_kernel_events(self.graph.replay)
+    def launch(self):
+        events = cuda_kernel_events(self.launch_graph)
         self.counts.append(sum(1 for e in events if self.symbol in e))
         self.kernels.append(len(events))
 
 
-def graph_replay_against_eager(solver, arrays, counter, a_replay):
-    """The fused solver's graph replayed over one chunk against the same
-    steps launched eagerly on the card: every output equal to the last bit.
-    The eager steps' launches of the counter's kernel a step, and in the
-    graph's chunk (the call whose outputs are compared) its incoming
-    forwards, counted by the wrapper (every launch outside a graph is one),
-    and a_replay in each replay by torch.profiler, each replay of the chunk
+def graph_replay_against_eager(solver, arrays, counter, kept):
+    """The fused solver's graph launched over one chunk against the same
+    steps launched eagerly on the card (their LSQR unrolled): every output
+    equal to the last bit. The eager steps' launches of the counter's kernel
+    a step, and in the graph's chunk (the call whose outputs are compared)
+    its incoming forwards, counted by the wrapper (every launch outside a
+    graph is one), and in each major by torch.profiler (each major's launch
     profiled in a window of its own: a window around the whole chunk came
-    back ~10 kernels short of its ~5000 in some runs (PERF.md)."""
+    back ~10 kernels short of its ~5000 in some runs, PERF.md), held to the
+    capture's counts for that major's body runs (launches_a_major)."""
     arr = {k: v for k, v in arrays.items() if k != "active_steps"}
     n_active = int(arrays["active_steps"])
     name = counter.__name__
@@ -3009,30 +3056,137 @@ def graph_replay_against_eager(solver, arrays, counter, a_replay):
     # The eager chunk: each problem's incoming forward, then n_active steps.
     problems = len(arrays["S"])
     per_step = (counter.launches - problems) // n_active
-    captures, graph = solver.captures, solver._graph
-    profiled = ProfiledReplays(graph, KERNEL_SYMBOL[name])
+    captures = solver.captures
+    profiled = ProfiledLaunches(solver._launch, KERNEL_SYMBOL[name])
     counter.launches = 0
-    solver._graph = profiled
+    solver._launch = profiled.launch
     try:
         got = solver(arrays)
     finally:
-        solver._graph = graph
+        del solver._launch
     torch.cuda.synchronize()
     if solver.captures != captures:
         raise SystemExit("FAILED fused graph: the solver captured again on the same tensors")
+    runs = solver.body_runs[:n_active].tolist()
+    a_major = [launches_a_major(kept, name, r) for r in runs]
     out = {"equal_to_the_last_bit": tree_equal(got, eager), "per_step_eagerly": per_step,
-           "counted_in_the_graph_call": counter.launches, f"profiled_{name}_a_replay": profiled.counts,
-           "kernels_a_replay": profiled.kernels, "replays": n_active}
-    print(f"  the graph replayed over a chunk of {n_active} majors against the same steps launched eagerly on the "
+           "counted_in_the_graph_call": counter.launches, "lsqr_body_runs": runs, "launches_a_major": a_major,
+           f"profiled_{name}_a_major": profiled.counts, "kernels_a_major": profiled.kernels, "replays": n_active}
+    print(f"  the graph launched over a chunk of {n_active} majors against the same steps launched eagerly on the "
           f"card: every output equal to the last bit: {out['equal_to_the_last_bit']}; {name}: {per_step} launches a "
           f"step eagerly, {counter.launches} counted in the graph's call (the incoming forwards, expected "
-          f"{problems}), torch.profiler saw {profiled.counts} in its replays (expected {a_replay} in each of "
-          f"{n_active}) of {profiled.kernels} kernels")
+          f"{problems}), LSQR body runs {runs}, so {a_major} a major; torch.profiler saw {profiled.counts} in its "
+          f"majors of {profiled.kernels} kernels")
     if not out["equal_to_the_last_bit"]:
-        raise SystemExit("FAILED fused graph: the replay differs from the eager steps")
-    if per_step != a_replay or counter.launches != problems or profiled.counts != [a_replay] * n_active:
+        raise SystemExit("FAILED fused graph: the graph's majors differ from the eager steps")
+    if any(a != per_step for a in a_major) or counter.launches != problems or profiled.counts != a_major:
         raise SystemExit(f"FAILED fused graph: {name} launches inside the graph")
     return out
+
+
+def while_node(k=5, max_iter=8, long=1000, plain_long=100):
+    """The WHILE node of ops/graph_while.py on three small torch graphs of
+    its own: the head zeroes a count and sets the flag go = count < limit,
+    the body adds one to the count and sets the flag again, the tail writes
+    2 count + 1. Launched with limit k (k body runs), 0 (the flag false at
+    once: none) and a limit the count never reaches (max_iter runs: the
+    cap), each against its plain version (the head's and tail's graphs
+    replayed around while_on_the_host over the body's graph, which reads
+    the flag on the host before each run); what torch.profiler sees of a
+    launch of k runs (it must see the body's kernels, as the launch counts
+    of phase 28 need); and
+    a WHILE iteration's milliseconds (a launch of `long` runs less a launch
+    of none, over `long`, CUDA events) against the plain loop's (host clock
+    over `plain_long` runs), beside the bytes bound of one iteration."""
+    from tomofastx_tpu_torch.ops import graph_while as gw
+    from tomofastx_tpu_torch.ops.lsqr import LSQRLoop, while_on_the_host
+
+    dev = torch.device("cuda")
+    count, limit, out = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(3))
+    go = torch.zeros((), dtype=torch.bool, device=dev)
+    runs = torch.zeros((), dtype=torch.int32, device=dev)
+    pool = torch.cuda.graph_pool_handle()
+    head, body, tail = (torch.cuda.CUDAGraph(keep_graph=True) for _ in range(3))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        head.capture_begin(pool=pool)
+        count.zero_()
+        runs.zero_()
+        go.copy_(count < limit)
+        head.capture_end()
+        body.capture_begin(pool=pool)
+        count.add_(1)
+        go.copy_(count < limit)
+        body.capture_end()
+        tail.capture_begin(pool=pool)
+        torch.add(2 * count, 1, out=out)
+        tail.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    # The profiler saw 2 of a launch's 6 set_condition runs where its first
+    # window in the process opened after the graph was instantiated.
+    cuda_kernel_events(torch.cuda.synchronize)
+
+    def plain(cap):
+        head.replay()
+        n = while_on_the_host(LSQRLoop(go=go, carry={}, iterate=body.replay, max_iter=cap))
+        tail.replay()
+        return n
+
+    graph = gw.WhileGraph(head, body, tail, go, runs, max_iter)
+    cases = {}
+    for name, lim in (("limit k", k), ("flag false at once", 0), ("flag never falls", 1 << 40)):
+        limit.fill_(lim)
+        gw.while_graph_launch(graph)
+        torch.cuda.synchronize()
+        on_card = [int(count), int(runs), int(out)]
+        limit.fill_(lim)
+        n = plain(max_iter)
+        torch.cuda.synchronize()
+        host = [int(count), n, int(out)]
+        want = min(lim, max_iter)
+        cases[name] = {"limit": lim, "graph": on_card, "plain": host, "expected": [want, want, 2 * want + 1]}
+        if not on_card == host == cases[name]["expected"]:
+            raise SystemExit(f"FAILED the WHILE node, {name}: count, runs, out {on_card} on the card, {host} by the "
+                             f"plain loop, expected {cases[name]['expected']}")
+    limit.fill_(k)
+    conditions = 0
+    for attempt in range(2):  # the first profile of a process came back short (2 of 6)
+        events = cuda_kernel_events(lambda: gw.while_graph_launch(graph))
+        conditions = max(conditions, sum(1 for e in events if KERNEL_SYMBOL["graph_while"] in e))
+        if conditions == 1 + k:
+            break
+    if conditions != 1 + k:
+        raise SystemExit(f"FAILED the WHILE node: torch.profiler saw {conditions} set_condition kernels in a launch "
+                         f"of {k} runs, not {1 + k}")
+    graph.close()
+    longer = gw.WhileGraph(head, body, tail, go, runs, long)
+    limit.fill_(0)
+    zero_ms = time_cuda(lambda: gw.while_graph_launch(longer), warm=1, reps=5)
+    limit.fill_(long)
+    long_ms = time_cuda(lambda: gw.while_graph_launch(longer), warm=1, reps=5)
+    longer.close()
+    limit.fill_(plain_long)
+    plain(plain_long)  # the graphs instantiated
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain(plain_long)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / plain_long
+    # One iteration reads the count, the limit, the flag and the counter once
+    # and writes the count, the flag and the counter.
+    nbytes = 8 + 8 + 1 + 4 + 8 + 1 + 4
+    res = {"cases": cases, "profiled_kernels_a_launch_of_k": len(events), "profiled_set_condition": conditions,
+           "k": k, "max_iter": max_iter, "launch_of_none_ms": zero_ms,
+           f"launch_of_{long}_ms": long_ms, "ms": (long_ms - zero_ms) / long, "plain_ms": plain_ms,
+           "bound_ms": nbytes / MEMORY_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+           "max_abs_err": max(abs(a - b) for v in cases.values() for a, b in zip(v["graph"], v["plain"]))}
+    print(f"  the WHILE node (csrc/graph_while.cu) on three small graphs: " + "; ".join(
+        f"{n}: count, runs, out {v['graph']} on the card, {v['plain']} by the plain loop" for n, v in cases.items())
+          + f"; torch.profiler saw {conditions} set_condition kernels of {len(events)} in a launch of {k} runs; a "
+          f"WHILE iteration {res['ms'] * 1e3:.2f} us on the card ({long} "
+          f"runs in {long_ms:.3f} ms, none in {zero_ms:.3f} ms) against {plain_ms * 1e3:.1f} us by the plain loop")
+    return res
 
 
 def graph_of_one_lsqr_iteration(name, op, reps=2):
@@ -3114,16 +3268,16 @@ def early_exit_pair(work, inputs, cache_dir):
     through the library (seconds at full precision). Each run's LSQR
     iterations a major and seconds a major (fused: the chunk less its
     capture, over the majors); the fused model held to the host-driven one
-    at the formats' tolerance. A fused major runs every iteration's
-    products whatever LSQR's exit (a CUDA graph whose iterations could be
-    skipped needs conditional nodes, which this torch may lack)."""
+    at the formats' tolerance. A fused major's LSQR is a WHILE node that
+    stops where the host-driven loop stops: its body's runs a major (the
+    node's counter) must equal the fused run's LSQR iterations and the
+    host-driven run's."""
     from tomofastx_tpu_torch.config.parfile import read_parfile
     from tomofastx_tpu_torch.inversion.workflow import solve_problem_joint_gravmag
 
     extra = ["sensit.readFromFiles = 1", f"sensit.folderPath = {cache_dir}/",
              f"inversion.minResidual = {EARLY_EXIT_MIN_RESIDUAL}"]
-    out = {"min_residual": EARLY_EXIT_MIN_RESIDUAL,
-           "conditional_nodes_in_torch": hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")}
+    out = {"min_residual": EARLY_EXIT_MIN_RESIDUAL}
     for name, chunk in (("host-driven", 0), ("fused", FUSED_M)):
         d = os.path.join(work, f"out_early_exit_{chunk}")
         pf = write_parfile(work, f"Parfile_early_exit_{chunk}.txt", inputs, d, N_MINOR, fmt="tiled", extra=extra)
@@ -3133,8 +3287,9 @@ def early_exit_pair(work, inputs, cache_dir):
         t = res.timings
         run = {"lsqr_iterations": [int(v) for v in t["lsqr_iters"]], "solve_s": list(t["solve_s"])}
         if chunk:
-            run["capture_s"] = t.get("capture_s", 0.0)  # none on the CPU, whose steps run eagerly
+            run["capture_s"] = t["capture_s"]
             run["major_s"] = (sum(t["solve_s"]) - run["capture_s"]) / N_MAJOR
+            run["lsqr_body_runs"] = list(t["lsqr_body_runs"])
         else:
             run["major_s"] = sum(t["solve_s"]) / N_MAJOR
         cost = [row[1] for row in read_costs(os.path.join(d, "costs.txt"))]
@@ -3146,11 +3301,14 @@ def early_exit_pair(work, inputs, cache_dir):
     host, fused = out["host-driven"], out["fused"]
     print(f"  early exit (inversion.minResidual = {EARLY_EXIT_MIN_RESIDUAL}): host-driven LSQR iterations a major "
           f"{host['lsqr_iterations']}, {host['major_s']:.4f} s a major (majors {[round(v, 4) for v in host['solve_s']]}"
-          f" s); fused {fused['lsqr_iterations']}, {fused['major_s']:.4f} s a major (chunk {fused['solve_s'][0]:.3f} s "
-          f"less its capture {fused['capture_s']:.3f} s); conditional graph nodes in this torch: "
-          f"{out['conditional_nodes_in_torch']}")
+          f" s); fused {fused['lsqr_iterations']}, the WHILE node's body runs {fused['lsqr_body_runs']}, "
+          f"{fused['major_s']:.4f} s a major (chunk {fused['solve_s'][0]:.3f} s less its capture "
+          f"{fused['capture_s']:.3f} s)")
     if not sum(host["lsqr_iterations"]) < N_MAJOR * N_MINOR:
         raise SystemExit("FAILED early exit: the host-driven LSQR did not stop early")
+    if not fused["lsqr_body_runs"] == fused["lsqr_iterations"] == host["lsqr_iterations"]:
+        raise SystemExit("FAILED early exit: the WHILE node's body runs, the fused LSQR iterations and the "
+                         "host-driven ones differ")
     out["against_host"] = formats_apart("early exit, fused against host-driven", fused, host)
     for run in (host, fused):
         del run["models"]
@@ -3180,8 +3338,9 @@ def phase_28(cli, counters, workflow, work, inputs, refs):
 
 def fused_runs(cli, counters, workflow, work, inputs, refs):
     """phase_28's runs."""
-    print(f"the fused major loop (--fused {FUSED_M}): one CUDA graph a major, replayed:")
-    graph_said = {"unit": rf"fused major loop: chunks of up to {FUSED_M} majors, one CUDA graph a major, replayed",
+    print(f"the fused major loop (--fused {FUSED_M}): one CUDA graph a major, LSQR as a WHILE node:")
+    graph_said = {"unit": rf"fused major loop: chunks of up to {FUSED_M} majors, one CUDA graph a major, LSQR as a "
+                          r"WHILE node",
                   "capture": r"fused major captured as a CUDA graph in ([0-9.]+)s"}
     args = ("--fused", str(FUSED_M))
     tiled_cache = ["sensit.readFromFiles = 1", f"sensit.folderPath = {refs['tiled'][1]}/SENSIT/"]
@@ -3189,16 +3348,21 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
 
     t_phase = time.time()
     seconds = {}
+    # The WHILE node alone first (torch.profiler must see its body's kernels).
+    while_alone = while_node()
+    seconds["the WHILE node alone"] = time.time() - t_phase
 
     def fused(name, pf, out_dir, said, ref, kind="grav", mesh=None, kernels=None, builds=None, **kw):
         """A --fused run through the command line, held to its host-driven
         run. kernels: {kernel: (its launches a step, its eager forwards)};
         builds: {kernel: its launches, all outside the graph} (the stored
         near rows' build, once with the operator);
-        the step's launches are counted once inside the capture and once in
-        the warm-up step, the forwards (of the synthetic, prior, starting
-        and incoming models) outside the graph; each kernel's launches on
-        the card are read from the run. No other kernel may launch."""
+        the step's launches are counted once inside the capture (its LSQR
+        body's once) and once in the warm-up step (LSQR unrolled), the
+        forwards (of the synthetic, prior, starting and incoming models)
+        outside the graph; each kernel's launches on the card are read from
+        the run; the WHILE node's graph is launched once a major, and its
+        body runs once an LSQR iteration. No other kernel may launch."""
         kernels = kernels or {}
         t0 = time.time()
         with keeping_the_fused_solver(workflow, counters) as kept:
@@ -3206,10 +3370,17 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
                                 mesh=mesh, args=args, **kw)
         if len(run["captures_s"]) != 1 or [n for n, _ in run["chunks"]] != [N_MAJOR]:
             raise SystemExit(f"FAILED fused {name}: chunks {run['chunks']}, captures {run['captures_s']}")
-        if kept["solver"].replays != N_MAJOR:
-            raise SystemExit(f"FAILED fused {name}: {kept['solver'].replays} replays, not {N_MAJOR}")
-        # The chunk's seconds less its capture (the warm-up step included).
-        run["per_lsqr_iteration_ms"] = (run["chunks"][0][1] - run["captures_s"][0]) / (N_MAJOR * N_MINOR) * 1e3
+        if kept["solver"].replays != N_MAJOR or run["lsqr_body_runs"] != run["lsqr_iterations"]:
+            raise SystemExit(f"FAILED fused {name}: {kept['solver'].replays} launches (not {N_MAJOR}), LSQR body runs "
+                             f"{run['lsqr_body_runs']} against the iterations {run['lsqr_iterations']}")
+        # The chunk's seconds less its capture (the warm-up step included), at
+        # full precision.
+        call_s, capture_s = kept["calls"][0]
+        run["major_s_fused"] = (call_s - capture_s) / N_MAJOR
+        run["chunk_s"], run["capture_s"] = call_s, capture_s
+        run["per_lsqr_iteration_ms"] = run["major_s_fused"] / N_MINOR * 1e3
+        print(f"  fused {name}: {run['major_s_fused']:.4f} s a major (the chunk {call_s:.4f} s less its capture "
+              f"{capture_s:.4f} s, over {N_MAJOR})")
         if ref is not None:
             spread[name] = formats_apart(f"fused {name} against the host-driven run", run, ref)
         if kernels:
@@ -3217,10 +3388,14 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
             for k, v in run["launches_fused"].items():
                 per_step, forwards = kernels[k]
                 eager = forwards + per_step
-                if v["captured"] != per_step or v["counted"] - v["captured"] != eager:
+                on_card = eager + N_MAJOR * per_step  # the warm-up step's launches run on the card too
+                if launches_a_major(kept, k, N_MINOR) != per_step or v["counted"] - v["captured"] != eager or (
+                        v["on_the_card"] != on_card):
                     raise SystemExit(f"FAILED fused {name}: {k} counted {v['counted']}, {v['captured']} inside the "
-                                     f"capture (expected {eager} + {per_step})")
-        if not launched(run["launches"], **{k: run["launches"][k] for k in kernels}, **(builds or {})):
+                                     f"capture ({v['captured_body']} in the body), {v['on_the_card']} on the card "
+                                     f"(expected {eager} outside it, {per_step} a major, {on_card} on the card)")
+        if not launched(run["launches"], **{k: run["launches"][k] for k in kernels}, **(builds or {}),
+                        graph_while=N_MAJOR):
             raise SystemExit(f"FAILED fused {name}: a kernel off its path was launched: {run['launches']}")
         runs[name] = run
         seconds[name] = time.time() - t0
@@ -3233,8 +3408,7 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
     kept = fused("tiled", pf, out["tiled"], {"format": r"grav kernel: tiled"}, refs["tiled"][0],
                  sensit_written=False, kernels={"tile_matvec": (2 * N_MINOR + 2, 4)})
     t0 = time.time()
-    library = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["tile_matvec"],
-                                         runs["tiled"]["launches_fused"]["tile_matvec"]["a_replay"])
+    library = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["tile_matvec"], kept)
     seconds["graph against eager"] = time.time() - t0
     del kept
     torch.cuda.empty_cache()
@@ -3290,8 +3464,7 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
                  kernels={"prism_matvec": (N_MINOR + 1, 5), "prism_rmatvec": (N_MINOR + 1, 0),
                           "prism_near_matvec": (N_MINOR + 1, 5), "prism_near_rmatvec": (N_MINOR + 1, 0)},
                  builds={"prism_near_build": 1})
-    per_cell_graph = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["prism_matvec"],
-                                                runs["per-cell"]["launches_fused"]["prism_matvec"]["a_replay"])
+    per_cell_graph = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["prism_matvec"], kept)
     del kept
     torch.cuda.empty_cache()
     seconds["per-cell"] = time.time() - t0
@@ -3307,8 +3480,7 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
                  kernels={"lattice_matvec": (N_MINOR + 1, 5), "lattice_rmatvec": (N_MINOR + 1, 0),
                           "lattice_near_matvec": (N_MINOR + 1, 5), "lattice_near_rmatvec": (N_MINOR + 1, 0)},
                  builds={"lattice_near_build": 1})
-    lattice_graph = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["lattice_matvec"],
-                                               runs["lattice"]["launches_fused"]["lattice_matvec"]["a_replay"])
+    lattice_graph = graph_replay_against_eager(kept["solver"], kept["arrays"], counters["lattice_matvec"], kept)
     del kept
     torch.cuda.empty_cache()
     seconds["lattice"] = time.time() - t0
@@ -3364,7 +3536,8 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
     seconds["small problems"] = time.time() - t0
     seconds["phase"] = time.time() - t_phase
     print("  phase 28's seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    return {"runs": runs, "against_host": spread, "mesh1": mesh1, "graph_against_eager": library,
+    return {"while_node": while_alone, "runs": runs, "against_host": spread, "mesh1": mesh1,
+            "graph_against_eager": library,
             "per_cell_graph_against_eager": per_cell_graph, "lattice_graph_against_eager": lattice_graph,
             "early_exit": early,
             "five_majors": {"chunks": chunks, "captures": captures, "resumed_equal": equal}, "small": small,
@@ -3610,12 +3783,15 @@ def phase_30(counters, workflow, work):
     said = rf"grav kernel: dense \({fx.ndata}, {fx.ncells}\) torch\.float32"
     captured = re.search(r"fused major captured as a CUDA graph in ([0-9.]+)s", log)
     print(f"  {rec['operator'][0]}; {rec['loop'][0]}")
-    print(f"  captures {solver.captures}, replays {solver.replays}, hand kernels launched {sum(launches.values())} "
-          f"(inside the capture {sum(kept['captured'].values())})")
-    if not (re.search(said, log) and captured and solver.captures == 1 and solver.replays == fx.depth[0]):
-        raise SystemExit(f"FAILED capacity {DENSE_RUNG}: not the dense float32 kernel in a captured, replayed fused "
-                         f"loop ({rec['operator']}; {rec['loop']})")
-    if any(launches.values()) or any(kept["captured"].values()):
+    products = {k: v for k, v in launches.items() if k != "graph_while"}
+    print(f"  captures {solver.captures}, launches of the major's graph {launches['graph_while']} (LSQR body runs "
+          f"{rec['timings']['lsqr_body_runs']}), product kernels launched {sum(products.values())} (inside the "
+          f"capture {sum(kept['captured'].values())})")
+    if not (re.search(said, log) and captured and solver.captures == 1 and solver.replays == fx.depth[0]
+            == launches["graph_while"] and rec["timings"]["lsqr_body_runs"] == res.timings["lsqr_iters"]):
+        raise SystemExit(f"FAILED capacity {DENSE_RUNG}: not the dense float32 kernel in a captured fused loop "
+                         f"launched once a major, LSQR as a WHILE node ({rec['operator']}; {rec['loop']})")
+    if any(products.values()) or any(kept["captured"].values()):
         raise SystemExit(f"FAILED capacity {DENSE_RUNG}: a hand kernel was launched in the dense solve: {launches}")
     initial = float(re.search(r"data cost \(initial\) \[grav\] = (\S+)", log).group(1))
     costs = rec["cost_history_grav"]
@@ -3667,6 +3843,7 @@ def main() -> int:
     from tomofastx_tpu_torch.io.sensit_cache import read_kernel_cache_packed, try_read_kernel_cache
     from tomofastx_tpu_torch.ops import bf16_gemv
     from tomofastx_tpu_torch.ops import blocked_matvec as bmv
+    from tomofastx_tpu_torch.ops import graph_while
     from tomofastx_tpu_torch.ops import lattice_matvec as lmv
     from tomofastx_tpu_torch.ops import prism_matvec as pmv
     from tomofastx_tpu_torch.ops import sensitivity as sens
@@ -3685,7 +3862,7 @@ def main() -> int:
                 "lattice_rmatvec": lmv.lattice_rmatvec, "prism_near_matvec": pmv.prism_near_matvec,
                 "prism_near_rmatvec": pmv.prism_near_rmatvec, "lattice_near_matvec": lmv.lattice_near_matvec,
                 "lattice_near_rmatvec": lmv.lattice_near_rmatvec, "prism_near_build": pmv.prism_near_build,
-                "lattice_near_build": lmv.lattice_near_build}
+                "lattice_near_build": lmv.lattice_near_build, "graph_while": graph_while.while_graph_launch}
     device = torch.device("cuda")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     smi = nvidia_smi_line()
@@ -3693,7 +3870,8 @@ def main() -> int:
 
     # ---- 1. build, one compiler per source, started together ----
     t0 = time.time()
-    jobs = [(m.build_library, ()) for m in (tmv, bmv, bf16_gemv, lmv)] + [(pmv.build_library, (n,)) for n in pmv.SOURCES]
+    jobs = [(m.build_library, ()) for m in (tmv, bmv, bf16_gemv, lmv, graph_while)] + [
+        (pmv.build_library, (n,)) for n in pmv.SOURCES]
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = [pool.submit(fn, *a) for fn, a in jobs]
         for b in builds:
@@ -4239,7 +4417,7 @@ def main() -> int:
         clock(27)
         small_rel.update({f"variant_{k}": v for k, v in phase_27(work).items()})
 
-        # ---- 28. the fused major loop: one CUDA graph a major ----
+        # ---- 28. the fused major loop: one CUDA graph a major, LSQR as a WHILE node ----
         clock(28)
         fused = phase_28(cli, counters, workflow, work, inputs, {
             "tiled": (tiled, out["tiled"]), "bf16": (variants["bf16"]["runs"]["run"],),
@@ -4448,6 +4626,25 @@ def main() -> int:
         }
         for name, f, line, yard in (("lattice_matvec", "matvec", 724, "torch_mv_f32_ms"),
                                     ("lattice_rmatvec", "rmatvec", 762, "torch_mv_f32_T_ms"))
+    ] + [
+        {
+            "name": "graph_while", "route": "cuda",
+            "source": "tomofastx_tpu_torch/csrc/graph_while.cu",
+            "wrapper": "tomofastx_tpu_torch/ops/graph_while.py: while_graph_launch (one launch of a major's graph; its "
+                       "kernel set_condition runs once after the head and once after each run of the LSQR body)",
+            "replaces": "tomofastx_tpu/ops/lsqr.py:161 (no Pallas kernel: the lax.while_loop of LSQR inside the JAX "
+                        "package's fused program, tomofastx_tpu/inversion/joint.py:421)",
+            "launches": fused["runs"]["tiled"]["launches"]["graph_while"],
+            "set_condition_launches": fused["runs"]["tiled"]["launches"]["graph_while"]
+            + sum(fused["runs"]["tiled"]["lsqr_body_runs"]),
+            "launches_fused_runs": {k: v["launches"]["graph_while"] for k, v in fused["runs"].items()},
+            **{k: fused["while_node"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")},
+            "shape_of_these_times": "one WHILE iteration of a body of two small kernels and a one-byte copy, with "
+                                    "set_condition (a launch of 1000 runs less one of none, over 1000); plain_ms: "
+                                    "the same body's graph replayed from the host, which reads the flag each run",
+            "measured": fused["while_node"],
+        }
     ]
     print(json.dumps({
         "main_paths": {"tiled": report(tiled), "tiled_mesh1": report(tiled_mesh), "dense": report(dense),

@@ -5,6 +5,8 @@ capacity ladder, rung by rung, through the port's own entry point.
     python3 scripts/run_capacity_torch.py --rung 4m           # -> CAPACITY_4M_TORCH.json
     python3 scripts/run_capacity_torch.py --rung 32m --out-dir output/capacity
     python3 scripts/run_capacity_torch.py --rung 4m --small --device cpu   # the small sizes
+    python3 scripts/run_capacity_torch.py --rung bttb134m --save-model /tmp/host.npy
+    python3 scripts/run_capacity_torch.py --rung bttb134m_fused --hold-to CAPACITY_BTTB134M_TORCH.json
 
 Each rung writes the synthetic fixtures (grid, true model, survey) and the
 Parfile of one JAX capacity script into a temporary directory (removed at the
@@ -39,6 +41,9 @@ the script's arguments:
     bttb134m  scripts/run_bttb_giant.py    512 x 512 x 512 cells, 256 x 256 observations
               on the cell lattice at stride 2: BTTBKernel (torch.fft), the
               host-driven loop; 5 x 20
+    bttb134m_fused
+              scripts/run_bttb_giant.py under BG_FUSED = 1: the same, the
+              fused major loop in one chunk of all 5 majors
 
 --small takes the sizes those scripts take under MC_SMALL, MJ_SMALL, GP_SMALL
 or BG_SMALL. A run writes CAPACITY_<RUNG>_TORCH.json (with --small,
@@ -47,8 +52,13 @@ default): the sizes, the operator the log names, the wall and setup seconds,
 peak device memory, host peak RSS, the cost history, the truth correlation,
 and the card's name and power limit; the 1m rungs add the build, the cache's
 seconds and bytes and the matrix-free section, generic4m the near lists and
-the partial sums of a product. It exits non-zero when the data cost of
-an active problem does not fall from the first major to the last, and 3
+the partial sums of a product. --save-model PATH writes the final models to
+PATH (numpy, one row a problem) and names it in the record; --hold-to RECORD
+holds this run's final costs and models to those of another run of the same
+fixture that saved its models (the record it wrote), at the formats'
+tolerance (FORMATS_TOL), and writes the comparison into the record. It exits
+non-zero when the data cost of an active problem does not fall from the
+first major to the last or a held run is outside that tolerance, and 3
 (before writing anything) when the temporary directory, under TMPDIR, has no
 room for the rung's sensitivity cache.
 
@@ -85,13 +95,16 @@ H = (100.0, 100.0, 50.0)  # cell size of every rung (m)
 class Rung:
     """One rung: the JAX script it ports, its kind, and its sizes at full
     width and under the script's small switch: ((nx, ny, nz), observations a
-    side, (majors, minors)); for the dense kind, the script's MC_BUILD."""
+    side, (majors, minors)); for the dense kind, the script's MC_BUILD; fused,
+    the fused major loop in one chunk of all the majors, where the script
+    takes it by a switch (BG_FUSED)."""
 
     source: str
     kind: str  # "bf16", "matrixfree", "joint", "bttb", "dense" or "generic"
     full: tuple
     small: tuple
     build: str = ""
+    fused: bool = False
 
 
 RUNGS = {
@@ -111,8 +124,9 @@ RUNGS = {
                       ((40, 40, 20), 20, (2, 10))),
     "joint1m": Rung("scripts/run_million_joint.py", "joint", ((128, 128, 64), 40, (15, 60)),
                     ((32, 32, 16), 20, (4, 20))),
-    "bttb134m": Rung("scripts/run_bttb_giant.py", "bttb", ((512, 512, 512), 256, (5, 20)),
-                     ((64, 64, 32), 32, (2, 10))),
+    **{rung: Rung("scripts/run_bttb_giant.py", "bttb", ((512, 512, 512), 256, (5, 20)), ((64, 64, 32), 32, (2, 10)),
+                  fused=fused)
+       for rung, fused in (("bttb134m", False), ("bttb134m_fused", True))},
 }
 BTTB_STRIDE = 2  # the BTTB survey's spacing in cells
 # scripts/run_million_cell.py's builds by MC_BUILD: the name its record gives
@@ -122,6 +136,9 @@ MC_BUILDS = {
     "f64": ("full_f64_lattice", 0, torch.float64),
     "f32quad": ("compensated_f32_quad", 0, torch.float32),
 }
+# The formats' tolerance of a run held to another of its fixture (--hold-to):
+# each final model within 2e-3 of its range, each final data cost within 25 %.
+FORMATS_TOL = {"model_of_range": 2e-3, "cost": 0.25}
 # What GENERIC_4M_PROBE.json ran, beside the port's generic4m run.
 GENERIC_JAX_RECORD = ("GENERIC_4M_PROBE.json is a TPU run of the JAX package, whose factory gates the per-cell "
                       "float32 blend off above 2M cells off the CPU (tomofastx_tpu/ops/matrixfree.py:39); the port "
@@ -360,9 +377,10 @@ def _write_joint(work, size, nside, depth):
                                                                                    "grav_only": body_b}
 
 
-def _write_bttb(work, size, nside, depth):
+def _write_bttb(work, size, nside, depth, fused=False):
     """scripts/run_bttb_giant.py: one shallow prism, the survey on the cell
-    lattice at a stride of BTTB_STRIDE cells."""
+    lattice at a stride of BTTB_STRIDE cells; fused, all the majors in one
+    fused chunk (BG_FUSED = 1)."""
     from tomofastx_tpu_torch.io.tableio import save_table
 
     nx, ny, nz = size
@@ -375,7 +393,7 @@ def _write_bttb(work, size, nside, depth):
     ys = 0.5 * H[1] + np.arange(nside) * BTTB_STRIDE * H[1]
     write_survey(f"{work}/data.txt", xs, ys)
     lines = _gravity_lines(work, nx, ny, nz, nside * nside, *depth) + ["tpu.kernelFormat = matrixfree\n"]
-    return lines, [val], {}, {}
+    return lines, [val], {"fused_chunk": depth[0]} if fused else {}, {}
 
 
 WRITERS = {"bf16": _write_bf16, "matrixfree": _write_matrixfree, "joint": _write_joint, "bttb": _write_bttb,
@@ -390,7 +408,8 @@ def write_fixture(rung: str, work: str, small: bool = False, depth=None) -> Fixt
     depth = tuple(depth or own_depth)
     os.makedirs(work, exist_ok=True)
     t0 = time.time()
-    lines, truth, solve_kw, masks = WRITERS[spec.kind](work, size, nside, depth, *([spec.build] if spec.build else []))
+    lines, truth, solve_kw, masks = WRITERS[spec.kind](work, size, nside, depth, *([spec.build] if spec.build else []),
+                                                       **({"fused": True} if spec.fused else {}))
     return Fixture(rung, work, lines, truth, solve_kw, size, nside * nside, depth, time.time() - t0, masks)
 
 
@@ -549,12 +568,51 @@ def record(fx: Fixture, res, log: str, wall: float, peak, device) -> dict:
     return out
 
 
+def final_models(fx: Fixture, res) -> np.ndarray:
+    """The run's final models, one row a problem."""
+    return np.stack([np.asarray(res.models[i].val).ravel() for i in range(len(fx.truth))])
+
+
+def held_to(rec: dict, models: np.ndarray, other_path: str) -> dict:
+    """This run's final data costs and models (rec, models) against another
+    run's of the same fixture, read from the record it wrote (other_path)
+    and the models it saved (--save-model): each model's largest difference
+    over its range and each cost's relative difference, beside
+    FORMATS_TOL; `within` says whether both runs solved the same sizes and
+    every difference is inside it. Keeps the other run's seconds, peaks,
+    costs and loop beside them."""
+    with open(other_path) as f:
+        other = json.load(f)
+    theirs = np.load(other["saved_model"])
+    sizes = ("ncells", "ndata", "majors", "minors")
+    out = {"record": other_path, "rung": other["rung"], "loop": other["loop"], "tolerance": FORMATS_TOL,
+           "same_sizes": all(rec[k] == other[k] for k in sizes) and theirs.shape == models.shape,
+           **{k: other.get(k) for k in ("wall_s", "peak_device_bytes", "host_peak_rss_bytes", "card")},
+           "solve_s": other["timings"].get("solve_s")}
+    within = out["same_sizes"]
+    for i, p in enumerate(("grav", "magn")[: models.shape[0]]):
+        if not out["same_sizes"]:
+            break
+        a, b = theirs[i], models[i]
+        apart = float(np.abs(b - a).max() / (a.max() - a.min()))
+        cost = abs(rec[f"final_cost_{p}"] - other[f"final_cost_{p}"]) / other[f"final_cost_{p}"]
+        out.update({f"model_apart_of_range_{p}": apart, f"cost_apart_{p}": cost,
+                    f"final_cost_{p}": other[f"final_cost_{p}"], f"cost_history_{p}": other[f"cost_history_{p}"],
+                    f"truth_correlation_{p}": other[f"truth_correlation_{p}"]})
+        within = within and apart <= FORMATS_TOL["model_of_range"] and cost <= FORMATS_TOL["cost"]
+    out["within"] = bool(within)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--rung", required=True, choices=list(RUNGS))
     parser.add_argument("--small", action="store_true", help="the JAX script's small sizes")
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     parser.add_argument("--out-dir", default=REPO, help="where the record is written (default: the repository)")
+    parser.add_argument("--save-model", metavar="PATH", help="write the final models to PATH (numpy)")
+    parser.add_argument("--hold-to", metavar="RECORD", help="hold the final costs and models to those of the run that "
+                        "wrote RECORD with --save-model, on the same fixture")
     args = parser.parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("run_capacity_torch.py: no CUDA device (pass --device cpu for the CPU)", file=sys.stderr)
@@ -571,6 +629,14 @@ def main(argv=None) -> int:
         res, log, wall, peak = solve(fx, device=args.device)
         out = record(fx, res, log, wall, peak, args.device)
         out["work_dir_free_bytes"] = free
+        if args.save_model or args.hold_to:
+            models = final_models(fx, res)
+            if args.save_model:
+                np.save(args.save_model, models)
+                out["saved_model"] = os.path.abspath(args.save_model)
+            if args.hold_to:
+                out["held_to"] = held_to(out, models, args.hold_to)
+            del models
         if RUNGS[args.rung].kind == "dense":
             out.update(matrixfree_per_iteration(fx, args.device))
     os.makedirs(args.out_dir, exist_ok=True)
@@ -580,6 +646,10 @@ def main(argv=None) -> int:
     print(json.dumps(out, indent=1))
     if not out["cost_falls"]:
         print(f"FAILED {args.rung}: the data cost does not fall from the first major to the last", file=sys.stderr)
+        return 1
+    if "held_to" in out and not out["held_to"]["within"]:
+        print(f"FAILED {args.rung}: the final costs or models are outside {FORMATS_TOL} of {args.hold_to}'s",
+              file=sys.stderr)
         return 1
     return 0
 

@@ -36,9 +36,12 @@ SMALL_ENV = {"scripts/run_2m_cell.py": "MC_SMALL", "scripts/run_4m_matrixfree.py
              "scripts/run_million_joint.py": "MJ_SMALL", "scripts/run_bttb_giant.py": "BG_SMALL",
              "scripts/run_million_cell.py": "MC_SMALL", "scripts/probe_generic_4m.py": "GP_SMALL"}
 # The environment that picks a script's other settings: run_million_cell.py's
-# build (MC_BUILD, its legacy alias MC_F64_BUILD) and probe_generic_4m.py's
-# far-field quadrature (GP_FARQ, default 1) and platform (GP_CPU).
-OTHER_ENV = ("MC_BUILD", "MC_F64_BUILD", "GP_FARQ", "GP_CPU")
+# build (MC_BUILD, its legacy alias MC_F64_BUILD), probe_generic_4m.py's
+# far-field quadrature (GP_FARQ, default 1) and platform (GP_CPU), and
+# run_bttb_giant.py's fused major loop (BG_FUSED).
+OTHER_ENV = ("MC_BUILD", "MC_F64_BUILD", "GP_FARQ", "GP_CPU", "BG_FUSED")
+# Each JAX script's switch to its fused major loop, where it has one.
+FUSED_ENV = {"scripts/run_bttb_giant.py": "BG_FUSED"}
 # One rung of each kind: the four matrix-free rungs share one small size.
 KINDS = {"bf16": "2m", "matrixfree": "4m", "joint": "joint1m", "bttb": "bttb134m"}
 
@@ -48,9 +51,10 @@ class _Stopped(BaseException):
     Exception` around its fused solve."""
 
 
-def jax_script_fixture(script, work, monkeypatch, build=""):
+def jax_script_fixture(script, work, monkeypatch, build="", fused=False):
     """What the JAX capacity script `script` writes under its small switch
-    (and MC_BUILD = build, if given): its main() run with its work directory
+    (and MC_BUILD = build, if given; its fused switch set to 1 if fused):
+    its main() run with its work directory
     swapped for `work`, its compile-cache set-up a no-op, and its solve
     stopped where it is called. Returns (its Parfile lines, its solve's
     keyword arguments, the directory it wrote into: run_million_cell.py
@@ -71,6 +75,8 @@ def jax_script_fixture(script, work, monkeypatch, build=""):
     monkeypatch.setenv(SMALL_ENV[script], "1")
     if build:
         monkeypatch.setenv("MC_BUILD", build)
+    if fused:
+        monkeypatch.setenv(FUSED_ENV[script], "1")
     monkeypatch.setattr(jcompile_cache, "enable", lambda *a, **k: None)
     monkeypatch.setattr(jparfile, "parse_parfile_lines", parse)
     monkeypatch.setattr(jworkflow, "solve_problem_joint_gravmag", stop)
@@ -105,11 +111,12 @@ def _files(work):
 @pytest.mark.parametrize("rung", list(cap.RUNGS))
 def test_small_fixture_is_what_the_jax_script_writes(tmp_path, monkeypatch, rung):
     """The rung's small fixture files byte for byte, its Parfile key for key
-    and its solve's arguments, against the JAX script's."""
+    and its solve's arguments (the fused rung's fused_chunk among them),
+    against the JAX script's."""
     spec = cap.RUNGS[rung]
     jwork, twork = str(tmp_path / "jax"), str(tmp_path / "torch")
     os.makedirs(jwork)
-    jlines, jkw, jwork = jax_script_fixture(spec.source, jwork, monkeypatch, spec.build)
+    jlines, jkw, jwork = jax_script_fixture(spec.source, jwork, monkeypatch, spec.build, spec.fused)
     fx = cap.write_fixture(rung, twork, small=True)
     assert _keys(fx.lines, twork) == _keys(jlines, jwork)
     assert _files(twork) == _files(jwork)
@@ -131,6 +138,7 @@ def test_rungs_at_full_width_are_the_jax_scripts():
     records = {"2m": "CAPACITY_2M.json", "4m": "CAPACITY_4M_MATRIXFREE.json", "8m": "CAPACITY_8M_MATRIXFREE.json",
                "16m": "CAPACITY_16M_MATRIXFREE.json", "32m": "CAPACITY_32M_MATRIXFREE.json",
                "joint1m": "MILLION_JOINT.json", "bttb134m": "BTTB_GIANT_134M.json",
+               "bttb134m_fused": "BTTB_GIANT_134M.json",
                "1m_f64": "MILLION_CELL_F64.json", "1m_f32quad": "MILLION_CELL_F32QUAD.json",
                "generic4m": "GENERIC_4M_PROBE.json"}
     for rung, name in records.items():
@@ -254,6 +262,60 @@ def test_record_names_the_operator_and_loop(both):
     assert "chi_in_shared_body" in both["joint"][2]
     for kind in ("matrixfree", "bttb"):
         assert "BTTBKernel" in both[kind][2]["operator"][0] and both[kind][2]["loop"] == ["host-driven"]
+
+
+def test_fused_bttb_rung_is_held_to_the_host_driven_one(both, tmp_path):
+    """The bttb134m_fused rung (BG_FUSED = 1): its small fixture solved
+    through the port's fused major loop, in one chunk of both majors, at
+    PARITY_MINORS, its record naming that loop; its final costs and model
+    held to the host-driven bttb134m run's through held_to (the --hold-to
+    comparison, the host run's models saved as --save-model saves them),
+    and to the JAX package's host-driven run, at COST_RTOL and MODEL_TOL."""
+    jres, hres, hrec, hfx = both["bttb"]
+    fx = cap.write_fixture("bttb134m_fused", str(tmp_path / "work"), small=True)
+    fx.lines = _with_minors(fx.lines, PARITY_MINORS)
+    assert fx.solve_kw == {"fused_chunk": fx.depth[0]} and not hfx.solve_kw
+    res, log, wall, peak = cap.solve(fx, device="cpu", solve_dtype=torch.float64, verbose=False)
+    rec = cap.record(fx, res, log, wall, peak, "cpu")
+    assert rec["loop"] == [f"fused major loop: chunks of up to {fx.depth[0]} majors, eager steps on the CPU"]
+    assert res.timings["lsqr_iters"] == [PARITY_MINORS] * fx.depth[0] and rec["cost_falls"]
+    saved = str(tmp_path / "host.npy")
+    np.save(saved, cap.final_models(hfx, hres))
+    with open(tmp_path / "host.json", "w") as f:
+        json.dump(dict(hrec, saved_model=saved), f)
+    held = cap.held_to(rec, cap.final_models(fx, res), str(tmp_path / "host.json"))
+    assert held["within"] and held["same_sizes"] and held["loop"] == ["host-driven"]
+    assert held["model_apart_of_range_grav"] <= MODEL_TOL and held["cost_apart_grav"] <= COST_RTOL
+    np.testing.assert_allclose(rec["cost_history_grav"], [h["cost_data"][0] for h in jres.costs_history],
+                               rtol=COST_RTOL)
+    mj = np.asarray(jres.models[0].val)
+    np.testing.assert_allclose(res.models[0].val, mj, rtol=0, atol=MODEL_TOL * (mj.max() - mj.min()))
+
+
+@pytest.mark.parametrize("case", ["same", "model apart", "cost apart", "other sizes"])
+def test_hold_to_holds_the_formats_tolerance(tmp_path, case):
+    """held_to against a saved run: within FORMATS_TOL where the models and
+    costs agree; outside it where a model moves by 1e-2 of its range, a cost
+    by 30 %, or the other run solved other sizes."""
+    rng = np.random.default_rng(5)
+    models = rng.normal(size=(1, 64))
+    other = {"rung": "bttb134m", "loop": ["host-driven"], "ncells": 64, "ndata": 16, "majors": 2, "minors": 10,
+             "final_cost_grav": 1e-3, "cost_history_grav": [1e-2, 1e-3], "truth_correlation_grav": 0.4,
+             "timings": {"solve_s": [0.1, 0.1]}, "saved_model": str(tmp_path / "other.npy")}
+    np.save(other["saved_model"], models)
+    with open(tmp_path / "other.json", "w") as f:
+        json.dump(other, f)
+    rec = {k: other[k] for k in ("ncells", "ndata", "majors", "minors", "final_cost_grav")}
+    mine = models.copy()
+    if case == "model apart":
+        mine[0, 3] += 1e-2 * (models.max() - models.min())
+    elif case == "cost apart":
+        rec["final_cost_grav"] *= 1.3
+    elif case == "other sizes":
+        rec["minors"] = 20
+    held = cap.held_to(rec, mine, str(tmp_path / "other.json"))
+    assert held["within"] == (case == "same")
+    assert held["same_sizes"] == (case != "other sizes")
 
 
 def test_script_imports_nothing_of_jax():

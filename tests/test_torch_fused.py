@@ -25,7 +25,7 @@ from tomofastx_tpu_torch import convert
 from tomofastx_tpu_torch.config.parfile import parse_parfile_lines as tparse
 from tomofastx_tpu_torch.inversion import joint as tjoint
 from tomofastx_tpu_torch.inversion import workflow as twf
-from tomofastx_tpu_torch.ops.lsqr import lsqr_solve
+from tomofastx_tpu_torch.ops.lsqr import CARRY, lsqr_solve, while_on_the_host
 from tomofastx_tpu_torch.parallel import mesh as tmesh
 
 from test_torch_coupled import CLUSTER, XGRAD, write_coupling_inputs
@@ -79,29 +79,87 @@ def _lsqr_case(case):
 def test_resident_lsqr_equals_the_host_exit_one(case, dtype):
     """x, the iteration count, r and the misfit of lsqr_solve with a 0-dim
     tensor bound (the device-resident form) equal to the last bit to those
-    with an int bound (the host-exit form); the tensor bound under an
-    unroll of its own length and of a larger one; capped to 0 the solve is
-    x = 0 after 0 iterations."""
+    with an int bound (the host-exit form); the tensor bound unrolled to its
+    own length and to a larger one, and in the split form (the first
+    products and the carry's buffers, then one iteration on them at a time,
+    driven by while_on_the_host on the flag as the card's WHILE node drives
+    it, capped at max_iter, then the result); capped to 0 the solve is
+    x = 0 after 0 iterations in both forms, the split one running no
+    iteration."""
     A, b, niter, rmin, gamma, target = _lsqr_case(case)
     At, bt = torch.as_tensor(A, dtype=dtype), torch.as_tensor(b, dtype=dtype)
     args = (lambda x: At @ x, lambda u: At.T @ u, bt, A.shape[1])
     misfit = (lambda x: torch.sqrt(torch.sum((At @ x - bt) ** 2) / b.size)) if target else None
     kw = dict(rmin=rmin, gamma=gamma, target_misfit=target, misfit_fn=misfit)
     host = lsqr_solve(*args, niter, **kw)
+    runs = []
+
+    def driven(loop):
+        runs.append(while_on_the_host(loop))
+
     for res in (lsqr_solve(*args, torch.tensor(niter), max_iter=niter, **kw),
-                lsqr_solve(*args, torch.tensor(niter), max_iter=niter + 3, **kw)):
+                lsqr_solve(*args, torch.tensor(niter), max_iter=niter + 3, **kw),
+                lsqr_solve(*args, torch.tensor(niter), max_iter=niter, loop=driven, **kw),
+                lsqr_solve(*args, torch.tensor(niter), max_iter=niter + 3, loop=driven, **kw)):
         assert int(res.iters) == host.iters
         assert res.x.dtype == dtype and torch.equal(res.x, host.x)
         assert torch.equal(res.r, host.r) and torch.equal(res.misfit, host.misfit)
+    # The body runs once an iteration, and once more where a stop test
+    # froze its last run (the target misfit; rho = 0 on a zero right-hand side).
+    froze = case in ("target-misfit", "zero-rhs")
+    assert runs == [host.iters + froze] * 2
     if case == "target-misfit":
         assert 0 < host.iters < niter
-    capped = lsqr_solve(*args, torch.tensor(0), max_iter=max(niter, 1), **kw)
-    assert int(capped.iters) == 0 and not capped.x.any()
+    for loop in (None, driven):
+        capped = lsqr_solve(*args, torch.tensor(0), max_iter=max(niter, 1), loop=loop, **kw)
+        assert int(capped.iters) == 0 and not capped.x.any()
+    assert runs[2:] == [0]
 
 
 def test_resident_lsqr_needs_an_unroll_for_a_tensor_bound():
     with pytest.raises(ValueError, match="max_iter"):
         lsqr_solve(lambda x: x, lambda u: u, torch.ones(3), 3, torch.tensor(2), 1e-13)
+    with pytest.raises(ValueError, match="tensor bound"):
+        lsqr_solve(lambda x: x, lambda u: u, torch.ones(3), 3, 2, 1e-13, loop=while_on_the_host)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["well-capped", "well-rmin-early", "target-misfit"])
+def test_split_lsqr_keeps_its_buffers(case, dtype):
+    """The split form writes every iteration into the buffers its first
+    step made: each carry value and the flag keep their storage (data_ptr)
+    across the iterations, each buffer is its own, and the runner sees the
+    loop's cap."""
+    A, b, niter, rmin, gamma, target = _lsqr_case(case)
+    At, bt = torch.as_tensor(A, dtype=dtype), torch.as_tensor(b, dtype=dtype)
+    misfit = (lambda x: torch.sqrt(torch.sum((At @ x - bt) ** 2) / b.size)) if target else None
+    seen = []
+
+    def watched(loop):
+        ptrs = {k: loop.carry[k].data_ptr() for k in CARRY}, loop.go.data_ptr()
+        assert set(loop.carry) == set(CARRY) and len(set(ptrs[0].values())) == len(CARRY)
+        assert loop.max_iter == niter + 2
+        while len(seen) < loop.max_iter and bool(loop.go):
+            loop.iterate()
+            seen.append(({k: loop.carry[k].data_ptr() for k in CARRY}, loop.go.data_ptr()) == ptrs)
+
+    res = lsqr_solve(lambda x: At @ x, lambda u: At.T @ u, bt, A.shape[1], torch.tensor(niter), rmin=rmin, gamma=gamma,
+                     target_misfit=target, misfit_fn=misfit, max_iter=niter + 2, loop=watched)
+    assert seen and all(seen) and int(res.iters) == len(seen) - (case == "target-misfit")
+
+
+@pytest.mark.parametrize("bad", ["go on the CPU", "go not bool", "runs not int32"])
+def test_while_graph_takes_its_flag_and_counter_on_the_card(bad):
+    """ops/graph_while.py's WhileGraph (the fused major's graph, LSQR as a
+    WHILE node) refuses a flag or a body counter it cannot hand to the
+    card's set_condition kernel, before it builds anything: it needs no
+    card to refuse them."""
+    from tomofastx_tpu_torch.ops.graph_while import WhileGraph
+
+    go = torch.zeros((), dtype=torch.float32 if bad == "go not bool" else torch.bool)
+    runs = torch.zeros((), dtype=torch.int64 if bad == "runs not int32" else torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device" if bad == "go on the CPU" else "0-dim bool tensor and"):
+        WhileGraph(None, None, None, go, runs, 4)
 
 
 # ------------------------------------------------------- make_fused_solver

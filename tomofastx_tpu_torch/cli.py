@@ -74,7 +74,7 @@ def main(argv=None):
     parser.add_argument(
         "--fused", type=int, default=0, metavar="M",
         help="run the major loop in on-device chunks of M iterations (on cuda one "
-        "captured CUDA graph a major, replayed; no host round-trips in between)",
+        "CUDA graph a major, LSQR's loop a WHILE node; no host round-trips in between)",
     )
     parser.add_argument(
         "--resume", action="store_true",

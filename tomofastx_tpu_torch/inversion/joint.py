@@ -7,8 +7,8 @@ operator's matvecs, wavelet conversions, and the final un-weighting of the
 model update — is one function of a dictionary of tensors.
 
 make_fused_solver runs several whole major iterations with no read of the
-device in between: on a CUDA device one major is one captured CUDA graph,
-replayed once a major.
+device in between: on a CUDA device one major is one CUDA graph, launched
+once a major, whose LSQR loop is a WHILE node (ops/graph_while.py).
 
 Row-block order of the stacked system (norms are order-independent; this
 fixes the layout): [data blocks per active problem] then per active problem
@@ -27,6 +27,7 @@ import torch
 
 from tomofastx_tpu_torch.inversion import operators as ops
 from tomofastx_tpu_torch.ops import wavelet as W
+from tomofastx_tpu_torch.ops.graph_while import WhileGraph, while_graph_launch
 from tomofastx_tpu_torch.ops.lsqr import lsqr_solve
 
 
@@ -396,18 +397,19 @@ def _build_solve_fn(spec: SystemSpec):
     seg = spec.seg_size
     ncols = len(spec.active) * seg
 
-    def solve_once(arr: Dict):
+    def solve_once(arr: Dict, lsqr_loop=None):
         system = assemble_system(spec, arr)
 
         # ---------------- LSQR ----------------
         # "niter_cap" is the fused loop's bound on the device (0 on a masked
-        # step): LSQR then runs without a read of the device, spec.niter
-        # iterations' worth of work. Without it, the host reads the exit
-        # tests and stops early.
+        # step): LSQR then runs without a read of the device, unrolled to
+        # spec.niter iterations, or, given lsqr_loop, in its split form
+        # driven by that runner. Without it, the host reads the exit tests
+        # and stops early.
         res = lsqr_solve(
             system.matvec, system.rmatvec, system.b, ncols, arr.get("niter_cap", spec.niter),
             rmin=spec.rmin, gamma=spec.gamma, target_misfit=spec.target_misfit,
-            misfit_fn=system.misfit_fn if spec.target_misfit > 0.0 else None, max_iter=spec.niter,
+            misfit_fn=system.misfit_fn if spec.target_misfit > 0.0 else None, max_iter=spec.niter, loop=lsqr_loop,
         )
 
         # ---------------- convert update to model space ----------------
@@ -459,7 +461,8 @@ def next_admm_weight(spec: SystemSpec, rho: torch.Tensor, post_cost_data) -> tor
 # =============================================================================
 # The fused major loop: counterpart of the JAX package's make_fused_solver
 # (tomofastx_tpu/inversion/joint.py:421-595), whose lax.scan becomes one
-# CUDA graph a major, replayed.
+# CUDA graph a major, launched once a major, and whose LSQR lax.while_loop
+# becomes a WHILE node of that graph.
 # =============================================================================
 
 # The entries of the solver's dictionary that a major advances: its carry.
@@ -494,7 +497,7 @@ def _clone(x):
 
 def capture_unit(arr) -> Tuple[str, str]:
     """How the fused loop runs a major over arr's operators, and why:
-    ("graph", ...) one captured CUDA graph a major; ("step", ...) the same
+    ("graph", ...) one CUDA graph a major, LSQR as a WHILE node; ("step", ...) the same
     device-resident step launched eagerly (over an operator that says
     graph_capturable is false, or whose mesh spans several devices);
     ("cpu", ...) eager steps on the CPU. The per-cell and lattice
@@ -509,7 +512,7 @@ def capture_unit(arr) -> Tuple[str, str]:
             return "step", f"the device-resident step without a graph ({type(op).__name__} over {mesh.n_devices} devices)"
         if not getattr(op, "graph_capturable", True):
             return "step", f"the device-resident step without a graph ({type(op).__name__}: not capturable)"
-    return "graph", "one CUDA graph a major, replayed"
+    return "graph", "one CUDA graph a major, LSQR as a WHILE node"
 
 
 class FusedSolver:
@@ -536,25 +539,34 @@ class FusedSolver:
     solver. The first call runs one eager step on a side stream, on scratch
     copies of the carry (it loads the kernels' libraries, makes the cuBLAS
     handles and cuFFT plans and fills the allocator's pool: nothing of that
-    may happen inside a capture), then captures one whole major as a
-    torch.cuda.CUDAGraph, which each call replays active_steps times, the
-    step's row copied into an (n_steps, ...) tensor after each replay. A
-    later call copies its tensors into the same buffers and replays the same
+    may happen inside a capture), then captures one whole major as three
+    torch.cuda.CUDAGraphs in one memory pool: the head (the step up to
+    LSQR's first products, with the split form's buffers and its first
+    condition), the body (one LSQR iteration) and the tail (the rest of the
+    step, its new carry copied into the buffers). ops/graph_while.py joins
+    them into one CUDA graph whose LSQR loop is a WHILE node, which stops at
+    the first exit test that holds, as the JAX package's lax.while_loop
+    does. Each call launches that graph active_steps times, the step's row
+    and the body's runs (`body_runs`) copied out after each launch. A later
+    call copies its tensors into the same buffers and launches the same
     graph; it is captured again only when a tensor's shape, type or device,
     or an operator, changes. A failed capture raises: nothing runs the
-    major eagerly in its place. Over an operator that cannot be captured,
-    and over operators spread across devices, the same step runs eagerly on
-    the device (capture_unit). The kernels' launch counters count
-    a captured launch once, at the capture.
+    major eagerly, or unrolled, in its place. Over an operator that cannot
+    be captured, and over operators spread across devices, the same step
+    runs eagerly on the device (capture_unit), its LSQR unrolled. The
+    kernels' launch counters count a captured launch once, at the capture:
+    a major launches the head's and tail's launches once and the body's
+    once a run.
     """
 
     def __init__(self, spec: SystemSpec, n_steps: int):
         self.spec, self.n_steps = spec, int(n_steps)
         self._solve_once = _build_solve_fn(spec)
         self._key = self._graph = self._static = self._carry = self._row = None
-        self.captures = 0  # graphs captured
-        self.replays = 0  # majors run as a replay of the graph
+        self.captures = 0  # majors captured
+        self.replays = 0  # majors run as a launch of the captured graph
         self.capture_s = 0.0  # wall seconds of the warm-up steps and captures
+        self.body_runs = None  # on a CUDA device: the LSQR body's runs in each major of the last call
 
     # ---- the step (tomofastx_tpu/inversion/joint.py:445-577, line for line) ----
 
@@ -613,10 +625,11 @@ class FusedSolver:
         return {"model": tuple(arr["model"]), "admm_z": tuple(arr["admm_z"]), "admm_u": tuple(arr["admm_u"]),
                 "rho_admm": arr["rho_admm"], "extras": extras, "d_calc": self._forward(arr, arr["model"])}
 
-    def _step(self, arr, carry, s, n_active):
+    def _step(self, arr, carry, s, n_active, lsqr_loop=None):
         """One major: (the new carry, this major's row). s and n_active are
         0-dim tensors; a step with s >= n_active returns the carry as it
-        was."""
+        was. lsqr_loop: the runner of LSQR's split form (ops/lsqr.py), if
+        any."""
         spec = self.spec
         active = s < n_active
         model, rho, d_calc = carry["model"], carry["rho_admm"], carry["d_calc"]
@@ -633,7 +646,7 @@ class FusedSolver:
         arr2 = dict(arr)
         arr2.update(model=model, admm_z=carry["admm_z"], admm_u=carry["admm_u"], rho_admm=rho,
                     residuals=residuals, niter_cap=torch.where(active, spec.niter, 0))
-        out = self._solve_once(arr2)
+        out = self._solve_once(arr2, lsqr_loop)
         model_new = tuple(m + d for m, d in zip(model, out["delta"]))
 
         # The post-update data cost drives the dynamic ADMM weight; rho
@@ -684,6 +697,7 @@ class FusedSolver:
         carry = self._init_carry(arr)
         dev = carry["rho_admm"].device
         n_act = torch.tensor(n_active, device=dev)
+        self.body_runs = None
         rows = []
         for s in range(self.n_steps if all_steps else max(n_active, 1)):
             carry, row = self._step(arr, carry, torch.tensor(s, device=dev), n_act)
@@ -702,12 +716,13 @@ class FusedSolver:
         """Buffers for every input tensor and the carry, one eager warm-up
         step on scratch copies of the carry, then the capture of one major."""
         t0 = time.time()
-        self._key = self._graph = self._row = None  # the old graph's pool goes first
+        self._release()  # the old graph and its pool go first
         self._static = tree_map(_clone, static)
         self._carry = tree_map(torch.clone, self._init_carry({**self._static, **carry0}))
         dev = self._carry["rho_admm"].device
         self._s = torch.zeros((), dtype=torch.int64, device=dev)
         self._n_active = torch.full((), self.n_steps, dtype=torch.int64, device=dev)
+        self._runs = torch.zeros((), dtype=torch.int32, device=dev)
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -719,15 +734,63 @@ class FusedSolver:
         self.captures += 1
         self.capture_s += time.time() - t0
 
+    def _release(self):
+        self._key = self._row = None
+        if self._graph is not None:
+            self._graph.close()
+        self._graph = None
+
     def _capture_graph(self, stream):
-        """One major, captured on `stream`: the step on the buffers, its new
-        carry copied into them and the step index advanced."""
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            new, row = self._step(self._static, self._carry, self._s, self._n_active)
-            tree_map(_copy_into, self._carry, new)
-            self._s.add_(1)
-        return graph, row
+        """One major, captured on `stream` as head, body and tail graphs in
+        one pool (the step on the buffers, its new carry copied into them
+        and the step index advanced) and joined into a WhileGraph. Returns
+        (the graph, the step's row)."""
+        pool = torch.cuda.graph_pool_handle()
+        head, body, tail = (torch.cuda.CUDAGraph(keep_graph=True) for _ in range(3))
+        kept = {}
+        capturing = [head]
+
+        def lsqr_loop(loop):
+            # Ends the head with the loop's first condition and the body
+            # counter zeroed, captures one iteration, begins the tail.
+            self._runs.zero_()
+            head.capture_end()
+            capturing.pop()
+            kept["loop"] = loop  # the carry's buffers and what the body reads, kept with the graph
+            capturing.append(body)
+            self._capture_body(body, pool, loop)
+            capturing.pop()
+            tail.capture_begin(pool=pool)
+            capturing.append(tail)
+
+        with torch.cuda.stream(stream):
+            head.capture_begin(pool=pool)
+            try:
+                new, row = self._step(self._static, self._carry, self._s, self._n_active, lsqr_loop=lsqr_loop)
+                if "loop" not in kept:
+                    raise RuntimeError("the fused step ran no LSQR loop to capture")
+                tree_map(_copy_into, self._carry, new)
+                self._s.add_(1)
+            except BaseException:
+                for graph in capturing:  # end the open capture; the first error is the one to raise
+                    try:
+                        graph.capture_end()
+                    except Exception:
+                        pass
+                raise
+            tail.capture_end()
+        loop = kept["loop"]
+        return WhileGraph(head, body, tail, loop.go, self._runs, loop.max_iter, keep=(loop, new, row)), row
+
+    def _capture_body(self, body, pool, loop):
+        """The WHILE node's body: one LSQR iteration on the carry's buffers."""
+        body.capture_begin(pool=pool)
+        loop.iterate()
+        body.capture_end()
+
+    def _launch(self):
+        """One major: one launch of the captured graph."""
+        while_graph_launch(self._graph)
 
     def _run_graph(self, arr, n_active):
         static = {k: v for k, v in arr.items() if k not in CARRY_KEYS}
@@ -741,10 +804,12 @@ class FusedSolver:
         self._s.zero_()
         self._n_active.fill_(n_active)
         per = tree_map(lambda t: t.new_zeros((self.n_steps,) + tuple(t.shape)), self._row)
+        self.body_runs = torch.zeros((self.n_steps,), dtype=torch.int32, device=self._runs.device)
         for k in range(n_active):
-            self._graph.replay()
+            self._launch()
             self.replays += 1
             tree_map(lambda dst, src: dst[k].copy_(src), per, self._row)
+            self.body_runs[k].copy_(self._runs)
         return self._result(self._static, tree_map(torch.clone, self._carry), per)
 
 

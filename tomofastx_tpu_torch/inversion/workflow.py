@@ -296,7 +296,7 @@ def solve_problem_joint_gravmag(
 
     fused_chunk = M > 0 runs the majors in chunks of up to M with no read of
     the device inside a chunk (inversion/joint.py::FusedSolver: on a CUDA
-    device one captured CUDA graph a major, replayed), cut at
+    device one CUDA graph a major, its LSQR loop a WHILE node), cut at
     writeModelEveryNiter and at the last major; the stop file, the model
     snapshots and the checkpoint are handled at the chunk ends. 0 (the
     default) is the host-driven loop."""
@@ -894,7 +894,9 @@ def solve_problem_joint_gravmag(
                         active_steps=steps,
                     )
                     out_dev = fused(arrays)
-                    out = _to_host(out_dev)  # the chunk's one wait for the device
+                    # The chunk's one wait for the device, the WHILE node's runs of LSQR's body
+                    # (on a card) with it.
+                    out, body_runs = _to_host((out_dev, fused.body_runs))
                     timings["solve_s"].append(time.time() - t_it)
                     if fused.captures != captures[0]:
                         timings["capture_s"] = fused.capture_s
@@ -907,6 +909,10 @@ def solve_problem_joint_gravmag(
                     per = out["per_iteration"]
                     iters = [int(v) for v in per["lsqr_iters"][:steps]]
                     timings["lsqr_iters"] += iters
+                    # The body's runs a major: the iterations, and one more where a stop test
+                    # froze the last run.
+                    runs = [] if body_runs is None else body_runs[:steps].tolist()
+                    timings.setdefault("lsqr_body_runs", []).extend(runs)
                     if debug_nans:
                         _require_finite_chunk(out, active, it, steps)
 
@@ -930,7 +936,8 @@ def solve_problem_joint_gravmag(
                                   per["rho"][s].tolist(), by_problem["post_cost_data"], cost_model)
                     extras_np = {k: v.numpy() for k, v in out["extras"].items()}
                     log(f"  fused {steps} iterations in {time.time() - t_it:.2f}s, lsqr iters = {iters}, "
-                        + ", ".join(f"{PROBLEM_PREFIX[i]} cost = {cost_data[i]:.6e}" for i in active))
+                        + ", ".join(f"{PROBLEM_PREFIX[i]} cost = {cost_data[i]:.6e}" for i in active)
+                        + (f"; LSQR body runs = {runs}" if runs else ""))
                     it += steps
                     snapshot(it - 1, admm_z, admm_u, rho_admm)
 

@@ -66,19 +66,23 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_library(name: str) -> tuple[str, str]:
-    """Compile csrc/<name>.cu for sm_90a into build/ unless a library of
-    this very source and its headers is there already. Returns (path of the
-    library, what the compiler printed, empty if nothing was compiled)."""
+def build_library(name: str, flags: tuple = ()) -> tuple[str, str]:
+    """Compile csrc/<name>.cu for sm_90a, with nvcc's extra `flags`, into
+    build/ unless a library of this very source, its headers and flags is
+    there already. Returns (path of the library, what the compiler printed,
+    empty if nothing was compiled)."""
     source = source_path(name)
-    path = os.path.join(BUILD_DIR, f"lib{name}_{source_tag(name)}.so")
+    tag = source_tag(name)
+    if flags:
+        tag = hashlib.sha256(" ".join((tag, *flags)).encode()).hexdigest()[:16]
+    path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [
         find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, source,
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, source, *flags,
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
