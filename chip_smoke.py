@@ -2943,11 +2943,11 @@ class KeptFusedSolver:
         seconds and its capture's at full precision (the log rounds them to
         10 ms)."""
         self.kept.update(solver=self.solver, arrays=arrays)
-        capture_s = self.solver.capture_s
+        capture_s = self.solver.timings.get("capture_s", 0.0)
         t0 = time.time()
         out = self.solver(arrays)
         torch.cuda.synchronize()
-        self.kept.setdefault("calls", []).append((time.time() - t0, self.solver.capture_s - capture_s))
+        self.kept.setdefault("calls", []).append((time.time() - t0, self.solver.timings.get("capture_s", 0.0) - capture_s))
         return out
 
     def __getattr__(self, name):

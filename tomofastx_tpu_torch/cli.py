@@ -47,7 +47,11 @@ def main(argv=None):
     parser.add_argument(
         "--profile", default=None, metavar="DIR",
         help="trace the run with torch.profiler (CPU and, on cuda, the device's "
-        "kernels) and write it into DIR as a Chrome trace (trace.json)",
+        "kernels) and write it into DIR as a Chrome trace (trace.json), which "
+        "holds the program's own ranges too: tomofastx.<phase> (read_inputs, "
+        "depth_weight, build, operator, forward_data, solve, outputs, ...), "
+        "tomofastx.lsqr.iteration and .lsqr.read, tomofastx.block.<kind>.<matvec|rmatvec>, "
+        "tomofastx.sensit.* and tomofastx.wavelet.*",
     )
     parser.add_argument(
         "--debug-nans", action="store_true",

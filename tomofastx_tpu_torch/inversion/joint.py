@@ -19,7 +19,6 @@ problem).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Tuple
 
@@ -29,6 +28,7 @@ from tomofastx_tpu_torch.inversion import operators as ops
 from tomofastx_tpu_torch.ops import wavelet as W
 from tomofastx_tpu_torch.ops.graph_while import WhileGraph, while_graph_launch
 from tomofastx_tpu_torch.ops.lsqr import lsqr_solve
+from tomofastx_tpu_torch.utils.trace import fine, span
 
 
 @dataclass(frozen=True)
@@ -130,17 +130,19 @@ def _to_solver(spec: SystemSpec, seg):
     """Scaled-model flat segment (ncomp*N,) -> matrix column (wavelet) domain."""
     if spec.compression_type == 0:
         return seg
-    return W.forward_wavelet_flat(
-        seg.reshape(spec.ncomp, spec.N), spec.nx, spec.ny, spec.nz, spec.compression_type
-    ).reshape(-1)
+    with fine("wavelet.forward"):
+        return W.forward_wavelet_flat(
+            seg.reshape(spec.ncomp, spec.N), spec.nx, spec.ny, spec.nz, spec.compression_type
+        ).reshape(-1)
 
 
 def _from_solver(spec: SystemSpec, seg):
     if spec.compression_type == 0:
         return seg
-    return W.inverse_wavelet_flat(
-        seg.reshape(spec.ncomp, spec.N), spec.nx, spec.ny, spec.nz, spec.compression_type
-    ).reshape(-1)
+    with fine("wavelet.inverse"):
+        return W.inverse_wavelet_flat(
+            seg.reshape(spec.ncomp, spec.N), spec.nx, spec.ny, spec.nz, spec.compression_type
+        ).reshape(-1)
 
 
 class System(NamedTuple):
@@ -313,11 +315,14 @@ def assemble_system(spec: SystemSpec, arr: Dict) -> System:
     def split_x(x):
         return [x[off : off + seg].reshape(spec.ncomp, spec.N) for off in offsets]
 
+    # Each block's share of the products is marked `block.<kind>.<matvec|rmatvec>`
+    # and the stored or matrix-free products `sensit.<matvec|rmatvec>` (utils/trace.py).
     def sensit_matvec(segs):
         parts = []
         for a, i in enumerate(spec.active):
             xw = _to_solver(spec, segs[a].reshape(-1)) if wconv else segs[a].reshape(-1)
-            parts.append(S[a].matvec(xw))
+            with fine("sensit.matvec"):
+                parts.append(S[a].matvec(xw))
         return parts
 
     def matvec(x):
@@ -325,17 +330,23 @@ def assemble_system(spec: SystemSpec, arr: Dict) -> System:
         parts = sensit_matvec(segs)
         for a, i in enumerate(spec.active):
             if a in damping_ops:
-                parts.append(damping_ops[a].matvec(segs[a]))
+                with fine("block.damping.matvec"):
+                    parts.append(damping_ops[a].matvec(segs[a]))
             if a in dampgrad_ops:
-                for (k, d, op) in dampgrad_ops[a]:
-                    parts.append(op.matvec(segs[a][k].reshape(cube_shape)))
+                with fine("block.damping_gradient.matvec"):
+                    for (k, d, op) in dampgrad_ops[a]:
+                        parts.append(op.matvec(segs[a][k].reshape(cube_shape)))
         for a, i in enumerate(spec.active):
             if a in admm_ops:
-                parts.append(admm_ops[a].matvec(segs[a][spec.admm_comp : spec.admm_comp + 1]))
+                with fine("block.admm.matvec"):
+                    parts.append(admm_ops[a].matvec(segs[a][spec.admm_comp : spec.admm_comp + 1]))
         if xgrad_op is not None:
-            parts.append(xgrad_op.matvec(segs[0][0].reshape(cube_shape), segs[1][0].reshape(cube_shape)))
-        for t, op in clustering_ops.items():
-            parts.append(op.dcoef * segs[t][0])
+            with fine("block.cross_gradient.matvec"):
+                parts.append(xgrad_op.matvec(segs[0][0].reshape(cube_shape), segs[1][0].reshape(cube_shape)))
+        if clustering_ops:
+            with fine("block.clustering.matvec"):
+                for t, op in clustering_ops.items():
+                    parts.append(op.dcoef * segs[t][0])
         return torch.cat(parts)
 
     def rmatvec(u):
@@ -343,7 +354,8 @@ def assemble_system(spec: SystemSpec, arr: Dict) -> System:
         pos = 0
         for a, i in enumerate(spec.active):
             rows = spec.ndata_rows[a]
-            g = S[a].rmatvec(u[pos : pos + rows])
+            with fine("sensit.rmatvec"):
+                g = S[a].rmatvec(u[pos : pos + rows])
             if wconv:
                 g = _from_solver(spec, g)
             # A fresh tensor per problem: the blocks below add into it, and
@@ -353,29 +365,35 @@ def assemble_system(spec: SystemSpec, arr: Dict) -> System:
         for a, i in enumerate(spec.active):
             if a in damping_ops:
                 rows = spec.ncomp * spec.N
-                out[a] = out[a] + damping_ops[a].rmatvec(u[pos : pos + rows])
+                with fine("block.damping.rmatvec"):
+                    out[a] = out[a] + damping_ops[a].rmatvec(u[pos : pos + rows])
                 pos += rows
             if a in dampgrad_ops:
-                for (k, d, op) in dampgrad_ops[a]:
-                    rows = spec.N
-                    out[a][k] += op.rmatvec(u[pos : pos + rows]).reshape(-1)
-                    pos += rows
+                with fine("block.damping_gradient.rmatvec"):
+                    for (k, d, op) in dampgrad_ops[a]:
+                        rows = spec.N
+                        out[a][k] += op.rmatvec(u[pos : pos + rows]).reshape(-1)
+                        pos += rows
         for a, i in enumerate(spec.active):
             if a in admm_ops:
                 rows = spec.N
-                contrib = admm_ops[a].rmatvec(u[pos : pos + rows])
-                out[a][spec.admm_comp] += contrib.reshape(-1)
+                with fine("block.admm.rmatvec"):
+                    contrib = admm_ops[a].rmatvec(u[pos : pos + rows])
+                    out[a][spec.admm_comp] += contrib.reshape(-1)
                 pos += rows
         if xgrad_op is not None:
             rows = 3 * spec.N
-            g1, g2 = xgrad_op.rmatvec(u[pos : pos + rows])
-            out[0][0] += g1.reshape(-1)
-            out[1][0] += g2.reshape(-1)
+            with fine("block.cross_gradient.rmatvec"):
+                g1, g2 = xgrad_op.rmatvec(u[pos : pos + rows])
+                out[0][0] += g1.reshape(-1)
+                out[1][0] += g2.reshape(-1)
             pos += rows
-        for t, op in clustering_ops.items():
-            rows = spec.N
-            out[t][0] += op.dcoef * u[pos : pos + rows]
-            pos += rows
+        if clustering_ops:
+            with fine("block.clustering.rmatvec"):
+                for t, op in clustering_ops.items():
+                    rows = spec.N
+                    out[t][0] += op.dcoef * u[pos : pos + rows]
+                    pos += rows
         return torch.cat([o.reshape(-1) for o in out])
 
     # Data misfit early-exit check (lsqr_solver2.F90:168-189).
@@ -565,7 +583,11 @@ class FusedSolver:
         self._key = self._graph = self._static = self._carry = self._row = None
         self.captures = 0  # majors captured
         self.replays = 0  # majors run as a launch of the captured graph
-        self.capture_s = 0.0  # wall seconds of the warm-up steps and captures
+        # Wall seconds of the captures (capture_s, each warm-up step in) and of
+        # their warm-up steps (capture_warmup_s), summed over the captures;
+        # last_capture: the pair of the last capture.
+        self.timings = {}
+        self.last_capture = None
         self.body_runs = None  # on a CUDA device: the LSQR body's runs in each major of the last call
 
     # ---- the step (tomofastx_tpu/inversion/joint.py:445-577, line for line) ----
@@ -714,25 +736,27 @@ class FusedSolver:
 
     def _capture(self, static, carry0, key):
         """Buffers for every input tensor and the carry, one eager warm-up
-        step on scratch copies of the carry, then the capture of one major."""
-        t0 = time.time()
-        self._release()  # the old graph and its pool go first
-        self._static = tree_map(_clone, static)
-        self._carry = tree_map(torch.clone, self._init_carry({**self._static, **carry0}))
-        dev = self._carry["rho_admm"].device
-        self._s = torch.zeros((), dtype=torch.int64, device=dev)
-        self._n_active = torch.full((), self.n_steps, dtype=torch.int64, device=dev)
-        self._runs = torch.zeros((), dtype=torch.int32, device=dev)
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            self._step(self._static, tree_map(torch.clone, self._carry), self._s.clone(), self._n_active)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self._graph, self._row = self._capture_graph(stream)
-        torch.cuda.synchronize(dev)
-        self._key = key
-        self.captures += 1
-        self.capture_s += time.time() - t0
+        step on scratch copies of the carry, then the capture of one major.
+        Timed as `capture` and, its warm-up step ended by a wait for the side
+        stream, `capture_warmup`."""
+        with span("capture", self.timings) as whole:
+            self._release()  # the old graph and its pool go first
+            self._static = tree_map(_clone, static)
+            self._carry = tree_map(torch.clone, self._init_carry({**self._static, **carry0}))
+            dev = self._carry["rho_admm"].device
+            self._s = torch.zeros((), dtype=torch.int64, device=dev)
+            self._n_active = torch.full((), self.n_steps, dtype=torch.int64, device=dev)
+            self._runs = torch.zeros((), dtype=torch.int32, device=dev)
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with span("capture_warmup", self.timings, stream.synchronize) as warmup, torch.cuda.stream(stream):
+                self._step(self._static, tree_map(torch.clone, self._carry), self._s.clone(), self._n_active)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            self._graph, self._row = self._capture_graph(stream)
+            torch.cuda.synchronize(dev)
+            self._key = key
+            self.captures += 1
+        self.last_capture = (whole.seconds, warmup.seconds)
 
     def _release(self):
         self._key = self._row = None

@@ -66,8 +66,13 @@ from tomofastx_tpu_torch.ops.sparse_kernel import DenseKernel, apply_row_weights
 from tomofastx_tpu_torch.ops.tile_kernel import apply_row_weights_tiled, tile_kernel_from_cache
 from tomofastx_tpu_torch.parallel.mesh import assembly_device, shard_kernel, slot_bytes_line
 from tomofastx_tpu_torch.utils.memory import report as memory_report
+from tomofastx_tpu_torch.utils.trace import count, counters, span
 
 PROBLEM_PREFIX = ("grav", "mag")  # output file name prefixes (reference usage)
+# The counters an inversion keeps on its timings (utils/trace.py): the solve's
+# blocking reads of the device (LSQR's exit tests, each major's or chunk's
+# copy of its results to the host).
+COUNTERS = ("host_reads",)
 
 
 @dataclass
@@ -106,67 +111,73 @@ def _mkoutdir(cfg: Config) -> str:
     return out
 
 
-def _model_write(ctx: ProblemContext, out_dir, prefix, write_ascii=False):
+def _model_write(ctx: ProblemContext, out_dir, prefix, timings, write_ascii=False):
     """Model snapshot outputs (reference: model_write, model_IO.F90:481-612):
-    structured-grid VTK, x/y/z half-slice lego VTKs, optional ASCII."""
-    g = ctx.model.grid
-    pv = os.path.join(out_dir, "Paraview")
-    common = dict(
-        X1=g.X1, Y1=g.Y1, Z1=g.Z1, X2=g.X2, Y2=g.Y2, Z2=g.Z2,
-        nx=g.nx, ny=g.ny, nz=g.nz,
-        invert_z=True, units_mult=ctx.model.units_mult, label=ctx.model.vtk_label,
-    )
-    val = ctx.model.val.T  # (N, ncomp)
-    vtk.write_struct_grid(os.path.join(pv, f"{prefix}model3D_full.vtk"), val, **common)
-    vtk.write_lego_grid(
-        os.path.join(pv, f"{prefix}model3D_half_x.vtk"), val,
-        i1=g.nx // 2 + 1, i2=g.nx // 2 + 1, **common,
-    )
-    vtk.write_lego_grid(
-        os.path.join(pv, f"{prefix}model3D_half_y.vtk"), val,
-        j1=g.ny // 2 + 1, j2=g.ny // 2 + 1, **common,
-    )
-    vtk.write_lego_grid(
-        os.path.join(pv, f"{prefix}model3D_half_z.vtk"), val,
-        k1=g.nz // 2 + 1, k2=g.nz // 2 + 1, **common,
-    )
-    if write_ascii:
-        model_io.write_model_ascii(
-            ctx.model, os.path.join(out_dir, "model", f"{prefix}model_full.txt")
+    structured-grid VTK, x/y/z half-slice lego VTKs, optional ASCII; timed
+    as `outputs`."""
+    with span("outputs", timings):
+        g = ctx.model.grid
+        pv = os.path.join(out_dir, "Paraview")
+        common = dict(
+            X1=g.X1, Y1=g.Y1, Z1=g.Z1, X2=g.X2, Y2=g.Y2, Z2=g.Z2,
+            nx=g.nx, ny=g.ny, nz=g.nz,
+            invert_z=True, units_mult=ctx.model.units_mult, label=ctx.model.vtk_label,
+        )
+        val = ctx.model.val.T  # (N, ncomp)
+        vtk.write_struct_grid(os.path.join(pv, f"{prefix}model3D_full.vtk"), val, **common)
+        vtk.write_lego_grid(
+            os.path.join(pv, f"{prefix}model3D_half_x.vtk"), val,
+            i1=g.nx // 2 + 1, i2=g.nx // 2 + 1, **common,
+        )
+        vtk.write_lego_grid(
+            os.path.join(pv, f"{prefix}model3D_half_y.vtk"), val,
+            j1=g.ny // 2 + 1, j2=g.ny // 2 + 1, **common,
+        )
+        vtk.write_lego_grid(
+            os.path.join(pv, f"{prefix}model3D_half_z.vtk"), val,
+            k1=g.nz // 2 + 1, k2=g.nz // 2 + 1, **common,
+        )
+        if write_ascii:
+            model_io.write_model_ascii(
+                ctx.model, os.path.join(out_dir, "model", f"{prefix}model_full.txt")
+            )
+
+
+def _data_write(ctx: ProblemContext, out_dir, name, which, timings):
+    """Data outputs in ASCII + VTK (reference: data_write,
+    data_gravmag.f90:293-354); timed as `outputs`."""
+    with span("outputs", timings):
+        data_io.write_data_points(ctx.data, os.path.join(out_dir, "data", f"{name}.txt"), which)
+        val = ctx.data.val_meas if which == 1 else ctx.data.val_calc
+        vtk.write_points(
+            os.path.join(out_dir, "Paraview", f"data_{name}.vtk"),
+            val, ctx.data.X, ctx.data.Y, ctx.data.Z,
+            invert_z=True, units_mult=ctx.data.units_mult,
         )
 
 
-def _data_write(ctx: ProblemContext, out_dir, name, which):
-    """Data outputs in ASCII + VTK (reference: data_write,
-    data_gravmag.f90:293-354)."""
-    data_io.write_data_points(ctx.data, os.path.join(out_dir, "data", f"{name}.txt"), which)
-    val = ctx.data.val_meas if which == 1 else ctx.data.val_calc
-    vtk.write_points(
-        os.path.join(out_dir, "Paraview", f"data_{name}.vtk"),
-        val, ctx.data.X, ctx.data.Y, ctx.data.Z,
-        invert_z=True, units_mult=ctx.data.units_mult,
-    )
-
-
-def _calculate_data(ctx: ProblemContext, cfg: Config, solve_dtype, device):
+def _calculate_data(ctx: ProblemContext, cfg: Config, solve_dtype, device, timings):
     """d_calc = S m through the stored row-weighted operator
     (model.F90:220-307), or, under tpu.refineForward, through the exact
     physics of the forward operator in the model domain: the residuals then
     carry the stored kernel's compression or bfloat16 error, and the major
-    loop corrects it (the stored kernel only preconditions the update)."""
+    loop corrects it (the stored kernel only preconditions the update).
+    Timed as `forward_data`: it ends in a copy to the host, so the device's
+    work is in it."""
     g = ctx.model.grid
     op, ct, dtype = ctx.operator, ctx.par.compression_type, solve_dtype
     if ctx.forward_op is not None:
         op, ct, dtype = ctx.forward_op, 0, ctx.forward_dtype
-    ctx.data.val_calc = sens.calculate_data(
-        op,
-        ctx.model.val,
-        ctx.column_weight,
-        cfg.inversion.problem_weight[ctx.index],
-        ctx.data.weight,
-        ct, g.nx, g.ny, g.nz,
-        solve_dtype=dtype, device=device,
-    )
+    with span("forward_data", timings):
+        ctx.data.val_calc = sens.calculate_data(
+            op,
+            ctx.model.val,
+            ctx.column_weight,
+            cfg.inversion.problem_weight[ctx.index],
+            ctx.data.weight,
+            ct, g.nx, g.ny, g.nz,
+            solve_dtype=dtype, device=device,
+        )
 
 
 def _calculate_model_cost(ctx: ProblemContext, norm_power: float) -> float:
@@ -208,7 +219,7 @@ def _kernel_operator(ctx: ProblemContext, device):
     return DenseKernel(S, S.T.contiguous() if cpu_transpose else None)
 
 
-def _refinement_forward(ctxs, active, ipar, solve_dtype, mesh, device, log):
+def _refinement_forward(ctxs, active, ipar, solve_dtype, mesh, device, log, phase):
     """tpu.refineForward: give each active problem an exact-physics forward
     operator (matrix-free, row weights baked in) for the predicted data,
     while LSQR keeps the stored kernel: iterative refinement over the
@@ -218,7 +229,8 @@ def _refinement_forward(ctxs, active, ipar, solve_dtype, mesh, device, log):
     tpu.refineForwardPrecision = double the forward is float64. The JAX
     package forces the non-FFT operator for a float64 forward off the CPU,
     for a TPU without complex128 FFTs; the card has them, so the BTTB
-    operator serves here too."""
+    operator serves here too. Each operator's making is timed by
+    phase("operator")."""
     from tomofastx_tpu_torch.ops.bttb import BTTBKernel
     from tomofastx_tpu_torch.ops.matrixfree import LatticeMatrixFreeKernel, MatrixFreeKernel
 
@@ -243,11 +255,12 @@ def _refinement_forward(ctxs, active, ipar, solve_dtype, mesh, device, log):
             continue
         double = getattr(ctx.par, "refine_forward_precision", "") == "double"
         ctx.forward_dtype = torch.float64 if double else solve_dtype
-        ctx.forward_op = make_matrixfree_kernel(
-            dataclasses.replace(ctx.par, compression_type=0), ctx.model.grid, ctx.data, ctx.column_weight,
-            ipar.problem_weight[i], ctx.data.weight, ctx.forward_dtype,
-            pad_cells_to=len(mesh.slots) if mesh is not None else 1, device=device,
-        )
+        with phase("operator"):
+            ctx.forward_op = make_matrixfree_kernel(
+                dataclasses.replace(ctx.par, compression_type=0), ctx.model.grid, ctx.data, ctx.column_weight,
+                ipar.problem_weight[i], ctx.data.weight, ctx.forward_dtype,
+                pad_cells_to=len(mesh.slots) if mesh is not None else 1, device=device,
+            )
         log(f"  {PROBLEM_PREFIX[i]} refinement forward: {type(ctx.forward_op).__name__} "
             f"({str(ctx.forward_dtype).replace('torch.', '')}, {ctx.forward_op.nbytes / 1e6:.1f} MB on {device})")
 
@@ -299,7 +312,36 @@ def solve_problem_joint_gravmag(
     device one CUDA graph a major, its LSQR loop a WHILE node), cut at
     writeModelEveryNiter and at the last major; the stop file, the model
     snapshots and the checkpoint are handled at the chunk ends. 0 (the
-    default) is the host-driven loop."""
+    default) is the host-driven loop.
+
+    The result's timings hold the phases' wall seconds, each a span of
+    utils/trace.py (a `tomofastx.<name>` range while a torch.profiler
+    records): read_inputs_s, depth_weight_s, operator_s (a matrix-free
+    operator's making), build_s, pack_s, cache_read_s, cache_write_s,
+    row_weights_s, shard_s, forward_data_s (every product for the data of a
+    model: synthetic, prior, starting, each host-driven major's), outputs_s
+    (every output file), solve_s (a list: one a major, or a fused chunk with
+    its capture), capture_s and capture_warmup_s (the fused loop's captures
+    and their eager warm-up steps) and total_s; lsqr_iters (a list); and the
+    counters of COUNTERS."""
+    timings: Dict[str, object] = {}
+    counters.clear()
+    counters.update(dict.fromkeys(COUNTERS, 0))
+    with span("total", timings):
+        result = _solve(cfg, base_dir, solve_dtype, compute_dtype, verbose, device, mesh, resume, debug_nans,
+                        near_field_f64, fused_chunk, timings)
+    timings.update(counters)
+    result.timings = timings
+    if verbose:
+        print(memory_report("(end) ", mesh.home if mesh is not None else torch.device(device)), flush=True)
+        print(f"THE END. total time = {timings['total_s']:.2f}s", flush=True)
+    return result
+
+
+def _solve(cfg, base_dir, solve_dtype, compute_dtype, verbose, device, mesh, resume, debug_nans, near_field_f64,
+           fused_chunk, timings) -> WorkflowResult:
+    """solve_problem_joint_gravmag's inversion, its phases' spans added to
+    timings."""
     device = torch.device(device)
     if mesh is not None:
         if mesh.home.type != device.type:
@@ -324,15 +366,12 @@ def solve_problem_joint_gravmag(
                 torch.cuda.synchronize(d)
 
     t_start = time.time()
-    timings: Dict[str, object] = {}
     ipar = cfg.inversion
 
-    def add_time(key, t0):
-        """Seconds since t0, added to timings[key] (summed over the problems)."""
-        sync()
-        dt = time.time() - t0
-        timings[key] = timings.get(key, 0.0) + dt
-        return dt
+    def phase(name):
+        """The span of a phase that ends with the devices synchronised, its
+        seconds added to timings[name + "_s"] (summed over the problems)."""
+        return span(name, timings, sync)
 
     # Where each kernel is assembled before a mesh cuts it: the home card
     # when every slot is on it, else the host (parallel/mesh.py).
@@ -344,62 +383,61 @@ def solve_problem_joint_gravmag(
     if not active:
         raise ValueError("No active problems (both problem weights are zero).")
 
-    out_dir = _mkoutdir(cfg)
+    with span("read_inputs", timings):
+        out_dir = _mkoutdir(cfg)
 
-    # Memory checkpoint 1/4: startup (reference prints Pss at MPI init,
-    # program_tomofastx.F90:60-61).
-    log(memory_report("(init) ", device))
+        # Memory checkpoint 1/4: startup (reference prints Pss at MPI init,
+        # program_tomofastx.F90:60-61).
+        log(memory_report("(init) ", device))
 
-    ctxs: Dict[int, ProblemContext] = {
-        i: ProblemContext(index=i, par=cfg.problem_params(i)) for i in active
-    }
-    log(f"Solving problem grav/mag. active = {[PROBLEM_PREFIX[i] for i in active]}")
+        ctxs: Dict[int, ProblemContext] = {
+            i: ProblemContext(index=i, par=cfg.problem_params(i)) for i in active
+        }
+        log(f"Solving problem grav/mag. active = {[PROBLEM_PREFIX[i] for i in active]}")
 
-    # ---- (I) model grid ----
-    for i, ctx in ctxs.items():
-        par = ctx.par
-        grid = model_io.read_model_grid(
-            os.path.join(base_dir, par.model_grid_file), par.nx, par.ny, par.nz, par.z_axis_dir
-        )
-        ctx.model = ModelState(
-            grid=grid,
-            ncomponents=par.nmodel_components,
-            units_mult=par.model_units_mult,
-            vtk_label=par.vtk_model_label,
-        )
+        # ---- (I) model grid ----
+        for i, ctx in ctxs.items():
+            par = ctx.par
+            grid = model_io.read_model_grid(
+                os.path.join(base_dir, par.model_grid_file), par.nx, par.ny, par.nz, par.z_axis_dir
+            )
+            ctx.model = ModelState(
+                grid=grid,
+                ncomponents=par.nmodel_components,
+                units_mult=par.model_units_mult,
+                vtk_label=par.vtk_model_label,
+            )
 
-    # ---- (II) data ----
-    for i, ctx in ctxs.items():
-        par = ctx.par
-        ctx.data = data_io.read_data_points(
-            os.path.join(base_dir, par.data_grid_file), par.ndata, par.ndata_components,
-            par.data_units_mult, par.z_axis_dir, grid_only=True,
-        )
-        if par.use_data_error == 1:
-            data_io.read_data_error(ctx.data, os.path.join(base_dir, par.data_error_file))
-    timings["read_inputs_s"] = time.time() - t_start
+        # ---- (II) data ----
+        for i, ctx in ctxs.items():
+            par = ctx.par
+            ctx.data = data_io.read_data_points(
+                os.path.join(base_dir, par.data_grid_file), par.ndata, par.ndata_components,
+                par.data_units_mult, par.z_axis_dir, grid_only=True,
+            )
+            if par.use_data_error == 1:
+                data_io.read_data_error(ctx.data, os.path.join(base_dir, par.data_error_file))
 
     # ---- (III) depth weights + sensitivity ----
     for i, ctx in ctxs.items():
         par = ctx.par
         sensit_dir = os.path.join(out_dir, "SENSIT")
-        t0 = time.time()
-        if par.sensit_read == 0:
-            log(f"Calculating the depth weight for {PROBLEM_PREFIX[i]}, type = {par.depth_weighting_type}")
-            cw = sens.calculate_depth_weight(par, ctx.model.grid, ctx.data, compute_dtype, device)
-            cw = ipar.column_weight_multiplier[i] * cw
-            cw = sens.apply_local_depth_weighting(par, cw)
-            ctx.column_weight = cw
-        else:
-            # read = 1 and read = 2 both take the depth weight from the
-            # cache (sensitivity_gravmag.F90:873-879). The stored weight
-            # already contains the column-weight multiplier and local
-            # weighting, so neither is re-applied. The kernel itself is
-            # re-read for read = 1 and built again for read = 2 (F90:195-202)
-            # below.
-            cache_dir = os.path.join(base_dir, par.sensit_path)
-            ctx.column_weight = _read_depth_weight_file(cache_dir, i)
-        add_time("depth_weight_s", t0)
+        with phase("depth_weight"):
+            if par.sensit_read == 0:
+                log(f"Calculating the depth weight for {PROBLEM_PREFIX[i]}, type = {par.depth_weighting_type}")
+                cw = sens.calculate_depth_weight(par, ctx.model.grid, ctx.data, compute_dtype, device)
+                cw = ipar.column_weight_multiplier[i] * cw
+                cw = sens.apply_local_depth_weighting(par, cw)
+                ctx.column_weight = cw
+            else:
+                # read = 1 and read = 2 both take the depth weight from the
+                # cache (sensitivity_gravmag.F90:873-879). The stored weight
+                # already contains the column-weight multiplier and local
+                # weighting, so neither is re-applied. The kernel itself is
+                # re-read for read = 1 and built again for read = 2 (F90:195-202)
+                # below.
+                cache_dir = os.path.join(base_dir, par.sensit_path)
+                ctx.column_weight = _read_depth_weight_file(cache_dir, i)
 
         fmt = par.kernel_format
         build_dtype = torch.float32 if near_field_f64 > 0 else compute_dtype
@@ -423,10 +461,11 @@ def solve_problem_joint_gravmag(
             # product (ops/matrixfree.py), on the home device; a mesh cuts
             # it below. Nothing is written to the cache.
             ctx.kernel = None
-            ctx.operator = make_matrixfree_kernel(
-                par, ctx.model.grid, ctx.data, ctx.column_weight, ipar.problem_weight[i], ctx.data.weight,
-                solve_dtype, pad_cells_to=len(mesh.slots) if mesh is not None else 1, device=device,
-            )
+            with phase("operator"):
+                ctx.operator = make_matrixfree_kernel(
+                    par, ctx.model.grid, ctx.data, ctx.column_weight, ipar.problem_weight[i], ctx.data.weight,
+                    solve_dtype, pad_cells_to=len(mesh.slots) if mesh is not None else 1, device=device,
+                )
             # The per-cell and lattice operators name what computes their
             # products: kernel B2 or B3 on the card, the plain chunk loop on
             # the CPU; on the card, also the float64 partial sums one product
@@ -463,12 +502,11 @@ def solve_problem_joint_gravmag(
 
             pk = meta = None
             if par.sensit_read == 1:
-                t0 = time.time()
-                pk, meta = read_capacity(os.path.join(base_dir, par.sensit_path))
+                # A cache that cannot be read takes its seconds too.
+                with phase("pack") as pack:
+                    pk, meta = read_capacity(os.path.join(base_dir, par.sensit_path))
                 if pk is None:
                     log(f"WARNING: no readable sensitivity cache for {PROBLEM_PREFIX[i]}; recomputing.")
-                else:
-                    pack_s = add_time("pack_s", t0)
             if pk is None:
                 log(f"Calculating {PROBLEM_PREFIX[i].upper()} sensitivity kernel (streamed/{fmt})...")
                 # Predicted allocation print before the big build
@@ -476,42 +514,40 @@ def solve_problem_joint_gravmag(
                 kept = int(np.ceil(par.compression_rate * ncols_tot))
                 log(f"  predicted kept entries ~ {nrows_tot * kept:,} "
                     f"({nrows_tot * kept * 8 / 1024**3:.3f} GB in the cache)")
-                t0 = time.time()
-                writer = SensitStreamWriter(
-                    sensit_dir, par, ctx.model.grid, ctx.column_weight, par.compression_type,
-                )
-                try:
-                    kmeta = sens.compute_sensitivity(
-                        par, ctx.model.grid, ctx.data, ctx.column_weight,
-                        compute_dtype=build_dtype, store_dtype=torch.float32,
-                        row_sink=writer.write_chunk, device=build_device, mesh=mesh,
-                        near_field_f64=near_field_f64,
+                with phase("build") as build:
+                    writer = SensitStreamWriter(
+                        sensit_dir, par, ctx.model.grid, ctx.column_weight, par.compression_type,
                     )
-                finally:
-                    writer.close()
-                writer.finalize(kmeta.comp_error)
-                build_s = add_time("build_s", t0)
-                log(f"  kernel built+cached in {build_s:.2f}s "
-                    f"({nrows_tot / max(build_s, 1e-9):.1f} rows/s); "
+                    try:
+                        kmeta = sens.compute_sensitivity(
+                            par, ctx.model.grid, ctx.data, ctx.column_weight,
+                            compute_dtype=build_dtype, store_dtype=torch.float32,
+                            row_sink=writer.write_chunk, device=build_device, mesh=mesh,
+                            near_field_f64=near_field_f64,
+                        )
+                    finally:
+                        writer.close()
+                    writer.finalize(kmeta.comp_error)
+                log(f"  kernel built+cached in {build.seconds:.2f}s "
+                    f"({nrows_tot / max(build.seconds, 1e-9):.1f} rows/s); "
                     f"COMPRESSION ERROR, r = {kmeta.comp_error:.6e}")
-                t0 = time.time()
-                pk, meta = read_capacity(sensit_dir)
-                pack_s = add_time("pack_s", t0)
-            log(f"  cache packed into {layout} in {pack_s:.2f}s (nnz = {meta['nnz']:,})")
+                with phase("pack") as pack:
+                    pk, meta = read_capacity(sensit_dir)
+            log(f"  cache packed into {layout} in {pack.seconds:.2f}s (nnz = {meta['nnz']:,})")
 
             # Bake in problem weight x data weights (sensitivity_gravmag.F90:836-843).
-            t0 = time.time()
-            wrow = (ipar.problem_weight[i] * np.asarray(ctx.data.weight)).reshape(-1)
-            if fmt == "tiled":
-                ctx.operator = apply_row_weights_tiled(pk, wrow)
-                shapes = (f"forward {tuple(ctx.operator.uvals.shape)}, "
-                          f"adjoint {tuple(ctx.operator.uvalsT.shape)}; ")
-            else:
-                ctx.operator = apply_row_weights_packed(pk, wrow)
-                shapes = (f"rows {tuple(ctx.operator.row_vals.shape)}, "
-                          f"heavy columns {tuple(ctx.operator.dense_block.shape)}, "
-                          f"light columns {tuple(ctx.operator.light_vals.shape)}; ")
-            log(f"  row weights applied on {build_device} in {add_time('row_weights_s', t0):.2f}s")
+            with phase("row_weights") as row_weights:
+                wrow = (ipar.problem_weight[i] * np.asarray(ctx.data.weight)).reshape(-1)
+                if fmt == "tiled":
+                    ctx.operator = apply_row_weights_tiled(pk, wrow)
+                    shapes = (f"forward {tuple(ctx.operator.uvals.shape)}, "
+                              f"adjoint {tuple(ctx.operator.uvalsT.shape)}; ")
+                else:
+                    ctx.operator = apply_row_weights_packed(pk, wrow)
+                    shapes = (f"rows {tuple(ctx.operator.row_vals.shape)}, "
+                              f"heavy columns {tuple(ctx.operator.dense_block.shape)}, "
+                              f"light columns {tuple(ctx.operator.light_vals.shape)}; ")
+            log(f"  row weights applied on {build_device} in {row_weights.seconds:.2f}s")
             log(
                 f"  {PROBLEM_PREFIX[i]} kernel: {fmt} {ctx.operator.nbytes / 1e6:.1f} MB "
                 f"({shapes}dense would be {nrows_tot * ncols_tot * 4 / 1e6:.1f} MB)"
@@ -522,39 +558,39 @@ def solve_problem_joint_gravmag(
         # rows have no zeros to leave out).
         kernel = None
         if par.sensit_read == 1:
-            t0 = time.time()
-            kernel = try_read_kernel_cache(
-                os.path.join(base_dir, par.sensit_path), par, ctx.model.grid, build_device
-            )
+            # A cache that cannot be read takes its seconds too.
+            with phase("cache_read") as cache_read:
+                kernel = try_read_kernel_cache(
+                    os.path.join(base_dir, par.sensit_path), par, ctx.model.grid, build_device
+                )
             if kernel is None:
                 log(f"WARNING: no readable sensitivity cache for {PROBLEM_PREFIX[i]}; recomputing.")
             else:
-                cache_read_s = add_time("cache_read_s", t0)
-                log(f"  cache read into the dense kernel in {cache_read_s:.2f}s (nnz = {kernel.nnz:,})")
+                log(f"  cache read into the dense kernel in {cache_read.seconds:.2f}s (nnz = {kernel.nnz:,})")
         if kernel is None:
             log(f"Calculating {PROBLEM_PREFIX[i].upper()} sensitivity kernel...")
-            t0 = time.time()
-            # Predicted allocation print (reference: sparse_matrix.f90:508-515).
-            log(f"  predicted kernel size = {nrows_tot * ncols_tot * 4 / 1024**3:.3f} GB (float32)")
+            with phase("build") as build:
+                # Predicted allocation print (reference: sparse_matrix.f90:508-515).
+                log(f"  predicted kernel size = {nrows_tot * ncols_tot * 4 / 1024**3:.3f} GB (float32)")
 
-            # 10% progress ticker (reference: sensitivity_gravmag.F90:313-316).
-            last_decile = [0]
+                # 10% progress ticker (reference: sensitivity_gravmag.F90:313-316).
+                last_decile = [0]
 
-            def ticker(done, total):
-                decile = 10 * done // total
-                if decile > last_decile[0]:
-                    last_decile[0] = decile
-                    rate = done / max(time.time() - t0, 1e-9)
-                    log(f"  sensitivity rows: {10 * decile}% ({done}/{total}, {rate:.1f} rows/s)")
+                def ticker(done, total):
+                    decile = 10 * done // total
+                    if decile > last_decile[0]:
+                        last_decile[0] = decile
+                        rate = done / max(build.seconds, 1e-9)
+                        log(f"  sensitivity rows: {10 * decile}% ({done}/{total}, {rate:.1f} rows/s)")
 
-            # bfloat16 storage is built straight into bfloat16: a float32
-            # kernel beside it would double the build's memory.
-            kernel = sens.compute_sensitivity(
-                par, ctx.model.grid, ctx.data, ctx.column_weight,
-                compute_dtype=build_dtype, store_dtype=torch.bfloat16 if bf16 else torch.float32,
-                progress=ticker, device=build_device, mesh=mesh, near_field_f64=near_field_f64,
-            )
-            build_s = add_time("build_s", t0)
+                # bfloat16 storage is built straight into bfloat16: a float32
+                # kernel beside it would double the build's memory.
+                kernel = sens.compute_sensitivity(
+                    par, ctx.model.grid, ctx.data, ctx.column_weight,
+                    compute_dtype=build_dtype, store_dtype=torch.bfloat16 if bf16 else torch.float32,
+                    progress=ticker, device=build_device, mesh=mesh, near_field_f64=near_field_f64,
+                )
+            build_s = build.seconds
             log(f"  kernel built in {build_s:.2f}s "
                 f"({nrows_tot / max(build_s, 1e-9):.1f} rows/s); "
                 f"COMPRESSION RATE = {kernel.nnz / max(kernel.S.numel(), 1):.6f}; "
@@ -570,38 +606,37 @@ def solve_problem_joint_gravmag(
                         "stored bfloat16 and the cache format is float32 "
                         "(set tpu.kernelStoreDtype = float32 to persist).")
                 else:
-                    t0 = time.time()
-                    write_kernel_cache(sensit_dir, par, kernel, ctx.column_weight)
-                    log(f"  kernel cached in {add_time('cache_write_s', t0):.2f}s")
+                    with phase("cache_write") as cache_write:
+                        write_kernel_cache(sensit_dir, par, kernel, ctx.column_weight)
+                    log(f"  kernel cached in {cache_write.seconds:.2f}s")
 
         # Bake in problem weight x data weights (sensitivity_gravmag.F90:836-843),
         # in place and in storage precision.
-        t0 = time.time()
-        ctx.kernel = sens.apply_row_weights(kernel, ipar.problem_weight[i], ctx.data.weight)
-        # Cast once to the dtype of the LSQR products: the solve's, or
-        # bfloat16 (half the kernel's memory; its products sum in the solve's
-        # dtype). A kernel already in it comes back as the same tensor.
-        ctx.kernel.S = ctx.kernel.S.to(torch.bfloat16 if bf16 else solve_dtype)
-        log(f"  row weights applied on {build_device} in {add_time('row_weights_s', t0):.2f}s")
+        with phase("row_weights") as row_weights:
+            ctx.kernel = sens.apply_row_weights(kernel, ipar.problem_weight[i], ctx.data.weight)
+            # Cast once to the dtype of the LSQR products: the solve's, or
+            # bfloat16 (half the kernel's memory; its products sum in the solve's
+            # dtype). A kernel already in it comes back as the same tensor.
+            ctx.kernel.S = ctx.kernel.S.to(torch.bfloat16 if bf16 else solve_dtype)
+        log(f"  row weights applied on {build_device} in {row_weights.seconds:.2f}s")
         log(f"  {PROBLEM_PREFIX[i]} kernel: dense {tuple(ctx.kernel.S.shape)} {ctx.kernel.S.dtype}, "
             f"{ctx.kernel.S.numel() * ctx.kernel.S.element_size() / 1e6:.1f} MB")
 
     for ctx in ctxs.values():
         ctx.operator = _kernel_operator(ctx, device)
 
-    _refinement_forward(ctxs, active, ipar, solve_dtype, mesh, device, log)
+    _refinement_forward(ctxs, active, ipar, solve_dtype, mesh, device, log, phase)
 
     if mesh is not None:
         # Shard each operator once, the refinement forward with them; the
         # unsharded one (and the dense kernel it was made from) is dropped.
-        t0 = time.time()
-        for i, ctx in ctxs.items():
-            reuse = ctx.forward_op is ctx.operator
-            ctx.operator = shard_kernel(ctx.operator, mesh)
-            ctx.kernel = None
-            if ctx.forward_op is not None:
-                ctx.forward_op = ctx.operator if reuse else shard_kernel(ctx.forward_op, mesh)
-        add_time("shard_s", t0)
+        with phase("shard"):
+            for i, ctx in ctxs.items():
+                reuse = ctx.forward_op is ctx.operator
+                ctx.operator = shard_kernel(ctx.operator, mesh)
+                ctx.kernel = None
+                if ctx.forward_op is not None:
+                    ctx.forward_op = ctx.operator if reuse else shard_kernel(ctx.forward_op, mesh)
         shape = "x".join(str(v) for v in mesh.devices.shape)
         for i, ctx in ctxs.items():
             log(f"  {PROBLEM_PREFIX[i]} kernel sharded over a {shape} mesh {mesh.axis_names} in "
@@ -648,16 +683,16 @@ def solve_problem_joint_gravmag(
             model_io.set_model(
                 ctx.model, 2, 0.0, os.path.join(base_dir, par.synthetic_model_file)
             )
-            _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_synth_")
-            _calculate_data(ctx, cfg, solve_dtype, device)
-            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_synthetic", 2)
+            _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_synth_", timings)
+            _calculate_data(ctx, cfg, solve_dtype, device, timings)
+            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_synthetic", 2, timings)
             # The reference re-reads the just-written synthetic file as the
             # observed data; writing divides by units_mult and reading
             # multiplies, so this is val_meas = val_calc.
             ctx.data.val_meas = ctx.data.val_calc.copy()
         else:
             data_io.read_data_values(ctx.data, os.path.join(base_dir, par.data_grid_file))
-        _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_observed", 1)
+        _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_observed", 1, timings)
 
     log(f"  data/synthetic phase done at t+{time.time() - t_start:.2f}s")
 
@@ -793,9 +828,9 @@ def solve_problem_joint_gravmag(
             )
             ctx.model.val_prior = ctx.model.val.copy()
             if par.prior_model_type > 1:
-                _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_prior_")
-            _calculate_data(ctx, cfg, solve_dtype, device)
-            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_prior", 2)
+                _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_prior_", timings)
+            _calculate_data(ctx, cfg, solve_dtype, device, timings)
+            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_prior", 2, timings)
 
         # Starting model.
         for i, ctx in ctxs.items():
@@ -805,9 +840,9 @@ def solve_problem_joint_gravmag(
                 os.path.join(base_dir, par.start_model_file),
             )
             if par.start_model_type > 1:
-                _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_starting_")
-            _calculate_data(ctx, cfg, solve_dtype, device)
-            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_starting", 2)
+                _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_starting_", timings)
+            _calculate_data(ctx, cfg, solve_dtype, device, timings)
+            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_starting", 2, timings)
 
         # Initial costs.
         cost_model = [0.0, 0.0]
@@ -830,7 +865,7 @@ def solve_problem_joint_gravmag(
                     ctxs[i].model.val_prior = ck[f"prior_{i}"]
                     admm_z[a] = on_device(ck[f"admm_z_{i}"])
                     admm_u[a] = on_device(ck[f"admm_u_{i}"])
-                    _calculate_data(ctxs[i], cfg, solve_dtype, device)
+                    _calculate_data(ctxs[i], cfg, solve_dtype, device, timings)
                     cost_data[i] = ctxs[i].data.get_cost()
                     cost_model[i] = _calculate_model_cost(ctxs[i], ipar.norm_power)
                 log(f"Resumed from checkpoint at iteration {it_start - 1}.")
@@ -844,8 +879,9 @@ def solve_problem_joint_gravmag(
                 """A major's records, in both loops: its costs.txt row from
                 the pre-update costs (problem_joint_gravmag.F90:519-528),
                 its history entry from the post-update ones."""
-                costs_f.write(_costs_row(it - 1, pre_data, pre_model, costs, rho_row) + "\n")
-                costs_f.flush()
+                with span("outputs", timings):
+                    costs_f.write(_costs_row(it - 1, pre_data, pre_model, costs, rho_row) + "\n")
+                    costs_f.flush()
                 result.costs_history.append(
                     {"iteration": it, "cost_data": list(post_data), "cost_model": list(post_model)})
 
@@ -856,8 +892,9 @@ def solve_problem_joint_gravmag(
                 run starts it+1 with the adjusted weight."""
                 if ipar.write_model_niter > 0 and it % ipar.write_model_niter == 0:
                     for i, ctx in ctxs.items():
-                        _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_inter_{it}_")
-                    save_checkpoint(ckpt_path, active, ctxs, admm_z, admm_u, rho_admm, m, it)
+                        _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_inter_{it}_", timings)
+                    with span("outputs", timings):
+                        save_checkpoint(ckpt_path, active, ctxs, admm_z, admm_u, rho_admm, m, it)
 
             # ---- major inversion loop (fused: no read of the device inside a chunk) ----
             if fused_chunk > 0:
@@ -883,25 +920,26 @@ def solve_problem_joint_gravmag(
                         wmn = ipar.write_model_niter
                         steps = min(steps, ((it + wmn - 1) // wmn) * wmn - it + 1)
                     sync()
-                    t_it, captures = time.time(), (fused.captures, fused.capture_s)
-                    arrays = dict(static_arrays)
-                    arrays.update(
-                        model=tuple(on_device(ctxs[i].model.val) for i in active),
-                        prior=tuple(on_device(ctxs[i].model.val_prior) for i in active),
-                        admm_z=tuple(admm_z),
-                        admm_u=tuple(admm_u),
-                        rho_admm=on_device(rho_admm),
-                        active_steps=steps,
-                    )
-                    out_dev = fused(arrays)
-                    # The chunk's one wait for the device, the WHILE node's runs of LSQR's body
-                    # (on a card) with it.
-                    out, body_runs = _to_host((out_dev, fused.body_runs))
-                    timings["solve_s"].append(time.time() - t_it)
-                    if fused.captures != captures[0]:
-                        timings["capture_s"] = fused.capture_s
-                        log(f"  fused major captured as a CUDA graph in {fused.capture_s - captures[1]:.2f}s "
-                            "(warm-up step included)")
+                    t_it, captures = time.time(), fused.captures
+                    with span("solve", timings):
+                        arrays = dict(static_arrays)
+                        arrays.update(
+                            model=tuple(on_device(ctxs[i].model.val) for i in active),
+                            prior=tuple(on_device(ctxs[i].model.val_prior) for i in active),
+                            admm_z=tuple(admm_z),
+                            admm_u=tuple(admm_u),
+                            rho_admm=on_device(rho_admm),
+                            active_steps=steps,
+                        )
+                        out_dev = fused(arrays)
+                        # The chunk's one wait for the device, the WHILE node's runs of LSQR's body
+                        # (on a card) with it.
+                        out, body_runs = _to_host((out_dev, fused.body_runs))
+                    if fused.captures != captures:
+                        timings.update(fused.timings)
+                        capture_s, warmup_s = fused.last_capture
+                        log(f"  fused major captured as a CUDA graph in {capture_s:.2f}s "
+                            f"(warm-up step included: {warmup_s:.2f}s)")
                     if m == 1 and it == it_start:
                         # Memory checkpoint 3/4: after the first LSQR solve
                         # (lsqr_solver2.F90:293-299).
@@ -953,26 +991,24 @@ def solve_problem_joint_gravmag(
                 log(f"=== Iteration {it} / prior model {m} ===")
                 sync()
                 t_it = time.time()
+                with span("solve", timings, sync):
+                    # Residuals (problem_joint_gravmag.F90:666-675).
+                    for i, ctx in ctxs.items():
+                        ctx.residuals = ctx.data.weight * (ctx.data.val_meas - ctx.data.val_calc)
 
-                # Residuals (problem_joint_gravmag.F90:666-675).
-                for i, ctx in ctxs.items():
-                    ctx.residuals = ctx.data.weight * (ctx.data.val_meas - ctx.data.val_calc)
+                    arrays = dict(static_arrays)
+                    arrays.update(
+                        model=tuple(on_device(ctxs[i].model.val) for i in active),
+                        prior=tuple(on_device(ctxs[i].model.val_prior) for i in active),
+                        residuals=tuple(on_device(ctxs[i].residuals) for i in active),
+                        admm_z=tuple(admm_z),
+                        admm_u=tuple(admm_u),
+                        rho_admm=on_device(rho_admm),
+                    )
 
-                arrays = dict(static_arrays)
-                arrays.update(
-                    model=tuple(on_device(ctxs[i].model.val) for i in active),
-                    prior=tuple(on_device(ctxs[i].model.val_prior) for i in active),
-                    residuals=tuple(on_device(ctxs[i].residuals) for i in active),
-                    admm_z=tuple(admm_z),
-                    admm_u=tuple(admm_u),
-                    rho_admm=on_device(rho_admm),
-                )
-
-                out = solver(arrays)
-                if debug_nans:
-                    _require_finite(out, active, it)
-                sync()
-                timings["solve_s"].append(time.time() - t_it)
+                    out = solver(arrays)
+                    if debug_nans:
+                        _require_finite(out, active, it)
                 timings["lsqr_iters"].append(int(out["lsqr_iters"]))
                 if m == 1 and it == it_start:
                     # Memory checkpoint 3/4: after the first LSQR solve
@@ -981,13 +1017,15 @@ def solve_problem_joint_gravmag(
 
                 admm_z = list(out["admm_z"])
                 admm_u = list(out["admm_u"])
-                last_costs = {k: float(v) if v.ndim == 0 else v.cpu().numpy() for k, v in out["costs"].items()}
-                extras_np = {k: v.cpu().numpy() for k, v in out["extras"].items()}
+                # The major's one read of its results.
+                host = _to_host({k: out[k] for k in ("costs", "extras", "delta")})
+                last_costs = {k: float(v) if v.ndim == 0 else v.numpy() for k, v in host["costs"].items()}
+                extras_np = {k: v.numpy() for k, v in host["extras"].items()}
 
                 # Update models + new data.
                 for a, i in enumerate(active):
-                    ctxs[i].model.update(out["delta"][a].cpu().numpy())
-                    _calculate_data(ctxs[i], cfg, solve_dtype, device)
+                    ctxs[i].model.update(host["delta"][a].numpy())
+                    _calculate_data(ctxs[i], cfg, solve_dtype, device, timings)
 
                 # New costs.
                 pre_data, pre_model = list(cost_data), list(cost_model)
@@ -1014,22 +1052,23 @@ def solve_problem_joint_gravmag(
                 snapshot(it, admm_z, admm_u, rho_admm)
 
             # Final costs row (problem_joint_gravmag.F90:550).
-            costs_f.write(
-                f" {ipar.ninversions} {cost_data[0]:.9E} {cost_data[1]:.9E}"
-                f" {cost_model[0]:.9E} {cost_model[1]:.9E}\n"
-            )
+            with span("outputs", timings):
+                costs_f.write(
+                    f" {ipar.ninversions} {cost_data[0]:.9E} {cost_data[1]:.9E}"
+                    f" {cost_model[0]:.9E} {cost_model[1]:.9E}\n"
+                )
 
         # ---- final outputs ----
         for i, ctx in ctxs.items():
-            _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_final_", write_ascii=True)
+            _model_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_final_", timings, write_ascii=True)
             log(
                 f"Model {i + 1} min/max values = {ctx.model.val.min()}, {ctx.model.val.max()}"
             )
-            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_final", 2)
+            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_final", 2, timings)
             # Final data residual written over val_calc (F90:569-578).
             saved = ctx.data.val_calc.copy()
             ctx.data.val_calc = ctx.data.val_meas - ctx.data.val_calc
-            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_misfit", 2)
+            _data_write(ctx, out_dir, f"{PROBLEM_PREFIX[i]}_misfit", 2, timings)
             ctx.data.val_calc = saved
 
         # The coupling fields of the last major (F90 output of the joint run).
@@ -1037,21 +1076,18 @@ def solve_problem_joint_gravmag(
         g = ctx0.model.grid
         for key, name in (("cross_grad_magnitude", "cross_grad"), ("clustering_probabilities", "clustering")):
             if key in extras_np:
-                vtk.write_struct_grid(
-                    os.path.join(out_dir, "Paraview", f"{name}_final_model3D_full.vtk"),
-                    extras_np[key][:, None],
-                    g.X1, g.Y1, g.Z1, g.X2, g.Y2, g.Z2, g.nx, g.ny, g.nz,
-                    invert_z=True, units_mult=ctx0.model.units_mult, label=ctx0.model.vtk_label,
-                )
+                with span("outputs", timings):
+                    vtk.write_struct_grid(
+                        os.path.join(out_dir, "Paraview", f"{name}_final_model3D_full.vtk"),
+                        extras_np[key][:, None],
+                        g.X1, g.Y1, g.Z1, g.X2, g.Y2, g.Z2, g.nx, g.ny, g.nz,
+                        invert_z=True, units_mult=ctx0.model.units_mult, label=ctx0.model.vtk_label,
+                    )
 
     result.models = {i: ctxs[i].model for i in active}
     result.data = {i: ctxs[i].data for i in active}
     result.cost_data = cost_data
     result.cost_model = cost_model
-    timings["total_s"] = time.time() - t_start
-    result.timings = timings
-    log(memory_report("(end) ", device))
-    log(f"THE END. total time = {timings['total_s']:.2f}s")
     return result
 
 
@@ -1108,7 +1144,7 @@ def _require_finite_chunk(out, active, it, steps):
 def _to_host(tree):
     """Every tensor of a nested dict/tuple copied to the host behind one wait
     for the device (a non-blocking copy from a CUDA device lands in pinned
-    memory)."""
+    memory): one of the solve's host_reads."""
     cards = set()
 
     def copy(t):
@@ -1119,6 +1155,7 @@ def _to_host(tree):
         return t.to("cpu", non_blocking=True)
 
     host = tree_map(copy, tree)
+    count("host_reads")
     for d in cards:
         torch.cuda.synchronize(d)
     return host

@@ -11,8 +11,10 @@ Counterpart of the reference's column-parallel solver
   target-misfit RMSE check) are tested in the order of the JAX package's
   loop, mirroring lsqr_solver2.F90:163, 185-188, 251-254, 286-289. With an
   int bound they are read on the host once per iteration (twice with the
-  misfit check); with a tensor bound nothing reads the device, so that a
-  major iteration can be captured as CUDA graphs.
+  misfit check), each read counted in host_reads and marked `lsqr.read`,
+  each iteration marked `lsqr.iteration` (utils/trace.py); with a tensor
+  bound nothing reads the device, so that a major iteration can be captured
+  as CUDA graphs.
 
 All vectors here live in the *scaled/solver* domain; wavelet-domain
 conversions are the operator's business (see inversion/joint.py).
@@ -23,6 +25,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from tomofastx_tpu_torch.utils.trace import count, fine
 
 
 class LSQRResult(NamedTuple):
@@ -50,12 +54,19 @@ class LSQRLoop(NamedTuple):
 CARRY = ("x", "w", "u", "v", "alpha", "beta", "rhobar", "phibar", "r", "it", "stop", "misfit")
 
 
+def _read(t: torch.Tensor):
+    """t's value on the host (tolist): a wait for the device, counted."""
+    with fine("lsqr.read"):
+        count("host_reads")
+        return t.tolist()
+
+
 def while_on_the_host(loop: LSQRLoop) -> int:
     """Drives the split form from the host as the WHILE node drives it on
     the card: one iteration a pass while the flag holds, at most max_iter
     passes; returns the passes."""
     runs = 0
-    while runs < loop.max_iter and bool(loop.go):
+    while runs < loop.max_iter and _read(loop.go):
         loop.iterate()
         runs += 1
     return runs
@@ -173,21 +184,22 @@ def lsqr_solve(
         # Loop condition of the reference: it <= niter, r > rmin, not stopped.
         # r starts at 1, so the first test needs no device read.
         for _ in range(niter if 1.0 > rmin else 0):
-            # Optional data-misfit early exit.
-            if calc_misfit:
-                c["misfit"] = misfit_fn(c["x"])
-                if bool(c["misfit"] <= target_misfit):
+            with fine("lsqr.iteration"):
+                # Optional data-misfit early exit.
+                if calc_misfit:
+                    c["misfit"] = misfit_fn(c["x"])
+                    if _read(c["misfit"] <= target_misfit):
+                        break
+                new, rho_ok, stop_n = advance(c)
+                # One read of the device per iteration: (rho != 0, stop, r > rmin).
+                rho_ok_h, stop_h, above_h = _read(torch.stack([rho_ok, stop_n, new["r"] > rmin]))
+                # When rho == 0 the reference exits before updating x.
+                if not rho_ok_h:
                     break
-            new, rho_ok, stop_n = advance(c)
-            # One read of the device per iteration: (rho != 0, stop, r > rmin).
-            rho_ok_h, stop_h, above_h = torch.stack([rho_ok, stop_n, new["r"] > rmin]).tolist()
-            # When rho == 0 the reference exits before updating x.
-            if not rho_ok_h:
-                break
-            c.update(new)
-            it += 1
-            if not above_h or stop_h:
-                break
+                c.update(new)
+                it += 1
+                if not above_h or stop_h:
+                    break
         return finish(c["x"], it - 1, c["r"], c["misfit"])
 
     c["it"] = torch.ones((), dtype=torch.int64, device=device)
