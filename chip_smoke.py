@@ -3358,9 +3358,10 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
         builds: {kernel: its launches, all outside the graph} (the stored
         near rows' build, once with the operator);
         the step's launches are counted once inside the capture (its LSQR
-        body's once) and once in the warm-up step (LSQR unrolled), the
-        forwards (of the synthetic, prior, starting and incoming models)
-        outside the graph; each kernel's launches on the card are read from
+        body's once) and, outside the graph, once in the warm-up step (its
+        LSQR one iteration: head, one body run, tail), beside the forwards
+        (of the synthetic, prior, starting and incoming models); each
+        kernel's launches on the card are read from
         the run; the WHILE node's graph is launched once a major, and its
         body runs once an LSQR iteration. No other kernel may launch."""
         kernels = kernels or {}
@@ -3387,7 +3388,7 @@ def fused_runs(cli, counters, workflow, work, inputs, refs):
             run["launches_fused"] = launches_on_the_card(name, run, kept, kernels)
             for k, v in run["launches_fused"].items():
                 per_step, forwards = kernels[k]
-                eager = forwards + per_step
+                eager = forwards + launches_a_major(kept, k, 1)  # the warm-up step ran one LSQR iteration
                 on_card = eager + N_MAJOR * per_step  # the warm-up step's launches run on the card too
                 if launches_a_major(kept, k, N_MINOR) != per_step or v["counted"] - v["captured"] != eager or (
                         v["on_the_card"] != on_card):

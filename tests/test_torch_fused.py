@@ -4,9 +4,12 @@ on the tiny fully-coupled joint system of tests/test_fused.py (carried across
 with convert.py); and solve_problem_joint_gravmag with fused_chunk = 3 over
 5 majors written every 2 (chunks of 2, 2 and 1), the port solving from the
 cache that the JAX run wrote, in the stored formats, BTTB matrix-free, the
-coupled joint problem, refineForward and over 4 CPU slots; then the stop file
-and a resume from a fused checkpoint."""
+coupled joint problem, refineForward and over 4 CPU slots; then the stop file,
+a resume from a fused checkpoint, and the warm-up step that goes before a
+capture (one LSQR iteration)."""
 
+import collections
+import contextlib
 import dataclasses
 import os
 import sys
@@ -27,6 +30,7 @@ from tomofastx_tpu_torch.inversion import joint as tjoint
 from tomofastx_tpu_torch.inversion import workflow as twf
 from tomofastx_tpu_torch.ops.lsqr import CARRY, lsqr_solve, while_on_the_host
 from tomofastx_tpu_torch.parallel import mesh as tmesh
+from tomofastx_tpu_torch.utils import trace
 
 from test_torch_coupled import CLUSTER, XGRAD, write_coupling_inputs
 from test_torch_joint import _lines as joint_lines
@@ -496,6 +500,104 @@ def test_fused_resume_equals_the_uninterrupted_run(jax_fused, tmp_path):
     assert [r[0] for r in cr] == [0, 1, 2, 2, 3, 4, 5]
     for a, b in zip(cf, cr[:2] + cr[3:]):
         np.testing.assert_array_equal(b, a)
+
+
+class _FirstCall(Exception):
+    """Carries a fused solver and the tensors of its first call out of a
+    workflow, which it ends there."""
+
+
+class _Counted:
+    """An operator whose products add to calls[<name>.matvec] and
+    calls[<name>.rmatvec]; anything else it is asked for is the operator's."""
+
+    def __init__(self, op, name, calls):
+        self._op, self._name, self._calls = op, name, calls
+
+    def __getattr__(self, attr):
+        return getattr(self._op, attr)
+
+    def matvec(self, x):
+        self._calls[f"{self._name}.matvec"] += 1
+        return self._op.matvec(x)
+
+    def rmatvec(self, u):
+        self._calls[f"{self._name}.rmatvec"] += 1
+        return self._op.rmatvec(u)
+
+
+@pytest.mark.parametrize("name", ["grav", "coupled", "refine64"])
+def test_capture_warm_up_runs_one_lsqr_iteration(jax_fused, tmp_path, monkeypatch, name):
+    """FusedSolver._warm_up, the eager step before a capture, on the
+    tensors of a workflow's first fused call (the gravity problem tiled,
+    the coupled joint problem tiled, refineForward with a float64 forward):
+    it runs its LSQR for exactly one iteration (capture_warmup_iters), so
+    each product, constraint block and wavelet transform runs its head's,
+    one body iteration's and its tail's times, the split form's parts; the
+    unrolled step runs the same parts with niter body iterations, so the
+    warm-up touches every product, block and transform that it does; the
+    solver's carry and input tensors are left as they were to the last bit."""
+    tmp, lines, _, jout = jax_fused("refine" if name == "refine64" else name)
+    fmt = {"grav": "tiled", "coupled": "tiled", "refine64": None}[name]
+    extra = ["tpu.refineForwardPrecision = double"] if name == "refine64" else []
+
+    def first_call(self, arrays):
+        raise _FirstCall(self, dict(arrays))
+
+    with monkeypatch.context() as m:
+        m.setattr(tjoint.FusedSolver, "__call__", first_call)
+        with pytest.raises(_FirstCall) as got:
+            _port_fused(lambda out, fmt=None: lines(out, fmt) + extra, jout, str(tmp_path / "out"), fmt)
+    solver, arrays = got.value.args
+    spec = solver.spec
+
+    calls = collections.Counter()
+    arrays.pop("active_steps")
+    for key in ("S", "S_fwd"):
+        if key in arrays:
+            arrays[key] = tuple(_Counted(op, f"{key}{a}", calls) for a, op in enumerate(arrays[key]))
+    static = {k: v for k, v in arrays.items() if k not in tjoint.CARRY_KEYS}
+    carry = solver._init_carry({**static, **{k: arrays[k] for k in tjoint.CARRY_KEYS}})
+    before = [t.clone() for t in tjoint._leaves((static, carry)) if isinstance(t, torch.Tensor)]
+
+    def counted(mark):
+        calls[mark] += 1
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(tjoint, "fine", counted)
+    s, n_active = torch.tensor(0), torch.tensor(solver.n_steps)
+
+    def step(loop=None):
+        calls.clear()
+        solver._step(static, tjoint.tree_map(torch.clone, carry), s, n_active, lsqr_loop=loop)
+        return collections.Counter(calls)
+
+    # The split form's parts: the calls before its loop, in one iteration, after it.
+    marks = []
+
+    def parts(loop):
+        marks.append(collections.Counter(calls))
+        loop.iterate()
+        marks.append(collections.Counter(calls))
+
+    total = step(parts)
+    head, body, tail = marks[0], marks[1] - marks[0], total - marks[1]
+    unrolled = step()
+    assert unrolled == head + collections.Counter({k: spec.niter * v for k, v in body.items()}) + tail
+
+    trace.counters.clear()
+    calls.clear()
+    solver._warm_up(static, carry)
+    assert trace.counters == {"capture_warmup_iters": 1}
+    assert calls == head + body + tail
+    assert set(calls) == set(unrolled)
+    assert body["S0.matvec"] == body["S0.rmatvec"] == head["S0.rmatvec"] == 1
+    if name == "coupled":
+        assert {"block.cross_gradient.matvec", "block.clustering.rmatvec", "S1.matvec"} <= set(body)
+    if name == "refine64":
+        assert tail["S_fwd0.matvec"] == 1 and "S_fwd0.matvec" not in body
+    after = [t for t in tjoint._leaves((static, carry)) if isinstance(t, torch.Tensor)]
+    assert len(after) == len(before) and all(torch.equal(a, b) for a, b in zip(after, before))
 
 
 def test_fused_debug_nans_stops_at_the_chunk_end(tmp_path):

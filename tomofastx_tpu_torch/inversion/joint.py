@@ -28,7 +28,7 @@ from tomofastx_tpu_torch.inversion import operators as ops
 from tomofastx_tpu_torch.ops import wavelet as W
 from tomofastx_tpu_torch.ops.graph_while import WhileGraph, while_graph_launch
 from tomofastx_tpu_torch.ops.lsqr import lsqr_solve
-from tomofastx_tpu_torch.utils.trace import fine, span
+from tomofastx_tpu_torch.utils.trace import count, fine, span
 
 
 @dataclass(frozen=True)
@@ -554,10 +554,12 @@ class FusedSolver:
     On the CPU every step runs eagerly, with the JAX package's masking. On
     a CUDA device the carry (models, ADMM z and u, rho, the forward data,
     the coupling fields) and every input tensor live in buffers of the
-    solver. The first call runs one eager step on a side stream, on scratch
-    copies of the carry (it loads the kernels' libraries, makes the cuBLAS
-    handles and cuFFT plans and fills the allocator's pool: nothing of that
-    may happen inside a capture), then captures one whole major as three
+    solver. The first call runs one eager warm-up step on a side stream, on
+    scratch copies of the carry, its LSQR for one iteration in the split
+    form (_warm_up: it loads the kernels' libraries, makes the cuBLAS
+    handles and cuFFT plans and allocates; nothing of that may happen inside
+    a capture, and one iteration launches every kernel that any iteration
+    does), then captures one whole major as three
     torch.cuda.CUDAGraphs in one memory pool: the head (the step up to
     LSQR's first products, with the split form's buffers and its first
     condition), the body (one LSQR iteration) and the tail (the rest of the
@@ -735,10 +737,10 @@ class FusedSolver:
         return tuple(static), tuple(sig(x) for x in _leaves(static)), tuple(sig(x) for x in _leaves(carry0))
 
     def _capture(self, static, carry0, key):
-        """Buffers for every input tensor and the carry, one eager warm-up
-        step on scratch copies of the carry, then the capture of one major.
-        Timed as `capture` and, its warm-up step ended by a wait for the side
-        stream, `capture_warmup`."""
+        """Buffers for every input tensor and the carry, the warm-up step
+        (_warm_up: one LSQR iteration) on a side stream, then the capture of
+        one major. Timed as `capture` and, its warm-up step ended by a wait
+        for the side stream, `capture_warmup`."""
         with span("capture", self.timings) as whole:
             self._release()  # the old graph and its pool go first
             self._static = tree_map(_clone, static)
@@ -750,13 +752,32 @@ class FusedSolver:
             stream = torch.cuda.Stream(dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
             with span("capture_warmup", self.timings, stream.synchronize) as warmup, torch.cuda.stream(stream):
-                self._step(self._static, tree_map(torch.clone, self._carry), self._s.clone(), self._n_active)
+                self._warm_up(self._static, self._carry)
             torch.cuda.current_stream(dev).wait_stream(stream)
             self._graph, self._row = self._capture_graph(stream)
             torch.cuda.synchronize(dev)
             self._key = key
             self.captures += 1
         self.last_capture = (whole.seconds, warmup.seconds)
+
+    def _warm_up(self, static, carry):
+        """One eager step on scratch copies of the carry before a capture,
+        its LSQR in the split form for one iteration: the head, one body
+        iteration and the tail, the code that _capture_graph records, in the
+        same order. Every iteration launches the same kernels (the exit tests
+        are selects, not branches), so one iteration makes every first use
+        that may not happen inside a capture. Its outputs are thrown away.
+        Counts the iterations it ran as `capture_warmup_iters`."""
+
+        def one_iteration(loop):
+            # Unconditional, as the capture records the body: nothing reads the device.
+            loop.iterate()
+            count("capture_warmup_iters")
+
+        dev = carry["rho_admm"].device
+        s = torch.zeros((), dtype=torch.int64, device=dev)
+        n_active = torch.full((), self.n_steps, dtype=torch.int64, device=dev)
+        self._step(static, tree_map(torch.clone, carry), s, n_active, lsqr_loop=one_iteration)
 
     def _release(self):
         self._key = self._row = None

@@ -71,8 +71,9 @@ from tomofastx_tpu_torch.utils.trace import count, counters, span
 PROBLEM_PREFIX = ("grav", "mag")  # output file name prefixes (reference usage)
 # The counters an inversion keeps on its timings (utils/trace.py): the solve's
 # blocking reads of the device (LSQR's exit tests, each major's or chunk's
-# copy of its results to the host).
-COUNTERS = ("host_reads",)
+# copy of its results to the host), and the LSQR iterations that the fused
+# loop's warm-up steps ran before their captures (one a capture).
+COUNTERS = ("host_reads", "capture_warmup_iters")
 
 
 @dataclass
