@@ -71,9 +71,10 @@ from tomofastx_tpu_torch.utils.trace import count, counters, span
 PROBLEM_PREFIX = ("grav", "mag")  # output file name prefixes (reference usage)
 # The counters an inversion keeps on its timings (utils/trace.py): the solve's
 # blocking reads of the device (LSQR's exit tests, each major's or chunk's
-# copy of its results to the host), and the LSQR iterations that the fused
-# loop's warm-up steps ran before their captures (one a capture).
-COUNTERS = ("host_reads", "capture_warmup_iters")
+# copy of its results to the host), the LSQR iterations that the fused
+# loop's warm-up steps ran before their captures (one a capture), and the
+# blended lattice operators' near and 27-point pairs (ops/matrixfree.py).
+COUNTERS = ("host_reads", "capture_warmup_iters", "operator_near_pairs", "operator_window_pairs")
 
 
 @dataclass

@@ -74,6 +74,7 @@ from tomofastx_tpu_torch.ops.lattice_matvec import lattice_matvec, lattice_near_
 from tomofastx_tpu_torch.ops.lattice_matvec import partial_bytes as lattice_partial_bytes
 from tomofastx_tpu_torch.ops.prism_matvec import partial_bytes as prism_partial_bytes
 from tomofastx_tpu_torch.ops.prism_matvec import prism_matvec, prism_near_build, prism_rmatvec
+from tomofastx_tpu_torch.utils.trace import count
 
 PROBE_ABORT = (
     "Data coordinate coincides with model grid boundary. Adjust the model grid! (non-finite "
@@ -1133,6 +1134,16 @@ class LatticeMatrixFreeKernel:
         window's near mask calls near."""
         return _lattice_near_mask(*self._pair_edges(n), self.xd[b], self.yd[b], self.zd[b])[:, 0, 0, 0]
 
+    def near_pairs(self) -> int:
+        """The observation-cell pairs that the blend's near pass evaluates by
+        the float64 closed forms: its stored near rows' on the card, else the
+        near lists' candidates that the near mask calls near."""
+        if self.near_rcell is not None:
+            return int(self.near_rcell.shape[0])
+        b, n = _csr_pairs(self.near_ptr, self.near_cells)
+        return sum(int(self._near_pair_mask(b[s : s + PAIR_CHUNK], n[s : s + PAIR_CHUNK]).sum())
+                   for s in range(0, b.shape[0], PAIR_CHUNK))
+
     def _near_pairs_plain(self):
         """(b, n, rows): the plain version of the stored near rows' build
         (ops/lattice_matvec.py::lattice_near_build): the candidates of the
@@ -1428,12 +1439,21 @@ def make_matrixfree_kernel(
                 geometry.update(win=win, wi0=t(wi0, torch.int32))
                 geometry.update(lattice_near_lists(*(geometry[f] for f in ("xe", "ye", "ze", "xd", "yd", "zd")), win,
                                                    geometry["wi0"]))
-            return probe(LatticeMatrixFreeKernel(
+            op = LatticeMatrixFreeKernel(
                 cw=t(column_weight), row_w=t(row_w), chunk=chunk, nrows=nd,
                 nx=grid.nx, ny=grid.ny, nz=grid.nz, problem=phys.problem, magv=phys.magv,
                 intensity=phys.intensity, nmc=phys.nmc, ndc=phys.ndc, data_type=phys.data_type,
                 far_quad=phys.far_quad, **geometry,
-            ).with_near_rows())
+            ).with_near_rows()
+            if phys.far_quad:
+                # The observation-cell pairs of the blend's tiers: those the
+                # near pass evaluates by the float64 closed forms, and the
+                # windows' others, at the 27-point rule. Padding rows lie far
+                # from every cell.
+                near = op.near_pairs()
+                count("operator_near_pairs", near)
+                count("operator_window_pairs", nd * win[0] * win[1] * win[2] - near)
+            return probe(op)
 
     # Cell padding: dummy unit prisms far outside the model volume (finite
     # closed forms for every real observation point) with cw = 0.
